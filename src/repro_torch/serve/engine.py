@@ -1,0 +1,579 @@
+"""Continuous-batching serve engine: paged KV cache, chunked prefill,
+batched one-launch ticks.
+
+Slot-based: up to `max_batch` sequences share one global KV page pool
+(serve/paged_cache.py) through a block table; queueing, admission order,
+chunk planning and latency accounting live in the token-budget scheduler
+(serve/scheduler.py); this module owns the device state and the page
+bookkeeping.  It follows the JAX package's ServeEngine on its paged +
+chunked + batched path, counter for counter:
+
+  admission   a queued request gets a slot and its worst-case page
+              reservation ceil((prompt + max_new) / page_size) up front;
+              when the free list cannot cover it, it stays queued.
+  one tick    every tick has tick_token_budget tokens of work: each
+              decoding slot takes one, prompt chunks of PREFILLING slots
+              fill the rest.  The tick is ONE chunk-batch launch (every
+              planned chunk packed into a ragged batch, first tokens of
+              completed prompts sampled on the device), ONE fused decode
+              launch, and ONE device-to-host transfer of the token array.
+              A slot that is still prefilling keeps lens 0 and a zeroed row
+              in the DEVICE block table, so the decode launch's write lane
+              for it lands in the reserved null page.
+
+Host-side decisions read the host mirror of the lengths (`_lens_np`),
+never the device tensor, so the only synchronisation per tick is the token
+fetch.  Uploads go through fresh pinned buffers copied asynchronously; the
+host block table is always copied first, because torch.from_numpy aliases
+the array and the allocator mutates it in place.
+
+Settings outside this path (prefix cache, preemption, speculation,
+deadlines, span tracing, the monolithic and sequential oracle paths, the
+dense cache, tensor parallelism) raise NotImplementedError naming their
+ROADMAP item.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..configs.base import ServeConfig
+from .paged_cache import PageAllocator, pages_needed
+from .scheduler import (ChunkTask, Request, RequestState,
+                        TokenBudgetScheduler)
+from .serve_step import make_chunk_batch_step, make_fused_decode_step
+from .telemetry import LaunchRecord, MetricsRegistry, Telemetry, TickRecord
+
+
+def _refuse_unported(scfg: ServeConfig):
+    """NotImplementedError for every ServeConfig setting this slice of the
+    port does not serve, naming the ROADMAP item that brings it."""
+    todo = [
+        (not scfg.paged, "paged=False (dense KV cache)", "M9"),
+        (not scfg.chunked, "chunked=False (monolithic prefill)", "M9"),
+        (not scfg.batched, "batched=False (sequential oracle path)", "M6"),
+        (scfg.prefix_cache, "prefix_cache=True", "M6"),
+        (scfg.preemption, "preemption=True", "M6"),
+        (scfg.speculative, "speculative=True", "M6"),
+        (scfg.default_deadline_tokens > 0, "request deadlines", "M6"),
+        (scfg.telemetry, "telemetry=True (span tracer)", "M6"),
+        (scfg.tp_degree > 1, f"tp_degree={scfg.tp_degree}", "M10"),
+    ]
+    for bad, what, item in todo:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported to the PyTorch engine yet (ROADMAP "
+                f"{item}); it serves paged=True, chunked=True, batched=True")
+
+
+def _registry_counter(name: str):
+    """Attribute view over a registry counter (reads and `self.x += n`
+    writes go through the MetricsRegistry, the one source of truth)."""
+    def fget(self):
+        return int(self.tm.registry.get(name).value)
+
+    def fset(self, v):
+        self.tm.registry.get(name).set_total(v)
+
+    return property(fget, fset)
+
+
+def _registry_gauge(name: str):
+    def fget(self):
+        return int(self.tm.registry.get(name).value)
+
+    def fset(self, v):
+        self.tm.registry.get(name).set(v)
+
+    return property(fget, fset)
+
+
+class ServeEngine:
+    def __init__(self, model, params, scfg: ServeConfig):
+        """model: a models.Model; params: its parameter tree (Model.init,
+        Model.params or models/convert.py).  The engine runs on the device
+        of the model's parameters."""
+        self.model = model
+        self.params = params
+        self.scfg = scfg.validate()
+        _refuse_unported(scfg)
+        self.device = model.device
+        B = scfg.max_batch
+        self.tm = Telemetry(registry=MetricsRegistry())
+        m = self.tm.registry
+        m.counter("serve_jit_calls_total",
+                  "Model-step launches dispatched")
+        m.counter("serve_host_syncs_total",
+                  "Device->host transfers (token fetches)")
+        m.counter("serve_prefill_tokens_total",
+                  "Prompt tokens actually computed by prefill")
+        m.counter("serve_gen_tokens_total", "Generation tokens emitted")
+        m.counter("serve_decode_launches_total",
+                  "Token-emitting launches (fused decode)")
+        m.counter("serve_kv_pages_read_total",
+                  "KV pages read by token-emitting launches (analytic "
+                  "host-side count, not a device counter)")
+        m.counter("serve_requests_submitted_total",
+                  "Requests accepted by submit()")
+        m.counter("serve_requests_finished_total",
+                  "Requests finished (length or stop token)")
+        m.gauge("serve_peak_pages",
+                "High-water mark of pool pages in use")
+        m.gauge("serve_peak_live_pages",
+                "High-water mark of distinct pages referenced by slots")
+        m.gauge("serve_outstanding_work_tokens",
+                "Queued + in-flight work tokens (prompt remaining plus "
+                "unspent generation budget)")
+        if scfg.max_seq % scfg.page_size:
+            raise ValueError(
+                f"max_seq ({scfg.max_seq}) must be a multiple of "
+                f"page_size ({scfg.page_size})")
+        num_pages = scfg.pool_pages()
+        self.allocator = PageAllocator(num_pages, scfg.page_size, B,
+                                       scfg.max_seq,
+                                       usable_pages=scfg.usable_pages,
+                                       metrics=m)
+        self.cache = model.init_cache(B, scfg.max_seq,
+                                      page_size=scfg.page_size,
+                                      num_pages=num_pages)
+        self.lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        self.tokens = torch.zeros((B, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.slots: List[Optional[Request]] = [None] * B
+        self.sched = TokenBudgetScheduler(scfg, metrics=m)
+        self._uid = 0
+        self._admit_seq = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            scfg.seed)
+        self._finished_this_tick: List[Request] = []
+        self._tick_profile = (0, 0)
+        self._table_dirty = False    # device block table behind the host's
+        # host mirror of `lens`: every host-side decision reads this instead
+        # of syncing the device tensor - lengths follow from scheduling
+        self._lens_np = np.zeros((B,), np.int64)
+        knobs = dict(temperature=scfg.temperature, top_k=scfg.top_k,
+                     top_p=scfg.top_p)
+        self._prefill_chunks = make_chunk_batch_step(model, **knobs)
+        self._decode_fused = make_fused_decode_step(model, **knobs)
+
+    # registry-backed views (one source of truth: the metrics registry)
+    jit_calls = _registry_counter("serve_jit_calls_total")
+    host_syncs = _registry_counter("serve_host_syncs_total")
+    prefill_tokens = _registry_counter("serve_prefill_tokens_total")
+    gen_tokens = _registry_counter("serve_gen_tokens_total")
+    decode_launches = _registry_counter("serve_decode_launches_total")
+    kv_pages_read = _registry_counter("serve_kv_pages_read_total")
+    peak_pages = _registry_gauge("serve_peak_pages")
+    peak_live_pages = _registry_gauge("serve_peak_live_pages")
+
+    @property
+    def launch_log(self) -> List[tuple]:
+        """Per-tick dispatch rows (jit_calls, host_syncs, host_wall_s,
+        n_chunk_tasks, n_decode), a view over self.tm.ticks."""
+        return [t.as_tuple() for t in self.tm.ticks]
+
+    def launch_records(self) -> List[LaunchRecord]:
+        """Per-launch data-movement records, launch order."""
+        return list(self.tm.launches)
+
+    @property
+    def queue(self) -> List[Request]:
+        """Requests waiting for admission (owned by the scheduler)."""
+        return self.sched.queue
+
+    # ------------------------------------------------------------------
+    # host <-> device
+    # ------------------------------------------------------------------
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array as a device tensor, without synchronising: copied
+        into a fresh pinned buffer and sent asynchronously (the caching
+        host allocator keeps the buffer until the copy has run).  The
+        copy also cuts any alias to host state mutated later.  On the CPU
+        it is a plain copy."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(np.array(a, copy=True))
+        buf = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+        return buf.to(self.device, non_blocking=True)
+
+    def _fetch_tokens(self) -> np.ndarray:
+        """THE tick's device->host transfer: the (B, 1) token array after
+        the fused steps wrote every lane's sampled token into it."""
+        self.host_syncs += 1
+        return self.tokens.cpu().numpy()
+
+    def _note_launch(self, kind: str, rows: int, live_rows: int,
+                     true_tokens: int, padded_tokens: int,
+                     kv_pages_read: int, kv_pages_written: int,
+                     new_kv_tokens: int):
+        self.tm.launch(LaunchRecord(
+            tick=self.sched.ticks, kind=kind, rows=rows,
+            live_rows=live_rows, true_tokens=true_tokens,
+            padded_tokens=padded_tokens, kv_pages_read=kv_pages_read,
+            kv_pages_written=kv_pages_written, new_kv_tokens=new_kv_tokens,
+            work_clock=self.sched.work_clock))
+
+    def _row_pages(self, slot: int, true_len: int) -> int:
+        """KV pages slot's attention reads at KV length `true_len`, counted
+        from the allocator's block-table row."""
+        n = -(-int(true_len) // self.scfg.page_size)
+        return int(np.count_nonzero(self.allocator.table[slot, :n]))
+
+    def _span_pages(self, start: int, end: int) -> int:
+        """Pages the K/V writes of token positions [start, end) touch."""
+        if end <= start:
+            return 0
+        ps = self.scfg.page_size
+        return end // ps - start // ps + (1 if end % ps else 0)
+
+    # ------------------------------------------------------------------
+    def submit(self, prompt: List[int],
+               max_new_tokens: Optional[int] = None,
+               stop_tokens: Optional[Sequence[int]] = None,
+               priority: int = 0,
+               deadline: Optional[int] = None,
+               max_retries: Optional[int] = None) -> int:
+        """Enqueue a request.  What can never be served - an empty prompt,
+        no generation budget, overflowing max_seq, a page reservation
+        larger than the pool - fails here.  `stop_tokens` (merged with
+        ServeConfig.eos_id) end generation the tick one is produced;
+        higher `priority` admits first."""
+        n_new = self.scfg.max_new_tokens if max_new_tokens is None \
+            else max_new_tokens
+        if not prompt:
+            raise ValueError("empty prompt")
+        if n_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {n_new}")
+        if deadline is not None:
+            raise NotImplementedError(
+                "request deadlines are not ported to the PyTorch engine "
+                "yet (ROADMAP M6)")
+        if max_retries is not None and max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0 (None = "
+                             f"unbounded), got {max_retries}")
+        if len(prompt) + n_new > self.scfg.max_seq:
+            raise ValueError(
+                f"request does not fit: {len(prompt)} prompt + {n_new} new "
+                f"tokens > max_seq {self.scfg.max_seq}")
+        need = pages_needed(len(prompt) + n_new, self.scfg.page_size)
+        usable = min(self.allocator.max_pages_per_seq,
+                     self.allocator.usable_pages)
+        if need > usable:
+            raise ValueError(
+                f"request needs {need} pages; the engine can grant at most "
+                f"{usable} (pool {self.allocator.num_pages}, max_seq "
+                f"{self.scfg.max_seq}, page {self.scfg.page_size})")
+        stops = frozenset(stop_tokens or ())
+        if self.scfg.eos_id is not None:
+            stops = stops | {self.scfg.eos_id}
+        self._uid += 1
+        req = Request(self._uid, list(prompt), n_new, stop_tokens=stops,
+                      priority=int(priority), max_retries=max_retries)
+        self.sched.submit(req)
+        self.tm.registry.get("serve_requests_submitted_total").inc()
+        return self._uid
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return None
+
+    def load_stats(self) -> Dict[str, int]:
+        """Occupancy view for dispatch decisions: queue depth, in-flight
+        requests, outstanding work tokens and page headroom (host-side
+        reads only)."""
+        inflight = [r for r in self.slots if r is not None]
+        work = sum(r.prompt_remaining + r.remaining_new
+                   for r in inflight + self.queue)
+        self.tm.registry.get("serve_outstanding_work_tokens").set(work)
+        return {"queue_depth": len(self.queue),
+                "inflight": len(inflight),
+                "free_slots": sum(s is None for s in self.slots),
+                "outstanding_work_tokens": work,
+                "free_pages": int(self.allocator.free_pages),
+                "evictable_pages": 0}
+
+    def stats(self) -> Dict[str, float]:
+        """Scheduler latency aggregates (TTFT / time-between-tokens, wall
+        and work clock), budget accounting, prefill counters and dispatch
+        accounting (launches, device->host transfers, host wall per
+        tick)."""
+        out: Dict[str, float] = dict(self.sched.stats())
+        out.update({"prefill_tokens": self.prefill_tokens,
+                    "prefix_hit_tokens": 0,
+                    "prompt_tokens": self.prefill_tokens,
+                    "peak_pages": self.peak_pages,
+                    "peak_live_pages": self.peak_live_pages})
+        out["tick_token_budget"] = self.scfg.tick_token_budget
+        out["chunked"] = True
+        out["batched"] = True
+        out["jit_calls"] = self.jit_calls
+        out["host_syncs"] = self.host_syncs
+        out["speculative"] = False
+        out["gen_tokens"] = self.gen_tokens
+        out["decode_launches"] = self.decode_launches
+        out["kv_pages_read"] = self.kv_pages_read
+        out["tokens_per_launch"] = (self.gen_tokens / self.decode_launches
+                                    if self.decode_launches else 0.0)
+        out["tokens_per_kv_page"] = (self.gen_tokens / self.kv_pages_read
+                                     if self.kv_pages_read else 0.0)
+        if self.launch_log:
+            calls = [r[0] for r in self.launch_log]
+            syncs = [r[1] for r in self.launch_log]
+            walls = [r[2] for r in self.launch_log]
+            busy = [r[0] for r in self.launch_log if r[3] and r[4]]
+            out["jit_calls_per_tick_max"] = max(calls)
+            out["jit_calls_per_tick_mean"] = float(np.mean(calls))
+            out["jit_calls_per_busy_tick_max"] = max(busy) if busy else 0
+            out["host_syncs_per_tick_max"] = max(syncs)
+            out["tick_host_wall_p50"] = float(np.percentile(walls, 50))
+            out["tick_host_wall_p95"] = float(np.percentile(walls, 95))
+        return out
+
+    def check_invariants(self):
+        """Host-side consistency checks (the replay fixtures call this after
+        every tick): allocator refcount conservation and block-table
+        mirroring, slot back-references, queue states and the lens mirror.
+        Never touches a device tensor."""
+        self.allocator.check_invariants()
+        for i, r in enumerate(self.slots):
+            if r is None:
+                assert not self.allocator.table[i].any(), \
+                    f"slot {i} empty but its table row is live"
+                assert self._lens_np[i] == 0, \
+                    f"slot {i} empty but lens mirror {self._lens_np[i]}"
+            else:
+                assert r.slot == i, f"slot {i} back-reference broken"
+                assert r.state in (RequestState.PREFILLING,
+                                   RequestState.DECODING), \
+                    f"slot {i} holds a {r.state} request"
+        for r in self.queue:
+            assert r.state is RequestState.QUEUED
+            assert r.slot is None, \
+                f"queued request {r.uid} still holds slot {r.slot}"
+            assert r.remaining_new >= 1
+
+    def kv_cache_bytes(self) -> int:
+        """Allocated cache bytes: K and V pools plus the block table."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
+
+    # ------------------------------------------------------------------
+    # emission / completion
+    # ------------------------------------------------------------------
+    def _emit(self, req: Request, tok: int,
+              work: Optional[int] = None) -> bool:
+        """Record one generated token; True when the request is finished
+        (stop token or length budget).  `work` back-stamps the token's
+        work clock (emission is deferred to the tick's fetch)."""
+        req.out_tokens.append(tok)
+        self.gen_tokens += 1
+        self.sched.note_token(req, time.time(), work=work)
+        if tok in req.stop_tokens:
+            req.finish_reason = "stop"
+            return True
+        if len(req.out_tokens) >= req.max_new_tokens:
+            req.finish_reason = "length"
+            return True
+        return False
+
+    def _finish(self, req: Request):
+        """Free the request's slot; its pages go back to the pool the same
+        tick."""
+        i = req.slot
+        req.state = RequestState.DONE
+        req.done = True
+        self.slots[i] = None
+        # a device-side fill: assigning a Python scalar (lens[i] = 0) would
+        # copy it from the host and synchronise
+        self.lens[i:i + 1].zero_()
+        self._lens_np[i] = 0
+        self.allocator.free_slot(i)
+        self._table_dirty = True     # zero the slot's device row
+        self.sched.note_finished(req)
+        self.tm.registry.get("serve_requests_finished_total").inc()
+        self._finished_this_tick.append(req)
+
+    def _sync_table(self):
+        """Upload the block table, MASKING rows of slots that are not yet
+        decoding: a PREFILLING slot keeps lens 0, so the decode launch's
+        write lane for it must land in the null page, not in the pages its
+        chunks are filling.  The host table is copied before the upload
+        (see _upload)."""
+        tbl = self.allocator.table.copy()
+        masked = [i for i, r in enumerate(self.slots)
+                  if r is not None and r.state is not RequestState.DECODING]
+        if masked:
+            tbl[masked] = 0
+        self.cache["block_table"] = self._upload(tbl)
+        self._table_dirty = False
+
+    # ------------------------------------------------------------------
+    # chunked prefill (token-budget schedule)
+    # ------------------------------------------------------------------
+    def _note_alloc(self):
+        self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
+        self.peak_live_pages = max(self.peak_live_pages,
+                                   self.allocator.live_pages())
+
+    def _reserve_chunked(self, slot: int, req: Request) -> bool:
+        """Reserve the request's worst-case pages and mark it PREFILLING
+        with its cursor at 0; the chunks stream in over the coming ticks.
+        False = not enough free pages (it stays queued)."""
+        need = pages_needed(len(req.target) + req.remaining_new,
+                            self.scfg.page_size)
+        if not self.allocator.can_alloc(need):
+            return False
+        self.allocator.alloc(slot, need)
+        self._note_alloc()
+        self.slots[slot] = req
+        req.slot = slot
+        req.prefill_pos = 0
+        req.state = RequestState.PREFILLING
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        return True
+
+    def _run_chunk_batch(self, tasks: List[ChunkTask]):
+        """Execute every prefill chunk planned this tick in ONE launch: the
+        scheduler packs the tasks into a ragged K-row batch (power-of-two
+        bucketed, dead rows on the all-null table), each row with its own
+        offset / cursor / table row; first tokens of completed prompts are
+        sampled on the device into tokens / lens.  Returns the final rows'
+        deferred emissions [(req, slot, work-clock stamp)]; their values
+        surface in the tick's one fetch."""
+        pack = self.sched.pack_chunks(tasks)
+        finals = []
+        for t in tasks:
+            t.req.prefill_pos = t.start + t.length
+            self.prefill_tokens += t.length
+            self.sched.note_work(t.length)
+            self.sched.chunks_run += 1
+            if t.req.prefill_pos >= len(t.req.target):
+                t.req.state = RequestState.DECODING
+                self._table_dirty = True     # unmask the slot's device row
+                self._lens_np[t.slot] = len(t.req.target)
+                finals.append((t.req, t.slot, self.sched.work_clock))
+        tables = np.zeros((pack.tokens.shape[0],
+                           self.allocator.table.shape[1]), np.int32)
+        live = pack.row_slots >= 0
+        tables[live] = self.allocator.table[pack.row_slots[live]]
+        batch = {"tokens": self._upload(pack.tokens),
+                 "offset": self._upload(pack.offsets),
+                 "true_lens": self._upload(pack.true_lens),
+                 "final_slot": self._upload(pack.final_slots)}
+        self.jit_calls += 1
+        self.sched.packs_run += 1
+        self.cache, self.tokens, self.lens = self._prefill_chunks(
+            self.params, batch, self.cache, self._upload(tables),
+            self.tokens, self.lens, self._gen)
+        n_true = sum(t.length for t in tasks)
+        self._note_launch(
+            "chunk_batch", rows=int(pack.tokens.shape[0]),
+            live_rows=len(tasks), true_tokens=n_true,
+            padded_tokens=int(pack.tokens.shape[0] * pack.tokens.shape[1]),
+            kv_pages_read=sum(self._row_pages(t.slot, t.start + t.length)
+                              for t in tasks),
+            kv_pages_written=sum(self._span_pages(t.start,
+                                                  t.start + t.length)
+                                 for t in tasks),
+            new_kv_tokens=n_true)
+        return finals
+
+    def _tick_chunked(self) -> List[Request]:
+        """One budgeted iteration: admit, fill the budget with prefill
+        chunks (one chunk-batch launch), one fused decode launch for the
+        slots that were already decoding, one fetch.  Total work never
+        exceeds tick_token_budget."""
+        w0 = self.sched.work_clock
+        # admission first: slots + page reservations for as many queued
+        # requests as the policy head allows (no prompt computation yet);
+        # head-of-line backpressure when the head cannot be placed
+        while True:
+            req = self.sched.peek()
+            if req is None:
+                break
+            slot = self._free_slot()
+            if slot is None or not self._reserve_chunked(slot, req):
+                break
+            self.sched.pop(req)
+        if self._table_dirty:
+            self._sync_table()
+        decode_slots = [i for i, r in enumerate(self.slots)
+                        if r is not None
+                        and r.state is RequestState.DECODING]
+        prefilling = [(i, r) for i, r in enumerate(self.slots)
+                      if r is not None
+                      and r.state is RequestState.PREFILLING]
+        budget = self.sched.prefill_budget(len(decode_slots))
+        chunks = self.sched.plan_chunks(prefilling, budget)
+        self._tick_profile = (len(chunks), len(decode_slots))
+        finals = self._run_chunk_batch(chunks) if chunks else []
+        if decode_slots:
+            live = np.zeros((len(self.slots),), bool)
+            live[decode_slots] = True
+            self.jit_calls += 1
+            self.decode_launches += 1
+            self.kv_pages_read += sum(
+                -(-(int(self._lens_np[i]) + 1) // self.scfg.page_size)
+                for i in decode_slots)
+            pages_read = sum(self._row_pages(i, int(self._lens_np[i]) + 1)
+                             for i in decode_slots)
+            self.cache, self.tokens, self.lens = self._decode_fused(
+                self.params, self.cache, self.tokens, self.lens,
+                self._upload(live), self._gen)
+            self._note_launch("decode", rows=len(self.slots),
+                              live_rows=len(decode_slots),
+                              true_tokens=len(decode_slots),
+                              padded_tokens=len(self.slots),
+                              kv_pages_read=pages_read,
+                              kv_pages_written=len(decode_slots),
+                              new_kv_tokens=len(decode_slots))
+            self.sched.note_work(len(decode_slots))
+            self._lens_np[decode_slots] += 1
+        if finals or decode_slots:
+            # THE device->host transfer: every sampled token of the tick
+            toks = self._fetch_tokens()
+            for req, slot, work in finals:
+                if self._emit(req, int(toks[slot, 0]), work=work):
+                    self._finish(req)
+            for i in decode_slots:
+                req = self.slots[i]
+                if self._emit(req, int(toks[i, 0])):
+                    self._finish(req)
+        self.sched.note_tick(len(decode_slots),
+                             self.sched.work_clock - w0 - len(decode_slots))
+        if self._table_dirty:
+            self._sync_table()
+        return self._finished_this_tick
+
+    def tick(self) -> List[Request]:
+        """One engine iteration; returns the requests that finished in it.
+        Appends a dispatch row to launch_log: (jit_calls, host_syncs,
+        host_wall_s, n_chunk_tasks, n_decode)."""
+        self._finished_this_tick = []
+        self._tick_profile = (0, 0)
+        j0, s0 = self.jit_calls, self.host_syncs
+        t0 = time.perf_counter()
+        out = self._tick_chunked()
+        self.tm.ticks.append(TickRecord(
+            self.jit_calls - j0, self.host_syncs - s0,
+            time.perf_counter() - t0, *self._tick_profile))
+        return out
+
+    def run_until_done(self, max_ticks: int = 10_000) -> List[Request]:
+        """Tick until queue and slots drain; raises if `max_ticks` runs out
+        with work still pending (a hung scheduler must not pass for a
+        finished trace)."""
+        done: List[Request] = []
+        for _ in range(max_ticks):
+            done.extend(self.tick())
+            if not self.queue and all(s is None for s in self.slots):
+                return done
+        raise RuntimeError(
+            f"run_until_done: {max_ticks} ticks exhausted with "
+            f"{len(self.queue)} queued and "
+            f"{sum(s is not None for s in self.slots)} in-flight requests "
+            f"still pending ({len(done)} finished)")
