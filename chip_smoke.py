@@ -30,8 +30,9 @@ Phases (each raises on failure, so the run exits non-zero):
                         events, L2 flushed, median of 25) beside the bound
                         the card's data sheet allows; then the end-to-end
                         numbers of the counted run.
-  5. trace              the traffic once more under torch.profiler: device
-                        time by kernel name and the device's busy share.
+  5. trace              the traffic once more under torch.profiler (device
+                        activity only): device time by kernel name, and the
+                        device's busy share of that same run's wall time.
 
 Output: the nvidia-smi line, one {"kernels": [...]} line, one {"trace":
 ...} line, one {"e2e": ...} line, and as the last line {"ok": true,
@@ -66,14 +67,15 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = 989e12
 F32_TOL = 1e-5
 BF16_RTOL = 2.0 ** -7            # one bfloat16 rounding step of the output
-LOGIT_BAR = 0.25                 # full-width bf16 logits, kernels vs ref
+# full-width bf16 logits, kernels vs ref: the H100 run measured 0.068
+# (chunk batch) and 0.071 (decode step) at a logit scale of ~4; the bar
+# leaves a margin of ~1.7x over those
+LOGIT_BAR = 0.12
 PROMPT_LENS = (37, 128, 300, 511, 700, 1024, 1500, 1900)
 NEW_TOKENS = 32
 SCFG = dict(max_batch=8, max_seq=2048, page_size=16, prefill_chunk=256,
             tick_token_budget=1024, max_new_tokens=NEW_TOKENS, paged=True,
             chunked=True, batched=True)
-K1 = paged_prefill.batched_paged_prefill_attention
-K2 = flash_decode.paged_flash_decode
 
 
 def log(msg: str):
@@ -276,10 +278,10 @@ def phase_slice():
         run_traffic(model, params, count_syncs=False)      # warm-up
 
     torch.cuda.reset_peak_memory_stats()
-    K1.launches = 0
-    K2.launches = 0
+    paged_prefill.launches = 0
+    flash_decode.launches = 0
     eng, tick_s, syncs, wall = run_traffic(model, params, count_syncs=True)
-    launches = {"K1": K1.launches, "K2": K2.launches}
+    launches = {"K1": paged_prefill.launches, "K2": flash_decode.launches}
     peak = torch.cuda.max_memory_allocated()
 
     done = eng.sched.finished
@@ -495,13 +497,12 @@ def phase_times(launches, per_tick, k1_args, k2_args):
 # ---------------------------------------------------------------------------
 
 def phase_trace(model, params, counted_wall_s: float):
-    """The same traffic once more under torch.profiler: device time by
-    kernel name and the device's busy share of the wall time.  The share
-    is given twice: over the profiled run's wall time (inflated by the
-    profiler's host overhead) and over the counted run's (unprofiled)."""
+    """The same traffic once more under torch.profiler, tracing device
+    activity only (no host op recording, so the run's wall time stays near
+    the unprofiled one): device time by kernel name, and the device's busy
+    share as busy time over this same run's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, _, wall = run_traffic(model, params, count_syncs=False)
 
     def dev_us(e):
@@ -512,13 +513,12 @@ def phase_trace(model, params, counted_wall_s: float):
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    out = {"profiled_wall_s": wall, "device_busy_s": busy,
-           "busy_share_profiled": busy / wall,
-           "busy_share_counted_run": busy / counted_wall_s,
+    out = {"profiled_wall_s": wall, "counted_wall_s": counted_wall_s,
+           "device_busy_s": busy, "busy_share": busy / wall,
            "top_kernels_ms": [[e.key[:80], dev_us(e) / 1e3, e.count]
                               for e in top]}
-    log(f"# trace: device busy {busy:.3f} s of {wall:.3f} s profiled wall, "
-        f"{counted_wall_s:.3f} s counted wall"
+    log(f"# trace: device busy {busy:.3f} s of {wall:.3f} s profiled wall "
+        f"(unprofiled counted run: {counted_wall_s:.3f} s wall)"
         + ("" if busy else " (the profiler recorded no device time: not "
                            "measured)"))
     return out

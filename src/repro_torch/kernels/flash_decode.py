@@ -18,6 +18,9 @@ import torch
 from . import build, ref
 from ._checks import check_operands
 
+# kernel launches made by the wrapper below (CPU calls do not count)
+launches = 0
+
 reference = ref.paged_flash_decode
 
 # most query heads per KV head the kernel's register layout holds
@@ -56,11 +59,6 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
         float(logit_softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("paged_decode", err)
-    _wrapper.launches += 1
+    global launches
+    launches += 1
     return out
-
-
-# the launch count lives on the wrapper function object; `_wrapper` keeps
-# pointing at it if the module attribute is rebound (wrapped by a caller)
-_wrapper = paged_flash_decode
-_wrapper.launches = 0

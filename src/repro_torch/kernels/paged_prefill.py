@@ -17,6 +17,9 @@ import torch
 from . import build, ref
 from ._checks import check_operands
 
+# kernel launches made by the wrapper below (CPU calls do not count)
+launches = 0
+
 reference = ref.batched_paged_prefill_attention
 
 
@@ -55,14 +58,9 @@ def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
         float(logit_softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("paged_prefill", err)
-    _wrapper.launches += 1
+    global launches
+    launches += 1
     return out
-
-
-# the launch count lives on the wrapper function object; `_wrapper` keeps
-# pointing at it if the module attribute is rebound (wrapped by a caller)
-_wrapper = batched_paged_prefill_attention
-_wrapper.launches = 0
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_row, q_offset, *,

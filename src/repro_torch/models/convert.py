@@ -7,7 +7,9 @@ and the same stacked (L, ...) layout - a dense weight stays (d_in, d_out)
 and the port computes x @ w - so the two packages run the very same
 weights.  bfloat16 leaves arrive as numpy arrays of the ml_dtypes bfloat16
 type, which torch.from_numpy refuses; their bits travel as int16 and are
-viewed back as torch.bfloat16.
+viewed back as torch.bfloat16.  Like every entry point of the port, both
+functions put their tensors on the GPU unless device="cpu" is asked for,
+and raise on a machine without one.
 """
 from __future__ import annotations
 
@@ -18,10 +20,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from .layers import pdtype
+from .model import resolve_device
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """One numpy leaf -> torch tensor on `device` (bfloat16 bit-exact)."""
+    device = resolve_device(device, "tensor_from_numpy")
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
@@ -32,10 +36,11 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                      device="cpu") -> Dict[str, Any]:
+                      device="cuda") -> Dict[str, Any]:
     """Nested dict of numpy arrays (the JAX Model.init tree) -> nested dict
     of torch tensors on `device`.  Every leaf must already be in the
     config's dtype; a mismatch raises instead of silently casting."""
+    device = resolve_device(device, "params_from_numpy")
     want = pdtype(cfg)
 
     def conv(node, path):

@@ -186,13 +186,19 @@ class Model(nn.Module):
         return unembed(params["tok"], x, cfg), cache
 
 
+def resolve_device(device, caller: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device on a machine without a GPU
+    raises instead of quietly running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller}: no CUDA device is available; pass device='cpu' "
+            "to run the plain PyTorch path on the CPU")
+    return dev
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """Allocate a Model on `device` (default the GPU; the parameters are
     uninitialised until Model.init or a load).  Raises on a machine without
     a GPU unless device="cpu" is asked for."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_model: no CUDA device is available; pass device='cpu' "
-            "to run the plain PyTorch path on the CPU")
-    return Model(cfg, dev)
+    return Model(cfg, resolve_device(device, "build_model"))

@@ -61,3 +61,18 @@ def test_build_model_without_a_device_raises_on_a_cpu_only_machine():
         build_model(get_smoke_config("granite-3-2b"))
     assert build_model(get_smoke_config("granite-3-2b"),
                        device="cpu").device.type == "cpu"
+
+
+def test_params_from_numpy_without_a_device_raises_on_a_cpu_only_machine():
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.convert import params_from_numpy
+    cfg = get_smoke_config("granite-3-2b").replace(dtype="float32")
+    tree = {"tok": {"embed": np.zeros((4, 4), np.float32)}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree, cfg)
+    got = params_from_numpy(tree, cfg, device="cpu")
+    assert got["tok"]["embed"].device.type == "cpu"

@@ -206,12 +206,10 @@ def test_naive_attention_matches_jax(window):
 
 def test_cpu_tensors_never_count_kernel_launches():
     from repro_torch.kernels import flash_decode, paged_prefill
-    before = (paged_prefill.batched_paged_prefill_attention.launches,
-              flash_decode.paged_flash_decode.launches)
+    before = (paged_prefill.launches, flash_decode.launches)
     _port_prefill(_prefill_case(2), "plain", torch.float32)
     _port_decode(_decode_case(2), "plain", torch.float32)
-    assert (paged_prefill.batched_paged_prefill_attention.launches,
-            flash_decode.paged_flash_decode.launches) == before
+    assert (paged_prefill.launches, flash_decode.launches) == before
 
 
 def test_bad_impl_raises():

@@ -70,14 +70,14 @@ def test_prefill_kernel_matches_plain(dev, D, G, variant, dtype):
     q, k, v, tb, off, tl, ql = _prefill_case(G, D, dev, dt)
     ql = ql if variant == "qlens" else None
     window, softcap = VARIANTS[variant]
-    n0 = paged_prefill.batched_paged_prefill_attention.launches
+    n0 = paged_prefill.launches
     got = ops.batched_paged_prefill_attention(
         q, k, v, tb, off, tl, ql, window=window, logit_softcap=softcap)
     want = ops.batched_paged_prefill_attention(
         q, k, v, tb, off, tl, ql, window=window, logit_softcap=softcap,
         impl="ref")
     torch.cuda.synchronize()
-    assert paged_prefill.batched_paged_prefill_attention.launches == n0 + 1
+    assert paged_prefill.launches == n0 + 1
     _close(got, want, dt)
     lanes = (ql if ql is not None else torch.clamp(tl - off, 0, S)).cpu()
     for r in range(6):
@@ -107,13 +107,13 @@ def test_decode_kernel_matches_plain(dev, D, G, variant, dtype):
     dt = DTYPES[dtype]
     q, k, v, bt, lens = _decode_case(G, D, dev, dt)
     window, softcap = VARIANTS[variant]
-    n0 = flash_decode.paged_flash_decode.launches
+    n0 = flash_decode.launches
     got = ops.paged_flash_decode(q, k, v, bt, lens, window=window,
                                  logit_softcap=softcap)
     want = ops.paged_flash_decode(q, k, v, bt, lens, window=window,
                                   logit_softcap=softcap, impl="ref")
     torch.cuda.synchronize()
-    assert flash_decode.paged_flash_decode.launches == n0 + 1
+    assert flash_decode.launches == n0 + 1
     _close(got, want, dt)
     assert not got[4].any(), "idle lane (length 0) not zero"
 
@@ -121,12 +121,12 @@ def test_decode_kernel_matches_plain(dev, D, G, variant, dtype):
 @pytest.mark.parametrize("D", [64, 128])
 def test_single_row_wrapper_runs_the_kernel(dev, D):
     q, k, v, tb, off, tl, _ = _prefill_case(4, D, dev, torch.float32)
-    n0 = paged_prefill.batched_paged_prefill_attention.launches
+    n0 = paged_prefill.launches
     got = ops.paged_prefill_attention(q[:1], k, v, tb[0], int(off[0]))
     want = ops.paged_prefill_attention(q[:1], k, v, tb[0], int(off[0]),
                                        impl="ref")
     torch.cuda.synchronize()
-    assert paged_prefill.batched_paged_prefill_attention.launches == n0 + 1
+    assert paged_prefill.launches == n0 + 1
     _close(got, want, torch.float32)
 
 

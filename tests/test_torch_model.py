@@ -39,7 +39,7 @@ def _models(arch, dtype):
     jm = jax_build_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(tcfg, device="cpu")
-    return jm, jp, tm, params_from_numpy(jax.device_get(jp), tcfg)
+    return jm, jp, tm, params_from_numpy(jax.device_get(jp), tcfg, "cpu")
 
 
 def _chunk_batch(rows, vocab_rows):
@@ -151,7 +151,7 @@ def test_bf16_leaves_convert_bit_exact():
     import ml_dtypes
     a = np.random.default_rng(0).standard_normal((3, 5)).astype(
         ml_dtypes.bfloat16)
-    t = tensor_from_numpy(a)
+    t = tensor_from_numpy(a, device="cpu")
     assert t.dtype == torch.bfloat16
     assert np.array_equal(t.view(torch.int16).numpy(),
                           a.view(np.int16))
@@ -161,7 +161,7 @@ def test_convert_refuses_a_dtype_mismatch():
     cfg = get_smoke_config("granite-3-2b")               # bfloat16
     tree = {"tok": {"embed": np.zeros((4, 4), np.float32)}}
     with pytest.raises(TypeError):
-        params_from_numpy(tree, cfg)
+        params_from_numpy(tree, cfg, device="cpu")
 
 
 def test_seeded_init_follows_the_jax_distributions():

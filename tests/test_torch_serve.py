@@ -170,7 +170,7 @@ def models():
     jp = jm.init(jax.random.PRNGKey(0))
     tcfg = get_smoke_config("granite-3-2b").replace(dtype="float32")
     tm = build_model(tcfg, device="cpu")
-    return jm, jp, tm, params_from_numpy(jax.device_get(jp), tcfg)
+    return jm, jp, tm, params_from_numpy(jax.device_get(jp), tcfg, "cpu")
 
 
 @pytest.mark.parametrize("trace", ["mixed", "wave"])
