@@ -8,12 +8,15 @@ HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def check_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
-                   v_pages: torch.Tensor, index_tensors):
-    """q and both pools: same CUDA device, same float32/bfloat16 dtype,
-    contiguous, head dim 64 or 128, q's heads a multiple of the pools' KV
-    heads.  index_tensors: {arg name: (tensor, expected shape)}, each a
-    contiguous int32 tensor on the same device."""
+def check_operands(name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, index_tensors, *,
+                   layout: str = "(P, page_size, Hkv, D)"):
+    """q and the K/V operands (page pools, or contiguous (B, S, Hkv, D)
+    caches - `layout` names which in the messages): same CUDA device,
+    same float32/bfloat16 dtype, contiguous, head dim 64 or 128, q's heads
+    a multiple of the KV heads.  index_tensors: {arg name: (tensor,
+    expected shape)}, each a contiguous int32 tensor on the same
+    device."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
@@ -21,17 +24,17 @@ def check_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
     if q.dtype not in DTYPES:
         raise TypeError(f"{name}: q must be float32 or bfloat16, got "
                         f"{q.dtype}")
-    for arg, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+    for arg, t in (("k", k), ("v", v)):
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, "
                              f"q is {q.dtype} on {dev}")
-        if t.dim() != 4 or t.shape != k_pages.shape:
-            raise ValueError(f"{name}: pools must both be (P, page_size, "
-                             f"Hkv, D), got {tuple(t.shape)}")
-    for arg, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dim() != 4 or t.shape != k.shape:
+            raise ValueError(f"{name}: k and v must both be {layout}, got "
+                             f"{tuple(t.shape)}")
+    for arg, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    D, Hkv = k_pages.shape[3], k_pages.shape[2]
+    D, Hkv = k.shape[3], k.shape[2]
     if q.dim() != 4 or q.shape[3] != D:
         raise ValueError(f"{name}: q must be (B, S, Hq, {D}), got "
                          f"{tuple(q.shape)}")

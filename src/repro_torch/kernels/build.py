@@ -44,6 +44,14 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     # page_size, n_max, window, scale, softcap, is_bf16, stream
     "paged_decode": ("paged_decode_launch",
                      (_P,) * 6 + (_I,) * 7 + (_F, _F, _I, _P)),
+    # q, k, v, o, lse, B, Sq, Skv, Hkv, G, D, causal, window, scale,
+    # softcap, is_bf16, stream
+    "flash_attention": ("flash_attention_launch",
+                        (_P,) * 5 + (_I,) * 8 + (_F, _F, _I, _P)),
+    # q, k_cache, v_cache, cache_len, out, B, S, Hkv, G, D, window, scale,
+    # softcap, is_bf16, stream
+    "dense_decode": ("dense_decode_launch",
+                     (_P,) * 5 + (_I,) * 6 + (_F, _F, _I, _P)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

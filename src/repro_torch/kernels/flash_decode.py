@@ -1,12 +1,14 @@
-"""K2: paged flash-decode, hand-written for Hopper.
+"""K2 and K3: paged and dense flash-decode, hand-written for Hopper.
 
-The CUDA kernel is csrc/paged_decode.cu (see the note at its top: the TPU
-kernel it replaces, what bounds it, and how it is laid out).  This module
-holds its wrapper and, beside it, its plain PyTorch version (`reference`,
-from kernels/ref.py).  The wrapper launches the kernel for CUDA tensors
-and takes the plain version only for tensors on the CPU; `launches`
-counts kernel launches and nothing else.  The dense-cache decode of the
-JAX package (its flash_decode kernel) is not ported yet.
+The CUDA kernels are csrc/paged_decode.cu (K2, against a page pool through
+a block table) and csrc/dense_decode.cu (K3, against contiguous (B, S,
+Hkv, D) caches); the note at the top of each says which TPU kernel it
+replaces, what bounds it, and how it is laid out.  This module holds their
+wrappers and, beside them, their plain PyTorch versions (`reference` and
+`dense_reference`, from kernels/ref.py).  A wrapper launches its kernel
+for CUDA tensors and takes the plain version only for tensors on the CPU;
+`launches` (K2) and `dense_launches` (K3) count kernel launches and
+nothing else.
 """
 from __future__ import annotations
 
@@ -18,13 +20,58 @@ import torch
 from . import build, ref
 from ._checks import check_operands
 
-# kernel launches made by the wrapper below (CPU calls do not count)
-launches = 0
+# kernel launches made by the wrappers below (CPU calls do not count)
+launches = 0            # K2, paged_flash_decode
+dense_launches = 0      # K3, flash_decode
 
 reference = ref.paged_flash_decode
+dense_reference = ref.flash_decode
 
-# most query heads per KV head the kernel's register layout holds
+# most query heads per KV head the kernels' register layout holds
 MAX_GROUP = 16
+
+
+def flash_decode(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                 scale: Optional[float] = None,
+                 logit_softcap: float = 0.0) -> torch.Tensor:
+    """One query token per sequence against its dense cache strip.  q:
+    (B, 1, Hq, D); k_cache / v_cache (B, S, Hkv, D); cache_len (B,) int32
+    valid lengths on the device, or one int for every lane (0 gives an
+    exactly zero output).  Returns (B, 1, Hq, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return dense_reference(q, k_cache, v_cache, cache_len,
+                               window=window, scale=scale,
+                               logit_softcap=logit_softcap)
+    B, Sq, Hq, D = q.shape
+    if isinstance(cache_len, int):
+        cache_len = torch.full((B,), cache_len, dtype=torch.int32,
+                               device=q.device)
+    elif cache_len.dim() == 0:
+        cache_len = cache_len.expand(B).contiguous()
+    check_operands("flash_decode", q, k_cache, v_cache,
+                   {"cache_len": (cache_len, (B,))},
+                   layout="(B, S, Hkv, D)")
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != B:
+        raise ValueError(f"flash_decode: q has batch {B}, the caches have "
+                         f"{k_cache.shape[0]}")
+    if Sq != 1:
+        raise ValueError(f"flash_decode: one query token per sequence, "
+                         f"got {Sq}")
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"flash_decode: {Hq // Hkv} query heads per KV "
+                         f"head, the kernel holds at most {MAX_GROUP}")
+    out = torch.empty_like(q)
+    err = build.kernel("dense_decode")(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        cache_len.data_ptr(), out.data_ptr(), B, S, Hkv, Hq // Hkv, D,
+        int(window), scale if scale is not None else 1.0 / math.sqrt(D),
+        float(logit_softcap), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("dense_decode", err)
+    global dense_launches
+    dense_launches += 1
+    return out
 
 
 def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the paged attention kernels.
+"""Plain PyTorch versions of the attention kernels.
 
 These are the ground truth the hand-written CUDA kernels are held against
 (chip_smoke.py's parity phase) and the path every kernel wrapper takes for
@@ -8,8 +8,8 @@ the input dtype, the exp2(x * LOG2E) exponent form, and the NEG_INF /
 m_safe guards that make fully masked rows come out exactly zero.
 
 Conventions:
-  q: (batch, seq, Hq, head_dim); pools: (num_pages, page_size, Hkv,
-  head_dim); GQA when Hkv < Hq (query head j reads KV head j // G).
+  q, k, v: (batch, seq, heads, head_dim); pools: (num_pages, page_size,
+  Hkv, head_dim); GQA when Hkv < Hq (query head j reads KV head j // G).
 """
 from __future__ import annotations
 
@@ -32,6 +32,58 @@ def _group(h_q: int, h_kv: int) -> int:
 def _as_lens(x, n: int, device) -> torch.Tensor:
     x = torch.as_tensor(x, device=device)
     return x.expand(n) if x.dim() == 0 else x
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    logit_softcap: float = 0.0,
+                    scale: Optional[float] = None,
+                    block_kv: int = 512):
+    """Chunked attention over contiguous K/V: an online softmax over KV
+    blocks of block_kv positions.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv,
+    D).  The causal mask is top-left aligned (k_pos <= q_pos, q_pos from
+    0) even when Sq != Skv; window > 0 keeps k_pos > q_pos - window and
+    implies causal.  Scores are (q . k) * scale in fp32; the weights are
+    rounded to q's dtype before the PV product, as the JAX reference does.
+    Returns (o (B, Sq, Hq, D) in q's dtype, lse (B, Sq, Hq) fp32 natural
+    log-sum-exp of each row, the JAX ops._lse_ref of the same blocks)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = _group(Hq, Hkv)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    q_pos = torch.arange(Sq, device=dev)
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=dev)
+    o = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
+    for j0 in range(0, Skv, block_kv):
+        kblk = k[:, j0:j0 + block_kv].float()
+        vblk = v[:, j0:j0 + block_kv].float()
+        k_pos = j0 + torch.arange(kblk.shape[1], device=dev)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kblk) * scale
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        mask = torch.ones((Sq, kblk.shape[1]), dtype=torch.bool, device=dev)
+        if causal or window > 0:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        mask = mask[None, :, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+        p = torch.where(mask, torch.exp2((s - m_safe[..., None]) * LOG2E),
+                        0.0)
+        alpha = torch.where(m <= NEG_INF / 2, 0.0,
+                            torch.exp2((m - m_new) * LOG2E))
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bqhgk,bkhd->bqhgd", p.to(q.dtype).float(), vblk)
+        o = o * alpha[..., None] + pv
+        m = m_new
+    lc = torch.clamp_min(l, 1e-20)
+    o = o / lc[..., None]
+    lse = m + torch.log(lc)
+    return (o.reshape(B, Sq, Hq, D).to(q.dtype), lse.reshape(B, Sq, Hq))
 
 
 def flash_decode(q, k_cache, v_cache, cache_len, *,

@@ -1,11 +1,12 @@
-"""Paged attention layers of the dense decoder: QKV projection, RoPE, the
-K/V scatter into the page pool, the paged attention kernel, and the output
-projection.
+"""Attention layers of the dense decoder: QKV projection, RoPE, the K/V
+write into the cache (dense strips or the page pool), the attention
+kernel, and the output projection.
 
-The page pools are updated IN PLACE (JAX returns new arrays; here layer l
-writes into its (P, page_size, Hkv, D) slab of the model's pool).  The
-scatter is issued before the attention kernel on the same stream, so the
-kernel always reads the pool with this step's K/V already in it.
+The caches are updated IN PLACE (JAX returns new arrays; here layer l
+writes into its (B, S_max, Hkv, D) strips or its (P, page_size, Hkv, D)
+slab of the model's pool).  The write is issued before the attention
+kernel on the same stream, so the kernel always reads the cache with this
+step's K/V already in it.
 """
 from __future__ import annotations
 
@@ -27,6 +28,96 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig):
         q = rms_head_norm(q, params["q_norm"])
         k = rms_head_norm(k, params["k_norm"])
     return q, k, v
+
+
+def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
+                 causal: bool = True, window: int = 0,
+                 positions: Optional[torch.Tensor] = None,
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """Full-sequence self-attention (training / teacher forcing).  x: (B,
+    S, D); positions (S,) default arange(S).  Returns (B, S, D)."""
+    q, k, v = _qkv(params, x, cfg)
+    B, S = x.shape[:2]
+    if cfg.use_rope:
+        pos = positions if positions is not None \
+            else torch.arange(S, device=x.device)
+        q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window,
+                            logit_softcap=cfg.attn_logit_softcap, impl=impl)
+    return dense(params["wo"], o.reshape(B, S, cfg.n_heads * cfg.head_dim))
+
+
+def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor, *,
+                 window: int = 0, impl: Optional[str] = None
+                 ) -> torch.Tensor:
+    """Prefill from position 0: full causal attention over x (B, S, D),
+    and its K/V written into positions [0, S) of the (B, S_max, Hkv, D)
+    strips.  Returns (B, S, D)."""
+    q, k, v = _qkv(params, x, cfg)
+    B, S = x.shape[:2]
+    if cfg.use_rope:
+        pos = torch.arange(S, device=x.device)
+        q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
+    cache_k[:, :S] = k.to(cache_k.dtype)
+    cache_v[:, :S] = v.to(cache_v.dtype)
+    o = ops.flash_attention(q, k, v, causal=True, window=window,
+                            logit_softcap=cfg.attn_logit_softcap, impl=impl)
+    return dense(params["wo"], o.reshape(B, S, cfg.n_heads * cfg.head_dim))
+
+
+def attn_prefill_paged(params, x: torch.Tensor, cfg: ModelConfig,
+                       k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       page_ids: torch.Tensor, *, window: int = 0,
+                       impl: Optional[str] = None) -> torch.Tensor:
+    """Prefill one sequence's prompt into its pages.  x: (1, S, D) with S a
+    multiple of the page size (trailing pad K/V is masked by the lengths at
+    decode time and overwritten as decode advances); page_ids: (S //
+    page_size,) the sequence's pages, position-major.  Attention runs over
+    the prompt's own contiguous K/V.  Returns (1, S, D)."""
+    q, k, v = _qkv(params, x, cfg)
+    S = x.shape[1]
+    ps = k_pages.shape[1]
+    if cfg.use_rope:
+        pos = torch.arange(S, device=x.device)
+        q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
+    idx = page_ids.long()
+    k_pages[idx] = k[0].reshape(-1, ps, cfg.n_kv_heads,
+                                cfg.head_dim).to(k_pages.dtype)
+    v_pages[idx] = v[0].reshape(-1, ps, cfg.n_kv_heads,
+                                cfg.head_dim).to(v_pages.dtype)
+    o = ops.flash_attention(q, k, v, causal=True, window=window,
+                            logit_softcap=cfg.attn_logit_softcap, impl=impl)
+    return dense(params["wo"], o.reshape(1, S, cfg.n_heads * cfg.head_dim))
+
+
+def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
+                cache_k: torch.Tensor, cache_v: torch.Tensor,
+                lens: torch.Tensor, *, window: int = 0,
+                impl: Optional[str] = None,
+                seq_parallel: bool = False) -> torch.Tensor:
+    """Single-token decode against the dense strips.  x: (B, 1, D);
+    caches (B, S_max, Hkv, D); lens (B,) int32 current lengths - the new
+    token's K/V goes to position lens of its own strip.  An idle lane
+    (lens 0) writes position 0 of its strip and attends over that one
+    position, as the JAX package's decode does.  Returns (B, 1, D)."""
+    if seq_parallel:
+        raise NotImplementedError(
+            "sequence-parallel decode is not ported yet (ROADMAP M11)")
+    B = x.shape[0]
+    q, k, v = _qkv(params, x, cfg)
+    if cfg.use_rope:
+        q = rope(q, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, lens.long()] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, lens.long()] = v[:, 0].to(cache_v.dtype)
+    o = ops.flash_decode(q, cache_k, cache_v, lens + 1, window=window,
+                         logit_softcap=cfg.attn_logit_softcap, impl=impl)
+    return dense(params["wo"], o.reshape(B, 1, cfg.n_heads * cfg.head_dim))
 
 
 def attn_decode_paged(params, x: torch.Tensor, cfg: ModelConfig,

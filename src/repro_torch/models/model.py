@@ -1,4 +1,5 @@
-"""The dense decoder as an nn.Module, with the paged serving entry points.
+"""The dense decoder as an nn.Module, with its forward and serving entry
+points over the dense and the paged KV cache.
 
 `Model` holds the JAX package's parameter tree as nn.Parameters in the same
 stacked layout - {"tok": {"embed"}, "final_norm": {"scale"}, "blocks":
@@ -7,8 +8,8 @@ leaf - and exposes it as a plain nested dict (`Model.params`).  Like the
 JAX package's Model, the entry points take the parameter tree as their
 first argument, so the same module runs its own seeded weights or weights
 carried over from the JAX package (models/convert.py).  The entry points
-run eagerly under torch.no_grad(); the paged KV pool in `cache` is updated
-in place and returned.
+run eagerly under torch.no_grad(); the KV cache in `cache` (dense strips or
+the paged pool) is updated in place and returned.
 """
 from __future__ import annotations
 
@@ -118,25 +119,82 @@ class Model(nn.Module):
 
     def init_cache(self, batch_size: int, max_len: int, *,
                    page_size: int = 0, num_pages: int = 0):
-        """The paged layout: a global (L, num_pages, page_size, Hkv, D) K
-        and V pool shared by all sequences, plus a (batch, ceil(max_len /
-        page_size)) int32 block table.  Page 0 is the reserved null page."""
-        if page_size <= 0:
-            raise NotImplementedError(
-                "the dense cache layout is not ported yet (ROADMAP M9); "
-                "pass page_size > 0")
+        """The dense layout by default: one (L, batch, max_len, Hkv, D)
+        strip per K and V.  page_size > 0 selects the paged layout: a
+        global (L, num_pages, page_size, Hkv, D) K and V pool shared by all
+        sequences, plus a (batch, ceil(max_len / page_size)) int32 block
+        table.  Page 0 is the reserved null page."""
         cfg = self.cfg
+        dev, dt = self.device, pdtype(cfg)
+        if page_size <= 0:
+            shp = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+                   cfg.head_dim)
+            return {"k": torch.zeros(shp, dtype=dt, device=dev),
+                    "v": torch.zeros(shp, dtype=dt, device=dev)}
         n_max = pages_for_tokens(max_len, page_size)
         if num_pages <= 0:
             num_pages = dense_equivalent_pages(batch_size, max_len,
                                                page_size)
         shp = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
                cfg.head_dim)
-        dev, dt = self.device, pdtype(cfg)
         return {"k_pages": torch.zeros(shp, dtype=dt, device=dev),
                 "v_pages": torch.zeros(shp, dtype=dt, device=dev),
                 "block_table": torch.zeros((batch_size, n_max),
                                            dtype=torch.int32, device=dev)}
+
+    @torch.no_grad()
+    def forward(self, params, batch, *, impl: Optional[str] = None):
+        """Teacher-forced pass over batch["tokens"] (B, S) int32.  Returns
+        (logits (B, S, V) float32, aux loss (a float32 zero: the dense
+        family has no auxiliary loss))."""
+        cfg = self.cfg
+        x = embed(params["tok"], batch["tokens"], cfg)
+        x = T.stack_forward(params["blocks"], x, cfg, impl=impl)
+        x = apply_norm(params["final_norm"], x, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return unembed(params["tok"], x, cfg), aux
+
+    def _prompt_tail(self, params, x: torch.Tensor, batch):
+        """(logits (B, 1, V) float32 of each row's last real token, lens
+        (B,) int32) after a prefill of x (B, S, D): the last position, or
+        position true_lens - 1 for prompts padded past their real length
+        (batch["true_lens"])."""
+        B, S = x.shape[:2]
+        x = apply_norm(params["final_norm"], x, self.cfg)
+        tl = batch.get("true_lens")
+        if tl is None:
+            lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
+            return unembed(params["tok"], x[:, -1:], self.cfg), lens
+        lens = tl.to(torch.int32)
+        idx = (lens - 1).long()[:, None, None].expand(-1, 1, x.shape[-1])
+        return unembed(params["tok"], torch.gather(x, 1, idx), self.cfg), \
+            lens
+
+    @torch.no_grad()
+    def prefill(self, params, batch, cache, *, impl: Optional[str] = None):
+        """Fill the dense cache {"k"/"v": (L, B, S_max, Hkv, D)} with the
+        prompts batch["tokens"] (B, S) from position 0.  Prompts padded to
+        a bucketed S carry their real lengths in batch["true_lens"] (B,);
+        the pad K/V is masked by the lengths downstream.  Returns (logits of
+        each row's last real token (B, 1, V) float32, cache, lens (B,))."""
+        x = embed(params["tok"], batch["tokens"], self.cfg)
+        x = T.stack_prefill(params["blocks"], x, self.cfg, cache, impl=impl)
+        logits, lens = self._prompt_tail(params, x, batch)
+        return logits, cache, lens
+
+    @torch.no_grad()
+    def prefill_paged(self, params, batch, cache, page_ids, *,
+                      impl: Optional[str] = None):
+        """Prefill ONE sequence's prompt (batch 1) into its pages.
+        batch: {"tokens": (1, S_pad), "true_lens": (1,) optional} with
+        S_pad a multiple of the page size; page_ids: (S_pad // page_size,)
+        the sequence's pages.  Returns (last logits (1, 1, V) float32,
+        cache, lens (1,))."""
+        x = embed(params["tok"], batch["tokens"], self.cfg)
+        x = T.stack_prefill_paged(params["blocks"], x, self.cfg, cache,
+                                  page_ids, impl=impl)
+        logits, lens = self._prompt_tail(params, x, batch)
+        return logits, cache, lens
 
     @torch.no_grad()
     def prefill_chunks(self, params, batch, cache, page_tables, *,
@@ -172,16 +230,17 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, params, tokens, lens, cache, *,
                     impl: Optional[str] = None):
-        """tokens: (B, 1) int32; lens: (B,) int32 positions to write.
-        Returns (logits (B, 1, V) float32, cache)."""
-        if "k_pages" not in cache:
-            raise NotImplementedError(
-                "decode against the dense cache is not ported yet "
-                "(ROADMAP M9)")
+        """tokens: (B, 1) int32; lens: (B,) int32 positions to write; cache
+        dense or paged (init_cache).  Returns (logits (B, 1, V) float32,
+        cache)."""
         cfg = self.cfg
         x = embed(params["tok"], tokens, cfg)
-        x = T.stack_decode_paged(params["blocks"], x, cfg, cache, lens,
-                                 impl=impl)
+        if "k_pages" in cache:
+            x = T.stack_decode_paged(params["blocks"], x, cfg, cache, lens,
+                                     impl=impl)
+        else:
+            x = T.stack_decode(params["blocks"], x, cfg, cache, lens,
+                               impl=impl)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["tok"], x, cfg), cache
 

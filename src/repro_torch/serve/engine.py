@@ -1,36 +1,44 @@
-"""Continuous-batching serve engine: paged KV cache, chunked prefill,
-batched one-launch ticks.
+"""Continuous-batching serve engine: dense or paged KV cache, monolithic or
+chunked prefill, batched one-launch ticks.
 
-Slot-based: up to `max_batch` sequences share one global KV page pool
-(serve/paged_cache.py) through a block table; queueing, admission order,
-chunk planning and latency accounting live in the token-budget scheduler
-(serve/scheduler.py); this module owns the device state and the page
-bookkeeping.  It follows the JAX package's ServeEngine on its paged +
-chunked + batched path, counter for counter:
+Slot-based: up to `max_batch` sequences share one batched KV cache -
+dense strips (one (L, max_batch, max_seq, Hkv, D) K and V), or a global
+page pool (serve/paged_cache.py) reached through a block table; queueing,
+admission order, chunk planning and latency accounting live in the
+token-budget scheduler (serve/scheduler.py); this module owns the device
+state and the page bookkeeping.  It follows the JAX package's ServeEngine
+counter for counter on two schedules (ServeConfig.chunked):
 
-  admission   a queued request gets a slot and its worst-case page
-              reservation ceil((prompt + max_new) / page_size) up front;
-              when the free list cannot cover it, it stays queued.
-  one tick    every tick has tick_token_budget tokens of work: each
-              decoding slot takes one, prompt chunks of PREFILLING slots
-              fill the rest.  The tick is ONE chunk-batch launch (every
-              planned chunk packed into a ragged batch, first tokens of
-              completed prompts sampled on the device), ONE fused decode
-              launch, and ONE device-to-host transfer of the token array.
-              A slot that is still prefilling keeps lens 0 and a zeroed row
-              in the DEVICE block table, so the decode launch's write lane
-              for it lands in the reserved null page.
+  monolithic  (chunked=False, dense or paged) admission prefills each
+              queued request's whole prompt in one launch - padded to a
+              multiple of PREFILL_BUCKET into the slot's dense strip, or
+              to a page multiple straight into its pages after the
+              worst-case reservation ceil((prompt + max_new) / page_size)
+              (when the free list cannot cover it, the request stays
+              queued) - and samples its first token, fetched at once (one
+              host sync per admission).  Then each tick is ONE fused
+              decode launch over every lane and ONE fetch of the tokens.
+  chunked     (paged only) every tick has tick_token_budget tokens of
+              work: each decoding slot takes one, prompt chunks of
+              PREFILLING slots fill the rest.  The tick is ONE chunk-batch
+              launch (every planned chunk packed into a ragged batch,
+              first tokens of completed prompts sampled on the device),
+              ONE fused decode launch, and ONE device-to-host transfer of
+              the token array.  A slot that is still prefilling keeps
+              lens 0 and a zeroed row in the DEVICE block table, so the
+              decode launch's write lane for it lands in the reserved null
+              page.
 
 Host-side decisions read the host mirror of the lengths (`_lens_np`),
-never the device tensor, so the only synchronisation per tick is the token
-fetch.  Uploads go through fresh pinned buffers copied asynchronously; the
-host block table is always copied first, because torch.from_numpy aliases
-the array and the allocator mutates it in place.
+never the device tensor, so the only synchronisations are the token
+fetches (_fetch_tokens per tick, _fetch_first_token per monolithic
+admission).  Uploads go through fresh pinned buffers copied
+asynchronously; the host block table is always copied first, because
+torch.from_numpy aliases the array and the allocator mutates it in place.
 
-Settings outside this path (prefix cache, preemption, speculation,
-deadlines, span tracing, the monolithic and sequential oracle paths, the
-dense cache, tensor parallelism) raise NotImplementedError naming their
-ROADMAP item.
+Settings outside these paths (prefix cache, preemption, speculation,
+deadlines, span tracing, the sequential chunked oracle, tensor
+parallelism) raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,17 +52,23 @@ from ..configs.base import ServeConfig
 from .paged_cache import PageAllocator, pages_needed
 from .scheduler import (ChunkTask, Request, RequestState,
                         TokenBudgetScheduler)
-from .serve_step import make_chunk_batch_step, make_fused_decode_step
+from .serve_step import (make_chunk_batch_step, make_fused_decode_step,
+                         make_paged_prefill_step, make_prefill_step,
+                         sample_token)
 from .telemetry import LaunchRecord, MetricsRegistry, Telemetry, TickRecord
+
+# dense-cache prompts are padded to a multiple of this before the
+# monolithic prefill (the JAX engine's jit bucket; kept so that both
+# engines prefill the same shapes and write the same strip positions)
+PREFILL_BUCKET = 16
 
 
 def _refuse_unported(scfg: ServeConfig):
     """NotImplementedError for every ServeConfig setting this slice of the
     port does not serve, naming the ROADMAP item that brings it."""
     todo = [
-        (not scfg.paged, "paged=False (dense KV cache)", "M9"),
-        (not scfg.chunked, "chunked=False (monolithic prefill)", "M9"),
-        (not scfg.batched, "batched=False (sequential oracle path)", "M6"),
+        (scfg.chunked and not scfg.batched,
+         "batched=False (sequential chunked oracle path)", "M6"),
         (scfg.prefix_cache, "prefix_cache=True", "M6"),
         (scfg.preemption, "preemption=True", "M6"),
         (scfg.speculative, "speculative=True", "M6"),
@@ -66,7 +80,9 @@ def _refuse_unported(scfg: ServeConfig):
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to the PyTorch engine yet (ROADMAP "
-                f"{item}); it serves paged=True, chunked=True, batched=True")
+                f"{item}); it serves chunked=True with batched=True on the "
+                f"paged cache, and chunked=False on the dense or paged "
+                f"cache")
 
 
 def _registry_counter(name: str):
@@ -127,18 +143,23 @@ class ServeEngine:
         m.gauge("serve_outstanding_work_tokens",
                 "Queued + in-flight work tokens (prompt remaining plus "
                 "unspent generation budget)")
-        if scfg.max_seq % scfg.page_size:
-            raise ValueError(
-                f"max_seq ({scfg.max_seq}) must be a multiple of "
-                f"page_size ({scfg.page_size})")
-        num_pages = scfg.pool_pages()
-        self.allocator = PageAllocator(num_pages, scfg.page_size, B,
-                                       scfg.max_seq,
-                                       usable_pages=scfg.usable_pages,
-                                       metrics=m)
-        self.cache = model.init_cache(B, scfg.max_seq,
-                                      page_size=scfg.page_size,
-                                      num_pages=num_pages)
+        self.paged = scfg.paged
+        self.allocator: Optional[PageAllocator] = None
+        if self.paged:
+            if scfg.max_seq % scfg.page_size:
+                raise ValueError(
+                    f"max_seq ({scfg.max_seq}) must be a multiple of "
+                    f"page_size ({scfg.page_size})")
+            num_pages = scfg.pool_pages()
+            self.allocator = PageAllocator(num_pages, scfg.page_size, B,
+                                           scfg.max_seq,
+                                           usable_pages=scfg.usable_pages,
+                                           metrics=m)
+            self.cache = model.init_cache(B, scfg.max_seq,
+                                          page_size=scfg.page_size,
+                                          num_pages=num_pages)
+        else:
+            self.cache = model.init_cache(B, scfg.max_seq)
         self.lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
         self.tokens = torch.zeros((B, 1), dtype=torch.int32,
                                   device=self.device)
@@ -154,10 +175,12 @@ class ServeEngine:
         # host mirror of `lens`: every host-side decision reads this instead
         # of syncing the device tensor - lengths follow from scheduling
         self._lens_np = np.zeros((B,), np.int64)
-        knobs = dict(temperature=scfg.temperature, top_k=scfg.top_k,
-                     top_p=scfg.top_p)
-        self._prefill_chunks = make_chunk_batch_step(model, **knobs)
-        self._decode_fused = make_fused_decode_step(model, **knobs)
+        self._knobs = dict(temperature=scfg.temperature, top_k=scfg.top_k,
+                           top_p=scfg.top_p)
+        self._prefill = make_prefill_step(model)
+        self._prefill_paged = make_paged_prefill_step(model)
+        self._prefill_chunks = make_chunk_batch_step(model, **self._knobs)
+        self._decode_fused = make_fused_decode_step(model, **self._knobs)
 
     # registry-backed views (one source of truth: the metrics registry)
     jit_calls = _registry_counter("serve_jit_calls_total")
@@ -203,6 +226,14 @@ class ServeEngine:
         the fused steps wrote every lane's sampled token into it."""
         self.host_syncs += 1
         return self.tokens.cpu().numpy()
+
+    def _fetch_first_token(self, tok: torch.Tensor) -> int:
+        """A monolithic admission's device->host transfer: the first
+        generated token, sampled on the device from the prompt's last
+        logits (the host needs it now to tell whether the request already
+        finished)."""
+        self.host_syncs += 1
+        return int(tok[0, 0])
 
     def _note_launch(self, kind: str, rows: int, live_rows: int,
                      true_tokens: int, padded_tokens: int,
@@ -257,14 +288,16 @@ class ServeEngine:
             raise ValueError(
                 f"request does not fit: {len(prompt)} prompt + {n_new} new "
                 f"tokens > max_seq {self.scfg.max_seq}")
-        need = pages_needed(len(prompt) + n_new, self.scfg.page_size)
-        usable = min(self.allocator.max_pages_per_seq,
-                     self.allocator.usable_pages)
-        if need > usable:
-            raise ValueError(
-                f"request needs {need} pages; the engine can grant at most "
-                f"{usable} (pool {self.allocator.num_pages}, max_seq "
-                f"{self.scfg.max_seq}, page {self.scfg.page_size})")
+        if self.paged:
+            need = pages_needed(len(prompt) + n_new, self.scfg.page_size)
+            usable = min(self.allocator.max_pages_per_seq,
+                         self.allocator.usable_pages)
+            if need > usable:
+                raise ValueError(
+                    f"request needs {need} pages; the engine can grant at "
+                    f"most {usable} (pool {self.allocator.num_pages}, "
+                    f"max_seq {self.scfg.max_seq}, page "
+                    f"{self.scfg.page_size})")
         stops = frozenset(stop_tokens or ())
         if self.scfg.eos_id is not None:
             stops = stops | {self.scfg.eos_id}
@@ -293,7 +326,8 @@ class ServeEngine:
                 "inflight": len(inflight),
                 "free_slots": sum(s is None for s in self.slots),
                 "outstanding_work_tokens": work,
-                "free_pages": int(self.allocator.free_pages),
+                "free_pages": int(self.allocator.free_pages) if self.paged
+                else 1 << 30,            # dense KV never backpressures
                 "evictable_pages": 0}
 
     def stats(self) -> Dict[str, float]:
@@ -305,14 +339,18 @@ class ServeEngine:
         out.update({"prefill_tokens": self.prefill_tokens,
                     "prefix_hit_tokens": 0,
                     "prompt_tokens": self.prefill_tokens,
+                    "cow_copies": 0,
+                    "cached_pages": 0,
                     "peak_pages": self.peak_pages,
                     "peak_live_pages": self.peak_live_pages})
         out["tick_token_budget"] = self.scfg.tick_token_budget
-        out["chunked"] = True
-        out["batched"] = True
+        out["chunked"] = self.scfg.chunked
+        out["batched"] = self.scfg.batched
         out["jit_calls"] = self.jit_calls
         out["host_syncs"] = self.host_syncs
         out["speculative"] = False
+        out["telemetry"] = False
+        out["tp_degree"] = self.scfg.tp_degree
         out["gen_tokens"] = self.gen_tokens
         out["decode_launches"] = self.decode_launches
         out["kv_pages_read"] = self.kv_pages_read
@@ -336,13 +374,15 @@ class ServeEngine:
     def check_invariants(self):
         """Host-side consistency checks (the replay fixtures call this after
         every tick): allocator refcount conservation and block-table
-        mirroring, slot back-references, queue states and the lens mirror.
-        Never touches a device tensor."""
-        self.allocator.check_invariants()
+        mirroring (paged), slot back-references, queue states and the lens
+        mirror.  Never touches a device tensor."""
+        if self.paged:
+            self.allocator.check_invariants()
         for i, r in enumerate(self.slots):
             if r is None:
-                assert not self.allocator.table[i].any(), \
-                    f"slot {i} empty but its table row is live"
+                if self.paged:
+                    assert not self.allocator.table[i].any(), \
+                        f"slot {i} empty but its table row is live"
                 assert self._lens_np[i] == 0, \
                     f"slot {i} empty but lens mirror {self._lens_np[i]}"
             else:
@@ -357,7 +397,8 @@ class ServeEngine:
             assert r.remaining_new >= 1
 
     def kv_cache_bytes(self) -> int:
-        """Allocated cache bytes: K and V pools plus the block table."""
+        """Allocated cache bytes: K and V strips or pools, plus the block
+        table when paged."""
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     # ------------------------------------------------------------------
@@ -390,8 +431,9 @@ class ServeEngine:
         # copy it from the host and synchronise
         self.lens[i:i + 1].zero_()
         self._lens_np[i] = 0
-        self.allocator.free_slot(i)
-        self._table_dirty = True     # zero the slot's device row
+        if self.paged:
+            self.allocator.free_slot(i)
+            self._table_dirty = True     # zero the slot's device row
         self.sched.note_finished(req)
         self.tm.registry.get("serve_requests_finished_total").inc()
         self._finished_this_tick.append(req)
@@ -409,6 +451,160 @@ class ServeEngine:
             tbl[masked] = 0
         self.cache["block_table"] = self._upload(tbl)
         self._table_dirty = False
+
+    # ------------------------------------------------------------------
+    # admission (monolithic prefill)
+    # ------------------------------------------------------------------
+    def _admit(self):
+        """Prefill queued requests into free slots, whole prompts at once,
+        in ServeConfig.admission_policy order; stops at the first candidate
+        that cannot be placed (no slot, or - paged - not enough free
+        pages: backpressure, it stays queued)."""
+        while True:
+            req = self.sched.peek()
+            if req is None:
+                return
+            slot = self._free_slot()
+            if slot is None:
+                return
+            if self.paged:
+                if not self._admit_paged(slot, req):
+                    return
+            else:
+                self._admit_prefill(slot, req)
+
+    def _padded_prompt(self, prompt: List[int], bucket: int):
+        """(1, s_pad) device tokens, the prompt zero-padded to a multiple
+        of `bucket` (capped at max_seq), and the real length."""
+        s_real = len(prompt)
+        s_pad = min(-(-s_real // bucket) * bucket, self.scfg.max_seq)
+        toks = np.zeros((1, s_pad), np.int32)
+        toks[0, :s_real] = prompt
+        return self._upload(toks), s_real
+
+    def _place(self, slot: int, req: Request, logits: torch.Tensor,
+               s_real: int):
+        """Common tail of both monolithic admissions: record the slot
+        state and sample the first generated token from the prompt's last
+        logits (a stop token here finishes the request at once)."""
+        # device-side writes: assigning a Python scalar into a CUDA tensor
+        # (lens[slot] = s_real) would copy it from the host and synchronise
+        self.lens[slot:slot + 1].fill_(s_real)
+        self._lens_np[slot] = s_real
+        tok = sample_token(logits, generator=self._gen, **self._knobs)
+        self.tokens[slot:slot + 1] = tok
+        nxt = self._fetch_first_token(tok)
+        self.slots[slot] = req
+        req.slot = slot
+        req.prefill_pos = len(req.prompt)
+        req.state = RequestState.DECODING
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        if self._emit(req, nxt):
+            self._finish(req)
+
+    def _admit_prefill(self, slot: int, req: Request):
+        """Dense cache: one prefill of the padded prompt straight into the
+        slot's strips (a view of the engine's cache), which then hold what
+        the JAX engine's sub-cache copy leaves there: the prompt's K/V at
+        [0, s_pad), older contents past it."""
+        self.sched.pop(req)
+        toks, s_real = self._padded_prompt(req.prompt, PREFILL_BUCKET)
+        s_pad = toks.shape[1]
+        strips = {"k": self.cache["k"][:, slot:slot + 1],
+                  "v": self.cache["v"][:, slot:slot + 1]}
+        batch = {"tokens": toks,
+                 "true_lens": self._upload(np.array([s_real], np.int32))}
+        self.jit_calls += 1
+        logits, _, _ = self._prefill(self.params, batch, strips)
+        self._note_launch("prefill", rows=1, live_rows=1,
+                          true_tokens=s_real, padded_tokens=s_pad,
+                          kv_pages_read=0, kv_pages_written=0,
+                          new_kv_tokens=s_real)
+        self.prefill_tokens += s_real
+        self.sched.note_work(s_real)
+        self._place(slot, req, logits, s_real)
+
+    def _admit_paged(self, slot: int, req: Request) -> bool:
+        """Paged cache: reserve the request's worst case up front and
+        prefill the prompt straight into its pages.  False = out of pages
+        (reservations that can never fit were refused at submit)."""
+        ps = self.scfg.page_size
+        need = pages_needed(len(req.prompt) + req.max_new_tokens, ps)
+        if not self.allocator.can_alloc(need):
+            return False
+        self.sched.pop(req)
+        pages = self.allocator.alloc(slot, need)
+        self._note_alloc()
+        toks, s_real = self._padded_prompt(req.prompt, ps)
+        page_ids = self._upload(np.asarray(pages[:toks.shape[1] // ps],
+                                           np.int32))
+        self.cache["block_table"] = self._upload(self.allocator.table)
+        batch = {"tokens": toks,
+                 "true_lens": self._upload(np.array([s_real], np.int32))}
+        self.jit_calls += 1
+        logits, self.cache, _ = self._prefill_paged(self.params, batch,
+                                                    self.cache, page_ids)
+        self._note_launch("prefill_paged", rows=1, live_rows=1,
+                          true_tokens=s_real, padded_tokens=toks.shape[1],
+                          kv_pages_read=self._row_pages(slot, s_real),
+                          kv_pages_written=self._span_pages(0, s_real),
+                          new_kv_tokens=s_real)
+        self.prefill_tokens += s_real
+        self.sched.note_work(s_real)
+        self._place(slot, req, logits, s_real)
+        return True
+
+    def _tick_monolithic(self) -> List[Request]:
+        """Admit (whole-prompt prefills), then one fused decode launch over
+        every lane and one fetch of the tokens."""
+        w0 = self.sched.work_clock
+        self._admit()
+        if self._finished_this_tick and self.paged:
+            # a request can finish AT admission (stop token / length 1 on
+            # its first token): its pages went back to the pool, but the
+            # device table still maps its lane to them - re-upload before
+            # the decode step, or the lane's write (lens 0) lands in
+            # position 0 of a freed page
+            self._sync_table()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            if self.sched.work_clock > w0:      # admissions that finished
+                self.sched.note_tick(0, self.sched.work_clock - w0)
+            return self._finished_this_tick
+        self._tick_profile = (0, len(active))
+        live = np.zeros((len(self.slots),), bool)
+        live[active] = True
+        self.jit_calls += 1
+        self.decode_launches += 1
+        pages_read = 0
+        if self.paged:
+            self.kv_pages_read += sum(
+                -(-(int(self._lens_np[i]) + 1) // self.scfg.page_size)
+                for i in active)
+            pages_read = sum(self._row_pages(i, int(self._lens_np[i]) + 1)
+                             for i in active)
+        self.cache, self.tokens, self.lens = self._decode_fused(
+            self.params, self.cache, self.tokens, self.lens,
+            self._upload(live), self._gen)
+        self._note_launch("decode", rows=len(self.slots),
+                          live_rows=len(active), true_tokens=len(active),
+                          padded_tokens=len(self.slots),
+                          kv_pages_read=pages_read,
+                          kv_pages_written=len(active) if self.paged else 0,
+                          new_kv_tokens=len(active))
+        self.sched.note_work(len(active))
+        self._lens_np[active] += 1
+        toks = self._fetch_tokens()
+        for i in active:
+            req = self.slots[i]
+            if self._emit(req, int(toks[i, 0])):
+                self._finish(req)
+        self.sched.note_tick(len(active),
+                             self.sched.work_clock - w0 - len(active))
+        if self._finished_this_tick and self.paged:
+            self._sync_table()
+        return self._finished_this_tick
 
     # ------------------------------------------------------------------
     # chunked prefill (token-budget schedule)
@@ -550,14 +746,17 @@ class ServeEngine:
         return self._finished_this_tick
 
     def tick(self) -> List[Request]:
-        """One engine iteration; returns the requests that finished in it.
-        Appends a dispatch row to launch_log: (jit_calls, host_syncs,
-        host_wall_s, n_chunk_tasks, n_decode)."""
+        """One engine iteration: monolithic (admissions + one fused
+        decode) or chunked (one token-budgeted round of chunks + decode).
+        Returns the requests that finished in it.  Appends a dispatch row
+        to launch_log: (jit_calls, host_syncs, host_wall_s, n_chunk_tasks,
+        n_decode)."""
         self._finished_this_tick = []
         self._tick_profile = (0, 0)
         j0, s0 = self.jit_calls, self.host_syncs
         t0 = time.perf_counter()
-        out = self._tick_chunked()
+        out = self._tick_chunked() if self.scfg.chunked \
+            else self._tick_monolithic()
         self.tm.ticks.append(TickRecord(
             self.jit_calls - j0, self.host_syncs - s0,
             time.perf_counter() - t0, *self._tick_profile))

@@ -1,13 +1,14 @@
-"""Serving steps of the one-launch tick: the chunk-batch step and the fused
-decode step.
+"""Serving steps: the monolithic prefill steps (dense and paged), and the
+chunk-batch and fused decode steps of the one-launch tick.
 
-Each step is one eager call into the model plus device-side sampling and
-masked updates of the engine's (B, 1) tokens and (B,) lens - no per-slot
-host work and no transfer to the host (the engine fetches the tokens once
-per tick).  Lane contract (what chunked prefill leans on): the fused
-decode step computes every lane, but a lane whose lens is 0 and whose
-block-table row is zeroed writes its K/V into the reserved null page, and
-its `live` mask keeps tokens / lens untouched.
+Each step is one eager call into the model; the chunk-batch and decode
+steps add device-side sampling and masked updates of the engine's (B, 1)
+tokens and (B,) lens - no per-slot host work and no transfer to the host
+(the engine fetches the tokens once per tick).  Lane contract (what
+chunked prefill leans on): the fused decode step computes every lane, but
+a lane whose lens is 0 and whose block-table row is zeroed writes its K/V
+into the reserved null page (a dense lane: position 0 of its own strip),
+and its `live` mask keeps tokens / lens untouched.
 """
 from __future__ import annotations
 
@@ -38,6 +39,28 @@ def sample_token(logits: torch.Tensor, *, temperature: float = 0.0,
     return sampling.sample(logits[:, -1], generator,
                            temperature=temperature, top_k=top_k,
                            top_p=top_p)[:, None]
+
+
+def make_prefill_step(model):
+    """prefill_step(params, batch, cache) -> (last_logits, cache, lens):
+    monolithic prefill into the dense cache (Model.prefill)."""
+
+    def prefill_step(params, batch, cache):
+        return model.prefill(params, batch, cache)
+
+    return prefill_step
+
+
+def make_paged_prefill_step(model):
+    """paged_prefill_step(params, batch, cache, page_ids) -> (last_logits,
+    cache, lens).  batch["tokens"]: (1, S_pad) prompt padded to a page
+    multiple, real length in batch["true_lens"]; page_ids: (S_pad //
+    page_size,) pages owned by the sequence (PageAllocator)."""
+
+    def paged_prefill_step(params, batch, cache, page_ids):
+        return model.prefill_paged(params, batch, cache, page_ids)
+
+    return paged_prefill_step
 
 
 def make_chunk_batch_step(model, *, temperature: float, top_k: int = 0,

@@ -205,11 +205,18 @@ def test_naive_attention_matches_jax(window):
 
 
 def test_cpu_tensors_never_count_kernel_launches():
-    from repro_torch.kernels import flash_decode, paged_prefill
-    before = (paged_prefill.launches, flash_decode.launches)
+    from repro_torch.kernels import (flash_attention, flash_decode,
+                                     paged_prefill)
+    counts = lambda: (paged_prefill.launches, flash_decode.launches,
+                      flash_decode.dense_launches, flash_attention.launches)
+    before = counts()
     _port_prefill(_prefill_case(2), "plain", torch.float32)
     _port_decode(_decode_case(2), "plain", torch.float32)
-    assert (paged_prefill.launches, flash_decode.launches) == before
+    q = torch.randn(1, 5, 4, D)
+    kv = torch.randn(1, 5, 2, D)
+    ops.flash_attention(q, kv, kv)
+    ops.flash_decode(q[:, :1], kv, kv, torch.tensor([3], dtype=torch.int32))
+    assert counts() == before
 
 
 def test_bad_impl_raises():

@@ -7,7 +7,10 @@ and carried over by repro_torch.models.convert.  A ragged chunk batch (two
 chunks of one sequence in one batch, a dead row, a chunk starting
 mid-page), a second batch of ragged final chunks, then three decode steps
 with an idle lane go through both; logits and the written page pools are
-compared after every step.
+compared after every step.  The same holds for the monolithic entry
+points: Model.forward, a dense prefill of padded prompts followed by three
+dense decode steps (one lane idle), and a paged prefill followed by paged
+decode steps; logits, the dense strips and the pools are compared.
 
 Bars (absolute): float32 logits 1e-5 and pools 1e-5 - not bit-equal,
 because XLA and ATen sum the projections in different orders (seen: 4e-6
@@ -180,3 +183,123 @@ def test_seeded_init_follows_the_jax_distributions():
     assert abs(float(w_out.std()) - cfg.d_ff ** -0.5) < 3e-3
     assert torch.equal(p["final_norm"]["scale"], torch.ones(cfg.d_model))
     assert set(p["blocks"]) == {"n1", "attn", "n2", "mlp"}
+
+
+# ===========================================================================
+# monolithic entry points: forward, dense prefill + decode, paged prefill
+# ===========================================================================
+
+MONO_CASES = [("granite-3-2b", "float32"), ("gemma3-4b", "float32"),
+              ("granite-3-2b", "bfloat16")]
+# real prompt lengths; the gemma3 smoke window is 32, so 37 crosses it
+PROMPT_LENS = (37, 21, 5)
+
+
+def _np32(x):
+    return x.float().numpy() if torch.is_tensor(x) \
+        else np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, bar):
+    np.testing.assert_allclose(_np32(got), _np32(want), atol=bar, rtol=0)
+
+
+@pytest.mark.parametrize("arch,dtype", MONO_CASES)
+def test_forward_matches_jax(arch, dtype):
+    logit_bar, _ = BARS[dtype]
+    jm, jp, tm, tp = _models(arch, dtype)
+    toks = np.random.default_rng(4).integers(
+        1, tm.cfg.vocab_size, (2, 40)).astype(np.int32)
+    jl, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+    tl, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert tl.dtype == torch.float32 and tl.shape == (2, 40,
+                                                      tm.cfg.vocab_size)
+    assert float(aux) == 0.0
+    _close(tl, jl, logit_bar)
+
+
+@pytest.mark.parametrize("arch,dtype", MONO_CASES)
+def test_dense_prefill_then_decode_match_jax(arch, dtype):
+    logit_bar, cache_bar = BARS[dtype]
+    jm, jp, tm, tp = _models(arch, dtype)
+    rng = np.random.default_rng(5)
+    s_pad = 40
+    toks = np.zeros((len(PROMPT_LENS), s_pad), np.int32)
+    for r, n in enumerate(PROMPT_LENS):
+        toks[r, :n] = rng.integers(1, tm.cfg.vocab_size, n)
+    tl_np = np.array(PROMPT_LENS, np.int32)
+    jcache = jm.init_cache(len(PROMPT_LENS), MAX_LEN)
+    tcache = tm.init_cache(len(PROMPT_LENS), MAX_LEN)
+    assert set(tcache) == {"k", "v"} and tcache["k"].shape == \
+        (tm.cfg.n_layers, len(PROMPT_LENS), MAX_LEN, tm.cfg.n_kv_heads,
+         tm.cfg.head_dim)
+    jl, jcache, jlens = jax.jit(jm.prefill)(
+        jp, {"tokens": jnp.asarray(toks), "true_lens": jnp.asarray(tl_np)},
+        jcache)
+    tl, tcache, tlens = tm.prefill(
+        tp, {"tokens": torch.from_numpy(toks),
+             "true_lens": torch.from_numpy(tl_np)}, tcache)
+    assert tlens.tolist() == np.asarray(jlens).tolist() == list(PROMPT_LENS)
+    _close(tl, jl, logit_bar)
+    for key in ("k", "v"):
+        _close(tcache[key], jcache[key], cache_bar)
+    # three decode steps; lane 2 is idle (lens 0): it writes position 0 of
+    # its own strip and attends over it, in both packages
+    lens = np.array([PROMPT_LENS[0], PROMPT_LENS[1], 0], np.int32)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    j_decode = jax.jit(jm.decode_step)
+    for _ in range(3):
+        jl, jcache = j_decode(jp, jnp.asarray(tok), jnp.asarray(lens),
+                              jcache)
+        tl, tcache = tm.decode_step(tp, torch.from_numpy(tok),
+                                    torch.from_numpy(lens), tcache)
+        _close(tl[:2], jl[:2], logit_bar)
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        lens = lens + np.array([1, 1, 0], np.int32)
+    for key in ("k", "v"):
+        _close(tcache[key], jcache[key], cache_bar)
+
+
+@pytest.mark.parametrize("arch,dtype", MONO_CASES)
+def test_paged_prefill_then_decode_match_jax(arch, dtype):
+    logit_bar, pool_bar = BARS[dtype]
+    jm, jp, tm, tp = _models(arch, dtype)
+    rng = np.random.default_rng(6)
+    n_real, s_pad = PROMPT_LENS[0], 40                  # 10 pages of 4
+    toks = np.zeros((1, s_pad), np.int32)
+    toks[0, :n_real] = rng.integers(1, tm.cfg.vocab_size, n_real)
+    pages = rng.permutation(np.arange(1, N_PAGES))[:MAX_LEN // PS]
+    pages = pages.astype(np.int32)
+    page_ids = pages[:s_pad // PS]
+    jcache = jm.init_cache(1, MAX_LEN, page_size=PS, num_pages=N_PAGES)
+    tcache = tm.init_cache(1, MAX_LEN, page_size=PS, num_pages=N_PAGES)
+    true_lens = np.array([n_real], np.int32)
+    jl, jcache, jlens = jax.jit(jm.prefill_paged)(
+        jp, {"tokens": jnp.asarray(toks),
+             "true_lens": jnp.asarray(true_lens)},
+        jcache, jnp.asarray(page_ids))
+    tl, tcache, tlens = tm.prefill_paged(
+        tp, {"tokens": torch.from_numpy(toks),
+             "true_lens": torch.from_numpy(true_lens)},
+        tcache, torch.from_numpy(page_ids))
+    assert tlens.tolist() == np.asarray(jlens).tolist() == [n_real]
+    _close(tl, jl, logit_bar)
+    t_np = lambda t: t.float().numpy()
+    j_np = lambda a: np.asarray(jnp.asarray(a, jnp.float32))
+    for got, want in zip(_pools(tcache, t_np), _pools(jcache, j_np)):
+        np.testing.assert_allclose(got, want, atol=pool_bar, rtol=0)
+    jcache["block_table"] = jnp.asarray(pages[None])
+    tcache["block_table"] = torch.from_numpy(pages[None].copy())
+    lens = true_lens.copy()
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    j_decode = jax.jit(jm.decode_step)
+    for _ in range(2):
+        jl, jcache = j_decode(jp, jnp.asarray(tok), jnp.asarray(lens),
+                              jcache)
+        tl, tcache = tm.decode_step(tp, torch.from_numpy(tok),
+                                    torch.from_numpy(lens), tcache)
+        _close(tl, jl, logit_bar)
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        lens = lens + 1
+    for got, want in zip(_pools(tcache, t_np), _pools(jcache, j_np)):
+        np.testing.assert_allclose(got, want, atol=pool_bar, rtol=0)

@@ -7,11 +7,14 @@ sequences they must behave identically - same tables, free lists, packs.
 Engine replay: the `mixed` and `wave` conformance traces (tests/
 conformance.py) go through the JAX ServeEngine and the port's ServeEngine
 on the granite-3-2b smoke config in float32 with the same weights, through
-tests/traffic.py's replay (check_invariants after every tick).  Greedy
-outputs must be equivalent (bit-equal, or within traffic's teacher-forced
-near-tie tolerance of the JAX model), and the device-independent
-accounting exactly equal: launch records, launch_log rows without the wall
-time, work clock, generated tokens and KV pages read.
+tests/traffic.py's replay (check_invariants after every tick), for every
+configuration the port serves: paged + chunked + batched, and monolithic
+prefill on the paged and on the dense cache.  Greedy outputs must be
+equivalent (bit-equal, or within traffic's teacher-forced near-tie
+tolerance of the JAX model), and the device-independent accounting exactly
+equal: launch records, launch_log rows without the wall time, work clock,
+generated tokens, host syncs, KV pages read, and every stats() value that
+is not a wall time.
 """
 import dataclasses
 
@@ -173,35 +176,108 @@ def models():
     return jm, jp, tm, params_from_numpy(jax.device_get(jp), tcfg, "cpu")
 
 
-@pytest.mark.parametrize("trace", ["mixed", "wave"])
-def test_engine_replay_matches_jax(models, trace):
+# every ServeConfig the port serves, as overrides of SCFG
+SERVED = {"chunked": {}, "monolithic_paged": dict(chunked=False),
+          "monolithic_dense": dict(chunked=False, paged=False)}
+# stats() keys whose values are wall-clock times, and the JAX engine's
+# count of jit-compiled step variants (the eager port compiles none)
+WALL_KEYS = {"ttft_wall_p50", "ttft_wall_p95", "tbt_wall_p50", "tbt_wall_p95",
+             "tick_host_wall_p50", "tick_host_wall_p95"}
+JAX_ONLY_KEYS = {"compile_count"}
+
+
+def _replay_both(models, trace, served):
     jm, jp, tm, tp = models
-    spec = TRACES[trace]
-    j_eng = JaxServeEngine(jm, jp, JaxServeConfig(**SCFG))
+    spec, kw = TRACES[trace], dict(SCFG, **SERVED[served])
+    j_eng = JaxServeEngine(jm, jp, JaxServeConfig(**kw))
     j_out, _ = replay(j_eng, spec.build(jm.cfg.vocab_size), check=True)
-    t_eng = ServeEngine(tm, tp, ServeConfig(**SCFG))
+    t_eng = ServeEngine(tm, tp, ServeConfig(**kw))
     t_out, t_done = replay(t_eng, spec.build(tm.cfg.vocab_size), check=True)
     if t_out != j_out:
         assert_greedy_equivalent(jm, jp, t_done, j_out)
+    return j_eng, t_eng
+
+
+@pytest.mark.parametrize("served", list(SERVED))
+@pytest.mark.parametrize("trace", ["mixed", "wave"])
+def test_engine_replay_matches_jax(models, trace, served):
+    j_eng, t_eng = _replay_both(models, trace, served)
     assert [dataclasses.astuple(r) for r in t_eng.launch_records()] \
         == [dataclasses.astuple(r) for r in j_eng.launch_records()]
     strip = lambda rows: [(r[0], r[1], r[3], r[4]) for r in rows]
     assert strip(t_eng.launch_log) == strip(j_eng.launch_log)
     assert t_eng.sched.work_clock == j_eng.sched.work_clock
     assert t_eng.gen_tokens == j_eng.gen_tokens
+    assert t_eng.host_syncs == j_eng.host_syncs
     assert t_eng.kv_pages_read == j_eng.kv_pages_read
-    assert t_eng.allocator.used_pages == 0
-    # every busy tick: one chunk-batch launch + one decode + one fetch
-    for calls, syncs, _, n_chunks, n_dec in t_eng.launch_log:
-        assert calls == bool(n_chunks) + bool(n_dec)
-        assert syncs == (1 if calls else 0)
+    assert t_eng.load_stats() == j_eng.load_stats()
+    if t_eng.paged:
+        assert t_eng.allocator.used_pages == 0
+    if served == "chunked":
+        # every busy tick: one chunk-batch launch + one decode + one fetch
+        for calls, syncs, _, n_chunks, n_dec in t_eng.launch_log:
+            assert calls == bool(n_chunks) + bool(n_dec)
+            assert syncs == (1 if calls else 0)
+    else:
+        # one prefill launch and one first-token fetch per admission, one
+        # decode launch and one fetch per tick with a live lane
+        kinds = [r.kind for r in t_eng.launch_records()]
+        n_admit = kinds.count("prefill_paged" if t_eng.paged else "prefill")
+        assert n_admit == t_eng.stats()["requests"]
+        assert t_eng.host_syncs == n_admit + kinds.count("decode")
+
+
+@pytest.mark.parametrize("served", list(SERVED))
+def test_stats_match_jax(models, served):
+    """stats() has the JAX engine's keys (but the jit compile count), and
+    equal values for every key that is not a wall time - `chunked` and
+    `batched` follow the config."""
+    j_eng, t_eng = _replay_both(models, "mixed", served)
+    got, want = t_eng.stats(), j_eng.stats()
+    assert set(got) == set(want) - JAX_ONLY_KEYS
+    for key in set(got) - WALL_KEYS:
+        assert got[key] == want[key], key
+    assert got["chunked"] == (served == "chunked")
+
+
+@pytest.mark.parametrize("served", ["monolithic_paged", "monolithic_dense"])
+def test_finish_at_admission_matches_jax(models, served):
+    """A request whose first token is its last (max_new_tokens 1) or hits
+    a stop token finishes at admission; the paged engine re-uploads the
+    block table before that tick's decode, so the freed pages stay
+    untouched, and the rest of the traffic decodes as in the JAX engine."""
+    jm, jp, tm, tp = models
+    kw = dict(SCFG, **SERVED[served])
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, tm.cfg.vocab_size, n).tolist()
+               for n in (40, 9, 70, 17)]
+    outs = []
+    for eng in (JaxServeEngine(jm, jp, JaxServeConfig(**kw)),
+                ServeEngine(tm, tp, ServeConfig(**kw))):
+        eng.submit(prompts[0])
+        eng.submit(prompts[1], max_new_tokens=1)
+        eng.submit(prompts[2], max_new_tokens=5)
+        eng.tick()
+        eng.check_invariants()
+        eng.submit(prompts[3], max_new_tokens=1)
+        eng.run_until_done()
+        eng.check_invariants()
+        outs.append((eng, {r.uid: r.out_tokens for r in eng.sched.finished}))
+    (j_eng, j_out), (t_eng, t_out) = outs
+    assert {u: len(o) for u, o in t_out.items()} == {1: 24, 2: 1, 3: 5,
+                                                      4: 1}
+    if t_out != j_out:
+        assert_greedy_equivalent(jm, jp, t_eng.sched.finished, j_out)
+    assert [dataclasses.astuple(r) for r in t_eng.launch_records()] \
+        == [dataclasses.astuple(r) for r in j_eng.launch_records()]
+    assert t_eng.host_syncs == j_eng.host_syncs
+    assert t_eng.sched.work_clock == j_eng.sched.work_clock
 
 
 @pytest.mark.parametrize("knob", [
     dict(prefix_cache=True), dict(preemption=True), dict(speculative=True),
     dict(default_deadline_tokens=500), dict(telemetry=True),
-    dict(tp_degree=2), dict(batched=False), dict(chunked=False),
-    dict(chunked=False, paged=False)])
+    dict(tp_degree=2), dict(batched=False)])
 def test_unported_settings_raise(models, knob):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="ROADMAP M"):
