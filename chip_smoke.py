@@ -6,60 +6,80 @@
 Phases (each raises on failure, so the run exits non-zero):
 
   1. device and build   the card's name and power limit (nvidia-smi), then
-                        every CUDA kernel of repro_torch (K1-K4) built from
+                        every CUDA kernel of repro_torch (K1-K5) built from
                         src/repro_torch/csrc with nvcc for sm_90a, one nvcc
                         per source, all started together.
   2. kernel parity      the hand-written kernels against their plain
                         PyTorch versions on the card: the edge cases of
                         tests/test_torch_kernels_cuda.py (run with pytest),
-                        and the serving shapes (head dim 64, 4 query heads
-                        per KV head; K1/K2 over pages of 16, K4 prompts of
+                        the serving shapes (head dim 64, 4 query heads per
+                        KV head; K1/K2 over pages of 16, K4 prompts of
                         (1, 1904) and (2, 256), K3 8 strips of 2048 with
-                        lengths spread over [0, 2048]) in float32 and
+                        lengths spread over [0, 2048]) and K5 at the
+                        training shape (4 x 2048 tokens, 32 / 8 heads,
+                        causal, o and lse from K4), in float32 and
                         bfloat16.
-  3. the slice          granite-3-2b at full width (40 layers, bf16, seeded
-                        weights) serves 8 requests, 32 new tokens each,
-                        with check_invariants() after every tick, through
-                        three engines: paged + chunked + batched (warm-up,
-                        then counted), monolithic prefill on the dense cache
-                        (warm-up, then counted), and monolithic prefill on
-                        the paged cache (counted once).  Before each counted
-                        run every kernel's launch count is set to 0; just
-                        after it, each must equal 40 x the engine's launches
-                        of its kind (K1 chunk batches and K2 decodes; K4
-                        prefills and K3 decodes; K4 paged prefills and K2
-                        decodes), and the kernels the run does not use must
-                        show 0.  Implicit host syncs inside the counted
-                        ticks are counted with torch.cuda's sync debug mode
-                        (the tick's token fetch and a monolithic admission's
+  3. the slices         serving: granite-3-2b at full width (40 layers,
+                        bf16, seeded weights) serves 8 requests, 32 new
+                        tokens each, with check_invariants() after every
+                        tick, through three engines: paged + chunked +
+                        batched (warm-up, then counted), monolithic prefill
+                        on the dense cache (warm-up, then counted), and
+                        monolithic prefill on the paged cache (counted
+                        once).  Before each counted run every kernel's
+                        launch count is set to 0; just after it, each must
+                        equal 40 x the engine's launches of its kind (K1
+                        chunk batches and K2 decodes; K4 prefills and K3
+                        decodes; K4 paged prefills and K2 decodes), and the
+                        kernels the run does not use (K5 always) must show
+                        0.  Implicit host syncs inside the counted ticks
+                        are counted with torch.cuda's sync debug mode (the
+                        tick's token fetch and a monolithic admission's
                         first-token fetch excepted) and must be 0.  Then
                         the model's entry points at full width through the
-                        kernels and through impl="ref": one chunk batch and
-                        a paged decode step, forward over 2 x 256 tokens, a
-                        dense prefill and decode step, and a paged prefill
-                        and decode step.
+                        kernels and through impl="ref".
+                        training: granite-3-2b at full width trains 4 x
+                        2048 tokens a step with remat "full" through
+                        init_train_state, make_train_step and
+                        DataPipeline.device_batch: one step's loss and
+                        gradient norm through the kernels against
+                        impl="ref" from the same state (on a batch seeded
+                        by numpy, the same in every process), a warm-up
+                        step,
+                        then 6 counted steps, which must launch K4 2 x 40
+                        times a step (forward and recompute), K5 40 times
+                        (one count per backward call, its dq and dk/dv
+                        kernels together) and K1-K3 never, with finite
+                        losses from near ln(vocab).  Then the Trainer at
+                        the smoke config (head dim 64) crashes at step 5,
+                        resumes from its checkpoint, and must end with the
+                        state digest and losses of a run that did not stop.
   4. times              per kernel, at the largest call its run gave it
-                        (K1/K2 the chunked run, K3/K4 the dense run):
-                        kernel, plain version and library times (CUDA
-                        events, L2 flushed, median of 25) beside the bound
-                        the card's data sheet allows; then the end-to-end
-                        numbers of the counted runs.
-  5. trace              the chunked and the dense traffic once more under
-                        torch.profiler (device activity only): device time
-                        by kernel name, and the device's busy share of that
-                        same run's wall time.
+                        (K1/K2 the chunked run, K3/K4 the dense run, K5 the
+                        training run): kernel, plain version and library
+                        times (CUDA events, L2 flushed, median of 25)
+                        beside the bound the card's data sheet allows; then
+                        the end-to-end numbers of the counted runs.
+  5. trace              the chunked and the dense traffic once more, and 2
+                        training steps, under torch.profiler (device
+                        activity only): device time by kernel name, and the
+                        device's busy share of that same run's wall time.
 
-Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K4), one
-{"trace": ...} and one {"trace_dense": ...} line, one {"e2e": ...} line
-(the chunked run), one {"e2e_dense": ...} and one {"e2e_paged_monolithic":
-...} line, and as the last line {"ok": true, "device": {...}}.  Without a
-GPU it exits non-zero and prints no result.
+Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K5), one
+{"trace": ...}, one {"trace_dense": ...} and one {"trace_train": ...}
+line, one {"e2e": ...} line (the chunked run), one {"e2e_dense": ...}, one
+{"e2e_paged_monolithic": ...} and one {"e2e_train": ...} line, and as the
+last line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -72,11 +92,18 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import ServeConfig, get_config  # noqa: E402
+from repro_torch.configs import (ServeConfig, TrainConfig,  # noqa: E402
+                                 get_config, get_smoke_config)
+from repro_torch.data import DataPipeline  # noqa: E402
 from repro_torch.kernels import build, flash_attention  # noqa: E402
-from repro_torch.kernels import flash_decode, ops, paged_prefill  # noqa: E402
+from repro_torch.kernels import flash_backward, flash_decode  # noqa: E402
+from repro_torch.kernels import ops, paged_prefill  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.train import init_train_state, make_train_step  # noqa: E402
+from repro_torch.train.trainer import Trainer  # noqa: E402
+from repro_torch.tree import leaves, map_tree  # noqa: E402
 
 # H100 SXM data sheet: HBM bandwidth and dense bf16 tensor-core rate
 PEAK_BYTES_S = 3.35e12
@@ -108,15 +135,29 @@ RUNS = {"chunked": SCFG,
 # per run: kernel -> the launch kind whose count x n_layers it must equal
 # (None: the run must not launch it)
 EXPECTED = {
-    "chunked": {"K1": "chunk_batch", "K2": "decode", "K3": None, "K4": None},
-    "dense": {"K1": None, "K2": None, "K3": "decode", "K4": "prefill"},
+    "chunked": {"K1": "chunk_batch", "K2": "decode", "K3": None, "K4": None,
+                "K5": None},
+    "dense": {"K1": None, "K2": None, "K3": "decode", "K4": "prefill",
+              "K5": None},
     "paged_monolithic": {"K1": None, "K2": "decode", "K3": None,
-                         "K4": "prefill_paged"}}
+                         "K4": "prefill_paged", "K5": None}}
 # kernel -> (module, launch counter)
 COUNTERS = {"K1": (paged_prefill, "launches"),
             "K2": (flash_decode, "launches"),
             "K3": (flash_decode, "dense_launches"),
-            "K4": (flash_attention, "launches")}
+            "K4": (flash_attention, "launches"),
+            "K5": (flash_backward, "launches")}
+# the training phase: granite-3-2b at full width, 4 x 2048 tokens a step,
+# every layer recomputed in the backward (remat "full"); lr warms up over 2
+# steps so the counted steps update the weights
+TRAIN = dict(global_batch=4, seq_len=2048, remat="full", warmup_steps=2,
+             total_steps=100)
+TRAIN_STEPS = 6                  # counted steps, after one warm-up step
+# full-width bf16 training, kernels vs impl="ref" from the same state on a
+# numpy-seeded batch: |loss difference| and |grad norm difference| / grad
+# norm.  On two pipeline batches an H100 80GB HBM3 (700 W) gave 4.6e-4 and
+# 4.3e-5, 1.1e-4 and 6.6e-5; each bar is ~10x the larger of the two
+TRAIN_BARS = {"loss": 5e-3, "grad_norm": 2e-3}
 
 
 def log(msg: str):
@@ -155,19 +196,21 @@ def phase_device_and_build():
 # ---------------------------------------------------------------------------
 
 def compare(got: torch.Tensor, want: torch.Tensor, dtype,
-            terms: torch.Tensor = None) -> float:
+            terms: torch.Tensor = None, f32_rel: bool = False) -> float:
     """Max |kernel - plain|; raises past the bar of the dtype.  `terms`
-    (bf16 K4 only): the plain attention of |v|, the magnitude of the
-    summed terms - K4 rounds its softmax weights to bf16 before PV, as its
-    plain version does, and a one-ulp score difference can flip one
-    weight's rounding, so its bar is one bf16 step of the terms."""
+    (bf16 K4 and K5): the magnitude of the summed terms - K4 rounds its
+    softmax weights, K5 its p and ds, to bf16 before their products, as
+    their plain versions do, and a one-ulp score difference can flip one
+    such rounding, so their bar is one bf16 step of the terms.  f32_rel
+    (K5): the float32 bar is 1e-5 of the largest |gradient|."""
     g, w = got.float(), want.float()
     err = float((g - w).abs().max())
     if dtype == torch.bfloat16:
         scale = w.abs() if terms is None else w.abs() + terms.float()
         bar = BF16_RTOL * scale + 1e-6
     else:
-        bar = torch.full_like(w, F32_TOL)
+        bar = torch.full_like(w, F32_TOL * (float(w.abs().max())
+                                            if f32_rel else 1.0))
     if not bool(((g - w).abs() <= bar).all()):
         raise AssertionError(f"kernel disagrees with its plain version: max "
                              f"abs err {err:.3e} ({dtype})")
@@ -247,6 +290,45 @@ def k4_compare(a, dtype) -> float:
     return err
 
 
+def _k5_kw(a):
+    return dict(causal=a.get("causal", True), window=a.get("window", 0),
+                logit_softcap=a.get("logit_softcap", 0.0))
+
+
+def k5_call(a, impl=None, terms=False):
+    """(dq, dk, dv): the kernel, or its plain version with impl="ref"
+    (terms=True: the plain version's magnitude of the summed terms)."""
+    args = (a["q"], a["k"], a["v"], a["o"], a["lse"], a["do"])
+    if impl == "ref":
+        return flash_backward.reference(*args, terms=terms, **_k5_kw(a))
+    return flash_backward.flash_attention_bwd(*args, **_k5_kw(a))
+
+
+def k5_compare(a, dtype) -> float:
+    """dq, dk, dv against the plain version: bf16 one step of the terms'
+    magnitude, fp32 1e-5 of the largest |gradient|.  Returns the max abs
+    error over the three."""
+    got, want = k5_call(a), k5_call(a, "ref")
+    terms = k5_call(a, "ref", terms=True) if dtype == torch.bfloat16 \
+        else (None,) * 3
+    return max(compare(g, w, dtype, t, f32_rel=True)
+               for g, w, t in zip(got, want, terms))
+
+
+def k5_training_args(dtype, seed=0):
+    """K5 at the training shape: q (4, 2048, 32, 64), k / v (4, 2048, 8,
+    64), causal, o and lse from K4, a random do."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev,
+                                     dtype=torch.float32).to(dtype)
+    a = dict(q=rnd(4, 2048, 32, 64), k=rnd(4, 2048, 8, 64),
+             v=rnd(4, 2048, 8, 64), do=rnd(4, 2048, 32, 64), causal=True)
+    a["o"], a["lse"] = flash_attention.flash_attention_fwd(a["q"], a["k"],
+                                                           a["v"])
+    return a
+
+
 def phase_kernel_parity():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
@@ -278,6 +360,11 @@ def phase_kernel_parity():
         log(f"# serving shapes {str(dtype)[6:]}: K1 max abs err {e1:.3e}, "
             f"K2 {e2:.3e}, K3 {e3:.3e}, K4 (1, 1904) {e4[0]:.3e} and "
             f"(2, 256) {e4[1]:.3e} (bar {bar}; K4 bf16 of the terms)")
+        e5 = k5_compare(k5_training_args(dtype), dtype)
+        bar = "1e-5 of max |grad|" if dtype == torch.float32 \
+            else "2^-7 of the terms"
+        log(f"# training shape {str(dtype)[6:]}: K5 (4, 2048, 32/8, 64) "
+            f"causal max abs err {e5:.3e} (bar {bar})")
     torch.cuda.synchronize()
 
 
@@ -526,6 +613,167 @@ def model_check(model, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, training
+# ---------------------------------------------------------------------------
+
+def _k5_weight(q, k, v, o, lse, do):
+    return q.shape[0] * q.shape[1] * k.shape[1]
+
+
+def train_check(model, params, batch):
+    """One step's loss and gradient norm (the step's loss and backward,
+    before the optimizer) through the kernels and through impl="ref",
+    from the same state.  Returns {impl: (loss, grad norm)}."""
+    out = {}
+    for impl in (None, "ref"):
+        for p in leaves(params):
+            p.grad = None
+        loss, _ = model.loss(params, batch, impl=impl, remat=True)
+        loss.backward()
+        grads = map_tree(lambda p: p.grad, params)
+        out[impl] = (float(loss.detach()), float(global_norm(grads)))
+    for p in leaves(params):
+        p.grad = None
+    for key, (a, b) in (("loss", (out[None][0], out["ref"][0])),
+                        ("grad_norm", (out[None][1], out["ref"][1]))):
+        err = abs(a - b) if key == "loss" else abs(a - b) / b
+        log(f"# full-width training step, kernels vs ref: {key} {a:.6f} vs "
+            f"{b:.6f}, {'abs' if key == 'loss' else 'rel'} diff {err:.3e} "
+            f"(bar {TRAIN_BARS[key]})")
+        if not (np.isfinite(a) and err <= TRAIN_BARS[key]):
+            raise AssertionError(f"training {key}: kernels and ref disagree")
+    return out
+
+
+def trainer_check():
+    """The Trainer on the card at the granite-3-2b smoke config with head
+    dim 64 (the kernels take 64 and 128; the smoke config has 16): a run
+    that crashes at step 5 and resumes from its step-2 checkpoint ends
+    with the same state digest and the same losses as a run that does not
+    stop.  Checkpoints go under build/ and are removed after."""
+    cfg = get_smoke_config("granite-3-2b").replace(head_dim=64)
+    base = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(base, ignore_errors=True)
+    kw = dict(global_batch=2, seq_len=64, total_steps=8, warmup_steps=1,
+              checkpoint_every=3, log_every=1)
+    tc = lambda d: TrainConfig(checkpoint_dir=str(base / d), **kw)
+    try:
+        Trainer(cfg, tc("resumed"), fail_at_step=5).run()
+    except RuntimeError as e:
+        if "simulated failure at step 5" not in str(e):
+            raise
+    else:
+        raise AssertionError("the Trainer did not crash at step 5")
+    resumed = Trainer(cfg, tc("resumed"))
+    if resumed.start_step != 3:
+        raise AssertionError(f"resumed at step {resumed.start_step}, not 3")
+    got = resumed.run()
+    want = Trainer(cfg, tc("whole")).run()
+    digest = {d: json.loads((base / d / "step_7" / "manifest.json")
+                            .read_text())["digest"]
+              for d in ("resumed", "whole")}
+    loss = lambda out: {m["step"]: m["loss"] for m in out["metrics"]}
+    same_losses = all(loss(want)[s] == v for s, v in loss(got).items())
+    log(f"# Trainer crash at step 5 and resume from step 2 (smoke config, "
+        f"head dim 64): final digest {digest['resumed']} vs uninterrupted "
+        f"{digest['whole']}; losses of steps 3-7 equal: {same_losses}")
+    if digest["resumed"] != digest["whole"] or not same_losses:
+        raise AssertionError("resumed Trainer run differs from the "
+                             "uninterrupted one")
+    shutil.rmtree(base)
+    return {"final_step": got["final_step"], "digest": digest["resumed"],
+            "losses_equal": same_losses}
+
+
+def phase_train():
+    """granite-3-2b at full width trains through init_train_state,
+    make_train_step and DataPipeline.device_batch - the calls Trainer.run
+    makes each step (the full-width Trainer itself would also save a ~25
+    GB .npz state; it runs at the smoke config in trainer_check)."""
+    cfg = get_config("granite-3-2b")
+    tcfg = TrainConfig(**TRAIN)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    state = init_train_state(model, 0, tcfg)
+    pipe = DataPipeline(cfg, tcfg)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    torch.cuda.synchronize()
+    log(f"# training granite-3-2b: {n_params / 1e9:.3f} B params, batch "
+        f"{tcfg.global_batch} x {tcfg.seq_len}, remat {tcfg.remat}; built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    # the kernels-vs-ref check on a batch seeded by numpy, the same in every
+    # process (the pipeline's batches are hash-seeded: ROADMAP section 3)
+    rng = np.random.default_rng(0)
+    check = train_check(model, state.params, {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (tcfg.global_batch, tcfg.seq_len),
+                     dtype=np.int32)).to(model.device)})
+    batch0 = pipe.device_batch(0)
+    step = make_train_step(model, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    with Capture(flash_backward, "flash_attention_bwd", _k5_weight) as c5:
+        state, m0 = step(state, batch0)            # warm-up: data step 0
+    batches = [pipe.device_batch(s) for s in range(1, 1 + TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    times, outs = [], []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        outs.append(m)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L, N = cfg.n_layers, TRAIN_STEPS
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 2 * L * N, "K5": L * N}
+    log(f"# training: {N} counted steps, kernel launches {launches} (want "
+        f"{want}: K4 forward + remat recompute, K5 once per layer)")
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    losses = [float(m0["loss"])] + [float(m["loss"]) for m in outs]
+    gnorms = [float(m0["grad_norm"])] + [float(m["grad_norm"]) for m in outs]
+    ln_v = math.log(cfg.vocab_size)
+    log(f"# training losses (step 0 = warm-up): "
+        f"{[round(x, 4) for x in losses]}, ln(vocab) {ln_v:.4f}")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError("non-finite training loss or gradient norm")
+    if abs(losses[0] - ln_v) > 1.0:
+        raise AssertionError(f"step-0 loss {losses[0]:.3f} is not near "
+                             f"ln(vocab) {ln_v:.3f}")
+    trace = device_trace(lambda: [step(state, b) for b in batches[:2]])
+    trace.update(run="train", steps=2)
+    log(f"# trace (training, 2 steps): device busy "
+        f"{trace['device_busy_s']:.3f} s of {trace['profiled_wall_s']:.3f} s")
+    B, S, Hq, D = tcfg.global_batch, tcfg.seq_len, cfg.n_heads, cfg.head_dim
+    tokens = B * S
+    med = float(np.median(times))
+    model_flops = 6 * n_params * tokens \
+        + 12 * L * B * Hq * D * S * (S + 1) // 2
+    e2e = {"config": cfg.name, "layers": L, "params": n_params,
+           "global_batch": B, "seq_len": S, "remat": tcfg.remat,
+           "tokens_per_step": tokens, "counted_steps": N,
+           "step_ms": [t * 1e3 for t in times], "step_ms_median": med * 1e3,
+           "tokens_per_s": tokens / med, "peak_mem_gb": peak / 1e9,
+           "losses": losses, "grad_norms": gnorms,
+           "lr": [float(m0["lr"])] + [float(m["lr"]) for m in outs],
+           "kernel_launches": launches,
+           "launches_per_step": {k: v / N for k, v in launches.items()},
+           "model_flops_per_step": model_flops,
+           "mfu": model_flops / (med * PEAK_FLOP_S),
+           "mfu_formula": "(6 * params * tokens + 12 * layers * batch * "
+                          "heads * head_dim * seq * (seq + 1) / 2) / "
+                          "(median step s * 989e12)",
+           "kernels_vs_ref": {"loss": [check[None][0], check["ref"][0]],
+                              "grad_norm": [check[None][1],
+                                            check["ref"][1]]}}
+    del state, model, step, batches, batch0   # free the full-width state
+    e2e["trainer_resume"] = trainer_check()
+    run = {"launches": launches, "per_step": {k: v / N for k, v in
+                                              launches.items()}}
+    return run, c5.best, e2e, trace
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -591,17 +839,21 @@ def k4_work(a):
     per (query, attended key) pair under the call's mask."""
     q, k = a["q"], a["k"]
     B, Sq, Hq, D = q.shape
-    Skv = k.shape[1]
     kw = _k4_kw(a)
-    window = kw["window"]
-    pairs = 0
-    for s in range(Sq):
-        hi = min(s + 1, Skv) if kw["causal"] or window > 0 else Skv
-        lo = max(0, s - window + 1) if window > 0 else 0
-        pairs += max(hi - lo, 0)
+    pairs = _pairs(Sq, k.shape[1], kw["causal"], kw["window"])
     el = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * el + 4 * B * Sq * Hq
     return nbytes, 4 * D * Hq * B * pairs
+
+
+def _pairs(sq, skv, causal, window):
+    """(query, attended key) pairs of one head under the mask."""
+    pairs = 0
+    for s in range(sq):
+        hi = min(s + 1, skv) if causal or window > 0 else skv
+        lo = max(0, s - window + 1) if window > 0 else 0
+        pairs += max(hi - lo, 0)
+    return pairs
 
 
 def _sdpa(q, k, v, **kw):
@@ -677,6 +929,32 @@ def k4_library(a):
     return _sdpa(a["q"], a["k"], a["v"], is_causal=_k4_kw(a)["causal"])
 
 
+def k5_work(a):
+    """q, k, v, o, do and the fp32 lse read once, dq, dk, dv written once;
+    five products of 2*D FLOPs (s = q k, dp = do v, dv += p do, dq += ds
+    k, dk += ds q) per (query head, attended key) pair under the mask."""
+    q, k = a["q"], a["k"]
+    B, Sq, Hq, D = q.shape
+    kw = _k5_kw(a)
+    pairs = _pairs(Sq, k.shape[1], kw["causal"], kw["window"])
+    el = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * el + 4 * B * Sq * Hq
+    return nbytes, 10 * D * Hq * B * pairs
+
+
+def k5_library(a):
+    """The backward alone of one causal scaled_dot_product_attention call
+    with enable_gqa: torch.autograd.grad of its output with respect to
+    q, k and v, on inputs laid out as (B, H, S, D) beforehand."""
+    qq, kk, vv = (a[n].transpose(1, 2).contiguous().requires_grad_(True)
+                  for n in ("q", "k", "v"))
+    dd = a["do"].transpose(1, 2).contiguous()
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qq, kk, vv, is_causal=_k5_kw(a)["causal"], enable_gqa=True)
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), dd,
+                                       retain_graph=True)
+
+
 # key -> (name, call, work, library, source, TPU kernel, run that feeds
 # its row, argument names of the wrapper)
 KERNELS = {
@@ -697,12 +975,17 @@ KERNELS = {
            "src/repro_torch/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention.py:113", "dense",
            ("q", "k", "v")),
+    "K5": ("K5 flash_backward", k5_call, k5_work, k5_library,
+           "src/repro_torch/csrc/flash_backward.cu",
+           "src/repro/kernels/flash_backward.py:168", "train",
+           ("q", "k", "v", "o", "lse", "do")),
 }
 
 
 def phase_times(runs, captured):
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
+    compares = {"K4": k4_compare, "K5": k5_compare}
     rows = []
     for key, (name, call, work, lib, src, tpu, run, names) in \
             KERNELS.items():
@@ -711,18 +994,19 @@ def phase_times(runs, captured):
         a.update(kw)
         f32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point()
                    else v) for k, v in a.items()}
-        if key == "K4":
-            err = k4_compare(a, a["q"].dtype)
-            err32 = k4_compare(f32, torch.float32)
+        if key in compares:
+            err = compares[key](a, a["q"].dtype)
+            err32 = compares[key](f32, torch.float32)
         else:
             err = compare(call(a), call(a, "ref"), a["q"].dtype)
             err32 = compare(call(f32), call(f32, "ref"), torch.float32)
         nbytes, flops = work(a)
         t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
+        per = "per_step" if run == "train" else "per_tick"
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": runs[run]["launches"][key],
-            "launches_per_tick": runs[run]["per_tick"][key],
+            f"launches_{per}": runs[run][per][key],
             "launches_by_run": {r: v["launches"][key]
                                 for r, v in runs.items()},
             "timed_from_run": run,
@@ -735,6 +1019,9 @@ def phase_times(runs, captured):
             "library": "scaled_dot_product_attention"
                        + (" on K/V pre-gathered into contiguous strips "
                           "(gather not timed)" if key in ("K1", "K2")
+                          else " backward (torch.autograd.grad of its "
+                          "output; inputs transposed beforehand, not timed)"
+                          if key == "K5"
                           else " (inputs transposed beforehand, not timed)"),
             "shape": {k: list(v.shape) for k, v in a.items()
                       if torch.is_tensor(v)},
@@ -746,15 +1033,17 @@ def phase_times(runs, captured):
 # phase 5
 # ---------------------------------------------------------------------------
 
-def phase_trace(model, params, run: str, counted_wall_s: float):
-    """The run's traffic once more under torch.profiler, tracing device
-    activity only (no host op recording, so the run's wall time stays near
-    the unprofiled one): device time by kernel name, and the device's busy
-    share as busy time over this same run's wall time."""
+def device_trace(fn) -> dict:
+    """fn() under torch.profiler, tracing device activity only (no host op
+    recording, so the wall time stays near the unprofiled one): device
+    time by kernel name, and the device's busy share of that wall time."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = run_traffic(model, params, RUNS[run],
-                                    count_syncs=False)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
@@ -764,15 +1053,22 @@ def phase_trace(model, params, run: str, counted_wall_s: float):
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    out = {"run": run, "profiled_wall_s": wall,
-           "counted_wall_s": counted_wall_s, "device_busy_s": busy,
-           "busy_share": busy / wall,
-           "top_kernels_ms": [[e.key[:80], dev_us(e) / 1e3, e.count]
-                              for e in top]}
-    log(f"# trace ({run}): device busy {busy:.3f} s of {wall:.3f} s profiled "
-        f"wall (unprofiled counted run: {counted_wall_s:.3f} s wall)"
-        + ("" if busy else " (the profiler recorded no device time: not "
-                           "measured)"))
+    if not busy:
+        log("# the profiler recorded no device time: not measured")
+    return {"profiled_wall_s": wall, "device_busy_s": busy,
+            "busy_share": busy / wall,
+            "top_kernels_ms": [[e.key[:80], dev_us(e) / 1e3, e.count]
+                               for e in top]}
+
+
+def phase_trace(model, params, run: str, counted_wall_s: float):
+    """The run's traffic once more under the device-only profiler."""
+    out = device_trace(lambda: run_traffic(model, params, RUNS[run],
+                                           count_syncs=False))
+    out.update(run=run, counted_wall_s=counted_wall_s)
+    log(f"# trace ({run}): device busy {out['device_busy_s']:.3f} s of "
+        f"{out['profiled_wall_s']:.3f} s profiled wall (unprofiled counted "
+        f"run: {counted_wall_s:.3f} s wall)")
     return out
 
 
@@ -787,16 +1083,24 @@ def main() -> int:
     phase_device_and_build()
     phase_kernel_parity()
     runs, captured, mp = phase_slice()
-    rows = phase_times(runs, captured)
     trace = phase_trace(*mp, "chunked", runs["chunked"]["e2e"]["wall_s"])
     trace_dense = phase_trace(*mp, "dense", runs["dense"]["e2e"]["wall_s"])
+    del mp                       # the serving model, before the training one
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train"], captured["K5"], e2e_train, trace_train = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = phase_times(runs, captured)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)
     print(json.dumps({"trace_dense": trace_dense}), flush=True)
+    print(json.dumps({"trace_train": trace_train}), flush=True)
     print(json.dumps({"e2e": runs["chunked"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_dense": runs["dense"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_paged_monolithic":
                       runs["paged_monolithic"]["e2e"]}), flush=True)
+    print(json.dumps({"e2e_train": e2e_train}), flush=True)
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

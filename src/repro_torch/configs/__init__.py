@@ -4,8 +4,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-from .base import (ModelConfig, ServeConfig, dense_equivalent_pages,
-                   pages_for_tokens)
+from .base import (ModelConfig, ServeConfig, TrainConfig,
+                   dense_equivalent_pages, pages_for_tokens)
 
 # the dense architectures the port serves so far
 ARCH_MODULES: Dict[str, str] = {
@@ -30,6 +30,6 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).get_smoke_config()
 
 
-__all__ = ["ARCH_MODULES", "ModelConfig", "ServeConfig",
+__all__ = ["ARCH_MODULES", "ModelConfig", "ServeConfig", "TrainConfig",
            "dense_equivalent_pages", "get_config", "get_smoke_config",
            "pages_for_tokens"]

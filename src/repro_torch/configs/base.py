@@ -6,8 +6,9 @@ carries the fields of the dense family the port serves (the MoE, SSM,
 hybrid, RWKV, encoder-decoder and frontend fields come with those
 families, ROADMAP M13); ServeConfig carries every field, so one set of
 keyword arguments builds either package's serve config, and the engine
-refuses the settings it does not serve yet.  Mesh, training and shape
-configs arrive with the slices that need them.
+refuses the settings it does not serve yet.  TrainConfig is a copy of the
+JAX package's, field for field.  Mesh and shape configs arrive with the
+slices that need them.
 """
 from __future__ import annotations
 
@@ -54,6 +55,26 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    remat: str = "none"         # none | full | dots
+    grad_compression: str = ""  # "" | int8
+    seed: int = 0
+    log_every: int = 10
 
 
 def pages_for_tokens(n_tokens: int, page_size: int) -> int:

@@ -52,6 +52,10 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     # softcap, is_bf16, stream
     "dense_decode": ("dense_decode_launch",
                      (_P,) * 5 + (_I,) * 6 + (_F, _F, _I, _P)),
+    # q, k, v, o, lse, do, dq, dk, dv, delta, B, Sq, Skv, Hkv, G, D, causal,
+    # window, scale, softcap, is_bf16, stream
+    "flash_backward": ("flash_backward_launch",
+                       (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

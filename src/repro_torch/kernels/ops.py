@@ -1,11 +1,12 @@
 """Attention dispatch: the hand-written kernel or its plain version.
 
-impl=None (every caller on the serving path): a CUDA tensor launches the
-hand-written CUDA kernel (kernels/flash_attention.py, kernels/
-paged_prefill.py, kernels/flash_decode.py) and a CPU tensor takes the
-plain PyTorch version; there is no fallback from one to the other.
-impl="ref" forces the plain version on any device - the tests and
-chip_smoke.py's parity phase use it to hold the kernels against it.
+impl=None (every caller on the serving and training paths): a CUDA tensor
+launches the hand-written CUDA kernel (kernels/flash_attention.py,
+kernels/flash_backward.py, kernels/paged_prefill.py, kernels/
+flash_decode.py) and a CPU tensor takes the plain PyTorch version; there
+is no fallback from one to the other.  impl="ref" forces the plain
+version on any device - the tests and chip_smoke.py's parity phases use
+it to hold the kernels against it.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 
 from . import flash_attention as fa
+from . import flash_backward as fb
 from . import flash_decode as fd
 from . import paged_prefill as pp
 from . import ref
@@ -26,14 +28,48 @@ def _check_impl(impl):
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the FA-2 backward: the counterpart of the JAX
+    package's custom_vjp ops._flash_attention.  The forward is K4 (or its
+    plain version) and keeps (q, k, v, o, lse); the backward is K5 (or its
+    plain version) recomputing from them, so no (Sq, Skv) score matrix is
+    ever kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, impl):
+        fwd = ref.flash_attention if impl == "ref" else fa.flash_attention_fwd
+        o, lse = fwd(q, k, v, causal=causal, window=window,
+                     logit_softcap=softcap, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = (causal, window, softcap, scale, impl)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, softcap, scale, impl = ctx.opts
+        bwd = ref.flash_attention_bwd if impl == "ref" \
+            else fb.flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.to(q.dtype).contiguous(),
+                         causal=causal, window=window,
+                         logit_softcap=softcap, scale=scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     logit_softcap: float = 0.0,
                     scale: Optional[float] = None,
                     impl: Optional[str] = None) -> torch.Tensor:
-    """Fused attention forward.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv,
-    D) (GQA allowed).  Returns o; the kernel's lse is dropped here (the
-    training path will keep it for the backward)."""
+    """Fused attention.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) (GQA
+    allowed).  Returns o.  Where autograd needs a gradient of q, k or v,
+    the call goes through _FlashAttention (K4 forward, K5 backward);
+    otherwise - every serving caller, under torch.no_grad() - it is one
+    forward call and the kernel's lse is dropped."""
     _check_impl(impl)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, logit_softcap,
+                                     scale, impl)
     fn = ref.flash_attention if impl == "ref" else fa.flash_attention_fwd
     return fn(q, k, v, causal=causal, window=window,
               logit_softcap=logit_softcap, scale=scale)[0]

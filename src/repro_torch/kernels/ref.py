@@ -86,6 +86,74 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return (o.reshape(B, Sq, Hq, D).to(q.dtype), lse.reshape(B, Sq, Hq))
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, logit_softcap: float = 0.0,
+                        scale: Optional[float] = None, block_kv: int = 512,
+                        terms: bool = False):
+    """FlashAttention-2 backward, recomputed from (q, k, v, o, lse) over KV
+    blocks of block_kv positions - the JAX package's CPU oracle
+    (repro/kernels/ops.py _flash_bwd_rule, the non-Pallas branch) line for
+    line.  q, o, do: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); lse: (B, Sq,
+    Hq) natural log, as flash_attention returns it; masks as there.
+    delta = rowsum(do . o) in fp32 from do rounded to q's dtype; p =
+    exp2((s - lse) * LOG2E) masked; ds = p * (dp - delta), times (1 - t^2)
+    under the softcap; p and ds are rounded to q's dtype before the dv, dq
+    and dk products (the oracle's pb / dsb; the TPU kernel keeps them in
+    fp32), every product accumulates in fp32, and dk / dv sum over the
+    GQA group.  Returns (dq, dk, dv) in the dtypes of q, k, v.
+
+    terms=True returns instead the magnitude of the terms each gradient
+    sums (every product taken over absolute values, in fp32): one rounding
+    step of it is the bfloat16 bar of a kernel that rounds p and ds as this
+    function does, since an ulp of difference in a score can flip one of
+    those roundings."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = _group(Hq, Hkv)
+    sc = scale if scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+    mag = torch.abs if terms else (lambda t: t)
+    qb = q.reshape(B, Sq, Hkv, G, D).float()
+    dob = do.to(q.dtype).reshape(B, Sq, Hkv, G, D).float()
+    lsef = lse.float().reshape(B, Sq, Hkv, G)
+    delta = torch.sum(dob * o.reshape(B, Sq, Hkv, G, D).float(), -1)
+    q_pos = torch.arange(Sq, device=dev)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
+    dk, dv = [], []
+    for j0 in range(0, Skv, block_kv):
+        kblk = k[:, j0:j0 + block_kv].float()
+        vblk = v[:, j0:j0 + block_kv].float()
+        k_pos = j0 + torch.arange(kblk.shape[1], device=dev)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qb, kblk) * sc
+        if logit_softcap > 0.0:
+            t = torch.tanh(s / logit_softcap)
+            s = logit_softcap * t
+        mask = torch.ones((Sq, kblk.shape[1]), dtype=torch.bool, device=dev)
+        if causal or window > 0:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        mask = mask[None, :, None, None, :]
+        p = torch.exp2((s - lsef[..., None]) * LOG2E)
+        p = torch.where(mask, p, 0.0)
+        pb = p.to(q.dtype).float()
+        dv.append(torch.einsum("bqhgk,bqhgd->bkhd", pb, mag(dob)))
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dob, vblk)
+        ds = p * (dp - delta[..., None])
+        if logit_softcap > 0.0:
+            ds = ds * (1.0 - t * t)
+        dsb = mag(ds.to(q.dtype).float())
+        dq = dq + torch.einsum("bqhgk,bkhd->bqhgd", dsb, mag(kblk)) * sc
+        dk.append(torch.einsum("bqhgk,bqhgd->bkhd", dsb, mag(qb)) * sc)
+    empty = torch.zeros((B, 0, Hkv, D), dtype=torch.float32, device=dev)
+    dk = torch.cat(dk, 1) if dk else empty
+    dv = torch.cat(dv, 1) if dv else empty
+    if terms:
+        return dq.reshape(B, Sq, Hq, D), dk, dv
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def flash_decode(q, k_cache, v_cache, cache_len, *,
                  scale: Optional[float] = None, window: int = 0,
                  logit_softcap: float = 0.0,

@@ -7,9 +7,12 @@ stacked layout - {"tok": {"embed"}, "final_norm": {"scale"}, "blocks":
 leaf - and exposes it as a plain nested dict (`Model.params`).  Like the
 JAX package's Model, the entry points take the parameter tree as their
 first argument, so the same module runs its own seeded weights or weights
-carried over from the JAX package (models/convert.py).  The entry points
-run eagerly under torch.no_grad(); the KV cache in `cache` (dense strips or
-the paged pool) is updated in place and returned.
+carried over from the JAX package (models/convert.py).  The serving entry
+points run eagerly under torch.no_grad(); the KV cache in `cache` (dense
+strips or the paged pool) is updated in place and returned.  `loss` is the
+training entry point: it runs with autograd on, and its gradients reach
+every parameter leaf that requires one (the train state switches
+requires_grad on; the parameters are created without it).
 """
 from __future__ import annotations
 
@@ -142,17 +145,43 @@ class Model(nn.Module):
                 "block_table": torch.zeros((batch_size, n_max),
                                            dtype=torch.int32, device=dev)}
 
+    def _forward(self, params, batch, impl: Optional[str], remat: bool):
+        cfg = self.cfg
+        x = embed(params["tok"], batch["tokens"], cfg)
+        x = T.stack_forward(params["blocks"], x, cfg, impl=impl, remat=remat)
+        x = apply_norm(params["final_norm"], x, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return unembed(params["tok"], x, cfg), aux
+
     @torch.no_grad()
     def forward(self, params, batch, *, impl: Optional[str] = None):
         """Teacher-forced pass over batch["tokens"] (B, S) int32.  Returns
         (logits (B, S, V) float32, aux loss (a float32 zero: the dense
         family has no auxiliary loss))."""
-        cfg = self.cfg
-        x = embed(params["tok"], batch["tokens"], cfg)
-        x = T.stack_forward(params["blocks"], x, cfg, impl=impl)
-        x = apply_norm(params["final_norm"], x, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return unembed(params["tok"], x, cfg), aux
+        return self._forward(params, batch, impl, remat=False)
+
+    def loss(self, params, batch, *, impl: Optional[str] = None,
+             remat: bool = False, aux_weight: float = 0.01):
+        """Next-token cross-entropy of batch["tokens"] (B, S), with autograd
+        on: the training loss.  batch may carry "labels" (B, S) in place of
+        the tokens and a "loss_mask" (B, S) weighting each position.
+        remat=True recomputes each layer in the backward.  Returns (total
+        = ce + aux_weight * aux, {"ce", "aux"}), 0-d float32 tensors."""
+        logits, aux = self._forward(params, batch, impl, remat)
+        tokens = batch["tokens"]
+        labels = batch.get("labels", tokens)
+        # next-token prediction
+        lp = torch.log_softmax(logits[:, :-1].float(), -1)
+        tgt = labels[:, 1:].long()
+        nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask[:, 1:].float()
+            ce = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        else:
+            ce = torch.mean(nll)
+        total = ce + aux_weight * aux
+        return total, {"ce": ce, "aux": aux}
 
     def _prompt_tail(self, params, x: torch.Tensor, batch):
         """(logits (B, 1, V) float32 of each row's last real token, lens

@@ -5,13 +5,16 @@ A Python loop over layers takes the place of the JAX package's lax.scan:
 layer l reads its slices of the stacked (L, ...) parameters and updates its
 strips k[l] / v[l] or its slab k_pages[l] / v_pages[l] of the cache in
 place.  The gemma3 local:global pattern is a Python `if` per layer instead
-of lax.cond.
+of lax.cond.  stack_forward is also the training forward: with remat each
+layer runs under torch.utils.checkpoint, the counterpart of jax.checkpoint
+on the scanned body.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_decode_paged, attn_forward,
@@ -47,14 +50,38 @@ def _ffn_tail(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + mlp(p["mlp"], apply_norm(p["n2"], x, cfg), cfg)
 
 
+def _layers(blocks, n_layers: int):
+    """Every layer's parameters out of the stacked (L, ...) tree, with one
+    torch.unbind per leaf.  Its backward stacks the L slice gradients into
+    the leaf's gradient once; slicing with v[l] (_layer) would instead
+    add L zero-padded full-size gradients into each leaf."""
+    per_leaf = {name: {k: torch.unbind(v) for k, v in group.items()}
+                for name, group in blocks.items()}
+    return [{name: {k: v[l] for k, v in group.items()}
+             for name, group in per_leaf.items()} for l in range(n_layers)]
+
+
+def _block(p, x: torch.Tensor, cfg: ModelConfig, window: int,
+           impl: Optional[str]) -> torch.Tensor:
+    h = attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
+                     window=window, impl=impl)
+    return _ffn_tail(p, x + h, cfg)
+
+
 def stack_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
-                  impl: Optional[str] = None) -> torch.Tensor:
-    """Causal self-attention blocks over the whole sequence x (B, S, D)."""
-    for l, is_global in enumerate(_layer_windows(cfg)):
-        p = _layer(blocks, l)
-        h = attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
-                         window=_windowed(cfg, is_global), impl=impl)
-        x = _ffn_tail(p, x + h, cfg)
+                  impl: Optional[str] = None,
+                  remat: bool = False) -> torch.Tensor:
+    """Causal self-attention blocks over the whole sequence x (B, S, D).
+    remat=True keeps only each layer's input for the backward and runs the
+    layer again there (the attention forward included)."""
+    for p, is_global in zip(_layers(blocks, cfg.n_layers),
+                            _layer_windows(cfg)):
+        window = _windowed(cfg, is_global)
+        if remat:
+            x = checkpoint(_block, p, x, cfg, window, impl,
+                           use_reentrant=False)
+        else:
+            x = _block(p, x, cfg, window, impl)
     return x
 
 

@@ -4,11 +4,14 @@ on the card: the edge cases of test_torch_kernels.py and test_torch_flash.py
 mid-page, two chunks of one sequence in one batch, dead rows, q_lens pad
 lanes, sliding window, softcap; causal and full attention over a length
 that is no tile multiple, fewer queries than keys; dense decode lengths 0,
-1 and the whole strip, one length for every lane) at the kernels' head
-dims 64 and 128, in float32 and bfloat16.
+1 and the whole strip, one length for every lane; the FA-2 backward K5
+over causal, full, window and softcap attention at S = 200 and 256, and
+through autograd) at the kernels' head dims 64 and 128, in float32 and
+bfloat16.
 
 Needs an NVIDIA GPU and nvcc: every test skips with a reason elsewhere.
-Run on the card with `python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py`.
+Run on the card with
+`python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py`.
 
 Bars: float32 within 1e-5 absolute (fp32 math in both, other summation
 order).  bfloat16: both compute in float32 from the same bfloat16 values
@@ -20,14 +23,19 @@ bfloat16 step of that weight's term, which exceeds 2**-7 of the output
 where the terms cancel (seen on the H100: 4 of 37888 elements, 2.4e-4 at
 an output of 0.0055).  Its bar is therefore one rounding step of the
 terms' magnitude: 2**-7 x (|o| + the attention of |v|) plus 1e-6.  The
-log-sum-exp of K4 is float32 in both dtypes: 1e-5 absolute.  Dead rows,
-pad lanes and empty decode lanes are exactly 0.
+log-sum-exp of K4 is float32 in both dtypes: 1e-5 absolute.  K5 rounds
+p and ds to bfloat16 before their products, as its plain version does,
+so its bfloat16 bar is the same kind: 2**-7 x (|g| + the magnitude of the
+summed terms, ref.flash_attention_bwd(terms=True)) + 1e-6; in float32 its
+gradients agree within 1e-5 of the largest |gradient|.  Dead rows, pad
+lanes and empty decode lanes are exactly 0.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention, flash_decode, ops
+from repro_torch.kernels import flash_attention, flash_backward, flash_decode
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_prefill
 
 pytestmark = pytest.mark.cuda
@@ -274,3 +282,103 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
         flash_decode.flash_decode(
             _randn(rng, dev, torch.float32, 2, 1, 34, 64),
             k[:, :, :1].contiguous(), k[:, :, :1].contiguous(), lens)
+
+
+# ---------------------------------------------------------------------------
+# K5 flash_attention_bwd
+# ---------------------------------------------------------------------------
+
+# (causal, window, softcap) per variant
+BWD_VARIANTS = {"causal": (True, 0, 0.0), "full": (False, 0, 0.0),
+                "window": (True, 48, 0.0), "softcap": (True, 0, 25.0)}
+
+
+def bwd_close(got, want, terms, dtype):
+    """K5 against its plain version: float32 within 1e-5 of the largest
+    |gradient|; bfloat16 within one rounding step of the summed terms'
+    magnitude, 2**-7 x (|want| + terms) + 1e-6 (terms from
+    ref.flash_attention_bwd(terms=True)): both round p and ds to bfloat16
+    before their products, and an ulp of difference in a score can flip
+    one of those roundings."""
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms):
+        g, w = g.float().cpu(), w.float().cpu()
+        err = (g - w).abs()
+        if dtype == torch.bfloat16:
+            bar = 2.0 ** -7 * (w.abs() + t.float().cpu()) + 1e-6
+        else:
+            bar = torch.full_like(w, 1e-5 * float(w.abs().max()))
+        bad = err > bar
+        assert not bool(bad.any()), (
+            f"{name}: {int(bad.sum())} elements past the bar, max abs err "
+            f"{float(err.max()):.3e} (max |{name}| {float(w.abs().max()):.3e})")
+
+
+@pytest.mark.parametrize("S", [200, 256])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(BWD_VARIANTS))
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_kernel_matches_plain(dev, D, G, variant, dtype, S):
+    dt = DTYPES[dtype]
+    causal, window, softcap = BWD_VARIANTS[variant]
+    rng = np.random.default_rng(5)
+    q = _randn(rng, dev, dt, 2, S, HKV * G, D)
+    k, v = _randn(rng, dev, dt, 2, S, HKV, D), _randn(rng, dev, dt, 2, S,
+                                                      HKV, D)
+    do = _randn(rng, dev, dt, 2, S, HKV * G, D)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+    n0 = flash_backward.launches
+    got = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_backward.reference(q, k, v, o, lse, do, **kw)
+    terms = flash_backward.reference(q, k, v, o, lse, do, terms=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_backward.launches == n0 + 1
+    assert [g.dtype for g in got] == [dt] * 3
+    bwd_close(got, want, terms, dt)
+    # the same bits again: no atomics, one summation order
+    again = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_autograd_runs_k4_then_k5(dev, dtype):
+    """A gradient through ops.flash_attention on CUDA tensors launches K4
+    once and K5 once, and equals the plain rule's gradient."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(6)
+    q = _randn(rng, dev, dt, 2, 100, 8, 64).requires_grad_(True)
+    k = _randn(rng, dev, dt, 2, 100, 2, 64).requires_grad_(True)
+    v = _randn(rng, dev, dt, 2, 100, 2, 64).requires_grad_(True)
+    do = _randn(rng, dev, dt, 2, 100, 8, 64)
+    n4, n5 = flash_attention.launches, flash_backward.launches
+    o = ops.flash_attention(q, k, v)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n4 + 1
+    assert flash_backward.launches == n5 + 1
+    o_r, lse_r = flash_attention.flash_attention_fwd(q.detach(), k.detach(),
+                                                     v.detach())
+    args = (q.detach(), k.detach(), v.detach(), o_r, lse_r, do)
+    bwd_close(got, flash_backward.reference(*args),
+              flash_backward.reference(*args, terms=True), dt)
+
+
+def test_flash_backward_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(7)
+    q = _randn(rng, dev, torch.float32, 2, 8, 4, 64)
+    k = _randn(rng, dev, torch.float32, 2, 8, 2, 64)
+    o, lse = flash_attention.flash_attention_fwd(q, k, k)
+    with pytest.raises(ValueError, match="do must be"):
+        flash_backward.flash_attention_bwd(q, k, k, o, lse,
+                                           q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_backward.flash_attention_bwd(
+            q, k, k, o, lse, q.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="lse"):
+        flash_backward.flash_attention_bwd(q, k, k, o, lse[:, :4], q)
+    with pytest.raises(ValueError, match="head dim"):
+        t = q[..., :32].contiguous()
+        flash_backward.flash_attention_bwd(t, k[..., :32].contiguous(),
+                                           k[..., :32].contiguous(), t, lse,
+                                           t)
