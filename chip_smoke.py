@@ -6,7 +6,7 @@
 Phases (each raises on failure, so the run exits non-zero):
 
   1. device and build   the card's name and power limit (nvidia-smi), then
-                        every CUDA kernel of repro_torch (K1-K5) built from
+                        every CUDA kernel of repro_torch (K1-K7) built from
                         src/repro_torch/csrc with nvcc for sm_90a, one nvcc
                         per source, all started together.
   2. kernel parity      the hand-written kernels against their plain
@@ -18,7 +18,9 @@ Phases (each raises on failure, so the run exits non-zero):
                         lengths spread over [0, 2048]) and K5 at the
                         training shape (4 x 2048 tokens, 32 / 8 heads,
                         causal, o and lse from K4), in float32 and
-                        bfloat16.
+                        bfloat16; the test file also holds K3 and K4 at
+                        head dim 80 and the edge cases of the scans K6 and
+                        K7 (their full-width shapes among them).
   3. the slices         serving: granite-3-2b at full width (40 layers,
                         bf16, seeded weights) serves 8 requests, 32 new
                         tokens each, with check_invariants() after every
@@ -54,23 +56,52 @@ Phases (each raises on failure, so the run exits non-zero):
                         the smoke config (head dim 64) crashes at step 5,
                         resumes from its checkpoint, and must end with the
                         state digest and losses of a run that did not stop.
+                        recurrent: zamba2-2.7b (54 Mamba2 layers, a shared
+                        attention block of head dim 80 after every 6th)
+                        and rwkv6-1.6b (24 RWKV6 layers) at full width,
+                        seeded weights.  bf16: each model's forward over a
+                        numpy-seeded 2 x 2048 batch through the kernels
+                        (counts set to 0 before, read after: K6 54 and K4
+                        9 a zamba2 forward, K7 24 an rwkv6 forward, the
+                        rest 0), its logits against impl="ref" within
+                        REC_NOISE_MARGIN x the model's own bf16 noise, and
+                        each layer against impl="ref" on the same input
+                        within REC_LAYER_RTOL; then 6 requests (prompts
+                        of 24 to 200 tokens, 16 new tokens each, 4 slots:
+                        two requests reuse a freed slot) served on the
+                        dense recurrent-state cache with stepwise
+                        admission: counts set to 0 before, read after
+                        (zamba2: K3 9 x the engine's decode steps, every
+                        other kernel 0; rwkv6: all 0), no implicit host
+                        sync in the ticks.  float32 on the same weights:
+                        the forward's logits against impl="ref" within
+                        REC_F32_BARS, each layer as in bf16 with the
+                        float32 bar, and the same traffic, every generated
+                        token the argmax of a teacher-forced kernel
+                        forward at its position or within REC_F32_BARS of
+                        it (near ties printed); a corrupted recurrent
+                        state moves the logits by O(1).
   4. times              per kernel, at the largest call its run gave it
                         (K1/K2 the chunked run, K3/K4 the dense run, K5 the
-                        training run): kernel, plain version and library
-                        times (CUDA events, L2 flushed, median of 25)
-                        beside the bound the card's data sheet allows; then
-                        the end-to-end numbers of the counted runs.
-  5. trace              the chunked and the dense traffic once more, and 2
-                        training steps, under torch.profiler (device
-                        activity only): device time by kernel name, and the
-                        device's busy share of that same run's wall time.
+                        training run, K6/K7 the recurrent forwards; K3/K4
+                        also at zamba2's head dim 80): kernel, plain
+                        version and library times (CUDA events, L2 flushed,
+                        median of 25) beside the bound the card's data
+                        sheet allows; then the end-to-end numbers of the
+                        counted runs.
+  5. trace              the chunked and the dense traffic once more, 2
+                        training steps, and one zamba2 forward, under
+                        torch.profiler (device activity only): device time
+                        by kernel name, and the device's busy share of that
+                        same run's wall time.
 
-Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K5), one
-{"trace": ...}, one {"trace_dense": ...} and one {"trace_train": ...}
-line, one {"e2e": ...} line (the chunked run), one {"e2e_dense": ...}, one
-{"e2e_paged_monolithic": ...} and one {"e2e_train": ...} line, and as the
-last line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero
-and prints no result.
+Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K7), one
+{"trace": ...}, one {"trace_dense": ...}, one {"trace_train": ...} and one
+{"trace_recurrent": ...} line, one {"e2e": ...} line (the chunked run),
+one {"e2e_dense": ...}, one {"e2e_paged_monolithic": ...}, one
+{"e2e_train": ...} and one {"e2e_recurrent": ...} line, and as the last
+line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -97,13 +128,17 @@ from repro_torch.configs import (ServeConfig, TrainConfig,  # noqa: E402
 from repro_torch.data import DataPipeline  # noqa: E402
 from repro_torch.kernels import build, flash_attention  # noqa: E402
 from repro_torch.kernels import flash_backward, flash_decode  # noqa: E402
+from repro_torch.kernels import mamba2_scan, rwkv6_scan  # noqa: E402
 from repro_torch.kernels import ops, paged_prefill  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.layers import embed  # noqa: E402
+from repro_torch.models.transformer import n_shared_applications  # noqa
 from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train import init_train_state, make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
-from repro_torch.tree import leaves, map_tree  # noqa: E402
+from repro_torch.tree import leaves, leaves_with_paths, map_tree  # noqa
 
 # H100 SXM data sheet: HBM bandwidth and dense bf16 tensor-core rate
 PEAK_BYTES_S = 3.35e12
@@ -136,17 +171,20 @@ RUNS = {"chunked": SCFG,
 # (None: the run must not launch it)
 EXPECTED = {
     "chunked": {"K1": "chunk_batch", "K2": "decode", "K3": None, "K4": None,
-                "K5": None},
+                "K5": None, "K6": None, "K7": None},
     "dense": {"K1": None, "K2": None, "K3": "decode", "K4": "prefill",
-              "K5": None},
+              "K5": None, "K6": None, "K7": None},
     "paged_monolithic": {"K1": None, "K2": "decode", "K3": None,
-                         "K4": "prefill_paged", "K5": None}}
+                         "K4": "prefill_paged", "K5": None, "K6": None,
+                         "K7": None}}
 # kernel -> (module, launch counter)
 COUNTERS = {"K1": (paged_prefill, "launches"),
             "K2": (flash_decode, "launches"),
             "K3": (flash_decode, "dense_launches"),
             "K4": (flash_attention, "launches"),
-            "K5": (flash_backward, "launches")}
+            "K5": (flash_backward, "launches"),
+            "K6": (mamba2_scan, "launches"),
+            "K7": (rwkv6_scan, "launches")}
 # the training phase: granite-3-2b at full width, 4 x 2048 tokens a step,
 # every layer recomputed in the backward (remat "full"); lr warms up over 2
 # steps so the counted steps update the weights
@@ -158,6 +196,37 @@ TRAIN_STEPS = 6                  # counted steps, after one warm-up step
 # norm.  On two pipeline batches an H100 80GB HBM3 (700 W) gave 4.6e-4 and
 # 4.3e-5, 1.1e-4 and 6.6e-5; each bar is ~10x the larger of the two
 TRAIN_BARS = {"loss": 5e-3, "grad_norm": 2e-3}
+# the recurrent run: zamba2-2.7b and rwkv6-1.6b at full width, bf16; each
+# model's forward over a 2 x 2048 batch, then 6 requests served on the
+# dense recurrent-state cache with stepwise admission (4 slots: the last
+# two requests reuse freed slots)
+REC_ARCHS = ("zamba2-2.7b", "rwkv6-1.6b")
+REC_BATCH = (2, 2048)
+REC_PROMPTS = (24, 57, 96, 130, 171, 200)
+REC_NEW = 16
+REC_SCFG = dict(max_batch=4, max_seq=512, max_new_tokens=REC_NEW,
+                paged=False, chunked=False)
+# With seeded random weights at full depth, both models amplify rounding
+# differences layer by layer: in bf16 two correct versions of the forward
+# (the kernels and impl="ref") part by O(1) logits, as far as the bf16
+# forward is from the float32 forward on the same weights (the model's own
+# bf16 noise).  So the bf16 forward's logits are held within
+# REC_NOISE_MARGIN x that noise, each layer is held on the same input
+# within one rounding step (layer_parity), and the tight checks run in
+# float32: logits of the forward, kernels vs ref, within REC_F32_BARS, and
+# the served tokens against a teacher-forced forward within the same bar.
+REC_NOISE_MARGIN = 1.5
+# float32 forward logits, kernels vs impl="ref": 0.179 (zamba2) and 0.0043
+# (rwkv6) on an H100 80GB HBM3 (700 W), deterministic for the seeded
+# weights; each bar ~2.2x its measurement
+REC_F32_BARS = {"zamba2-2.7b": 0.4, "rwkv6-1.6b": 0.01}
+# each layer on the same input (layer_parity), relative to its largest
+# |input| or |output|: bf16 four rounding steps - a layer rounds its
+# updates and residual sums to bf16 (a layer with the shared block three
+# times in series, through values larger than its input and output), and
+# a kernel's last-bit difference flips some of those roundings; float32
+# 1e-4 (a layer's own float32 rounding is ~1e-6 of it)
+REC_LAYER_RTOL = {"bfloat16": 2.0 ** -5, "float32": 1e-4}
 
 
 def log(msg: str):
@@ -177,18 +246,26 @@ def read_counts():
 # phase 1
 # ---------------------------------------------------------------------------
 
-def phase_device_and_build():
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+
+
+def phase_device_and_build():
+    print(card(), flush=True)
     secs, logs = build.build_all()
     log(f"# built {sorted(logs)} in {secs:.1f} s (nvcc, sm_90a, in parallel)")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if re.search(r"registers|spill", line):
-                log(f"#   {name}: {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", text)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+        log(f"#   {name}: {len(regs)} instantiations, "
+            f"{min(regs, default=0)}-{max(regs, default=0)} registers, up "
+            f"to {max(smem, default=0)} bytes static smem, {spills} bytes "
+            f"of spills")
 
 
 # ---------------------------------------------------------------------------
@@ -421,12 +498,14 @@ def _quiet(fetch):
     return quiet
 
 
-def run_traffic(model, params, scfg, count_syncs: bool):
-    """Serve the 8 requests to completion.  Returns (engine, per-tick wall
-    seconds, implicit sync warnings, wall seconds)."""
+def run_traffic(model, params, scfg, count_syncs: bool,
+                prompt_lens=PROMPT_LENS):
+    """Serve one request per prompt length (seeded prompts) to completion.
+    Returns (engine, per-tick wall seconds, implicit sync warnings, wall
+    seconds)."""
     eng = ServeEngine(model, params, ServeConfig(**scfg))
     rng = np.random.default_rng(0)
-    for n in PROMPT_LENS:
+    for n in prompt_lens:
         eng.submit(rng.integers(1, model.cfg.vocab_size, n).tolist())
     fetches = ("_fetch_tokens", "_fetch_first_token")
     if count_syncs:
@@ -725,7 +804,8 @@ def phase_train():
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     L, N = cfg.n_layers, TRAIN_STEPS
-    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 2 * L * N, "K5": L * N}
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 2 * L * N, "K5": L * N,
+            "K6": 0, "K7": 0}
     log(f"# training: {N} counted steps, kernel launches {launches} (want "
         f"{want}: K4 forward + remat recompute, K5 once per layer)")
     if launches != want:
@@ -771,6 +851,327 @@ def phase_train():
     run = {"launches": launches, "per_step": {k: v / N for k, v in
                                               launches.items()}}
     return run, c5.best, e2e, trace
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the recurrent families
+# ---------------------------------------------------------------------------
+
+def _forward_want(cfg):
+    """Kernel launches of one full-sequence forward: the Mamba2 scan K6 per
+    layer and K4 per application of the shared block (hybrid), the RWKV6
+    scan K7 per layer (ssm); nothing else."""
+    want = {k: 0 for k in COUNTERS}
+    if cfg.family == "hybrid":
+        want.update(K6=cfg.n_layers, K4=n_shared_applications(cfg))
+    else:
+        want.update(K7=cfg.n_layers)
+    return want
+
+
+def _rec_batch(model):
+    B, S = REC_BATCH
+    rng = np.random.default_rng(2)
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (B, S), dtype=np.int32)).to(model.device)}
+
+
+def recurrent_forward(model, params, arch):
+    """The bf16 forward over a numpy-seeded 2 x 2048 batch through the
+    kernels (launches counted) and through impl="ref"; 3 timed kernel
+    forwards (throughput, peak memory).  Returns (the launch counts, the
+    ref logits, max |logits kernels - ref|, the e2e numbers)."""
+    cfg = model.cfg
+    batch = _rec_batch(model)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = model.forward(params, batch)[0]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = _forward_want(cfg)
+    if launches != want:
+        raise AssertionError(f"{arch} forward: kernel launches {launches} "
+                             f"!= {want}")
+    if not bool(torch.isfinite(got).all()) or got.shape != (
+            *REC_BATCH, cfg.vocab_size):
+        raise AssertionError(f"{arch} forward: non-finite logits or shape "
+                             f"{tuple(got.shape)}")
+    ref = model.forward(params, batch, impl="ref")[0]
+    err = float((got - ref).abs().max())
+    del got
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    e2e = {"forward_batch": list(REC_BATCH),
+           "forward_ms": [t * 1e3 for t in times],
+           "forward_ms_median": med * 1e3,
+           "forward_tok_s": REC_BATCH[0] * REC_BATCH[1] / med,
+           "forward_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "forward_kernel_launches": launches}
+    log(f"# {arch} forward {REC_BATCH}: kernel launches {launches}, "
+        f"{med * 1e3:.1f} ms")
+    return launches, ref, err, e2e
+
+
+def layer_parity(model, params, arch) -> float:
+    """Each layer of the forward through the kernels against the same layer
+    through impl="ref", both on the ref path's input to that layer (so no
+    difference carries from one layer into the next): max |y - y_ref|
+    within REC_LAYER_RTOL of the layer's largest |input| or |output|.
+    Returns the largest |difference| over the layers."""
+    cfg = model.cfg
+    rtol = REC_LAYER_RTOL[cfg.dtype]
+    layers = T.hybrid_layers(params["blocks"], cfg) \
+        if cfg.family == "hybrid" else T.rwkv_layers(params["blocks"], cfg)
+    worst = 0.0
+    with torch.no_grad():
+        x = embed(params["tok"], _rec_batch(model)["tokens"], cfg)
+        for i, layer in enumerate(layers):
+            y_ref, y = layer(x, "ref"), layer(x, None)
+            d = float((y.float() - y_ref.float()).abs().max())
+            bar = rtol * max(float(x.float().abs().max()),
+                             float(y_ref.float().abs().max()))
+            if d > bar:
+                raise AssertionError(
+                    f"{arch} {cfg.dtype} layer {i}: kernels and ref part by "
+                    f"{d:.3e} on the same input (bar {bar:.3e})")
+            worst = max(worst, d)
+            x = y_ref
+    log(f"# {arch} {cfg.dtype} layer by layer on the ref path's inputs: "
+        f"max |kernels - ref| {worst:.3e}, every layer within {rtol:.3g} "
+        f"of its largest |input| or |output|")
+    return worst
+
+
+def fp32_copy(model, params):
+    """The model in float32 with the bf16 model's weights (exact)."""
+    m32 = build_model(model.cfg.replace(dtype="float32"))
+    p32 = m32.params
+    with torch.no_grad():
+        for (path, a), (path32, b) in zip(leaves_with_paths(params),
+                                          leaves_with_paths(p32)):
+            if path != path32:
+                raise AssertionError(f"parameter trees differ: {path} vs "
+                                     f"{path32}")
+            b.copy_(a.float())
+    return m32, p32
+
+
+def recurrent_fp32(m32, p32, arch, ref16):
+    """The float32 forward through the kernels against impl="ref" (logits
+    within REC_F32_BARS), and the bf16 checks' yardstick: the bf16 ref
+    logits against the float32 ref logits on the same weights - the
+    model's own bf16 rounding noise, which 54 (24) layers of random
+    weights amplify to O(1) logits.  Returns (fp32 error, bf16 noise)."""
+    batch = _rec_batch(m32)
+    ref = m32.forward(p32, batch, impl="ref")[0]
+    got = m32.forward(p32, batch)[0]
+    err = float((got - ref).abs().max())
+    noise = float((ref16 - ref).abs().max())
+    log(f"# {arch} float32 forward {REC_BATCH}: logits max |kernels - ref| "
+        f"{err:.3e} (bar {REC_F32_BARS[arch]}, logit scale "
+        f"{float(ref.abs().max()):.2f}); bf16 ref vs float32 ref on the "
+        f"same weights {noise:.3e}")
+    if err > REC_F32_BARS[arch]:
+        raise AssertionError(f"{arch} float32 forward: kernels and ref "
+                             f"disagree")
+    return err, noise
+
+
+def teacher_forced_check(model, params, eng, bar):
+    """Every generated token must be the argmax of a teacher-forced kernel
+    forward over the request's prompt and generated tokens at its
+    position, or within `bar` of that argmax (a near tie).  Returns the
+    near ties."""
+    ties = []
+    for r in sorted(eng.sched.finished, key=lambda r: r.uid):
+        seq = list(r.prompt) + list(r.out_tokens)
+        toks = torch.tensor([seq[:-1]], dtype=torch.int32,
+                            device=model.device)
+        logits = model.forward(params, {"tokens": toks})[0][0]
+        for i, tok in enumerate(r.out_tokens):
+            row = logits[len(r.prompt) - 1 + i]
+            top = int(torch.argmax(row))
+            if top == tok:
+                continue
+            gap = float(row[top] - row[tok])
+            if gap > bar:
+                raise AssertionError(
+                    f"request {r.uid} token {i}: generated {tok}, the "
+                    f"teacher-forced forward's argmax is {top}, {gap:.3f} "
+                    f"above it (bar {bar})")
+            ties.append({"uid": r.uid, "index": i, "token": tok,
+                         "argmax": top, "gap": gap})
+    return ties
+
+
+def recurrent_serving(model, params, arch, check_tokens: bool):
+    """The 6 requests on the dense recurrent-state cache, counted: every
+    request finished, launch counts, no implicit sync, one fetch per
+    admission and decode tick; with check_tokens the teacher-forced
+    check.  Returns (the launch counts, the e2e numbers)."""
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    eng, tick_s, syncs, wall = run_traffic(model, params, REC_SCFG, True,
+                                           REC_PROMPTS)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    done = eng.sched.finished
+    if len(done) != len(REC_PROMPTS) or any(
+            len(r.out_tokens) != REC_NEW for r in done):
+        raise AssertionError(f"{arch} serving: not every request finished "
+                             f"with {REC_NEW} tokens")
+    toks = np.array([t for r in done for t in r.out_tokens])
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError("generated token ids out of the vocabulary")
+    kinds = [r.kind for r in eng.launch_records()]
+    steps = eng.jit_calls           # decode steps: stepwise tokens + ticks
+    if steps != sum(REC_PROMPTS) + kinds.count("decode") \
+            or kinds.count("stepwise") != len(REC_PROMPTS):
+        raise AssertionError(f"{arch} serving: {steps} decode steps for "
+                             f"{kinds.count('stepwise')} admissions and "
+                             f"{kinds.count('decode')} decode ticks")
+    want = {k: 0 for k in COUNTERS}
+    if cfg.family == "hybrid":
+        want["K3"] = n_shared_applications(cfg) * steps
+    if launches != want:
+        raise AssertionError(f"{arch} serving: kernel launches {launches} "
+                             f"!= {want}")
+    if syncs:
+        raise AssertionError(f"{arch} serving: {syncs} implicit host syncs "
+                             f"in the ticks")
+    if eng.host_syncs != len(REC_PROMPTS) + kinds.count("decode"):
+        raise AssertionError(f"{arch} serving: {eng.host_syncs} fetches")
+    ties = teacher_forced_check(model, params, eng, REC_F32_BARS[arch]) \
+        if check_tokens else None
+    stats = eng.stats()
+    dtype = str(cfg.dtype)
+    log(f"# {arch} serving ({dtype}): {len(done)} requests x {REC_NEW} "
+        f"tokens, {sum(REC_PROMPTS)} prompt tokens admitted stepwise, "
+        f"{kinds.count('decode')} decode ticks, {steps} decode steps; "
+        f"kernel launches {launches}, implicit host syncs in the ticks: "
+        f"{syncs}" + ("" if ties is None else
+                      f"; teacher-forced check: every token the argmax or "
+                      f"within {REC_F32_BARS[arch]} of it, near ties "
+                      f"{ties}"))
+    e2e = {"dtype": dtype, "requests": len(done),
+           "prompt_tokens": sum(REC_PROMPTS),
+           "gen_tokens": stats["gen_tokens"], "decode_steps": steps,
+           "decode_ticks": kinds.count("decode"), "ticks": len(tick_s),
+           "wall_s": wall, "gen_tok_s": stats["gen_tokens"] / wall,
+           "tokens_per_s": (stats["gen_tokens"] + sum(REC_PROMPTS)) / wall,
+           "tick_ms_median": float(np.median(tick_s)) * 1e3,
+           "peak_mem_gb": peak / 1e9,
+           "cache_gb": eng.kv_cache_bytes() / 1e9,
+           "kernel_launches": launches, "implicit_syncs": syncs,
+           "host_syncs": eng.host_syncs}
+    if ties is not None:
+        e2e["near_ties"] = ties
+    return launches, e2e
+
+
+def _scan_weight(t, *rest):
+    return t.numel()
+
+
+def phase_recurrent():
+    """zamba2-2.7b and rwkv6-1.6b at full width.  bf16, the deployment
+    dtype: the forward (counted; logits against impl="ref" within
+    REC_NOISE_MARGIN x the model's own bf16 noise), each layer against
+    impl="ref" on the same input, and the 6 requests served (counted).
+    float32, on the same weights: the forward's logits against
+    impl="ref", each layer on the same input, and the same traffic with
+    the teacher-forced token check.  K6 / K7 (and zamba2's
+    K4 / K3 at head dim 80) are captured at their largest call for the
+    timing phase; one zamba2 forward is traced."""
+    run = {"launches": {k: 0 for k in COUNTERS},
+           "per_forward": {k: 0 for k in COUNTERS}}
+    e2e, captured, trace = {}, {}, None
+    for arch in REC_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"# {arch}: {cfg.family}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params / 1e9:.2f} B params ({cfg.dtype}), "
+            f"built and seeded in {time.perf_counter() - t0:.1f} s")
+        with Capture(mamba2_scan, "mamba2_scan", _scan_weight) as c6, \
+                Capture(rwkv6_scan, "rwkv6_scan", _scan_weight) as c7, \
+                Capture(flash_attention, "flash_attention_fwd",
+                        _k4_weight) as c4:
+            fwd, ref16, err16, e2e_fwd = recurrent_forward(model, params,
+                                                           arch)
+        layer_err = layer_parity(model, params, arch)
+        serve, e2e_serve = recurrent_serving(model, params, arch, False)
+        if cfg.family == "hybrid":
+            captured.update(K6=c6.best, K4_d80=c4.best)
+            with Capture(flash_decode, "flash_decode", _lens_weight) as c3:
+                model.decode_step(params, *_zamba2_decode_args(model))
+            captured["K3_d80"] = c3.best
+            batch = _rec_batch(model)
+            trace = device_trace(lambda: model.forward(params, batch))
+            trace.update(run="recurrent", model=arch,
+                         forward_batch=list(REC_BATCH))
+            log(f"# trace (zamba2 forward {REC_BATCH}): device busy "
+                f"{trace['device_busy_s']:.3f} s of "
+                f"{trace['profiled_wall_s']:.3f} s")
+        else:
+            captured["K7"] = c7.best
+        m32, p32 = fp32_copy(model, params)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        err32, noise = recurrent_fp32(m32, p32, arch, ref16)
+        layer_err32 = layer_parity(m32, p32, arch)
+        log(f"# {arch} bf16 forward: logits max |kernels - ref| {err16:.3e}"
+            f" against the model's own bf16 noise {noise:.3e} (bar "
+            f"{REC_NOISE_MARGIN} x it)")
+        if err16 > REC_NOISE_MARGIN * noise:
+            raise AssertionError(f"{arch} bf16 forward: kernels and ref "
+                                 f"part by more than the bf16 noise")
+        del ref16
+        serve32, e2e_serve32 = recurrent_serving(m32, p32, arch, True)
+        for k in COUNTERS:
+            run["launches"][k] += fwd[k] + serve[k]
+            run["per_forward"][k] += fwd[k]
+        e2e[arch] = dict(
+            e2e_fwd, params=n_params, serving=e2e_serve,
+            serving_fp32=e2e_serve32,
+            checks={"forward_bf16_logits_max_abs_err": err16,
+                    "bf16_noise_logits_max_abs": noise,
+                    "layer_bf16_max_abs_err": layer_err,
+                    "layer_fp32_max_abs_err": layer_err32,
+                    "forward_fp32_logits_max_abs_err": err32})
+        del m32, p32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return run, captured, e2e, trace
+
+
+def _zamba2_decode_args(model):
+    """One decode step of zamba2 at the serving shape: 4 lanes of the
+    512-token strips, filled with seeded values, lengths spread over [0,
+    512) (an extra step outside the counted runs: capturing K3's arguments
+    inside them would synchronise)."""
+    cache = model.init_cache(REC_SCFG["max_batch"], REC_SCFG["max_seq"])
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    for name in ("shared_k", "shared_v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=g,
+                                      device=dev))
+    tokens = torch.ones((REC_SCFG["max_batch"], 1), dtype=torch.int32,
+                        device=dev)
+    lens = torch.tensor([0, 100, 300, 511], dtype=torch.int32, device=dev)
+    return tokens, lens, cache
 
 
 # ---------------------------------------------------------------------------
@@ -955,6 +1356,74 @@ def k5_library(a):
                                        retain_graph=True)
 
 
+def k6_call(a, impl=None):
+    return ops.mamba2_scan(a["x"], a["dt"], a["A"], a["Bm"], a["Cm"],
+                           impl=impl)
+
+
+def k7_call(a, impl=None):
+    return ops.rwkv6_scan(a["r"], a["k"], a["v"], a["w"], a["u"], impl=impl)
+
+
+def scan_compare(call, a, dtype) -> float:
+    """K6 / K7 against the plain chunked scan: float32 within 1e-5 of the
+    largest term (the plain scan of the inputs' absolute values - the
+    decays are positive - is the magnitude of the summed terms), bfloat16
+    within one rounding step of the output, 2^-7 |y|, plus that."""
+    got, want = call(a), call(a, "ref")
+    absd = {k: (v.abs() if k in ("x", "Bm", "Cm", "r", "k", "v", "u")
+                else v) for k, v in a.items()}
+    bar = F32_TOL * float(call(absd, "ref").float().abs().max())
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    limit = bar + (BF16_RTOL * w.abs() if dtype == torch.bfloat16 else 0.0)
+    if not bool(torch.isfinite(g).all()) or not bool(
+            ((g - w).abs() <= limit).all()):
+        raise AssertionError(f"scan kernel disagrees with its plain "
+                             f"version: max abs err {err:.3e} ({dtype})")
+    return err
+
+
+def k6_work(a):
+    """x, dt, A, B, C read once, y written once; the chunked form's
+    products over 128-step chunks, the causal half of each chunk's pairs
+    (C B^T masked, times dt x), the carry-in C h and the state update
+    (dt x)^T B: 2 (T (T + 1) / 2 (N + P) + 2 T N P) FLOPs per chunk, head
+    and sequence."""
+    x, Bm = a["x"], a["Bm"]
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    el = x.element_size()
+    nbytes = 2 * x.numel() * el + 2 * Bm.numel() * el \
+        + (a["dt"].numel() + a["A"].numel()) * 4
+    T = 128
+    flops = 0
+    for c0 in range(0, S, T):
+        t = min(T, S - c0)
+        flops += 2 * (t * (t + 1) // 2 * (N + P) + 2 * t * N * P)
+    return nbytes, flops * B * H
+
+
+def k7_work(a):
+    """r, k, v, w, u read once, y written once; the chunked form's products
+    over 32-step chunks: the strictly lower pairs (r e^cw)(k e^-cw)^T times
+    v, the diagonal (r u k) v, the carry-in r S and the state update k^T v:
+    T (T - 1) (K + V) + 3 T K + 4 T K V FLOPs per chunk, head and
+    sequence."""
+    r, v = a["r"], a["v"]
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    el = r.element_size()
+    nbytes = (2 * r.numel() + 2 * v.numel()) * el \
+        + (a["w"].numel() + a["u"].numel()) * 4
+    T = 32
+    flops = 0
+    for c0 in range(0, S, T):
+        t = min(T, S - c0)
+        flops += t * (t - 1) * (K + V) + 3 * t * K + 4 * t * K * V
+    return nbytes, flops * B * H
+
+
 # key -> (name, call, work, library, source, TPU kernel, run that feeds
 # its row, argument names of the wrapper)
 KERNELS = {
@@ -979,53 +1448,75 @@ KERNELS = {
            "src/repro_torch/csrc/flash_backward.cu",
            "src/repro/kernels/flash_backward.py:168", "train",
            ("q", "k", "v", "o", "lse", "do")),
+    "K6": ("K6 mamba2_scan", k6_call, k6_work, None,
+           "src/repro_torch/csrc/mamba2_scan.cu",
+           "src/repro/kernels/mamba2_scan.py:72", "recurrent",
+           ("x", "dt", "A", "Bm", "Cm")),
+    "K7": ("K7 rwkv6_scan", k7_call, k7_work, None,
+           "src/repro_torch/csrc/rwkv6_scan.cu",
+           "src/repro/kernels/rwkv6_scan.py:83", "recurrent",
+           ("r", "k", "v", "w", "u")),
 }
+PER = {"train": "per_step", "recurrent": "per_forward"}
+
+
+def _timed(key, args_kw, flush):
+    """One kernel at one captured call: parity (its dtype and float32),
+    kernel, plain and library times, the bound."""
+    name, call, work, lib, src, tpu, run, names = KERNELS[key]
+    args, kw = args_kw
+    a = dict(zip(names, args))
+    a.update(kw)
+    f32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point()
+               else v) for k, v in a.items()}
+    dtype = next(v for v in a.values() if torch.is_tensor(v)).dtype
+    if key in ("K4", "K5"):
+        cmp = {"K4": k4_compare, "K5": k5_compare}[key]
+        err, err32 = cmp(a, dtype), cmp(f32, torch.float32)
+    elif key in ("K6", "K7"):
+        err = scan_compare(call, a, dtype)
+        err32 = scan_compare(call, f32, torch.float32)
+    else:
+        err = compare(call(a), call(a, "ref"), dtype)
+        err32 = compare(call(f32), call(f32, "ref"), torch.float32)
+    nbytes, flops = work(a)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
+    return {"max_abs_err": err, "max_abs_err_f32": err32,
+            "ms": time_ms(lambda: call(a), flush),
+            "plain_ms": time_ms(lambda: call(a, "ref"), flush),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lib(a), flush) if lib else None,
+            "shape": {k: list(v.shape) for k, v in a.items()
+                      if torch.is_tensor(v)},
+            "bytes": nbytes, "flops": flops}
 
 
 def phase_times(runs, captured):
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
-    compares = {"K4": k4_compare, "K5": k5_compare}
     rows = []
-    for key, (name, call, work, lib, src, tpu, run, names) in \
-            KERNELS.items():
-        args, kw = captured[key]
-        a = dict(zip(names, args))
-        a.update(kw)
-        f32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point()
-                   else v) for k, v in a.items()}
-        if key in compares:
-            err = compares[key](a, a["q"].dtype)
-            err32 = compares[key](f32, torch.float32)
-        else:
-            err = compare(call(a), call(a, "ref"), a["q"].dtype)
-            err32 = compare(call(f32), call(f32, "ref"), torch.float32)
-        nbytes, flops = work(a)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
-        per = "per_step" if run == "train" else "per_tick"
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": runs[run]["launches"][key],
-            f"launches_{per}": runs[run][per][key],
-            "launches_by_run": {r: v["launches"][key]
-                                for r, v in runs.items()},
-            "timed_from_run": run,
-            "max_abs_err": err, "max_abs_err_f32": err32,
-            "ms": time_ms(lambda: call(a), flush),
-            "plain_ms": time_ms(lambda: call(a, "ref"), flush),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": time_ms(lib(a), flush),
-            "library": "scaled_dot_product_attention"
-                       + (" on K/V pre-gathered into contiguous strips "
-                          "(gather not timed)" if key in ("K1", "K2")
-                          else " backward (torch.autograd.grad of its "
-                          "output; inputs transposed beforehand, not timed)"
-                          if key == "K5"
-                          else " (inputs transposed beforehand, not timed)"),
-            "shape": {k: list(v.shape) for k, v in a.items()
-                      if torch.is_tensor(v)},
-            "bytes": nbytes, "flops": flops})
+    for key, (name, _, _, lib, src, tpu, run, _) in KERNELS.items():
+        per = PER.get(run, "per_tick")
+        row = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+               "launches": runs[run]["launches"][key],
+               f"launches_{per}": runs[run][per][key],
+               "launches_by_run": {r: v["launches"][key]
+                                   for r, v in runs.items()},
+               "timed_from_run": run}
+        row.update(_timed(key, captured[key], flush))
+        row["library"] = (
+            "none: no single PyTorch call computes this scan" if lib is None
+            else "scaled_dot_product_attention"
+            + (" on K/V pre-gathered into contiguous strips (gather not "
+               "timed)" if key in ("K1", "K2")
+               else " backward (torch.autograd.grad of its output; inputs "
+               "transposed beforehand, not timed)" if key == "K5"
+               else " (inputs transposed beforehand, not timed)"))
+        if f"{key}_d80" in captured:
+            # zamba2's shared attention block: head dim 80, 32 heads, G 1
+            row["at_zamba2_d80"] = _timed(key, captured[f"{key}_d80"], flush)
+        rows.append(row)
     return rows
 
 
@@ -1091,17 +1582,22 @@ def main() -> int:
     runs["train"], captured["K5"], e2e_train, trace_train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
+    runs["recurrent"], rec_captured, e2e_rec, trace_rec = phase_recurrent()
+    captured.update(rec_captured)
     rows = phase_times(runs, captured)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)
     print(json.dumps({"trace_dense": trace_dense}), flush=True)
     print(json.dumps({"trace_train": trace_train}), flush=True)
+    print(json.dumps({"trace_recurrent": trace_rec}), flush=True)
     print(json.dumps({"e2e": runs["chunked"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_dense": runs["dense"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_paged_monolithic":
                       runs["paged_monolithic"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_train": e2e_train}), flush=True)
+    print(json.dumps({"e2e_recurrent": e2e_rec}), flush=True)
     log(f"# total {time.perf_counter() - t0:.1f} s")
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

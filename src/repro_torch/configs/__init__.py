@@ -7,10 +7,13 @@ from typing import Dict
 from .base import (ModelConfig, ServeConfig, TrainConfig,
                    dense_equivalent_pages, pages_for_tokens)
 
-# the dense architectures the port serves so far
+# the architectures the port runs so far: two dense decoders, the hybrid
+# Mamba2 zamba2 and the RWKV6 rwkv6
 ARCH_MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "gemma3-4b": "gemma3_4b",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 

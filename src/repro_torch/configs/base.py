@@ -2,11 +2,12 @@
 
 The port keeps its own copy of the configuration schema: the field names,
 defaults and validation rules are those of the JAX package.  ModelConfig
-carries the fields of the dense family the port serves (the MoE, SSM,
-hybrid, RWKV, encoder-decoder and frontend fields come with those
-families, ROADMAP M13); ServeConfig carries every field, so one set of
-keyword arguments builds either package's serve config, and the engine
-refuses the settings it does not serve yet.  TrainConfig is a copy of the
+carries the fields of the families the port runs - dense, hybrid (Mamba2
+with a shared attention block) and ssm (RWKV6); the MoE, encoder-decoder
+and frontend fields come with those families (ROADMAP M13).  ServeConfig
+carries every field, so one set of keyword arguments builds either
+package's serve config, and the engine refuses the settings it does not
+serve yet.  TrainConfig is a copy of the
 JAX package's, field for field.  Mesh and shape configs arrive with the
 slices that need them.
 """
@@ -43,6 +44,18 @@ class ModelConfig:
     global_every: int = 0       # gemma3: every Nth layer is global, rest local
     attn_logit_softcap: float = 0.0
     use_rope: bool = True
+
+    # --- SSM (Mamba2) --------------------------------------------------------
+    ssm_state: int = 0
+    ssm_heads: int = 0          # 0 -> derived
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+
+    # --- hybrid (zamba2) ---------------------------------------------------
+    shared_attn_every: int = 0  # one shared attn block every k ssm blocks
+
+    # --- RWKV --------------------------------------------------------------
+    rwkv: bool = False
 
     max_seq: int = 524_288
 

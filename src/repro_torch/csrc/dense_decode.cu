@@ -213,9 +213,10 @@ int launch(const void* q, const void* kc, const void* vc, const void* lens,
 }  // namespace
 
 // C entry point bound through ctypes.  Returns a cudaError_t (0 = launched).
-// Element type: is_bf16 = 1 for bfloat16, 0 for float32.  Head dim 64 or
-// 128; at most 16 query heads per KV head.  Anything else returns
-// cudaErrorInvalidValue without launching (the Python wrapper checks first).
+// Element type: is_bf16 = 1 for bfloat16, 0 for float32.  Head dim 64, 80
+// (zamba2's shared attention block) or 128; at most 16 query heads per KV
+// head.  Anything else returns cudaErrorInvalidValue without launching (the
+// Python wrapper checks first).
 extern "C" int dense_decode_launch(const void* q, const void* k_cache,
                                    const void* v_cache,
                                    const void* cache_len, void* out, int B,
@@ -230,6 +231,10 @@ extern "C" int dense_decode_launch(const void* q, const void* k_cache,
       return launch<__nv_bfloat16, 64>(q, k_cache, v_cache, cache_len, out,
                                        B, S, Hkv, G, window, scale, softcap,
                                        s);
+    if (D == 80)
+      return launch<__nv_bfloat16, 80>(q, k_cache, v_cache, cache_len, out,
+                                       B, S, Hkv, G, window, scale, softcap,
+                                       s);
     if (D == 128)
       return launch<__nv_bfloat16, 128>(q, k_cache, v_cache, cache_len, out,
                                         B, S, Hkv, G, window, scale, softcap,
@@ -237,6 +242,9 @@ extern "C" int dense_decode_launch(const void* q, const void* k_cache,
   } else {
     if (D == 64)
       return launch<float, 64>(q, k_cache, v_cache, cache_len, out, B, S,
+                               Hkv, G, window, scale, softcap, s);
+    if (D == 80)
+      return launch<float, 80>(q, k_cache, v_cache, cache_len, out, B, S,
                                Hkv, G, window, scale, softcap, s);
     if (D == 128)
       return launch<float, 128>(q, k_cache, v_cache, cache_len, out, B, S,

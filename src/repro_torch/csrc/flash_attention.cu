@@ -257,8 +257,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 // C entry point bound through ctypes.  Returns a cudaError_t (0 = launched).
 // Element type: is_bf16 = 1 for bfloat16, 0 for float32 (lse is always
-// float32); head dim 64 or 128.  Anything else returns
-// cudaErrorInvalidValue without launching (the Python wrapper checks first).
+// float32); head dim 64, 80 (zamba2's shared attention block) or 128.
+// Anything else returns cudaErrorInvalidValue without launching (the Python
+// wrapper checks first).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int Sq, int Skv, int Hkv, int G,
@@ -272,12 +273,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (D == 64)
       return launch<__nv_bfloat16, 64>(q, k, v, out, lse, B, Sq, Skv, Hkv,
                                        G, causal, window, scale, softcap, s);
+    if (D == 80)
+      return launch<__nv_bfloat16, 80>(q, k, v, out, lse, B, Sq, Skv, Hkv,
+                                       G, causal, window, scale, softcap, s);
     if (D == 128)
       return launch<__nv_bfloat16, 128>(q, k, v, out, lse, B, Sq, Skv, Hkv,
                                         G, causal, window, scale, softcap, s);
   } else {
     if (D == 64)
       return launch<float, 64>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
+                               window, scale, softcap, s);
+    if (D == 80)
+      return launch<float, 80>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
                                window, scale, softcap, s);
     if (D == 128)
       return launch<float, 128>(q, k, v, out, lse, B, Sq, Skv, Hkv, G,

@@ -56,6 +56,10 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     # window, scale, softcap, is_bf16, stream
     "flash_backward": ("flash_backward_launch",
                        (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P)),
+    # x, dt, A, Bm, Cm, y, B, S, H, P, N, is_bf16, stream
+    "mamba2_scan": ("mamba2_scan_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
+    # r, k, v, w, u, y, B, S, H, K, V, is_bf16, stream
+    "rwkv6_scan": ("rwkv6_scan_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

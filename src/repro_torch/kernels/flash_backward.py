@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ref
-from ._checks import check_operands
+from ._checks import HEAD_DIMS_64_128, check_operands
 
 # backward calls that launched the kernels (CPU calls do not count); one
 # count is the dq launch and the dk/dv launch of that call together
@@ -39,7 +39,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return reference(q, k, v, o, lse, do, causal=causal, window=window,
                          logit_softcap=logit_softcap, scale=scale)
     check_operands("flash_attention_bwd", q, k, v, {},
-                   layout="(B, Skv, Hkv, D)")
+                   layout="(B, Skv, Hkv, D)", head_dims=HEAD_DIMS_64_128)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if k.shape[0] != B:

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from . import build, ref
-from ._checks import check_operands
+from ._checks import HEAD_DIMS_64_128, check_operands
 
 # kernel launches made by the wrappers below (CPU calls do not count)
 launches = 0            # K2, paged_flash_decode
@@ -89,7 +89,7 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
     n_max = block_table.shape[-1]
     check_operands("paged_flash_decode", q, k_pages, v_pages, {
         "block_table": (block_table, (B, n_max)),
-        "cache_len": (cache_len, (B,))})
+        "cache_len": (cache_len, (B,))}, head_dims=HEAD_DIMS_64_128)
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
     if Sq != 1:
         raise ValueError(f"paged_flash_decode: one query token per "

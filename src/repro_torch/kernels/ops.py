@@ -1,12 +1,16 @@
-"""Attention dispatch: the hand-written kernel or its plain version.
+"""Kernel dispatch: the hand-written kernel or its plain version.
 
 impl=None (every caller on the serving and training paths): a CUDA tensor
 launches the hand-written CUDA kernel (kernels/flash_attention.py,
 kernels/flash_backward.py, kernels/paged_prefill.py, kernels/
-flash_decode.py) and a CPU tensor takes the plain PyTorch version; there
-is no fallback from one to the other.  impl="ref" forces the plain
-version on any device - the tests and chip_smoke.py's parity phases use
-it to hold the kernels against it.
+flash_decode.py, kernels/mamba2_scan.py, kernels/rwkv6_scan.py) and a CPU
+tensor takes the plain PyTorch version; there is no fallback from one to
+the other.  impl="ref" forces the plain version on any device - the tests
+and chip_smoke.py's parity phases use it to hold the kernels against it.
+The scans also take impl="naive", the step-by-step recurrence, as the
+JAX package's ops do.  The single-step decode updates of the recurrent
+states (mamba2_step, rwkv6_step) are plain PyTorch, as in the JAX
+package: no TPU kernel stands behind them.
 """
 from __future__ import annotations
 
@@ -17,10 +21,13 @@ import torch
 from . import flash_attention as fa
 from . import flash_backward as fb
 from . import flash_decode as fd
+from . import mamba2_scan as m2
 from . import paged_prefill as pp
 from . import ref
+from . import rwkv6_scan as r6
 
 IMPLS = (None, "ref")
+SCAN_IMPLS = (None, "ref", "naive")
 
 
 def _check_impl(impl):
@@ -125,3 +132,44 @@ def paged_prefill_attention(q, k_pages, v_pages, page_row, q_offset, *,
         else pp.paged_prefill_attention
     return fn(q, k_pages, v_pages, page_row, q_offset, window=window,
               logit_softcap=logit_softcap, scale=scale)
+
+
+def _check_scan_impl(impl):
+    if impl not in SCAN_IMPLS:
+        raise ValueError(f"impl must be one of {SCAN_IMPLS}, got {impl!r}")
+
+
+def mamba2_scan(x, dt, A, Bm, Cm, *,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """Mamba2 SSD scan.  x: (B, S, H, P); dt: (B, S, H) float32; A: (H,)
+    float32; Bm / Cm: (B, S, N).  Returns y (B, S, H, P) in x's dtype.
+    impl=None launches K6 on a CUDA tensor (which raises where autograd
+    would need its gradient) and runs the chunked plain version, which
+    autograd differentiates, on a CPU tensor."""
+    _check_scan_impl(impl)
+    if impl == "naive":
+        return ref.mamba2_scan(x, dt, A, Bm, Cm)
+    if impl == "ref":
+        return ref.mamba2_scan_chunked(x, dt, A, Bm, Cm)
+    return m2.mamba2_scan(x, dt, A, Bm, Cm)
+
+
+mamba2_step = ref.mamba2_step
+
+
+def rwkv6_scan(r, k, v, w, u, *,
+               impl: Optional[str] = None) -> torch.Tensor:
+    """RWKV6 WKV scan.  r, k: (B, S, H, K); v: (B, S, H, V); w: (B, S, H,
+    K) float32 decay; u: (H, K) float32.  Returns y (B, S, H, V) in r's
+    dtype.  impl=None launches K7 on a CUDA tensor (which raises where
+    autograd would need its gradient) and runs the chunked plain version,
+    which autograd differentiates, on a CPU tensor."""
+    _check_scan_impl(impl)
+    if impl == "naive":
+        return ref.rwkv6_scan(r, k, v, w, u)
+    if impl == "ref":
+        return ref.rwkv6_scan_chunked(r, k, v, w, u)
+    return r6.rwkv6_scan(r, k, v, w, u)
+
+
+rwkv6_step = ref.rwkv6_step

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels: attention, and the Mamba2 and
+RWKV6 scans.
 
 These are the ground truth the hand-written CUDA kernels are held against
 (chip_smoke.py's parity phase) and the path every kernel wrapper takes for
@@ -10,6 +11,9 @@ m_safe guards that make fully masked rows come out exactly zero.
 Conventions:
   q, k, v: (batch, seq, heads, head_dim); pools: (num_pages, page_size,
   Hkv, head_dim); GQA when Hkv < Hq (query head j reads KV head j // G).
+  Scans: x (B, S, H, P), dt (B, S, H), A (H,), Bm / Cm (B, S, N) for
+  Mamba2; r, k, w (B, S, H, K), v (B, S, H, V), u (H, K) for RWKV6; the
+  recurrent state is float32 whatever the input dtype.
 """
 from __future__ import annotations
 
@@ -302,3 +306,180 @@ def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+# ===========================================================================
+# Mamba2 (SSD) selective state space
+# ===========================================================================
+
+def mamba2_scan(x, dt, A, Bm, Cm) -> torch.Tensor:
+    """Mamba2 SSD recurrence, one step at a time (per-head scalar decay):
+
+      h_t = exp(-dt_t * A) * h_{t-1} + dt_t * (x_t outer B_t)
+      y_t = h_t . C_t
+
+    x: (B, S, H, P); dt: (B, S, H) positive step sizes (after softplus);
+    A: (H,) positive decay rates; Bm / Cm: (B, S, N), shared by the heads.
+    Returns y (B, S, H, P) in x's dtype."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h, y = mamba2_step(h, x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t])
+        ys.append(y)
+    return torch.stack(ys, 1) if ys else x.new_zeros(x.shape)
+
+
+def mamba2_step(h, x_t, dt_t, A, B_t, C_t):
+    """Single decode step.  h: (B, H, P, N) float32 state; x_t (B, H, P);
+    dt_t (B, H); B_t / C_t (B, N).  Returns (h', y_t (B, H, P) in x_t's
+    dtype)."""
+    decay = torch.exp(-dt_t.float() * A.float()[None])
+    inject = (dt_t.float()[..., None] * x_t.float())[..., None] \
+        * B_t.float()[:, None, None, :]
+    h = h * decay[..., None, None] + inject
+    y = torch.einsum("bhpn,bn->bhp", h, C_t.float())
+    return h, y.to(x_t.dtype)
+
+
+def mamba2_scan_chunked_state(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """Chunked SSD returning (y, final state (B, H, P, N) float32) - the
+    prefill's scan."""
+    return _mamba2_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def mamba2_scan_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """Chunked SSD: the plain version of K6 (csrc/mamba2_scan.cu)."""
+    return _mamba2_chunked(x, dt, A, Bm, Cm, chunk=chunk)[0]
+
+
+def _mamba2_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """Chunked matrix-form SSD, the JAX package's _mamba2_chunked: within a
+    chunk of T steps y = (C B^T * L) (dt x) with L[t, s] = exp(csum_t -
+    csum_s) for s <= t, plus the carry-in exp(csum_t) C_t . h; the (P, N)
+    state crosses chunk boundaries.  S is zero-padded to a chunk multiple
+    (dt = 0: a no-op step).  The pairs above the diagonal are masked
+    before the exp (the JAX version multiplies by the mask after it, which
+    turns an overflowing exp(csum_t - csum_s), t < s, into 0 * inf = NaN
+    at large dt * A); every value it keeps is the same."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+    Af = A.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        xf = x[:, c0:c0 + chunk].float()
+        dtf = dt[:, c0:c0 + chunk].float()
+        bf = Bm[:, c0:c0 + chunk].float()
+        cf = Cm[:, c0:c0 + chunk].float()
+        log_a = -dtf * Af[None, None]                        # (B, T, H)
+        csum = torch.cumsum(log_a, 1)
+        diff = csum[:, :, None] - csum[:, None, :]           # (B, T, T, H)
+        M = torch.exp(torch.where(tri[None, :, :, None], diff,
+                                  float("-inf")))
+        CB = torch.einsum("btn,bsn->bts", cf, bf)
+        xw = xf * dtf[..., None]                             # (B, T, H, P)
+        y = torch.einsum("btsh,bshp->bthp", CB[..., None] * M, xw)
+        y = y + torch.exp(csum)[..., None] \
+            * torch.einsum("btn,bhpn->bthp", cf, h)
+        wout = torch.exp(csum[:, -1][:, None] - csum)[..., None] * xw
+        h_new = torch.einsum("bthp,btn->bhpn", wout, bf)
+        h = torch.exp(csum[:, -1])[..., None, None] * h + h_new
+        ys.append(y.to(x.dtype))
+    y = torch.cat(ys, 1) if ys else x
+    return y[:, :S], h
+
+
+# ===========================================================================
+# RWKV6 (Finch) WKV recurrence with data-dependent decay
+# ===========================================================================
+
+def rwkv6_scan(r, k, v, w, u) -> torch.Tensor:
+    """WKV6, one step at a time:
+
+      S_t = diag(w_t) S_{t-1} + k_t^T v_t
+      y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+
+    r, k, w: (B, S, H, K), w the decay in (0, 1); v: (B, S, H, V); u:
+    (H, K) bonus.  Returns y (B, S, H, V) in r's dtype."""
+    Bsz, S, H, K = r.shape
+    V = v.shape[-1]
+    st = torch.zeros((Bsz, H, K, V), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        st, y = rwkv6_step(st, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        ys.append(y)
+    return torch.stack(ys, 1) if ys else r.new_zeros(v.shape)
+
+
+def rwkv6_step(state, r_t, k_t, v_t, w_t, u):
+    """Single decode step.  state: (B, H, K, V) float32; r_t / k_t / w_t
+    (B, H, K); v_t (B, H, V).  Returns (state', y_t (B, H, V) in r_t's
+    dtype)."""
+    kv = k_t.float()[..., :, None] * v_t.float()[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", r_t.float(),
+                     state + u.float()[None, :, :, None] * kv)
+    state = state * w_t.float()[..., :, None] + kv
+    return state, y.to(r_t.dtype)
+
+
+def rwkv6_scan_chunked_state(r, k, v, w, u, *, chunk: int = 32):
+    """Chunked WKV6 returning (y, final state (B, H, K, V) float32) - the
+    prefill's scan."""
+    return _rwkv6_chunked(r, k, v, w, u, chunk=chunk)
+
+
+def rwkv6_scan_chunked(r, k, v, w, u, *, chunk: int = 32):
+    """Chunked WKV6: the plain version of K7 (csrc/rwkv6_scan.cu)."""
+    return _rwkv6_chunked(r, k, v, w, u, chunk=chunk)[0]
+
+
+def _rwkv6_chunked(r, k, v, w, u, *, chunk: int = 32):
+    """Chunked matrix-form WKV6, the JAX package's _rwkv6_chunked: with cw
+    the inclusive cumulative log decay of a chunk, y_t = sum_{s<t} (r_t
+    e^{cw_{t-1}}) . (k_s e^{-cw_s}) v_s + (r_t u . k_t) v_t + (r_t
+    e^{cw_{t-1}}) S_in.  e^{-cw} stays finite in float32 only while
+    chunk * |log w| stays below ~88: the model clamps w >= exp(-exp(0.75))
+    and the chunk is 32.  S is padded to a chunk multiple with w = 1 (a
+    no-op decay)."""
+    Bsz, S, H, K = r.shape
+    V = v.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        zp = (0, 0, 0, 0, 0, pad)
+        r = torch.nn.functional.pad(r, zp)
+        k = torch.nn.functional.pad(k, zp)
+        v = torch.nn.functional.pad(v, zp)
+        w = torch.nn.functional.pad(w, zp, value=1.0)
+    uf = u.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                device=r.device), -1)
+    st = torch.zeros((Bsz, H, K, V), dtype=torch.float32, device=r.device)
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        rt, kt, vt, wt = (t[:, c0:c0 + chunk].float() for t in (r, k, v, w))
+        logw = torch.log(torch.clamp_min(wt, 1e-30))
+        cw = torch.cumsum(logw, 1)
+        cw_prev = cw - logw
+        r_dec = rt * torch.exp(cw_prev)
+        k_dec = kt * torch.exp(-cw)
+        A = torch.einsum("bthk,bshk->bhts", r_dec, k_dec) * tri[None, None]
+        y = torch.einsum("bhts,bshv->bthv", A, vt)
+        diag = torch.sum(rt * uf[None, None] * kt, -1, keepdim=True)
+        y = y + diag * vt
+        y = y + torch.einsum("bthk,bhkv->bthv", r_dec, st)
+        k_out = k_dec * torch.exp(cw[:, -1])[:, None]
+        s_new = torch.einsum("bthk,bthv->bhkv", k_out, vt)
+        st = torch.exp(cw[:, -1])[..., None] * st + s_new
+        ys.append(y.to(r.dtype))
+    y = torch.cat(ys, 1) if ys else r.new_zeros(v.shape)
+    return y[:, :S], st

@@ -20,7 +20,7 @@ import torch
 
 from ..configs import get_config, get_smoke_config
 from ..configs.base import TrainConfig
-from ..kernels._checks import HEAD_DIMS
+from ..kernels._checks import HEAD_DIMS_64_128
 
 
 def main(argv=None):
@@ -41,8 +41,8 @@ def main(argv=None):
     if args.smoke:
         cfg = get_smoke_config(args.arch)
         if torch.device(args.device).type == "cuda" \
-                and cfg.head_dim not in HEAD_DIMS:
-            cfg = cfg.replace(head_dim=HEAD_DIMS[0])
+                and cfg.head_dim not in HEAD_DIMS_64_128:
+            cfg = cfg.replace(head_dim=HEAD_DIMS_64_128[0])
         tcfg = TrainConfig(global_batch=args.global_batch or 8,
                            seq_len=args.seq or 64, total_steps=args.steps,
                            warmup_steps=5, checkpoint_dir=args.ckpt_dir,

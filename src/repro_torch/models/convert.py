@@ -6,9 +6,13 @@ the host (`jax.device_get`) every leaf is a numpy array.  params_from_numpy
 turns that tree into the port's tree of torch tensors with the same keys
 and the same stacked (L, ...) layout - a dense weight stays (d_in, d_out)
 and the port computes x @ w - so the two packages run the very same
-weights.  bfloat16 leaves arrive as numpy arrays of the ml_dtypes bfloat16
-type, which torch.from_numpy refuses; their bits travel as int16 and are
-viewed back as torch.bfloat16.  Like every entry point of the port, both
+weights.  Each leaf must already have the dtype of the port's own
+parameter at its path (the config's dtype, but float32 for the leaves
+the JAX init keeps in float32: Mamba2's A_log and dt_bias, RWKV6's w_base
+and u); a mismatch raises instead of casting.  bfloat16 leaves arrive as
+numpy arrays of the ml_dtypes bfloat16 type, which torch.from_numpy
+refuses; their bits travel as int16 and are viewed back as
+torch.bfloat16.  Like every entry point of the port, both
 functions put their tensors on the GPU unless device="cpu" is asked for,
 and raise on a machine without one.  train_state_from_numpy carries a JAX
 TrainState (params, AdamW step / m / v, error-feedback buffers) across the
@@ -24,8 +28,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..optim import AdamWState
 from ..train.train_step import TrainState, trainable
-from .layers import pdtype
-from .model import resolve_device
+from .model import Model, resolve_device
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -40,25 +43,33 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     return t.to(device)
 
 
-def _tree_from_numpy(tree, want: torch.dtype, device, path: str, owner: str):
-    """Nested dict of numpy arrays -> nested dict of tensors on `device`,
-    every leaf already `want`; a mismatch raises instead of casting."""
+def _tree_from_numpy(tree, want, device, path: str, owner: str):
+    """Nested dict of numpy arrays -> nested dict of tensors on `device`.
+    `want` is a torch.dtype every leaf must have, or the matching nest of
+    tensors whose dtype each leaf must have; a mismatch raises instead of
+    casting."""
     if isinstance(tree, dict):
-        return {k: _tree_from_numpy(v, want, device, f"{path}/{k}", owner)
-                for k, v in tree.items()}
+        extra = set(tree) - set(want) if isinstance(want, dict) else ()
+        if extra:
+            raise KeyError(f"{path or '/'}: {sorted(extra)} not in {owner}")
+        return {k: _tree_from_numpy(
+            v, want[k] if isinstance(want, dict) else want, device,
+            f"{path}/{k}", owner) for k, v in tree.items()}
     t = tensor_from_numpy(tree, device)
-    if t.dtype != want:
-        raise TypeError(f"{path}: {t.dtype}, {owner} wants {want}")
+    dtype = want if isinstance(want, torch.dtype) else want.dtype
+    if t.dtype != dtype:
+        raise TypeError(f"{path}: {t.dtype}, {owner} wants {dtype}")
     return t
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device="cuda") -> Dict[str, Any]:
     """Nested dict of numpy arrays (the JAX Model.init tree) -> nested dict
-    of torch tensors on `device`.  Every leaf must already be in the
-    config's dtype; a mismatch raises instead of silently casting."""
+    of torch tensors on `device`, each leaf's dtype checked against the
+    port's own parameter at its path (Model(cfg) on the meta device, no
+    memory); a mismatch raises instead of silently casting."""
     device = resolve_device(device, "params_from_numpy")
-    return _tree_from_numpy(tree, pdtype(cfg), device, "",
+    return _tree_from_numpy(tree, Model(cfg, "meta").params, device, "",
                             f"config {cfg.name}")
 
 

@@ -1,17 +1,22 @@
-"""Layer loops of the dense decoder: the full-sequence forward, and prefill
-and decode over the dense or the paged KV cache.
+"""Layer loops of every ported family: the dense decoder (full-sequence
+forward, and prefill and decode over the dense or the paged KV cache), the
+hybrid zamba2 stack (Mamba2 layers with one shared-weight attention block
+after every shared_attn_every-th layer) and the RWKV6 stack.
 
 A Python loop over layers takes the place of the JAX package's lax.scan:
 layer l reads its slices of the stacked (L, ...) parameters and updates its
-strips k[l] / v[l] or its slab k_pages[l] / v_pages[l] of the cache in
-place.  The gemma3 local:global pattern is a Python `if` per layer instead
-of lax.cond.  stack_forward is also the training forward: with remat each
-layer runs under torch.utils.checkpoint, the counterpart of jax.checkpoint
-on the scanned body.
+strips k[l] / v[l], its slab k_pages[l] / v_pages[l] or its recurrent state
+of the cache in place.  The gemma3 local:global pattern and the hybrid
+stack's shared block are a Python `if` per layer instead of lax.cond.  The
+forwards are also the training forwards: with remat each layer runs under
+torch.utils.checkpoint, the counterpart of jax.checkpoint on the scanned
+body.  The JAX stacks' grad_cast, optimization_barrier and constrain are
+XLA and sharding hints with no counterpart here.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from functools import partial
+from typing import Callable, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -21,6 +26,9 @@ from .attention import (attn_decode, attn_decode_paged, attn_forward,
                         attn_prefill, attn_prefill_chunks_paged,
                         attn_prefill_paged)
 from .layers import apply_norm, mlp
+from .mamba2 import (mamba2_decode, mamba2_forward, mamba2_init_state,
+                     mamba2_prefill)
+from .rwkv6 import rwkv6_channel_mix, rwkv6_init_state, rwkv6_time_mix
 
 
 def _layer_windows(cfg: ModelConfig) -> List[bool]:
@@ -61,6 +69,13 @@ def _layers(blocks, n_layers: int):
              for name, group in per_leaf.items()} for l in range(n_layers)]
 
 
+def _run(fn, remat: bool, *args):
+    """fn(*args), under torch.utils.checkpoint when remat is on."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _block(p, x: torch.Tensor, cfg: ModelConfig, window: int,
            impl: Optional[str]) -> torch.Tensor:
     h = attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
@@ -76,12 +91,8 @@ def stack_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
     layer again there (the attention forward included)."""
     for p, is_global in zip(_layers(blocks, cfg.n_layers),
                             _layer_windows(cfg)):
-        window = _windowed(cfg, is_global)
-        if remat:
-            x = checkpoint(_block, p, x, cfg, window, impl,
-                           use_reentrant=False)
-        else:
-            x = _block(p, x, cfg, window, impl)
+        x = _run(_block, remat, p, x, cfg, _windowed(cfg, is_global),
+                 impl)
     return x
 
 
@@ -163,4 +174,185 @@ def stack_decode_paged(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
             cache["k_pages"][l], cache["v_pages"][l], bt, lens,
             window=_windowed(cfg, is_global), impl=impl)
         x = _ffn_tail(p, x + h, cfg)
+    return x
+
+
+# ===========================================================================
+# hybrid stack (zamba2): Mamba2 layers + one shared attention block
+# ===========================================================================
+
+def n_shared_applications(cfg: ModelConfig) -> int:
+    k = cfg.shared_attn_every
+    return cfg.n_layers // k if k else 0
+
+
+def _shared_at(cfg: ModelConfig, idx: int) -> bool:
+    """Whether the shared block follows Mamba2 layer idx."""
+    k = cfg.shared_attn_every
+    return bool(k) and idx % k == k - 1
+
+
+def _hybrid_layer(p, shared, x: torch.Tensor, impl: Optional[str], *,
+                  cfg: ModelConfig) -> torch.Tensor:
+    x = x + mamba2_forward(p, x, cfg, impl=impl)
+    if shared is not None:
+        x = _block(shared, x, cfg, 0, impl)
+    return x
+
+
+def hybrid_layers(blocks, cfg: ModelConfig) -> List[Callable]:
+    """One callable per layer, f(x, impl) -> x: Mamba2 layer l, then the
+    shared block where it follows layer l.  blocks: {"mamba": stacked (L,
+    ...) Mamba2 leaves, "shared": one attention block (n1, attn, n2, mlp),
+    unstacked}."""
+    shared = blocks["shared"]
+    return [partial(_hybrid_layer, p["mamba"],
+                    shared if _shared_at(cfg, idx) else None, cfg=cfg)
+            for idx, p in enumerate(_layers({"mamba": blocks["mamba"]},
+                                            cfg.n_layers))]
+
+
+def hybrid_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
+                   impl: Optional[str] = None,
+                   remat: bool = False) -> torch.Tensor:
+    """The hybrid stack over the whole sequence x (B, S, D)."""
+    for layer in hybrid_layers(blocks, cfg):
+        x = _run(layer, remat, x, impl)
+    return x
+
+
+def hybrid_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device):
+    """Per-layer conv windows and SSM states (L, batch, ...), and one dense
+    K / V strip (A, batch, max_len, Hkv, D) per application of the shared
+    block."""
+    st = mamba2_init_state(cfg, batch, dtype, device)
+    L = cfg.n_layers
+    A = max(n_shared_applications(cfg), 1)
+    kv = (A, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"conv": st["conv"].new_zeros((L,) + st["conv"].shape),
+            "ssm": st["ssm"].new_zeros((L,) + st["ssm"].shape),
+            "shared_k": torch.zeros(kv, dtype=dtype, device=device),
+            "shared_v": torch.zeros(kv, dtype=dtype, device=device)}
+
+
+def hybrid_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
+                   impl: Optional[str] = None) -> torch.Tensor:
+    """Full-sequence prefill from position 0: the chunked SSD scans fill
+    the per-layer conv / SSM states, the shared block prefills its K / V
+    strips; the cache is updated in place."""
+    k = cfg.shared_attn_every
+    shared = blocks["shared"]
+    for idx in range(cfg.n_layers):
+        p = {name: v[idx] for name, v in blocks["mamba"].items()}
+        y, st = mamba2_prefill(p, x, cfg)
+        x = x + y
+        cache["conv"][idx].copy_(st["conv"])
+        cache["ssm"][idx].copy_(st["ssm"])
+        if _shared_at(cfg, idx):
+            h = attn_prefill(shared["attn"],
+                             apply_norm(shared["n1"], x, cfg), cfg,
+                             cache["shared_k"][idx // k],
+                             cache["shared_v"][idx // k], impl=impl)
+            x = _ffn_tail(shared, x + h, cfg)
+    return x
+
+
+def hybrid_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
+                  lens: torch.Tensor, *,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """One token per lane: each Mamba2 layer steps its conv window and SSM
+    state, the shared block decodes against its strips at lens (written
+    in place)."""
+    k = cfg.shared_attn_every
+    shared = blocks["shared"]
+    for idx in range(cfg.n_layers):
+        p = {name: v[idx] for name, v in blocks["mamba"].items()}
+        y, st = mamba2_decode(p, x, cfg, {"conv": cache["conv"][idx],
+                                          "ssm": cache["ssm"][idx]})
+        x = x + y
+        cache["conv"][idx].copy_(st["conv"])
+        cache["ssm"][idx].copy_(st["ssm"])
+        if _shared_at(cfg, idx):
+            h = attn_decode(shared["attn"],
+                            apply_norm(shared["n1"], x, cfg), cfg,
+                            cache["shared_k"][idx // k],
+                            cache["shared_v"][idx // k], lens, impl=impl)
+            x = _ffn_tail(shared, x + h, cfg)
+    return x
+
+
+# ===========================================================================
+# RWKV6 stack
+# ===========================================================================
+
+def _rwkv_layer(p, x: torch.Tensor, impl: Optional[str], *,
+                cfg: ModelConfig) -> torch.Tensor:
+    h, _ = rwkv6_time_mix(p["mix"], apply_norm(p["n1"], x, cfg), cfg,
+                          impl=impl)
+    x = x + h
+    h, _ = rwkv6_channel_mix(p["mix"], apply_norm(p["n2"], x, cfg), cfg)
+    return x + h
+
+
+def rwkv_layers(blocks, cfg: ModelConfig) -> List[Callable]:
+    """One callable per layer, f(x, impl) -> x.  blocks: {"n1", "n2",
+    "mix"} stacked (L, ...)."""
+    return [partial(_rwkv_layer, p, cfg=cfg)
+            for p in _layers(blocks, cfg.n_layers)]
+
+
+def rwkv_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
+                 impl: Optional[str] = None,
+                 remat: bool = False) -> torch.Tensor:
+    """The RWKV6 stack over the whole sequence x (B, S, D)."""
+    for layer in rwkv_layers(blocks, cfg):
+        x = _run(layer, remat, x, impl)
+    return x
+
+
+def rwkv_init_cache(cfg: ModelConfig, batch: int, dtype, device):
+    st = rwkv6_init_state(cfg, batch, dtype, device)
+    return {k: v.new_zeros((cfg.n_layers,) + v.shape)
+            for k, v in st.items()}
+
+
+def rwkv_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """Full-sequence prefill: the state-returning chunked WKV scan fills
+    each layer's wkv state, the last normed inputs its token-shift
+    carries; the cache is updated in place."""
+    for l in range(cfg.n_layers):
+        p = _layer(blocks, l)
+        h, (tm_last, wkv) = rwkv6_time_mix(
+            p["mix"], apply_norm(p["n1"], x, cfg), cfg, impl=impl,
+            return_state=True)
+        x = x + h
+        h, cm_last = rwkv6_channel_mix(p["mix"], apply_norm(p["n2"], x, cfg),
+                                       cfg)
+        x = x + h
+        cache["wkv"][l].copy_(wkv)
+        cache["tm_prev"][l].copy_(tm_last)
+        cache["cm_prev"][l].copy_(cm_last)
+    return x
+
+
+def rwkv_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
+                lens: torch.Tensor, *,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """One token per lane through every layer's recurrent state (lens is
+    unused: the state carries the position)."""
+    for l in range(cfg.n_layers):
+        p = _layer(blocks, l)
+        h, (tm_last, wkv) = rwkv6_time_mix(
+            p["mix"], apply_norm(p["n1"], x, cfg), cfg,
+            x_prev=cache["tm_prev"][l], wkv_state=cache["wkv"][l],
+            impl=impl)
+        x = x + h
+        h, cm_last = rwkv6_channel_mix(p["mix"], apply_norm(p["n2"], x, cfg),
+                                       cfg, x_prev=cache["cm_prev"][l])
+        x = x + h
+        cache["wkv"][l].copy_(wkv)
+        cache["tm_prev"][l].copy_(tm_last)
+        cache["cm_prev"][l].copy_(cm_last)
     return x

@@ -1,5 +1,6 @@
 """Continuous-batching serve engine: dense or paged KV cache, monolithic or
-chunked prefill, batched one-launch ticks.
+chunked prefill, batched one-launch ticks; the recurrent families (hybrid,
+ssm) on their state caches with stepwise admission.
 
 Slot-based: up to `max_batch` sequences share one batched KV cache -
 dense strips (one (L, max_batch, max_seq, Hkv, D) K and V), or a global
@@ -7,7 +8,8 @@ page pool (serve/paged_cache.py) reached through a block table; queueing,
 admission order, chunk planning and latency accounting live in the
 token-budget scheduler (serve/scheduler.py); this module owns the device
 state and the page bookkeeping.  It follows the JAX package's ServeEngine
-counter for counter on two schedules (ServeConfig.chunked):
+counter for counter on two schedules (ServeConfig.chunked), the first
+with two ways to admit:
 
   monolithic  (chunked=False, dense or paged) admission prefills each
               queued request's whole prompt in one launch - padded to a
@@ -18,6 +20,11 @@ counter for counter on two schedules (ServeConfig.chunked):
               queued) - and samples its first token, fetched at once (one
               host sync per admission).  Then each tick is ONE fused
               decode launch over every lane and ONE fetch of the tokens.
+  stepwise    (chunked=False, paged=False, the hybrid and ssm families,
+              whose state cannot be prefilled into one batch lane) admission
+              feeds the prompt token by token through the single-token
+              decode step on the admitted slot's lane, then samples and
+              fetches the first token; the ticks are those of monolithic.
   chunked     (paged only) every tick has tick_token_budget tokens of
               work: each decoding slot takes one, prompt chunks of
               PREFILLING slots fill the rest.  The tick is ONE chunk-batch
@@ -49,12 +56,13 @@ import numpy as np
 import torch
 
 from ..configs.base import ServeConfig
+from ..models.model import ATTENTION_FAMILIES, RECURRENT_LEAVES
 from .paged_cache import PageAllocator, pages_needed
 from .scheduler import (ChunkTask, Request, RequestState,
                         TokenBudgetScheduler)
 from .serve_step import (make_chunk_batch_step, make_fused_decode_step,
                          make_paged_prefill_step, make_prefill_step,
-                         sample_token)
+                         make_serve_step, sample_token)
 from .telemetry import LaunchRecord, MetricsRegistry, Telemetry, TickRecord
 
 # dense-cache prompts are padded to a multiple of this before the
@@ -144,8 +152,12 @@ class ServeEngine:
                 "Queued + in-flight work tokens (prompt remaining plus "
                 "unspent generation budget)")
         self.paged = scfg.paged
+        self._attention_family = model.cfg.family in ATTENTION_FAMILIES
         self.allocator: Optional[PageAllocator] = None
         if self.paged:
+            if not self._attention_family:
+                raise ValueError(f"paged serving needs an attention family, "
+                                 f"got {model.cfg.family}")
             if scfg.max_seq % scfg.page_size:
                 raise ValueError(
                     f"max_seq ({scfg.max_seq}) must be a multiple of "
@@ -177,6 +189,7 @@ class ServeEngine:
         self._lens_np = np.zeros((B,), np.int64)
         self._knobs = dict(temperature=scfg.temperature, top_k=scfg.top_k,
                            top_p=scfg.top_p)
+        self._decode = make_serve_step(model)
         self._prefill = make_prefill_step(model)
         self._prefill_paged = make_paged_prefill_step(model)
         self._prefill_chunks = make_chunk_batch_step(model, **self._knobs)
@@ -397,8 +410,9 @@ class ServeEngine:
             assert r.remaining_new >= 1
 
     def kv_cache_bytes(self) -> int:
-        """Allocated cache bytes: K and V strips or pools, plus the block
-        table when paged."""
+        """Allocated cache bytes, every leaf: K and V strips or pools, the
+        block table when paged, the recurrent states of the hybrid and ssm
+        families.  Caches are preallocated, so allocated == peak."""
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     # ------------------------------------------------------------------
@@ -470,8 +484,10 @@ class ServeEngine:
             if self.paged:
                 if not self._admit_paged(slot, req):
                     return
-            else:
+            elif self._attention_family:
                 self._admit_prefill(slot, req)
+            else:
+                self._admit_stepwise(slot, req)
 
     def _padded_prompt(self, prompt: List[int], bucket: int):
         """(1, s_pad) device tokens, the prompt zero-padded to a multiple
@@ -524,6 +540,35 @@ class ServeEngine:
         self.prefill_tokens += s_real
         self.sched.note_work(s_real)
         self._place(slot, req, logits, s_real)
+
+    def _admit_stepwise(self, slot: int, req: Request):
+        """Token-by-token prefill through the single-token decode step (the
+        recurrent families).  The JAX engine runs each of these steps over
+        every lane, which advances the recurrent state of every other live
+        slot by one token per prompt token, and never clears a reused
+        slot's state.  Here the admitted slot's recurrent leaves are zeroed
+        first, and every step runs on that slot's lane alone - views of its
+        batch row, updated in place - so no other lane's state or K/V strip
+        moves.  The host counters are the JAX engine's: one launch per
+        prompt token, one "stepwise" record, one fetch of the first
+        token."""
+        self.sched.pop(req)
+        lane = {k: v[:, slot:slot + 1] for k, v in self.cache.items()}
+        for name in RECURRENT_LEAVES[self.model.cfg.family]:
+            lane[name].zero_()
+        n = len(req.prompt)
+        toks = self._upload(np.asarray(req.prompt, np.int32)[None])
+        pos = self._upload(np.arange(n, dtype=np.int32))
+        for t in range(n):
+            self.jit_calls += 1
+            logits, _ = self._decode(self.params, lane, toks[:, t:t + 1],
+                                     pos[t:t + 1])
+        self._note_launch("stepwise", rows=1, live_rows=1, true_tokens=n,
+                          padded_tokens=n, kv_pages_read=0,
+                          kv_pages_written=0, new_kv_tokens=n)
+        self.prefill_tokens += n
+        self.sched.note_work(n)
+        self._place(slot, req, logits, n)
 
     def _admit_paged(self, slot: int, req: Request) -> bool:
         """Paged cache: reserve the request's worst case up front and

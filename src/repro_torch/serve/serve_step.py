@@ -1,5 +1,6 @@
-"""Serving steps: the monolithic prefill steps (dense and paged), and the
-chunk-batch and fused decode steps of the one-launch tick.
+"""Serving steps: the single-token decode step (stepwise admission of the
+recurrent families), the monolithic prefill steps (dense and paged), and
+the chunk-batch and fused decode steps of the one-launch tick.
 
 Each step is one eager call into the model; the chunk-batch and decode
 steps add device-side sampling and masked updates of the engine's (B, 1)
@@ -39,6 +40,17 @@ def sample_token(logits: torch.Tensor, *, temperature: float = 0.0,
     return sampling.sample(logits[:, -1], generator,
                            temperature=temperature, top_k=top_k,
                            top_p=top_p)[:, None]
+
+
+def make_serve_step(model):
+    """serve_step(params, cache, tokens (B, 1), lens (B,)) -> (logits (B,
+    1, V), cache): one new token per lane against the cache
+    (Model.decode_step)."""
+
+    def serve_step(params, cache, tokens, lens):
+        return model.decode_step(params, tokens, lens, cache)
+
+    return serve_step
 
 
 def make_prefill_step(model):

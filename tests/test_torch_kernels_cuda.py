@@ -6,8 +6,14 @@ lanes, sliding window, softcap; causal and full attention over a length
 that is no tile multiple, fewer queries than keys; dense decode lengths 0,
 1 and the whole strip, one length for every lane; the FA-2 backward K5
 over causal, full, window and softcap attention at S = 200 and 256, and
-through autograd) at the kernels' head dims 64 and 128, in float32 and
-bfloat16.
+through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
+80, zamba2's shared attention block); the Mamba2 scan K6 and the RWKV6
+scan K7 (a sequence shorter than one chunk, one that is no chunk multiple,
+batch 1, an odd head count, dt near 0 and a large dt * A, the decay w = 1
+and w at the model's clamp over whole chunks, u = 0, every state and key
+size the kernels take, ragged state rows and columns, the full-width
+shapes of zamba2 and rwkv6, and the refusal of a call autograd would
+have to differentiate), in float32 and bfloat16.
 
 Needs an NVIDIA GPU and nvcc: every test skips with a reason elsewhere.
 Run on the card with
@@ -28,14 +34,19 @@ p and ds to bfloat16 before their products, as its plain version does,
 so its bfloat16 bar is the same kind: 2**-7 x (|g| + the magnitude of the
 summed terms, ref.flash_attention_bwd(terms=True)) + 1e-6; in float32 its
 gradients agree within 1e-5 of the largest |gradient|.  Dead rows, pad
-lanes and empty decode lanes are exactly 0.
+lanes and empty decode lanes are exactly 0.  K6 and K7 run the recurrence
+step by step, their plain versions the chunked matrix form (cumulative
+log decays, exp of their differences): in float32 they agree within 1e-5
+of the largest term - `terms` is the plain scan of the inputs' absolute
+values, the magnitude of the summed terms - and in bfloat16 within one
+rounding step of the output, 2**-7 x |y|, plus that float32 bar.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention, flash_backward, flash_decode
-from repro_torch.kernels import ops
+from repro_torch.kernels import mamba2_scan, ops, rwkv6_scan
 from repro_torch.kernels import paged_prefill
 
 pytestmark = pytest.mark.cuda
@@ -200,7 +211,7 @@ def _randn(rng, dev, dtype, *shape):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(FA_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 def test_flash_attention_kernel_matches_plain(dev, D, G, variant, dtype):
     dt = DTYPES[dtype]
     causal, window, softcap, sq, skv = FA_VARIANTS[variant]
@@ -235,7 +246,7 @@ FD_VARIANTS = {"plain": (0, 0.0, None), "window": (8, 0.0, None),
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(FD_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 def test_dense_decode_kernel_matches_plain(dev, D, G, variant, dtype):
     dt = DTYPES[dtype]
     window, softcap, scalar = FD_VARIANTS[variant]
@@ -382,3 +393,140 @@ def test_flash_backward_refuses_what_it_does_not_take(dev):
         flash_backward.flash_attention_bwd(t, k[..., :32].contiguous(),
                                            k[..., :32].contiguous(), t, lse,
                                            t)
+
+
+# ---------------------------------------------------------------------------
+# K6 mamba2_scan and K7 rwkv6_scan
+# ---------------------------------------------------------------------------
+
+CLAMP_W = float(np.exp(-np.exp(0.75)))
+# (B, S, H, P, N, dt scale) per case: dt = softplus(N(0, 1)) * scale
+MAMBA_CASES = {"short": (1, 50, 3, 64, 64, 1.0),
+               "ragged": (2, 300, 5, 40, 64, 1.0),
+               "dt_near_0": (2, 200, 3, 64, 64, 1e-6),
+               "large_dt_a": (2, 200, 3, 64, 64, 10.0),
+               "state16": (2, 150, 2, 64, 16, 1.0),
+               "state32": (1, 129, 3, 24, 32, 1.0),
+               "state128": (1, 140, 3, 64, 128, 1.0),
+               "full_zamba2": (2, 2048, 80, 64, 64, 1.0)}
+# (B, S, H, K, V, w: "random" | "one" | "clamp", u zero) per case
+RWKV_CASES = {"short": (1, 20, 3, 64, 64, "random", False),
+              "ragged": (2, 100, 5, 64, 64, "random", False),
+              "w_one": (2, 70, 3, 64, 64, "one", False),
+              "w_clamp": (2, 96, 3, 64, 64, "clamp", False),
+              "u_zero": (2, 70, 3, 64, 64, "random", True),
+              "clamp_u_zero": (1, 64, 3, 64, 64, "clamp", True),
+              "key16": (2, 50, 2, 16, 16, "random", False),
+              "key32_ragged_cols": (1, 45, 3, 32, 40, "random", False),
+              "full_rwkv6": (2, 2048, 32, 64, 64, "random", False)}
+
+
+def mamba_args(dev, dtype, B, S, H, P, N, dt_scale, seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))) * dt_scale
+    return dict(x=_randn(rng, dev, dtype, B, S, H, P), dt=f32(dt),
+                A=f32(np.abs(rng.standard_normal(H)) + 0.1),
+                Bm=_randn(rng, dev, dtype, B, S, N),
+                Cm=_randn(rng, dev, dtype, B, S, N))
+
+
+def rwkv_args(dev, dtype, B, S, H, K, V, w_kind, u_zero, seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    w = np.exp(-np.exp(np.clip(rng.standard_normal((B, S, H, K)), -8,
+                               0.75)))
+    if w_kind != "random":
+        w[:] = 1.0 if w_kind == "one" else CLAMP_W
+    u = rng.standard_normal((H, K)) * 0.1 * (0.0 if u_zero else 1.0)
+    return dict(r=_randn(rng, dev, dtype, B, S, H, K),
+                k=_randn(rng, dev, dtype, B, S, H, K),
+                v=_randn(rng, dev, dtype, B, S, H, V), w=f32(w), u=f32(u))
+
+
+def scan_terms(kind, a):
+    """The plain scan of the inputs' absolute values: the magnitude of the
+    terms each output sums (the decays are positive)."""
+    if kind == "mamba2":
+        return mamba2_scan.reference(a["x"].abs(), a["dt"], a["A"],
+                                     a["Bm"].abs(), a["Cm"].abs())
+    return rwkv6_scan.reference(a["r"].abs(), a["k"].abs(), a["v"].abs(),
+                                a["w"], a["u"].abs())
+
+
+def scan_close(got, want, terms, dtype):
+    g, w = got.float().cpu(), want.float().cpu()
+    bar = 1e-5 * float(terms.float().abs().max())
+    if dtype == torch.bfloat16:
+        bar = 2.0 ** -7 * w.abs() + bar
+    err = (g - w).abs()
+    assert bool(torch.isfinite(g).all()), "non-finite kernel output"
+    bad = err > bar
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} elements past the bar, max abs err "
+        f"{float(err.max()):.3e} (max |y| {float(w.abs().max()):.3e}, "
+        f"max term {float(terms.float().abs().max()):.3e})")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(MAMBA_CASES))
+def test_mamba2_scan_kernel_matches_plain(dev, case, dtype):
+    dt = DTYPES[dtype]
+    a = mamba_args(dev, dt, *MAMBA_CASES[case])
+    n0 = mamba2_scan.launches
+    got = ops.mamba2_scan(**a)
+    want = ops.mamba2_scan(**a, impl="ref")
+    torch.cuda.synchronize()
+    assert mamba2_scan.launches == n0 + 1
+    assert got.dtype == dt and got.shape == a["x"].shape
+    scan_close(got, want, scan_terms("mamba2", a), dt)
+    assert torch.equal(mamba2_scan.mamba2_scan(**a), got), "not the same bits"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(RWKV_CASES))
+def test_rwkv6_scan_kernel_matches_plain(dev, case, dtype):
+    dt = DTYPES[dtype]
+    a = rwkv_args(dev, dt, *RWKV_CASES[case])
+    n0 = rwkv6_scan.launches
+    got = ops.rwkv6_scan(**a)
+    want = ops.rwkv6_scan(**a, impl="ref")
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == n0 + 1
+    assert got.dtype == dt and got.shape == a["v"].shape
+    scan_close(got, want, scan_terms("rwkv6", a), dt)
+    assert torch.equal(rwkv6_scan.rwkv6_scan(**a), got), "not the same bits"
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(dev):
+    m = mamba_args(dev, torch.bfloat16, 1, 8, 2, 64, 64, 1.0)
+    r = rwkv_args(dev, torch.bfloat16, 1, 8, 2, 64, 64, "random", False)
+    n6, n7 = mamba2_scan.launches, rwkv6_scan.launches
+    with pytest.raises(ValueError, match="dt must be torch.float32"):
+        mamba2_scan.mamba2_scan(**dict(m, dt=m["dt"].to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="w must be torch.float32"):
+        rwkv6_scan.rwkv6_scan(**dict(r, w=r["w"].to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="Cm must be"):
+        mamba2_scan.mamba2_scan(**dict(m, Cm=m["Cm"].float()))
+    with pytest.raises(ValueError, match="shape"):
+        mamba2_scan.mamba2_scan(**dict(m, Bm=m["Bm"][:, :4].contiguous()))
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_scan.rwkv6_scan(**dict(r, k=r["k"].transpose(1, 2)
+                                     .contiguous().transpose(1, 2)))
+    with pytest.raises(ValueError, match="state size"):
+        mamba2_scan.mamba2_scan(**mamba_args(dev, torch.float32, 1, 8, 2,
+                                             64, 48, 1.0))
+    with pytest.raises(ValueError, match="key size"):
+        rwkv6_scan.rwkv6_scan(**rwkv_args(dev, torch.float32, 1, 8, 2, 128,
+                                          128, "random", False))
+    # no backward: a call autograd would differentiate raises, with or
+    # without ops in between, instead of returning a detached result
+    x = m["x"].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.mamba2_scan(**dict(m, x=x))
+    u = r["u"].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rwkv6_scan(**dict(r, u=u))
+    with torch.no_grad():
+        ops.mamba2_scan(**dict(m, x=x))
+    assert (mamba2_scan.launches, rwkv6_scan.launches) == (n6 + 1, n7)
