@@ -84,11 +84,13 @@ Phases (each raises on failure, so the run exits non-zero):
   4. times              per kernel, at the largest call its run gave it
                         (K1/K2 the chunked run, K3/K4 the dense run, K5 the
                         training run, K6/K7 the recurrent forwards; K3/K4
-                        also at zamba2's head dim 80): kernel, plain
-                        version and library times (CUDA events, L2 flushed,
-                        median of 25) beside the bound the card's data
-                        sheet allows; then the end-to-end numbers of the
-                        counted runs.
+                        also at zamba2's head dim 80, K4 also at the
+                        training step's shape): kernel, plain version and
+                        library times (CUDA events, L2 flushed, median of
+                        25) beside the bound the card's data sheet allows
+                        and the achieved rate (tflops: the FLOPs the call's
+                        data needs over the kernel's time); then the
+                        end-to-end numbers of the counted runs.
   5. trace              the chunked and the dense traffic once more, 2
                         training steps, and one zamba2 forward, under
                         torch.profiler (device activity only): device time
@@ -789,7 +791,8 @@ def phase_train():
     batch0 = pipe.device_batch(0)
     step = make_train_step(model, tcfg)
     torch.cuda.reset_peak_memory_stats()
-    with Capture(flash_backward, "flash_attention_bwd", _k5_weight) as c5:
+    with Capture(flash_backward, "flash_attention_bwd", _k5_weight) as c5, \
+            Capture(flash_attention, "flash_attention_fwd", _k4_weight) as c4:
         state, m0 = step(state, batch0)            # warm-up: data step 0
     batches = [pipe.device_batch(s) for s in range(1, 1 + TRAIN_STEPS)]
     torch.cuda.synchronize()
@@ -850,7 +853,7 @@ def phase_train():
     e2e["trainer_resume"] = trainer_check()
     run = {"launches": launches, "per_step": {k: v / N for k, v in
                                               launches.items()}}
-    return run, c5.best, e2e, trace
+    return run, {"K5": c5.best, "K4_train": c4.best}, e2e, trace
 
 
 # ---------------------------------------------------------------------------
@@ -1481,8 +1484,9 @@ def _timed(key, args_kw, flush):
         err32 = compare(call(f32), call(f32, "ref"), torch.float32)
     nbytes, flops = work(a)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
-    return {"max_abs_err": err, "max_abs_err_f32": err32,
-            "ms": time_ms(lambda: call(a), flush),
+    ms = time_ms(lambda: call(a), flush)
+    return {"max_abs_err": err, "max_abs_err_f32": err32, "ms": ms,
+            "tflops": flops / ms / 1e9,
             "plain_ms": time_ms(lambda: call(a, "ref"), flush),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1513,9 +1517,11 @@ def phase_times(runs, captured):
                else " backward (torch.autograd.grad of its output; inputs "
                "transposed beforehand, not timed)" if key == "K5"
                else " (inputs transposed beforehand, not timed)"))
-        if f"{key}_d80" in captured:
-            # zamba2's shared attention block: head dim 80, 32 heads, G 1
-            row["at_zamba2_d80"] = _timed(key, captured[f"{key}_d80"], flush)
+        # zamba2's shared attention block (head dim 80, 32 heads, G 1); the
+        # training step's forward (4 x 2048 tokens, 32 / 8 heads of 64)
+        for tag, label in (("d80", "at_zamba2_d80"), ("train", "at_train")):
+            if f"{key}_{tag}" in captured:
+                row[label] = _timed(key, captured[f"{key}_{tag}"], flush)
         rows.append(row)
     return rows
 
@@ -1579,7 +1585,8 @@ def main() -> int:
     del mp                       # the serving model, before the training one
     gc.collect()
     torch.cuda.empty_cache()
-    runs["train"], captured["K5"], e2e_train, trace_train = phase_train()
+    runs["train"], train_captured, e2e_train, trace_train = phase_train()
+    captured.update(train_captured)
     gc.collect()
     torch.cuda.empty_cache()
     runs["recurrent"], rec_captured, e2e_rec, trace_rec = phase_recurrent()

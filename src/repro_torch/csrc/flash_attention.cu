@@ -17,25 +17,45 @@
 // What bounds it on this card: operations.  A prompt of S tokens does
 // about 4 * D * Hq * S^2 / 2 FLOPs causal against one read of q, K, V and
 // one write of o, thousands of FLOPs per byte at S = 1904 - far above the
-// ~295 FLOP/byte where an H100 stops being memory bound.  This first
-// version does its products in fp32 on the CUDA cores (a tensor-core tile,
-// mma.sync or wgmma, is a later PR's work); what it does about the bound is
-// to reuse every operand many times from on-chip memory and to skip the
-// work the mask removes.  It is K1's tile (csrc/paged_prefill.cu) with the
-// block table replaced by contiguous addressing: a block holds 64 flattened
-// query rows (row r = s * G + g, the G query heads of one KV head side by
-// side, as the TPU kernel's GQA index map groups them) in shared memory,
-// loads 64 KV positions at a time into shared memory, and each thread
-// computes an 8 x 4 register tile of scores and an 8 x D/16 tile of the
-// output accumulators.
+// ~295 FLOP/byte where an H100 stops being memory bound.  So the products
+// have to run on the tensor cores, and the work the mask removes is cut:
+// a block holds 64 flattened query rows (row r = s * G + g, the G query
+// heads of one KV head side by side, as the TPU kernel's GQA index map
+// groups them, so one K/V tile serves all G heads) and walks the KV range
+// its rows can see - nothing past Skv, nothing past the tile's last query
+// position when masked (above the diagonal), nothing left of the tile's
+// first query position's window - in tiles of 64 positions.  Grid: one
+// block per (sequence b, KV head h, tile of rows).
 //
-// Grid: one block per (sequence b, KV head h, tile of 64 flattened query
-// rows).  The KV range a block walks is cut before the loop: nothing past
-// Skv, nothing past the tile's last query position when masked (above the
-// diagonal), nothing left of the tile's first query position's window.
+// The C entry point dispatches on the dtype:
+//  * bfloat16 runs on the tensor cores (csrc/mma_bf16.cuh), FA-2 style:
+//    4 warps, each owning 16 rows, hold q as mma.sync A fragments in
+//    registers; K and V tiles stay bf16 in shared memory (rows padded by 16
+//    bytes, so ldmatrix meets no bank conflict) and arrive by cp.async into
+//    two buffers, the load of tile j + 1 overlapping the products on tile
+//    j.  s = q k^T accumulates in fp32 fragments (K as B, as it lies);
+//    scale, softcap, the mask (only on a tile that crosses an edge) and the
+//    online softmax run on the fragments, the row max and sum over the 4
+//    lanes that share a row, l from the unrounded p; p is rounded to
+//    bf16 and used in place as the A operand of o += p v (V through
+//    ldmatrix.trans).  What still bounds it: mma.sync issues per warp,
+//    synchronously, and every warp reads the whole K/V tile from shared
+//    memory for its 16 rows (wgmma over a 64-row warpgroup would read each
+//    B once).  The last row tiles, whose walks are the longest under the
+//    causal mask, are launched first, so the short ones fill the tail.
+//  * float32 runs on the CUDA cores in fp32 FMAs, since the tensor cores'
+//    fp32 input is TF32, which would miss the float32 bar of 1e-5: K1's
+//    tile (csrc/paged_prefill.cu) with contiguous addressing - q and each
+//    K/V tile widened to fp32 in shared memory, each thread an 8 x 4
+//    register tile of scores and an 8 x D/16 tile of the output.  It is
+//    what the tight float32 checks run (the recurrent float32 forward at
+//    head dim 80 among them), not a fallback: a bf16 launch that fails
+//    returns its error.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -48,16 +68,9 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 // a weight as the PV product takes it: rounded to the input dtype
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -231,6 +244,198 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 kernel on the tensor cores: 4 warps, each owning 16 of the
+// block's 64 flattened query rows.
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int NW = 4;            // warps per block
+constexpr int NT_TC = 32 * NW;
+constexpr int BM = 16 * NW;      // flattened query rows per block
+constexpr int BN = 64;           // KV positions per tile
+
+template <int D>
+__global__ void __launch_bounds__(NT_TC) flash_attention_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Skv, int Hkv, int G, int causal,
+    int window, float scale, float softcap) {
+  using namespace mma_bf16;
+  constexpr int LD = D + PAD, KS = D / 16, ND = D / 8, NC = BN / 8,
+                CH = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // BM x LD
+  bf16* kv_s = q_s + BM * LD;                       // 2 x (K, V) x BN x LD
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * BM;   // longest walks first
+  const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int Hq = Hkv * G, R = Sq * G;
+  const bool masked = causal || window > 0;
+  const size_t tok = (size_t)Hkv * D;
+  const bf16* kb = k + (size_t)b * Skv * tok + (size_t)h * D;
+  const bf16* vb = v + (size_t)b * Skv * tok + (size_t)h * D;
+  // KV range of this block: query positions s_first .. s_last
+  const int s_first = r0 / G;
+  const int s_last = (min(r0 + BM, R) - 1) / G;
+  const int kv_lo = window > 0 ? max(0, s_first - window + 1) : 0;
+  const int kv_hi = masked ? min(Skv, s_last + 1) : Skv;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BN - 1) / BN : 0;
+  // (b, s, head) row of the flattened query row r = s * G + g
+  auto row_of = [&](int r) -> size_t {
+    const int s = r / G;
+    return ((size_t)b * Sq + s) * Hq + (size_t)h * G + (r - s * G);
+  };
+  auto load_kv = [&](int t0, int stage) {
+    bf16* ks = kv_s + stage * 2 * BN * LD;
+    bf16* vs = ks + BN * LD;
+    for (int i = tid; i < BN * CH; i += NT_TC) {
+      const int rr = i / CH, c = i % CH, kpos = t0 + rr;
+      const bool live = kpos < kv_hi;
+      const size_t off = (size_t)(live ? kpos : kv_lo) * tok + c * 8;
+      cp_async16(ks + rr * LD + c * 8, kb + off, live);
+      cp_async16(vs + rr * LD + c * 8, vb + off, live);
+    }
+  };
+
+  for (int i = tid; i < BM * CH; i += NT_TC) {
+    const int rr = i / CH, c = i % CH, r = r0 + rr;
+    const bool live = r < R;
+    cp_async16(q_s + rr * LD + c * 8, q + row_of(live ? r : r0) * D + c * 8,
+               live);
+  }
+  if (n_tiles > 0) load_kv(kv_lo, 0);
+  cp_async_commit();
+
+  // this lane's two rows: wr + g4 and wr + g4 + 8
+  int qpos[2];
+  float m_run[2], l_run[2];   // l_run: this lane's share of the row sum
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    qpos[h2] = (r0 + wr + g4 + 8 * h2) / G;
+    m_run[h2] = NEG_INF;
+    l_run[h2] = 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  uint32_t qa[KS][4];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int t0 = kv_lo + j * BN;
+    cp_async_wait_all();
+    __syncthreads();     // tile j landed; every warp is done with j - 1
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qa[kk], q_s + a_offset(lane, LD, wr, kk * 16));
+    }
+    if (j + 1 < n_tiles) load_kv(t0 + BN, (j + 1) & 1);
+    cp_async_commit();
+    const bf16* ks = kv_s + (j & 1) * 2 * BN * LD;
+    const bf16* vs = ks + BN * LD;
+
+    // s = q k^T: 16 rows x BN keys per warp
+    float sc[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < NC / 2; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, ks + b_offset(lane, LD, np * 16, kk * 16));
+        mma(sc[2 * np], qa[kk], kf[0], kf[1]);
+        mma(sc[2 * np + 1], qa[kk], kf[2], kf[3]);
+      }
+
+    // scale, softcap and the mask (only where the tile crosses an edge)
+    const bool edge = !(t0 + BN <= kv_hi &&
+                        (!masked || t0 + BN - 1 <= s_first) &&
+                        (window <= 0 || t0 > s_last - window));
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (edge) {
+          const int kpos = t0 + n * 8 + 2 * t4 + (e & 1), qp = qpos[e >> 1];
+          const bool valid = kpos < kv_hi && (!masked || kpos <= qp) &&
+                             (window <= 0 || kpos > qp - window);
+          x = valid ? x : NEG_INF;
+        }
+        sc[n][e] = x;
+      }
+
+    // online softmax per row; a masked score gives exp2(-1e30 ...) = 0
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        mx = fmaxf(mx, fmaxf(sc[n][2 * h2], sc[n][2 * h2 + 1]));
+      mx = quad_max(mx);
+      const float m_new = fmaxf(m_run[h2], mx);
+      const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
+      const float alpha = m_run[h2] <= NEG_INF / 2
+                              ? 0.f
+                              : exp2f((m_run[h2] - m_new) * LOG2E);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 2 * h2; e < 2 * h2 + 2; ++e) {
+          const float p = exp2f((sc[n][e] - m_safe) * LOG2E);
+          sc[n][e] = p;
+          sum += p;
+        }
+      l_run[h2] = l_run[h2] * alpha + sum;
+      m_run[h2] = m_new;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * h2] *= alpha;
+        acc[n][2 * h2 + 1] *= alpha;
+      }
+    }
+
+    // o += p v: p rounded to bf16 as the A operand, V through .trans
+#pragma unroll
+    for (int kk = 0; kk < NC / 2; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(pa, sc, kk);
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vs + bt_offset(lane, LD, kk * 16, np * 16));
+        mma(acc[2 * np], pa, vf[0], vf[1]);
+        mma(acc[2 * np + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const float l = fmaxf(quad_sum(l_run[h2]), 1e-20f);
+    const int r = r0 + wr + g4 + 8 * h2;
+    if (r >= R) continue;
+    const float inv = 1.f / l;
+    const size_t row = row_of(r);
+    bf16* o = out + row * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o + n * 8) = __floats2bfloat162_rn(
+          acc[n][2 * h2] * inv, acc[n][2 * h2 + 1] * inv);
+    if (t4 == 0) lse[row] = m_run[h2] + logf(l);
+  }
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            void* lse, int B, int Sq, int Skv, int Hkv, int G, int causal,
@@ -253,11 +458,34 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                void* lse, int B, int Sq, int Skv, int Hkv, int G, int causal,
+                int window, float scale, float softcap, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (D + mma_bf16::PAD) * (BM + 4 * BN);
+  const long long tiles = ((long long)Sq * G + BM - 1) / BM;
+  if (tiles > 65535 || Hkv > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (!mma_bf16::aligned16({q, k, v, out}))
+    return (int)cudaErrorMisalignedAddress;
+  auto kern = flash_attention_bf16_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(B, Hkv, (unsigned)tiles), NT_TC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Sq, Skv, Hkv, G, causal, window, scale,
+      softcap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point bound through ctypes.  Returns a cudaError_t (0 = launched).
-// Element type: is_bf16 = 1 for bfloat16, 0 for float32 (lse is always
-// float32); head dim 64, 80 (zamba2's shared attention block) or 128.
+// Element type: is_bf16 = 1 for bfloat16 (the tensor-core kernel; q, k, v
+// and out 16-byte aligned, else cudaErrorMisalignedAddress), 0 for float32
+// (the CUDA-core kernel); lse is always float32; head dim 64, 80 (zamba2's
+// shared attention block) or 128.
 // Anything else returns cudaErrorInvalidValue without launching (the Python
 // wrapper checks first).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -271,14 +499,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (D == 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, out, lse, B, Sq, Skv, Hkv,
-                                       G, causal, window, scale, softcap, s);
+      return launch_bf16<64>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
+                             window, scale, softcap, s);
     if (D == 80)
-      return launch<__nv_bfloat16, 80>(q, k, v, out, lse, B, Sq, Skv, Hkv,
-                                       G, causal, window, scale, softcap, s);
+      return launch_bf16<80>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
+                             window, scale, softcap, s);
     if (D == 128)
-      return launch<__nv_bfloat16, 128>(q, k, v, out, lse, B, Sq, Skv, Hkv,
-                                        G, causal, window, scale, softcap, s);
+      return launch_bf16<128>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
+                              window, scale, softcap, s);
   } else {
     if (D == 64)
       return launch<float, 64>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,

@@ -7,12 +7,13 @@ library with a plain C interface:
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
 
 The libraries go to build/kernels/ under the repository root (listed in
-.gitignore), named by a hash of the source text and the flags, so an edited
-source rebuilds and an unchanged one loads the existing library.  Nothing
-is built when a module is imported: the first wrapper call on a CUDA
-tensor builds its kernel, and build_all() builds every kernel at once, one
-nvcc process per source, all started together.  A failed build raises; no
-caller falls back to the plain versions.
+.gitignore), named by a hash of the source text, the shared headers
+(csrc/*.cuh) and the flags, so an edited source or header rebuilds and an
+unchanged one loads the existing library.  Nothing is built when a module
+is imported: the first wrapper call on a CUDA tensor builds its kernel,
+and build_all() builds every kernel at once, one nvcc process per source,
+all started together.  A failed build raises; no caller falls back to the
+plain versions.
 """
 from __future__ import annotations
 
@@ -73,10 +74,15 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where kernel `name`'s library lives: named by a hash of its source,
+    every header of csrc (csrc/*.cuh, by name and text, in name order) and
+    the flags, so an edited header rebuilds every library too."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -7,7 +7,10 @@ that is no tile multiple, fewer queries than keys; dense decode lengths 0,
 1 and the whole strip, one length for every lane; the FA-2 backward K5
 over causal, full, window and softcap attention at S = 200 and 256, and
 through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
-80, zamba2's shared attention block); the Mamba2 scan K6 and the RWKV6
+80, zamba2's shared attention block); K4 and K5 at the edges of their
+tensor-core tiles (lengths 1, 15, 17 and 200, fewer queries than keys,
+GQA groups of 1 to 8, a window shorter than one tile, softcap, no key at
+all) and K5's bits from call to call; the Mamba2 scan K6 and the RWKV6
 scan K7 (a sequence shorter than one chunk, one that is no chunk multiple,
 batch 1, an odd head count, dt near 0 and a large dt * A, the decay w = 1
 and w at the model's clamp over whole chunks, u = 0, every state and key
@@ -304,14 +307,14 @@ BWD_VARIANTS = {"causal": (True, 0, 0.0), "full": (False, 0, 0.0),
                 "window": (True, 48, 0.0), "softcap": (True, 0, 25.0)}
 
 
-def bwd_close(got, want, terms, dtype):
+def bwd_close(got, want, terms, dtype, names=("dq", "dk", "dv")):
     """K5 against its plain version: float32 within 1e-5 of the largest
     |gradient|; bfloat16 within one rounding step of the summed terms'
     magnitude, 2**-7 x (|want| + terms) + 1e-6 (terms from
     ref.flash_attention_bwd(terms=True)): both round p and ds to bfloat16
     before their products, and an ulp of difference in a score can flip
     one of those roundings."""
-    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms):
+    for name, g, w, t in zip(names, got, want, terms):
         g, w = g.float().cpu(), w.float().cpu()
         err = (g - w).abs()
         if dtype == torch.bfloat16:
@@ -393,6 +396,155 @@ def test_flash_backward_refuses_what_it_does_not_take(dev):
         flash_backward.flash_attention_bwd(t, k[..., :32].contiguous(),
                                            k[..., :32].contiguous(), t, lse,
                                            t)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5 at the edges of the tensor-core tiles (16-row mma fragments,
+# 64-row blocks, 64-position KV tiles)
+# ---------------------------------------------------------------------------
+
+# (Sq, Skv): lengths that are no multiple of 16 or 64, one query, fewer
+# queries than keys (the causal mask aligned at the top left), and Skv = 0,
+# where every row is masked
+EDGE_LENS = [(1, 1), (1, 200), (15, 17), (17, 200), (200, 200), (15, 0)]
+# (causal, window, softcap): the window is shorter than one 16-row fragment
+EDGE_VARIANTS = {"causal": (True, 0, 0.0), "full": (False, 0, 0.0),
+                 "window": (True, 5, 0.0), "softcap": (True, 0, 30.0)}
+# (D, G): every group size at head dim 64, then the other head dims
+FWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (80, 2), (128, 2)]
+BWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 2)]
+
+
+def _edge_case(dev, dt, D, G, sq, skv, seed):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, dev, dt, 2, sq, HKV * G, D)
+    k = _randn(rng, dev, dt, 2, skv, HKV, D)
+    v = _randn(rng, dev, dt, 2, skv, HKV, D)
+    return rng, q, k, v
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(EDGE_VARIANTS))
+@pytest.mark.parametrize("lens", EDGE_LENS, ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dg", FWD_EDGE_DG, ids=lambda x: f"D{x[0]}G{x[1]}")
+def test_flash_attention_kernel_at_tile_edges(dev, dg, lens, variant, dtype):
+    """K4 against its plain version at the bars of
+    test_flash_attention_kernel_matches_plain; rows with no key to attend
+    (Skv = 0) give o = 0 exactly and lse = -1e30, as the plain version."""
+    dt = DTYPES[dtype]
+    (D, G), (sq, skv) = dg, lens
+    causal, window, softcap = EDGE_VARIANTS[variant]
+    _, q, k, v = _edge_case(dev, dt, D, G, sq, skv, seed=8)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    n0 = flash_attention.launches
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = flash_attention.reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert o.shape == q.shape and lse.shape == (2, sq, HKV * G)
+    if dt == torch.bfloat16:
+        _close_terms(o, o_ref, flash_attention.reference(q, k, v.abs(),
+                                                         **kw)[0])
+    else:
+        _close(o, o_ref, dt)
+    _close(lse, lse_ref, torch.float32)
+    if skv == 0:
+        assert not o.any(), "fully masked rows not exactly 0"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(EDGE_VARIANTS))
+@pytest.mark.parametrize("lens", EDGE_LENS, ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dg", BWD_EDGE_DG, ids=lambda x: f"D{x[0]}G{x[1]}")
+def test_flash_backward_kernel_at_tile_edges(dev, dg, lens, variant, dtype):
+    """K5 against its plain version at the bars of bwd_close, o and lse from
+    K4; with Skv = 0 dq is exactly 0 and dk, dv are empty; where every row
+    attends one key, dq and dk are rounding noise (single_key_close)."""
+    dt = DTYPES[dtype]
+    (D, G), (sq, skv) = dg, lens
+    causal, window, softcap = EDGE_VARIANTS[variant]
+    rng, q, k, v = _edge_case(dev, dt, D, G, sq, skv, seed=9)
+    do = _randn(rng, dev, dt, 2, sq, HKV * G, D)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+    n0 = flash_backward.launches
+    got = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_backward.reference(q, k, v, o, lse, do, **kw)
+    terms = flash_backward.reference(q, k, v, o, lse, do, terms=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_backward.launches == n0 + 1
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    if skv == 0:
+        assert not got[0].any(), "dq of fully masked rows not exactly 0"
+        return
+    if skv == 1 or (sq == 1 and causal):
+        single_key_close(got, want, terms, q, k, o, do, dt)
+        return
+    bwd_close(got, want, terms, dt)
+
+
+def single_key_close(got, want, terms, q, k, o, do, dtype):
+    """K5 where every query row attends one key: o is that key's v, so ds =
+    p (dp - delta) and with it dq and dk are 0 in exact arithmetic, and
+    each version returns the float32 rounding of that cancellation.  dq and
+    dk are held within 1e-5 of the cancelled terms' magnitude (scale x
+    max sum_d |do o| x max |k| for dq, x max |q| x the rows per KV head
+    for dk), plus one bfloat16 step of the value in bfloat16; dv as
+    bwd_close holds it."""
+    B, Sq, Hq, D = q.shape
+    cancelled = float((do.float() * o.float()).abs().sum(-1).max()) / D ** 0.5
+    rows = Sq * (Hq // k.shape[2])
+    for name, g, w, other in (("dq", got[0], want[0], k),
+                              ("dk", got[1], want[1], q)):
+        g, w = g.float().cpu(), w.float().cpu()
+        bar = 1e-5 * cancelled * float(other.float().abs().max()) \
+            * (rows if name == "dk" else 1)
+        if dtype == torch.bfloat16:
+            bar = bar + 2.0 ** -7 * w.abs()
+        err = (g - w).abs()
+        assert bool((err <= bar).all()), (
+            f"{name}: max abs err {float(err.max()):.3e} past the rounding "
+            f"bar of a single attended key")
+    bwd_close(got[2:], want[2:], terms[2:], dtype, names=("dv",))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", ["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_is_bit_deterministic(dev, D, variant, dtype):
+    """Three K5 calls on the same inputs give the same bits in dq, dk and
+    dv: no atomics, one summation order (remat and resume rely on it)."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(10)
+    q = _randn(rng, dev, dt, 2, 700, 16, D)
+    k, v = _randn(rng, dev, dt, 2, 700, 4, D), _randn(rng, dev, dt, 2, 700,
+                                                      4, D)
+    do = _randn(rng, dev, dt, 2, 700, 16, D)
+    kw = dict(causal=variant == "causal")
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+    first = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for _ in range(2):
+        again = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), f"{name}: not the same bits"
+
+
+def test_bf16_flash_kernels_refuse_misaligned_operands(dev):
+    """The bf16 K4 and K5 move operands 16 bytes at a time (cp.async): a
+    contiguous tensor that starts 2 bytes past a 16-byte boundary is
+    refused with cudaErrorMisalignedAddress (716), not read wrongly."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, dev, torch.bfloat16, 1, 17, 4, 64)
+    k = _randn(rng, dev, torch.bfloat16, 1, 17, 2, 64)
+    shifted = torch.empty(q.numel() + 8, dtype=q.dtype, device=dev)
+    odd = shifted[1:1 + q.numel()].view(q.shape)
+    odd.copy_(q)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(RuntimeError, match="cudaError_t 716"):
+        flash_attention.flash_attention_fwd(odd, k, k)
+    o, lse = flash_attention.flash_attention_fwd(q, k, k)
+    with pytest.raises(RuntimeError, match="cudaError_t 716"):
+        flash_backward.flash_attention_bwd(odd, k, k, o, lse, q)
 
 
 # ---------------------------------------------------------------------------
