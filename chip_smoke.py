@@ -91,15 +91,18 @@ Phases (each raises on failure, so the run exits non-zero):
                         and the achieved rate (tflops: the FLOPs the call's
                         data needs over the kernel's time); then the
                         end-to-end numbers of the counted runs.
-  5. trace              the chunked and the dense traffic once more, 2
-                        training steps, and one zamba2 forward, under
-                        torch.profiler (device activity only): device time
-                        by kernel name, and the device's busy share of that
-                        same run's wall time.
+  5. trace              the chunked, the dense and the paged-monolithic
+                        traffic once more, 2 training steps, and one zamba2
+                        forward, under torch.profiler (device activity
+                        only): device time by kernel name and by port
+                        kernel (K1-K7, each one's share of the busy time),
+                        and the device's busy share of that same run's
+                        wall time.
 
 Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K7), one
-{"trace": ...}, one {"trace_dense": ...}, one {"trace_train": ...} and one
-{"trace_recurrent": ...} line, one {"e2e": ...} line (the chunked run),
+{"trace": ...}, one {"trace_dense": ...}, one {"trace_paged_monolithic":
+...}, one {"trace_train": ...} and one {"trace_recurrent": ...} line, one
+{"e2e": ...} line (the chunked run),
 one {"e2e_dense": ...}, one {"e2e_paged_monolithic": ...}, one
 {"e2e_train": ...} and one {"e2e_recurrent": ...} line, and as the last
 line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
@@ -1530,6 +1533,14 @@ def phase_times(runs, captured):
 # phase 5
 # ---------------------------------------------------------------------------
 
+# the device functions of each port kernel (csrc/*.cu), as the profiler
+# names them; K2's split and combine kernels count together
+PORT_KERNEL_NAMES = {"K1": ("paged_prefill",), "K2": ("paged_decode",),
+                     "K3": ("dense_decode",), "K4": ("flash_attention",),
+                     "K5": ("flash_bwd", "dq_bf16", "dkv_bf16"),
+                     "K6": ("mamba2_scan",), "K7": ("rwkv6_scan",)}
+
+
 def device_trace(fn) -> dict:
     """fn() under torch.profiler, tracing device activity only (no host op
     recording, so the wall time stays near the unprofiled one): device
@@ -1552,10 +1563,19 @@ def device_trace(fn) -> dict:
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     if not busy:
         log("# the profiler recorded no device time: not measured")
+    port = {}
+    for key, names in PORT_KERNEL_NAMES.items():
+        mine = [e for e in kernels if any(n in e.key for n in names)]
+        if mine:
+            us = sum(dev_us(e) for e in mine)
+            port[key] = {"ms": us / 1e3, "launches": sum(e.count
+                                                         for e in mine),
+                         "share_of_busy": us / 1e6 / busy if busy else None}
     return {"profiled_wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall,
             "top_kernels_ms": [[e.key[:80], dev_us(e) / 1e3, e.count]
-                               for e in top]}
+                               for e in top],
+            "port_kernels": port}
 
 
 def phase_trace(model, params, run: str, counted_wall_s: float):
@@ -1563,9 +1583,13 @@ def phase_trace(model, params, run: str, counted_wall_s: float):
     out = device_trace(lambda: run_traffic(model, params, RUNS[run],
                                            count_syncs=False))
     out.update(run=run, counted_wall_s=counted_wall_s)
+    shares = ", ".join(f"{k} {v['ms']:.1f} ms ({v['share_of_busy']:.2f})"
+                       for k, v in out["port_kernels"].items()
+                       if v["share_of_busy"] is not None)
     log(f"# trace ({run}): device busy {out['device_busy_s']:.3f} s of "
         f"{out['profiled_wall_s']:.3f} s profiled wall (unprofiled counted "
-        f"run: {counted_wall_s:.3f} s wall)")
+        f"run: {counted_wall_s:.3f} s wall); port kernels (share of busy): "
+        f"{shares}")
     return out
 
 
@@ -1582,6 +1606,8 @@ def main() -> int:
     runs, captured, mp = phase_slice()
     trace = phase_trace(*mp, "chunked", runs["chunked"]["e2e"]["wall_s"])
     trace_dense = phase_trace(*mp, "dense", runs["dense"]["e2e"]["wall_s"])
+    trace_pm = phase_trace(*mp, "paged_monolithic",
+                           runs["paged_monolithic"]["e2e"]["wall_s"])
     del mp                       # the serving model, before the training one
     gc.collect()
     torch.cuda.empty_cache()
@@ -1595,6 +1621,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)
     print(json.dumps({"trace_dense": trace_dense}), flush=True)
+    print(json.dumps({"trace_paged_monolithic": trace_pm}), flush=True)
     print(json.dumps({"trace_train": trace_train}), flush=True)
     print(json.dumps({"trace_recurrent": trace_rec}), flush=True)
     print(json.dumps({"e2e": runs["chunked"]["e2e"]}), flush=True)

@@ -19,16 +19,14 @@
 // one block read"), converting to fp32 on the load, and walks only the
 // visible range: nothing at or past len, nothing left of the window.
 //
-// Grid: one block per (sequence, KV head), 128 threads - K2's layout
-// (csrc/paged_decode.cu) with contiguous addressing in place of the block
-// table, so the two decodes share one summation order.  The block walks
+// Grid: one block per (sequence, KV head), 128 threads.  The block walks
 // its range in tiles of 64 positions.  Per tile: scores G x 64 in shared
 // memory, one warp per query head for the max / sum reductions, then every
 // thread updates its share of the G x D fp32 accumulators held in
 // registers.  At the serving shape (8 sequences x 8 KV heads) that is 64
 // blocks for 132 SMs, each a serial chain of tiles; splitting the sequence
-// across blocks (split-KV, merged with the partial-softmax combine of
-// ROADMAP M11) is later work.
+// across blocks (split-KV, merged with the partial-softmax combine, as K2
+// does in csrc/paged_decode.cu) is later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>

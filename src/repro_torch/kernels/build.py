@@ -41,10 +41,10 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     # stream
     "paged_prefill": ("paged_prefill_launch",
                       (_P,) * 8 + (_I,) * 8 + (_F, _F, _I, _P)),
-    # q, k_pages, v_pages, block_table, cache_len, out, B, Hkv, G, D,
-    # page_size, n_max, window, scale, softcap, is_bf16, stream
+    # q, k_pages, v_pages, block_table, cache_len, out, scratch, B, Hkv, G,
+    # D, page_size, n_max, split, window, scale, softcap, is_bf16, stream
     "paged_decode": ("paged_decode_launch",
-                     (_P,) * 6 + (_I,) * 7 + (_F, _F, _I, _P)),
+                     (_P,) * 7 + (_I,) * 8 + (_F, _F, _I, _P)),
     # q, k, v, o, lse, B, Sq, Skv, Hkv, G, D, causal, window, scale,
     # softcap, is_bf16, stream
     "flash_attention": ("flash_attention_launch",

@@ -29,6 +29,11 @@ dense_reference = ref.flash_decode
 
 # most query heads per KV head the kernels' register layout holds
 MAX_GROUP = 16
+# K2's split-KV: the positions one block of csrc/paged_decode.cu owns (a
+# multiple of its 64-position tile).  Fixed, so a sequence's output bits do
+# not depend on the batch it decodes in or on the card.  128 timed fastest
+# of 64, 128, 256 and 512 at the serving shape on an H100 (PERF.md).
+SPLIT = 128
 
 
 def flash_decode(q, k_cache, v_cache, cache_len, *, window: int = 0,
@@ -94,15 +99,21 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
     if Sq != 1:
         raise ValueError(f"paged_flash_decode: one query token per "
                          f"sequence, got {Sq}")
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"paged_flash_decode: {Hq // Hkv} query heads per "
-                         f"KV head, the kernel holds at most {MAX_GROUP}")
+    G = Hq // Hkv
+    if G > MAX_GROUP:
+        raise ValueError(f"paged_flash_decode: {G} query heads per KV "
+                         f"head, the kernel holds at most {MAX_GROUP}")
     out = torch.empty_like(q)
+    # each block's partial (unnormalised o, m, l), merged by the kernel's
+    # second pass; one launch count for both
+    n_split = -(-n_max * ps // SPLIT)
+    scratch = torch.empty(B * Hkv * n_split * G * (D + 2),
+                          dtype=torch.float32, device=q.device)
     err = build.kernel("paged_decode")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(), B,
-        Hkv, Hq // Hkv, D, ps, n_max, int(window),
-        scale if scale is not None else 1.0 / math.sqrt(D),
+        block_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), B, Hkv, G, D, ps, n_max, SPLIT,
+        int(window), scale if scale is not None else 1.0 / math.sqrt(D),
         float(logit_softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("paged_decode", err)

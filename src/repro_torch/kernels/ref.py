@@ -218,6 +218,71 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
                         logit_softcap=logit_softcap)
 
 
+def combine_partial_softmax(m_parts, l_parts, o_parts):
+    """Merge per-split partial (m, l, o) triples, the JAX package's
+    combine_partial_softmax (repro/kernels/ref.py) line for line: m is the
+    largest m_i, alpha_i = exp2((m_i - m_safe) * LOG2E) and 0 for an empty
+    partial (m_i = NEG_INF), l = sum l_i alpha_i, o = sum o_i alpha_i.
+    m_parts, l_parts: (P, ...); o_parts: (P, ..., D).  Returns (m, l, o),
+    o unnormalised."""
+    m = torch.amax(m_parts, 0)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    alpha = torch.exp2((m_parts - m_safe[None]) * LOG2E)
+    alpha = torch.where(m_parts <= NEG_INF / 2, 0.0, alpha)
+    l = torch.sum(l_parts * alpha, 0)
+    o = torch.sum(o_parts * alpha[..., None], 0)
+    return m, l, o
+
+
+def paged_flash_decode_split(q, k_pages, v_pages, block_table, cache_len, *,
+                             split: int, scale: Optional[float] = None,
+                             window: int = 0,
+                             logit_softcap: float = 0.0) -> torch.Tensor:
+    """The split-KV form of paged_flash_decode, as csrc/paged_decode.cu
+    computes it: sequence b's absolute positions are cut into
+    ceil(n_max * page_size / split) parts of `split`; each part's visible
+    positions ([max(0, len - window), len)) give an unnormalised partial
+    (m, l, o) - m = NEG_INF, l = 0 where none is visible - and
+    combine_partial_softmax merges them in split order, o / max(l, 1e-20).
+    Same arguments and result as paged_flash_decode.  Only tests use it:
+    it holds the kernel's summation structure against the JAX package on
+    the CPU."""
+    B, _, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    G = _group(Hq, Hkv)
+    sc = scale if scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+    idx = block_table.long()
+    k = k_pages[idx].reshape(B, -1, Hkv, D).float()
+    v = v_pages[idx].reshape(B, -1, Hkv, D).float()
+    n_pos = k.shape[1]
+    lens = _as_lens(cache_len, B, dev)
+    qf = (q.float() * sc).reshape(B, Hkv, G, D)
+    ms, ls, os_ = [], [], []
+    for j0 in range(0, n_pos, split):
+        kblk, vblk = k[:, j0:j0 + split], v[:, j0:j0 + split]
+        pos = j0 + torch.arange(kblk.shape[1], device=dev)
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, kblk)
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        mask = pos[None, :] < lens[:, None]
+        if window > 0:
+            mask = mask & (pos[None, :] >= lens[:, None] - window)
+        mask = mask[:, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(-1)
+        m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+        p = torch.where(mask, torch.exp2((s - m_safe[..., None]) * LOG2E),
+                        0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        os_.append(torch.einsum("bhgk,bkhd->bhgd", p, vblk))
+    _, l, o = combine_partial_softmax(torch.stack(ms), torch.stack(ls),
+                                      torch.stack(os_))
+    o = o / torch.clamp_min(l, 1e-20)[..., None]
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
 def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
                                     q_offsets, true_lens, q_lens=None, *,
                                     scale: Optional[float] = None,

@@ -46,28 +46,43 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
 def _tree_from_numpy(tree, want, device, path: str, owner: str):
     """Nested dict of numpy arrays -> nested dict of tensors on `device`.
     `want` is a torch.dtype every leaf must have, or the matching nest of
-    tensors whose dtype each leaf must have; a mismatch raises instead of
-    casting."""
+    tensors whose dtype and shape each leaf must have, every one of them
+    present; a key `want` lacks, a missing key, or a leaf of another dtype
+    or shape raises instead of casting, naming its path (extra keys first,
+    then the leaves in order, then the missing keys)."""
+    nest = isinstance(want, dict)
     if isinstance(tree, dict):
-        extra = set(tree) - set(want) if isinstance(want, dict) else ()
+        extra = set(tree) - set(want) if nest else ()
         if extra:
             raise KeyError(f"{path or '/'}: {sorted(extra)} not in {owner}")
-        return {k: _tree_from_numpy(
-            v, want[k] if isinstance(want, dict) else want, device,
-            f"{path}/{k}", owner) for k, v in tree.items()}
+        out = {k: _tree_from_numpy(v, want[k] if nest else want, device,
+                                   f"{path}/{k}", owner)
+               for k, v in tree.items()}
+        missing = set(want) - set(tree) if nest else ()
+        if missing:
+            raise KeyError(f"{path or '/'}: {sorted(missing)} of {owner} "
+                           f"missing")
+        return out
+    if nest:
+        raise KeyError(f"{path}: a leaf where {owner} has "
+                       f"{sorted(want)}")
     t = tensor_from_numpy(tree, device)
     dtype = want if isinstance(want, torch.dtype) else want.dtype
     if t.dtype != dtype:
         raise TypeError(f"{path}: {t.dtype}, {owner} wants {dtype}")
+    if not isinstance(want, torch.dtype) and t.shape != want.shape:
+        raise ValueError(f"{path}: shape {tuple(t.shape)}, {owner} wants "
+                         f"{tuple(want.shape)}")
     return t
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device="cuda") -> Dict[str, Any]:
     """Nested dict of numpy arrays (the JAX Model.init tree) -> nested dict
-    of torch tensors on `device`, each leaf's dtype checked against the
-    port's own parameter at its path (Model(cfg) on the meta device, no
-    memory); a mismatch raises instead of silently casting."""
+    of torch tensors on `device`, each leaf's dtype and shape checked
+    against the port's own parameter at its path (Model(cfg) on the meta
+    device, no memory); an extra, missing or mismatched leaf raises instead
+    of being cast or left out."""
     device = resolve_device(device, "params_from_numpy")
     return _tree_from_numpy(tree, Model(cfg, "meta").params, device, "",
                             f"config {cfg.name}")

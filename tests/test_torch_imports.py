@@ -63,16 +63,52 @@ def test_build_model_without_a_device_raises_on_a_cpu_only_machine():
                        device="cpu").device.type == "cpu"
 
 
+def _smoke_tree():
+    """A whole granite-3-2b smoke parameter tree (float32) as numpy arrays,
+    shaped by the port's own Model - no JAX."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.tree import map_tree
+    cfg = get_smoke_config("granite-3-2b").replace(dtype="float32")
+    tree = map_tree(lambda t: t.detach().numpy().copy(),
+                    Model(cfg, "cpu").params)
+    return cfg, tree
+
+
 def test_params_from_numpy_without_a_device_raises_on_a_cpu_only_machine():
     torch = pytest.importorskip("torch")
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
-    import numpy as np
-    from repro_torch.configs import get_smoke_config
     from repro_torch.models.convert import params_from_numpy
-    cfg = get_smoke_config("granite-3-2b").replace(dtype="float32")
-    tree = {"tok": {"embed": np.zeros((4, 4), np.float32)}}
+    cfg, tree = _smoke_tree()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(tree, cfg)
     got = params_from_numpy(tree, cfg, device="cpu")
     assert got["tok"]["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("fault", ["missing leaf", "missing subtree",
+                                   "leaf for a subtree", "wrong shape"])
+def test_params_from_numpy_refuses_an_incomplete_or_misshapen_tree(fault):
+    """A tree with a leaf or a subtree left out, a leaf in place of a
+    subtree, or a leaf of another shape raises naming its path, as an
+    extra key or a wrong dtype does."""
+    import numpy as np
+    from repro_torch.models.convert import params_from_numpy
+    cfg, tree = _smoke_tree()
+    if fault == "missing leaf":
+        del tree["blocks"]["attn"]["wq"]
+        err, where = KeyError, "/blocks/attn"
+    elif fault == "missing subtree":
+        del tree["final_norm"]
+        err, where = KeyError, "final_norm"
+    elif fault == "leaf for a subtree":
+        tree["final_norm"] = np.zeros(3, np.float32)
+        err, where = KeyError, "/final_norm"
+    else:
+        wq = tree["blocks"]["attn"]["wq"]
+        tree["blocks"]["attn"]["wq"] = np.zeros(wq.shape[:-1] + (3,),
+                                                np.float32)
+        err, where = ValueError, "/blocks/attn/wq"
+    with pytest.raises(err, match=where):
+        params_from_numpy(tree, cfg, device="cpu")

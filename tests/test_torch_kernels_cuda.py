@@ -10,8 +10,16 @@ through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
 80, zamba2's shared attention block); K4 and K5 at the edges of their
 tensor-core tiles (lengths 1, 15, 17 and 200, fewer queries than keys,
 GQA groups of 1 to 8, a window shorter than one tile, softcap, no key at
-all) and K5's bits from call to call; the Mamba2 scan K6 and the RWKV6
-scan K7 (a sequence shorter than one chunk, one that is no chunk multiple,
+all) and K5's bits from call to call; K1 at the edges of its tensor-core
+tiles (pages of 16, chunks of 1 to 256 tokens starting at a page, mid-page,
+mid-tile and at the table's end, ragged rows and q_lens lanes ending inside
+a 16-row fragment, two chunks of one sequence, a dead row, GQA groups of 1
+to 8, a window shorter than one tile, softcap) and K2 at the edges of its
+splits (lengths 0, 1, one split - 1, + 0, + 1, two splits +- 1 and the
+whole table, a window that starts inside a split, every group size from 1
+to 16), K2's bits alone against inside a batch and from call to call, and
+the refusal of misaligned bf16 operands by K1 and K2; the Mamba2 scan K6
+and the RWKV6 scan K7 (a sequence shorter than one chunk, one that is no chunk multiple,
 batch 1, an odd head count, dt near 0 and a large dt * A, the decay w = 1
 and w at the model's clamp over whole chunks, u = 0, every state and key
 size the kernels take, ragged state rows and columns, the full-width
@@ -545,6 +553,178 @@ def test_bf16_flash_kernels_refuse_misaligned_operands(dev):
     o, lse = flash_attention.flash_attention_fwd(q, k, k)
     with pytest.raises(RuntimeError, match="cudaError_t 716"):
         flash_backward.flash_attention_bwd(odd, k, k, o, lse, q)
+
+
+# ---------------------------------------------------------------------------
+# K1 at the edges of its tensor-core tiles, K2 at the edges of its splits
+# ---------------------------------------------------------------------------
+
+# K1: pages of 16, table rows of 48 pages (768 positions)
+K1_PS, K1_NMAX, K1_PAGES = 16, 48, 256
+K1_CHUNKS = [1, 15, 17, 64, 200, 256]
+# (window, softcap, explicit q_lens) per variant: the window is shorter
+# than one 64-position tile
+K1_EDGE_VARIANTS = {"causal": (0, 0.0, False), "window": (37, 0.0, False),
+                    "softcap": (0, 30.0, False), "qlens": (0, 0.0, True)}
+
+
+def _k1_edge_case(dev, dt, D, G, S, seed):
+    """Seven chunk rows of S tokens: a first chunk; one starting mid-page
+    (7); a ragged final chunk starting mid-tile (100); a dead row; two
+    consecutive chunks of one sequence sharing its table row (64, 64 + S);
+    one whose prefix is exactly the table's n_max * page_size.  q_lens (for
+    the qlens variant) end inside 16-row m-tiles where they can."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: _randn(rng, dev, dt, *sh)
+    k, v = f(K1_PAGES, K1_PS, HKV, D), f(K1_PAGES, K1_PS, HKV, D)
+    q = f(7, S, HKV * G, D)
+    end = K1_NMAX * K1_PS
+    offs = [0, 7, 100, 0, 64, 64 + S, end - S]
+    tls = [S, 7 + S, 100 + (S + 1) // 2, 0, 64 + S, 64 + 2 * S, end]
+    perm = rng.permutation(np.arange(1, K1_PAGES)).astype(np.int32)
+    tables = np.zeros((7, K1_NMAX), np.int32)
+    used = 0
+    for r in (0, 1, 2, 4, 6):
+        n = -(-tls[5 if r == 4 else r] // K1_PS)   # row 5 reads row 4's
+        tables[r, :n] = perm[used:used + n]
+        used += n
+    tables[5] = tables[4]
+    qls = np.clip([S - 3, S - 1, (S + 1) // 2 - 1, 0, S, S // 3 + 1, S - 5],
+                  0, S)
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
+                                 device=dev)
+    return q, k, v, i32(tables), i32(offs), i32(tls), i32(qls)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(K1_EDGE_VARIANTS))
+@pytest.mark.parametrize("S", K1_CHUNKS)
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_prefill_kernel_at_tile_edges(dev, D, G, S, variant, dtype):
+    """K1 against its plain version at the bars of
+    test_prefill_kernel_matches_plain; pad lanes and the dead row exactly
+    0."""
+    dt = DTYPES[dtype]
+    q, k, v, tb, off, tl, ql = _k1_edge_case(dev, dt, D, G, S, seed=12)
+    window, softcap, explicit = K1_EDGE_VARIANTS[variant]
+    ql = ql if explicit else None
+    kw = dict(window=window, logit_softcap=softcap)
+    n0 = paged_prefill.launches
+    got = paged_prefill.batched_paged_prefill_attention(q, k, v, tb, off,
+                                                        tl, ql, **kw)
+    want = paged_prefill.reference(q, k, v, tb, off, tl, ql, **kw)
+    torch.cuda.synchronize()
+    assert paged_prefill.launches == n0 + 1
+    _close(got, want, dt)
+    lanes = (ql if ql is not None else torch.clamp(tl - off, 0, S)).cpu()
+    for r in range(7):
+        assert not got[r, int(lanes[r]):].any(), f"row {r} pad lanes"
+    assert not got[3].any(), "dead row not zero"
+
+
+# K2: pages of 16, table rows of 40 pages (640 positions, 3 splits)
+K2_PS, K2_NMAX = 16, 40
+SPLIT = flash_decode.SPLIT
+K2_LENS = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, K2_PS * K2_NMAX, 2 * SPLIT - 1,
+           2 * SPLIT + 1]
+# (window, softcap) per variant: the window starts inside a split
+K2_EDGE_VARIANTS = {"plain": (0, 0.0), "window": (100, 0.0),
+                    "softcap": (0, 30.0)}
+
+
+def _k2_case(dev, dt, D, G, lens, ps, n_max, seed):
+    """One sequence per length over a shuffled pool, each with its own
+    pages; unused table entries point at page 0."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + len(lens) * n_max
+    k = _randn(rng, dev, dt, n_pages, ps, HKV, D)
+    v = _randn(rng, dev, dt, n_pages, ps, HKV, D)
+    q = _randn(rng, dev, dt, len(lens), 1, HKV * G, D)
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    bt = np.zeros((len(lens), n_max), np.int32)
+    for b, n in enumerate(lens):
+        bt[b, :-(-n // ps)] = perm[b * n_max:b * n_max + -(-n // ps)]
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
+                                 device=dev)
+    return q, k, v, i32(bt), i32(lens)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(K2_EDGE_VARIANTS))
+@pytest.mark.parametrize("G", list(range(1, 17)))
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_kernel_at_split_edges(dev, D, G, variant, dtype):
+    """K2 against its plain version at the bars of
+    test_decode_kernel_matches_plain, lengths 0, 1, around one and two
+    splits and the whole table; the lane of length 0 exactly 0."""
+    dt = DTYPES[dtype]
+    q, k, v, bt, lens = _k2_case(dev, dt, D, G, K2_LENS, K2_PS, K2_NMAX,
+                                 seed=13)
+    window, softcap = K2_EDGE_VARIANTS[variant]
+    kw = dict(window=window, logit_softcap=softcap)
+    n0 = flash_decode.launches
+    got = flash_decode.paged_flash_decode(q, k, v, bt, lens, **kw)
+    want = flash_decode.reference(q, k, v, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == n0 + 1
+    _close(got, want, dt)
+    assert not got[0].any(), "lane of length 0 not zero"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_kernel_bits_do_not_depend_on_the_batch(dev, D, dtype):
+    """K2's split is fixed, so each sequence of the serving shape's batch (8
+    sequences of 38..1932 positions, 32 / 8 heads, pages of 16, 128-page
+    table rows) gets the same bits alone as inside the batch, and the batch
+    the same bits from call to call."""
+    dt = DTYPES[dtype]
+    lens = [38, 129, 301, 512, 701, 0, 1501, 1932]
+    rng = np.random.default_rng(14)
+    k = _randn(rng, dev, dt, 8 * 128 + 1, 16, 8, D)
+    v = _randn(rng, dev, dt, 8 * 128 + 1, 16, 8, D)
+    q = _randn(rng, dev, dt, 8, 1, 32, D)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, 8 * 128 + 1))
+                          .astype(np.int32).reshape(8, 128)).to(dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    batch = flash_decode.paged_flash_decode(q, k, v, bt, lens)
+    for _ in range(2):
+        assert torch.equal(flash_decode.paged_flash_decode(q, k, v, bt, lens),
+                           batch), "not the same bits from call to call"
+    for b in range(8):
+        alone = flash_decode.paged_flash_decode(
+            q[b:b + 1].contiguous(), k, v, bt[b:b + 1].contiguous(),
+            lens[b:b + 1].contiguous())
+        assert torch.equal(alone[0], batch[b]), f"sequence {b} alone"
+    _close(batch, flash_decode.reference(q, k, v, bt, lens), dt)
+
+
+def test_bf16_paged_kernels_refuse_misaligned_operands(dev):
+    """The bf16 K1 and K2 move K/V (and q) 16 bytes at a time (cp.async): a
+    contiguous q or pool that starts 2 bytes past a 16-byte boundary is
+    refused with cudaErrorMisalignedAddress (716), not read wrongly."""
+    q, k, v, tb, off, tl, _ = _k1_edge_case(dev, torch.bfloat16, 64, 2, 17,
+                                            seed=15)
+
+    def odd(t):
+        shifted = torch.empty(t.numel() + 8, dtype=t.dtype, device=dev)
+        out = shifted[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16
+        return out
+
+    for args in ((odd(q), k, v), (q, odd(k), v), (q, k, odd(v))):
+        with pytest.raises(RuntimeError, match="cudaError_t 716"):
+            paged_prefill.batched_paged_prefill_attention(*args, tb, off, tl)
+    qd, kd, vd, bt, lens = _k2_case(dev, torch.bfloat16, 64, 4, [5, 300],
+                                    16, 24, seed=16)
+    for args in ((odd(qd), kd, vd), (qd, odd(kd), vd), (qd, kd, odd(vd))):
+        with pytest.raises(RuntimeError, match="cudaError_t 716"):
+            flash_decode.paged_flash_decode(*args, bt, lens)
+    paged_prefill.batched_paged_prefill_attention(q, k, v, tb, off, tl)
+    flash_decode.paged_flash_decode(qd, kd, vd, bt, lens)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
