@@ -8,378 +8,44 @@
 // sequence, fp32 math, exp2-form online softmax with the NEG_INF / m_safe
 // guards, optional logit softcap; a sequence with len 0 comes out exactly 0.
 //
-// What bounds it on this card: bytes.  Each K/V position is read once and
-// used by G query heads for 4*G*D FLOPs against 4*D bytes (bf16 K and V):
-// about 1 FLOP per byte at G = 4, far below the ~295 FLOP/byte where an
-// H100 stops being memory bound.  So the math stays fp32 on the CUDA cores
-// in both dtypes, and the design is about parallelism across the sequence
-// and bytes in flight:
-//
-//  * Split-KV.  The grid is (sequence b, KV head h, split), n_split =
-//    ceil(n_max * page_size / split): a block owns the absolute positions
-//    [split_i * split, (split_i + 1) * split) of its sequence and walks
-//    only the part inside [lo, len), lo = max(0, len - window).  A block
-//    whose part is empty writes an empty partial (m = NEG_INF, l = 0) and
-//    returns.  `split` is a fixed number of positions the wrapper passes
-//    (kernels/flash_decode.py SPLIT); n_split follows from shapes the host
-//    knows, so no length is read on the host.  Since the split does not
-//    depend on the batch, the number of KV heads or the card, a sequence's
-//    output bits depend only on its own q, pages and length: the same
-//    alone as inside any batch, and from call to call.
-//  * Bytes in flight.  A block loads its part in tiles of 64 positions,
-//    every position's head row (D elements, contiguous in the pool) as
-//    16-byte cp.async chunks into shared memory (rows padded by 16 bytes),
-//    two buffers deep: the whole of tile j + 1 is in flight while tile j is
-//    computed.  64 threads turn a tile's positions into pool offsets
-//    through the table once, a tile ahead of its load.  All G query heads
-//    of the group use each K/V row from shared memory.
-//  * Per tile: warp w scores the heads g = w, w + 4, ... against the tile
-//    (a lane two positions, K read as 16-byte vectors, q pre-scaled in
-//    shared memory) and runs their online softmax with warp shuffles; then
-//    every thread updates its pairs of the G x D fp32 accumulators with the
-//    weights and V from shared memory.  Two barriers a tile.
-//  * Combine.  Each block writes its unnormalised o (G x D), m and l (G)
-//    to fp32 scratch the wrapper allocates; a second kernel, one block per
-//    (b, h), merges the partials in fixed split order as
-//    combine_partial_softmax does (repro/kernels/ref.py; the port's copy in
-//    kernels/ref.py): m = max m_i, the m_safe guard, alpha_i = 0 for an
-//    empty partial, then o / max(l, 1e-20) in the output dtype.
+// How: the split-KV kernel of csrc/split_decode.cuh (its note says what
+// bounds it and how it is laid out), with positions resolved through the
+// block table.  The table is walked a tile ahead: 64 threads turn tile j +
+// 2's positions into pool offsets while tile j is computed.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "split_decode.cuh"
 
-namespace {
+namespace paged_decode {
 
-constexpr int NT = 128;          // threads per block
-constexpr int NWARP = NT / 32;
-constexpr int TILE = 64;         // KV positions per tile
-constexpr int TPL = TILE / 32;   // positions per lane in the score phase
-constexpr int GMAX = 16;         // most query heads per KV head
-constexpr int RPW = GMAX / NWARP;  // most heads per warp
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// one 16-byte chunk of shared memory as fp32 values
-__device__ __forceinline__ void chunk_to_f(float (&f)[4], const float* p) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
-}
-__device__ __forceinline__ void chunk_to_f(float (&f)[8],
-                                           const __nv_bfloat16* p) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    f[2 * i] = __low2float(b);
-    f[2 * i + 1] = __high2float(b);
+// position pos of sequence b: page table[b][pos / ps], row pos % ps of
+// the (P, ps, Hkv, D) pool
+struct Pages {
+  static constexpr bool kTable = true;
+  int n_pos;                 // n_max * ps: positions the table addresses
+  const int* table;
+  int n_max, ps;
+  long long tok;             // Hkv * D: elements per pool row
+  __device__ __forceinline__ long long row(int b, int pos) const {
+    return (long long)table[(size_t)b * n_max + pos / ps] * ps * tok +
+           (long long)(pos % ps) * tok;
   }
-}
-// two neighbouring elements as fp32
-__device__ __forceinline__ float2 pair_to_f(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 pair_to_f(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Scratch layout (fp32), P = B * Hkv * n_split partials, partial index
-// ((b * Hkv + h) * n_split + i): o at [P][G][D], then m at [P][G], then l
-// at [P][G].
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) paged_decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ table,
-    const int* __restrict__ lens, float* __restrict__ scratch, int Hkv,
-    int G, int ps, int n_max, int split, int window, float scale,
-    float softcap) {
-  constexpr int EPC = 16 / sizeof(T);      // elements per 16-byte chunk
-  constexpr int CH = D / EPC;              // chunks per head row
-  constexpr int LD = D + EPC;              // padded shared-memory row
-  constexpr int NP = GMAX * D / 2 / NT;    // accumulator pairs per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kv_s = reinterpret_cast<T*>(smem_raw);        // 2 x (K, V) x TILE x LD
-  float* q_s = reinterpret_cast<float*>(kv_s + 4 * TILE * LD);  // G x D
-  float* p_s = q_s + G * D;                        // G x TILE weights
-  float* a_s = p_s + G * TILE;                     // G rescale factors
-  // pool offsets (elements) of the positions of two tiles, -1 past the part
-  long long* pos_s = reinterpret_cast<long long*>(a_s + ((G + 1) & ~1));
-
-  const int b = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
-  const int n_split = gridDim.z, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int Hq = Hkv * G;
-  const int L = lens[b];
-  const int lo = window > 0 ? max(0, L - window) : 0;
-  const int hi = min(L, n_max * ps);   // positions the table can address
-  const int a = max(lo, sp * split), e = min(hi, (sp + 1) * split);
-  const size_t P = (size_t)gridDim.x * gridDim.y * n_split;
-  const size_t part = ((size_t)b * Hkv + h) * n_split + sp;
-  float* o_part = scratch + part * G * D;
-  float* m_part = scratch + P * G * D + part * G;
-  float* l_part = m_part + P * G;
-  if (a >= e) {
-    if (tid < G) {
-      m_part[tid] = NEG_INF;
-      l_part[tid] = 0.f;
-    }
-    return;
-  }
-  const int n_tiles = (e - a + TILE - 1) / TILE;
-  const long long tok = (long long)Hkv * D;
-  const long long page_stride = (long long)ps * tok;
-  const int* trow = table + (size_t)b * n_max;
-
-  auto fill_offsets = [&](int j) {
-    if (tid < TILE) {
-      const int pos = a + j * TILE + tid;
-      pos_s[(j & 1) * TILE + tid] =
-          pos < e ? (long long)trow[pos / ps] * page_stride +
-                        (long long)(pos % ps) * tok + (long long)h * D
-                  : -1;
-    }
-  };
-  auto load_kv = [&](int j) {
-    const long long* po = pos_s + (j & 1) * TILE;
-    T* ks = kv_s + (j & 1) * 2 * TILE * LD;
-    T* vs = ks + TILE * LD;
-    for (int i = tid; i < TILE * CH; i += NT) {
-      const int rr = i / CH, c = i % CH;
-      const long long o = po[rr];
-      const bool live = o >= 0;
-      const long long src = live ? o + c * EPC : 0;
-      mma_bf16::cp_async16(ks + rr * LD + c * EPC, kp + src, live);
-      mma_bf16::cp_async16(vs + rr * LD + c * EPC, vp + src, live);
-    }
-  };
-
-  fill_offsets(0);
-  fill_offsets(1);
-  const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int i = tid; i < G * D; i += NT) q_s[i] = to_f(qb[i]) * scale;
-  __syncthreads();       // the offsets of tiles 0 and 1, q_s
-  load_kv(0);
-  mma_bf16::cp_async_commit();
-
-  // row statistics: warp w owns query heads g = w, w + NWARP, ...
-  float m_run[RPW], l_run[RPW];
-#pragma unroll
-  for (int k = 0; k < RPW; ++k) {
-    m_run[k] = NEG_INF;
-    l_run[k] = 0.f;
-  }
-  // accumulator pairs: thread tid owns pairs tid + NT * u of the G x D / 2
-  float acc[NP][2];
-#pragma unroll
-  for (int u = 0; u < NP; ++u) acc[u][0] = acc[u][1] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int t0 = a + j * TILE;
-    mma_bf16::cp_async_wait_all();
-    __syncthreads();     // tile j landed; every thread is done with j - 1
-    if (j + 1 < n_tiles) load_kv(j + 1);
-    mma_bf16::cp_async_commit();
-    fill_offsets(j + 2);   // tile j's buffer: its load was issued before
-    const T* ks = kv_s + (j & 1) * 2 * TILE * LD;
-    const T* vs = ks + TILE * LD;
-
-    // scores of this warp's heads: lane owns positions lane + 32 i
-    float sc[RPW][TPL];
-#pragma unroll
-    for (int k = 0; k < RPW; ++k)
-#pragma unroll
-      for (int i = 0; i < TPL; ++i) sc[k][i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-#pragma unroll
-      for (int i = 0; i < TPL; ++i) {
-        float kf[EPC];
-        chunk_to_f(kf, ks + (lane + 32 * i) * LD + c * EPC);
-#pragma unroll
-        for (int k = 0; k < RPW; ++k) {
-          const int g = warp + NWARP * k;
-          if (g < G) {
-            const float* qr = q_s + g * D + c * EPC;
-#pragma unroll
-            for (int x = 0; x < EPC; x += 4) {
-              const float4 qv = *reinterpret_cast<const float4*>(qr + x);
-              float s = fmaf(qv.x, kf[x], sc[k][i]);
-              s = fmaf(qv.y, kf[x + 1], s);
-              s = fmaf(qv.z, kf[x + 2], s);
-              sc[k][i] = fmaf(qv.w, kf[x + 3], s);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < RPW; ++k) {
-      const int g = warp + NWARP * k;
-      if (g >= G) continue;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int i = 0; i < TPL; ++i) {
-        float x = sc[k][i];
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        x = t0 + lane + 32 * i < e ? x : NEG_INF;
-        sc[k][i] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m_run[k], mx);
-      const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < TPL; ++i) {
-        const float p = t0 + lane + 32 * i < e
-                            ? exp2f((sc[k][i] - m_safe) * LOG2E)
-                            : 0.f;
-        p_s[g * TILE + lane + 32 * i] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      const float alpha = m_run[k] <= NEG_INF / 2
-                              ? 0.f
-                              : exp2f((m_run[k] - m_new) * LOG2E);
-      l_run[k] = l_run[k] * alpha + sum;
-      m_run[k] = m_new;
-      if (lane == 0) a_s[g] = alpha;
-    }
-    __syncthreads();     // weights and rescale factors of every head
-
-    // o += p v over the tile (positions past the part have p = 0 and a
-    // zero-filled V row)
-#pragma unroll
-    for (int u = 0; u < NP; ++u) {
-      const int e2 = 2 * (tid + NT * u);
-      if (e2 < G * D) {
-        const int g = e2 / D, d = e2 - g * D;
-        const float* pr = p_s + g * TILE;
-        const float al = a_s[g];
-        float o0 = acc[u][0] * al, o1 = acc[u][1] * al;
-#pragma unroll 8
-        for (int t = 0; t < TILE; ++t) {
-          const float p = pr[t];
-          const float2 vv = pair_to_f(vs + t * LD + d);
-          o0 = fmaf(p, vv.x, o0);
-          o1 = fmaf(p, vv.y, o1);
-        }
-        acc[u][0] = o0;
-        acc[u][1] = o1;
-      }
-    }
-  }
-  mma_bf16::cp_async_wait_all();
-
-#pragma unroll
-  for (int k = 0; k < RPW; ++k) {
-    const int g = warp + NWARP * k;
-    if (g < G && lane == 0) {
-      m_part[g] = m_run[k];
-      l_part[g] = l_run[k];
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < NP; ++u) {
-    const int e2 = 2 * (tid + NT * u);
-    if (e2 < G * D)
-      *reinterpret_cast<float2*>(o_part + e2) =
-          make_float2(acc[u][0], acc[u][1]);
-  }
-}
-
-// One block per (b, h): the n_split partials merged in split order.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) paged_decode_combine_kernel(
-    const float* __restrict__ scratch, T* __restrict__ out, int Hkv, int G,
-    int n_split) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const size_t P = (size_t)gridDim.x * gridDim.y * n_split;
-  const size_t p0 = ((size_t)b * Hkv + h) * n_split;
-  const float* m_all = scratch + P * G * D;
-  const float* l_all = m_all + P * G;
-  T* ob = out + ((size_t)b * Hkv * G + (size_t)h * G) * D;
-  for (int e2 = 2 * threadIdx.x; e2 < G * D; e2 += 2 * NT) {
-    const int g = e2 / D;
-    float m = NEG_INF;
-    for (int i = 0; i < n_split; ++i)
-      m = fmaxf(m, m_all[(p0 + i) * G + g]);
-    const float m_safe = m <= NEG_INF / 2 ? 0.f : m;
-    float l = 0.f, o0 = 0.f, o1 = 0.f;
-    for (int i = 0; i < n_split; ++i) {
-      const float mi = m_all[(p0 + i) * G + g];
-      if (mi <= NEG_INF / 2) continue;        // empty partial: alpha = 0
-      const float alpha = exp2f((mi - m_safe) * LOG2E);
-      const float2 oi =
-          *reinterpret_cast<const float2*>(scratch + ((p0 + i) * G) * D + e2);
-      l += l_all[(p0 + i) * G + g] * alpha;
-      o0 += oi.x * alpha;
-      o1 += oi.y * alpha;
-    }
-    const float inv = 1.f / fmaxf(l, 1e-20f);
-    ob[e2] = from_f<T>(o0 * inv);
-    ob[e2 + 1] = from_f<T>(o1 * inv);
-  }
-}
+};
 
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const void* table,
            const void* lens, void* out, void* scratch, int B, int Hkv, int G,
            int ps, int n_max, int split, int window, float scale,
            float softcap, cudaStream_t stream) {
-  constexpr int LD = D + 16 / (int)sizeof(T);
-  const long long n_split = ((long long)n_max * ps + split - 1) / split;
-  if (n_split > 65535 || Hkv > 65535) return (int)cudaErrorInvalidConfiguration;
-  if (!mma_bf16::aligned16({q, kp, vp, out, scratch}))
-    return (int)cudaErrorMisalignedAddress;
-  const size_t smem = sizeof(T) * 4 * TILE * LD +
-                      sizeof(float) * ((size_t)G * D + (size_t)G * TILE +
-                                       ((G + 1) & ~1)) +
-                      sizeof(long long) * 2 * TILE;
-  auto kern = paged_decode_split_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(B, Hkv, (unsigned)n_split), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(lens), static_cast<float*>(scratch), Hkv, G,
-      ps, n_max, split, window, scale, softcap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_combine_kernel<T, D><<<dim3(B, Hkv), NT, 0, stream>>>(
-      static_cast<const float*>(scratch), static_cast<T*>(out), Hkv, G,
-      (int)n_split);
-  return (int)cudaGetLastError();
+  const Pages addr{n_max * ps, static_cast<const int*>(table), n_max, ps,
+                   (long long)Hkv * D};
+  return split_kv::launch<T, D>(q, kp, vp, lens, out, scratch, addr, B, Hkv,
+                                G, split, window, scale, softcap, stream);
 }
 
-}  // namespace
+}  // namespace paged_decode
 
 // C entry point bound through ctypes.  Returns a cudaError_t (0 = launched).
 // scratch: fp32, B * Hkv * n_split * G * (D + 2) elements with n_split =
@@ -398,31 +64,25 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    int D, int page_size, int n_max,
                                    int split, int window, float scale,
                                    float softcap, int is_bf16, void* stream) {
+  using split_kv::GMAX;
+  using split_kv::TILE;
   if (G < 1 || G > GMAX || page_size < 1 || n_max < 1 || split < TILE ||
-      split % TILE)
+      split % TILE || (long long)n_max * page_size > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Hkv == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PAGED_DECODE_CASE(T, HD)                                          \
+  return paged_decode::launch<T, HD>(q, k_pages, v_pages, block_table,    \
+                                     cache_len, out, scratch, B, Hkv, G,  \
+                                     page_size, n_max, split, window,     \
+                                     scale, softcap, s)
   if (is_bf16) {
-    if (D == 64)
-      return launch<__nv_bfloat16, 64>(q, k_pages, v_pages, block_table,
-                                       cache_len, out, scratch, B, Hkv, G,
-                                       page_size, n_max, split, window,
-                                       scale, softcap, s);
-    if (D == 128)
-      return launch<__nv_bfloat16, 128>(q, k_pages, v_pages, block_table,
-                                        cache_len, out, scratch, B, Hkv, G,
-                                        page_size, n_max, split, window,
-                                        scale, softcap, s);
+    if (D == 64) PAGED_DECODE_CASE(__nv_bfloat16, 64);
+    if (D == 128) PAGED_DECODE_CASE(__nv_bfloat16, 128);
   } else {
-    if (D == 64)
-      return launch<float, 64>(q, k_pages, v_pages, block_table, cache_len,
-                               out, scratch, B, Hkv, G, page_size, n_max,
-                               split, window, scale, softcap, s);
-    if (D == 128)
-      return launch<float, 128>(q, k_pages, v_pages, block_table, cache_len,
-                                out, scratch, B, Hkv, G, page_size, n_max,
-                                split, window, scale, softcap, s);
+    if (D == 64) PAGED_DECODE_CASE(float, 64);
+    if (D == 128) PAGED_DECODE_CASE(float, 128);
   }
+#undef PAGED_DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }

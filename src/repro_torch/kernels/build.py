@@ -49,16 +49,16 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     # softcap, is_bf16, stream
     "flash_attention": ("flash_attention_launch",
                         (_P,) * 5 + (_I,) * 8 + (_F, _F, _I, _P)),
-    # q, k_cache, v_cache, cache_len, out, B, S, Hkv, G, D, window, scale,
-    # softcap, is_bf16, stream
+    # q, k_cache, v_cache, cache_len, out, scratch, B, S, Hkv, G, D, split,
+    # window, scale, softcap, is_bf16, stream
     "dense_decode": ("dense_decode_launch",
-                     (_P,) * 5 + (_I,) * 6 + (_F, _F, _I, _P)),
+                     (_P,) * 6 + (_I,) * 7 + (_F, _F, _I, _P)),
     # q, k, v, o, lse, do, dq, dk, dv, delta, B, Sq, Skv, Hkv, G, D, causal,
     # window, scale, softcap, is_bf16, stream
     "flash_backward": ("flash_backward_launch",
                        (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P)),
-    # x, dt, A, Bm, Cm, y, B, S, H, P, N, is_bf16, stream
-    "mamba2_scan": ("mamba2_scan_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
+    # x, dt, A, Bm, Cm, y, scratch, B, S, H, P, N, is_bf16, stream
+    "mamba2_scan": ("mamba2_scan_launch", (_P,) * 7 + (_I,) * 6 + (_P,)),
     # r, k, v, w, u, y, B, S, H, K, V, is_bf16, stream
     "rwkv6_scan": ("rwkv6_scan_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
 }

@@ -2,13 +2,14 @@
 
 The CUDA kernels are csrc/paged_decode.cu (K2, against a page pool through
 a block table) and csrc/dense_decode.cu (K3, against contiguous (B, S,
-Hkv, D) caches); the note at the top of each says which TPU kernel it
-replaces, what bounds it, and how it is laid out.  This module holds their
-wrappers and, beside them, their plain PyTorch versions (`reference` and
-`dense_reference`, from kernels/ref.py).  A wrapper launches its kernel
-for CUDA tensors and takes the plain version only for tensors on the CPU;
-`launches` (K2) and `dense_launches` (K3) count kernel launches and
-nothing else.
+Hkv, D) caches), one split-KV kernel (csrc/split_decode.cuh) with two ways
+of turning a position into an address; the note at the top of each says
+which TPU kernel it replaces, what bounds it, and how it is laid out.
+This module holds their wrappers and, beside them, their plain PyTorch
+versions (`reference` and `dense_reference`, from kernels/ref.py).  A
+wrapper launches its kernel for CUDA tensors and takes the plain version
+only for tensors on the CPU; `launches` (K2) and `dense_launches` (K3)
+count kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -29,11 +30,21 @@ dense_reference = ref.flash_decode
 
 # most query heads per KV head the kernels' register layout holds
 MAX_GROUP = 16
-# K2's split-KV: the positions one block of csrc/paged_decode.cu owns (a
-# multiple of its 64-position tile).  Fixed, so a sequence's output bits do
-# not depend on the batch it decodes in or on the card.  128 timed fastest
-# of 64, 128, 256 and 512 at the serving shape on an H100 (PERF.md).
+# The split-KV kernel K2 and K3 share (csrc/split_decode.cuh): the
+# positions one block owns (a multiple of its 64-position tile).  Fixed, so
+# a sequence's output bits do not depend on the batch it decodes in or on
+# the card.  128 timed fastest of 64, 128, 256 and 512 for K2 at the paged
+# serving shape on an H100 (PERF.md).
 SPLIT = 128
+
+
+def _scratch(q, B, Hkv, G, D, n_pos):
+    """fp32 scratch for the split kernel's partials (unnormalised o, m, l of
+    each of the ceil(n_pos / SPLIT) splits), merged by the kernel's second
+    pass."""
+    n_split = -(-n_pos // SPLIT)
+    return torch.empty(B * Hkv * n_split * G * (D + 2), dtype=torch.float32,
+                       device=q.device)
 
 
 def flash_decode(q, k_cache, v_cache, cache_len, *, window: int = 0,
@@ -63,14 +74,18 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, window: int = 0,
     if Sq != 1:
         raise ValueError(f"flash_decode: one query token per sequence, "
                          f"got {Sq}")
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"flash_decode: {Hq // Hkv} query heads per KV "
-                         f"head, the kernel holds at most {MAX_GROUP}")
+    G = Hq // Hkv
+    if G > MAX_GROUP:
+        raise ValueError(f"flash_decode: {G} query heads per KV head, the "
+                         f"kernel holds at most {MAX_GROUP}")
     out = torch.empty_like(q)
+    # one launch count for the split and the combine kernel
+    scratch = _scratch(q, B, Hkv, G, D, S)
     err = build.kernel("dense_decode")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_len.data_ptr(), out.data_ptr(), B, S, Hkv, Hq // Hkv, D,
-        int(window), scale if scale is not None else 1.0 / math.sqrt(D),
+        cache_len.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, S, Hkv,
+        G, D, SPLIT, int(window),
+        scale if scale is not None else 1.0 / math.sqrt(D),
         float(logit_softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("dense_decode", err)
@@ -104,11 +119,8 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
         raise ValueError(f"paged_flash_decode: {G} query heads per KV "
                          f"head, the kernel holds at most {MAX_GROUP}")
     out = torch.empty_like(q)
-    # each block's partial (unnormalised o, m, l), merged by the kernel's
-    # second pass; one launch count for both
-    n_split = -(-n_max * ps // SPLIT)
-    scratch = torch.empty(B * Hkv * n_split * G * (D + 2),
-                          dtype=torch.float32, device=q.device)
+    # one launch count for the split and the combine kernel
+    scratch = _scratch(q, B, Hkv, G, D, n_max * ps)
     err = build.kernel("paged_decode")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(),

@@ -234,32 +234,28 @@ def combine_partial_softmax(m_parts, l_parts, o_parts):
     return m, l, o
 
 
-def paged_flash_decode_split(q, k_pages, v_pages, block_table, cache_len, *,
-                             split: int, scale: Optional[float] = None,
-                             window: int = 0,
-                             logit_softcap: float = 0.0) -> torch.Tensor:
-    """The split-KV form of paged_flash_decode, as csrc/paged_decode.cu
-    computes it: sequence b's absolute positions are cut into
-    ceil(n_max * page_size / split) parts of `split`; each part's visible
+def flash_decode_split(q, k_cache, v_cache, cache_len, *, split: int,
+                       scale: Optional[float] = None, window: int = 0,
+                       logit_softcap: float = 0.0) -> torch.Tensor:
+    """The split-KV form of flash_decode, as the split kernel of K2 and K3
+    (csrc/split_decode.cuh) computes it: sequence b's strip of S positions
+    is cut into ceil(S / split) parts of `split`; each part's visible
     positions ([max(0, len - window), len)) give an unnormalised partial
     (m, l, o) - m = NEG_INF, l = 0 where none is visible - and
     combine_partial_softmax merges them in split order, o / max(l, 1e-20).
-    Same arguments and result as paged_flash_decode.  Only tests use it:
-    it holds the kernel's summation structure against the JAX package on
-    the CPU."""
+    Same arguments and result as flash_decode.  Only tests use it: it
+    holds the kernel's summation structure against the JAX package on the
+    CPU."""
     B, _, Hq, D = q.shape
-    _, ps, Hkv, _ = k_pages.shape
+    Hkv = k_cache.shape[2]
     G = _group(Hq, Hkv)
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
     dev = q.device
-    idx = block_table.long()
-    k = k_pages[idx].reshape(B, -1, Hkv, D).float()
-    v = v_pages[idx].reshape(B, -1, Hkv, D).float()
-    n_pos = k.shape[1]
+    k, v = k_cache.float(), v_cache.float()
     lens = _as_lens(cache_len, B, dev)
     qf = (q.float() * sc).reshape(B, Hkv, G, D)
     ms, ls, os_ = [], [], []
-    for j0 in range(0, n_pos, split):
+    for j0 in range(0, k.shape[1], split):
         kblk, vblk = k[:, j0:j0 + split], v[:, j0:j0 + split]
         pos = j0 + torch.arange(kblk.shape[1], device=dev)
         s = torch.einsum("bhgd,bkhd->bhgk", qf, kblk)
@@ -277,10 +273,29 @@ def paged_flash_decode_split(q, k_pages, v_pages, block_table, cache_len, *,
         ms.append(m)
         ls.append(p.sum(-1))
         os_.append(torch.einsum("bhgk,bkhd->bhgd", p, vblk))
+    if not ms:                   # an empty strip: every lane exactly 0
+        return torch.zeros_like(q)
     _, l, o = combine_partial_softmax(torch.stack(ms), torch.stack(ls),
                                       torch.stack(os_))
     o = o / torch.clamp_min(l, 1e-20)[..., None]
     return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def paged_flash_decode_split(q, k_pages, v_pages, block_table, cache_len, *,
+                             split: int, scale: Optional[float] = None,
+                             window: int = 0,
+                             logit_softcap: float = 0.0) -> torch.Tensor:
+    """The split-KV form of paged_flash_decode: each sequence's pages
+    gathered through its block-table row into a strip of n_max *
+    page_size positions, then flash_decode_split.  Same arguments and
+    result as paged_flash_decode; only tests use it."""
+    B = q.shape[0]
+    _, ps, Hkv, D = k_pages.shape
+    idx = block_table.long()
+    return flash_decode_split(
+        q, k_pages[idx].reshape(B, -1, Hkv, D),
+        v_pages[idx].reshape(B, -1, Hkv, D), cache_len, split=split,
+        scale=scale, window=window, logit_softcap=logit_softcap)
 
 
 def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
@@ -462,6 +477,69 @@ def _mamba2_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128):
         ys.append(y.to(x.dtype))
     y = torch.cat(ys, 1) if ys else x
     return y[:, :S], h
+
+
+def mamba2_scan_chunk_parallel(x, dt, A, Bm, Cm, *, chunk: int = 128,
+                               operand=None):
+    """The chunk-parallel form of the chunked SSD whose arithmetic K6's bf16
+    kernel runs (csrc/mamba2_scan.cu: passes 1 and 2 in one launch, serial
+    over the chunks with the state in registers, pass 3 in a second), in
+    three passes.  With csum the inclusive cumulative sum of -dt * A within
+    each chunk of `chunk` steps and e_c = exp(csum_last) the chunk's total
+    decay:
+
+      1. chunk-local, every chunk at once: the chunk's state contribution
+         dH_c = sum_s (x_s w_s) outer B_s, w_s = exp(csum_last - csum_s)
+         dt_s;
+      2. state, serial over the chunks only: H_c = e_c H_{c-1} + dH_c from
+         H_{-1} = 0, which gives each chunk its carry-in state H_{c-1};
+      3. output, every chunk at once: y_t = sum_{s <= t} W[t, s] x_s +
+         exp(csum_t) C_t . H_{c-1}, W[t, s] = (C_t . B_s) exp(csum_t -
+         csum_s) dt_s, the pairs above the diagonal masked before the exp
+         (only differences of csum are exponentiated, so nothing
+         overflows); y rounded to x's dtype once.
+
+    S is zero-padded to a chunk multiple (dt = 0: a no-op step).  operand
+    (identity by default) is applied to each float32 operand of a product -
+    x w, W and H - before it: tests pass the kernel's bf16 parts to emulate
+    its tensor-core arithmetic.  Returns y (B, S, H, P) in x's dtype; the
+    same function as mamba2_scan_chunked."""
+    op = operand if operand is not None else (lambda t: t)
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+    nc = (S + pad) // chunk
+    xf = x.float().reshape(Bsz, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bsz, nc, chunk, H)
+    bf = Bm.float().reshape(Bsz, nc, chunk, N)
+    cf = Cm.float().reshape(Bsz, nc, chunk, N)
+    csum = torch.cumsum(-dtf * A.float(), 2)                # (B, nc, T, H)
+    last = csum[:, :, -1]                                   # (B, nc, H)
+    # 1. chunk-local state contributions
+    w = torch.exp(last[:, :, None] - csum) * dtf
+    dH = torch.einsum("bcthp,bctn->bchpn", op(xf * w[..., None]), bf)
+    # 2. the state pass, serial over chunks
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(last[:, c])[..., None, None] * h + dH[:, c]
+    h_in = torch.stack(h_in, 1) if h_in else dH
+    # 3. intra-chunk products and the carry-in
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))[None, None, :, :, None]
+    diff = csum[:, :, :, None] - csum[:, :, None]            # (B, nc, t, s, H)
+    L = torch.exp(torch.where(tri, diff, float("-inf")))
+    CB = torch.einsum("bctn,bcsn->bcts", cf, bf)
+    W = op(CB[..., None] * L * dtf[:, :, None])
+    y = torch.einsum("bctsh,bcshp->bcthp", W, xf) + torch.exp(csum)[
+        ..., None] * torch.einsum("bctn,bchpn->bcthp", cf, op(h_in))
+    return y.to(x.dtype).reshape(Bsz, nc * chunk, H, P)[:, :S]
 
 
 # ===========================================================================

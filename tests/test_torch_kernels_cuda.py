@@ -18,13 +18,19 @@ to 8, a window shorter than one tile, softcap) and K2 at the edges of its
 splits (lengths 0, 1, one split - 1, + 0, + 1, two splits +- 1 and the
 whole table, a window that starts inside a split, every group size from 1
 to 16), K2's bits alone against inside a batch and from call to call, and
-the refusal of misaligned bf16 operands by K1 and K2; the Mamba2 scan K6
-and the RWKV6 scan K7 (a sequence shorter than one chunk, one that is no chunk multiple,
-batch 1, an odd head count, dt near 0 and a large dt * A, the decay w = 1
-and w at the model's clamp over whole chunks, u = 0, every state and key
-size the kernels take, ragged state rows and columns, the full-width
-shapes of zamba2 and rwkv6, and the refusal of a call autograd would
-have to differentiate), in float32 and bfloat16.
+the refusal of misaligned bf16 operands by K1 and K2; K3 at the edges of
+its splits (lengths 0, 1, around one and two splits, the whole strip and
+past it, a strip that is no split multiple, a window that starts inside a
+split, groups of 1 to 16 at head dims 64, 80 and 128), its bits alone
+against inside a batch and from call to call at the dense serving shape
+and zamba2's decode, and its refusal of misaligned bf16 operands; the
+Mamba2 scan K6 and the RWKV6 scan K7 (a sequence shorter than one chunk,
+one that is no chunk multiple, batch 1, an odd head count, dt near 0 and
+a large dt * A, the decay w = 1 and w at the model's clamp over whole
+chunks, u = 0, every state and key size the kernels take, ragged state
+rows and columns, the full-width shapes of zamba2 and rwkv6, and the
+refusal of a call autograd would have to differentiate), in float32 and
+bfloat16.
 
 Needs an NVIDIA GPU and nvcc: every test skips with a reason elsewhere.
 Run on the card with
@@ -45,12 +51,15 @@ p and ds to bfloat16 before their products, as its plain version does,
 so its bfloat16 bar is the same kind: 2**-7 x (|g| + the magnitude of the
 summed terms, ref.flash_attention_bwd(terms=True)) + 1e-6; in float32 its
 gradients agree within 1e-5 of the largest |gradient|.  Dead rows, pad
-lanes and empty decode lanes are exactly 0.  K6 and K7 run the recurrence
-step by step, their plain versions the chunked matrix form (cumulative
-log decays, exp of their differences): in float32 they agree within 1e-5
-of the largest term - `terms` is the plain scan of the inputs' absolute
-values, the magnitude of the summed terms - and in bfloat16 within one
-rounding step of the output, 2**-7 x |y|, plus that float32 bar.
+lanes and empty decode lanes are exactly 0.  K7, and K6 in float32, run
+the recurrence step by step, K6 in bfloat16 the chunk-parallel matrix form
+on the tensor cores (its float32 operands as two bf16 parts,
+tests/test_torch_mamba2_parts.py), their plain versions the chunked matrix
+form (cumulative log decays, exp of their differences): in float32 they
+agree within 1e-5 of the largest term - `terms` is the plain scan of the
+inputs' absolute values, the magnitude of the summed terms - and in
+bfloat16 within one rounding step of the output, 2**-7 x |y|, plus that
+float32 bar.
 """
 import numpy as np
 import pytest
@@ -727,6 +736,97 @@ def test_bf16_paged_kernels_refuse_misaligned_operands(dev):
     torch.cuda.synchronize()
 
 
+# K3: strips of 300 positions (no multiple of the split), 2 KV heads
+K3_S = 300
+K3_LENS = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT - 1, 2 * SPLIT + 1,
+           K3_S, K3_S + 5]
+
+
+def _k3_case(dev, dt, D, G, lens, S, hkv, seed):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, dev, dt, len(lens), 1, hkv * G, D)
+    k = _randn(rng, dev, dt, len(lens), S, hkv, D)
+    v = _randn(rng, dev, dt, len(lens), S, hkv, D)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(K2_EDGE_VARIANTS))
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_dense_decode_kernel_at_split_edges(dev, D, G, variant, dtype):
+    """K3 against its plain version at the bars of
+    test_dense_decode_kernel_matches_plain: lengths 0, 1, around one and two
+    splits, the whole strip and past it (clamped to the strip), a strip
+    that is no multiple of the split, a window that starts inside a split;
+    G < 4 (every warp scoring positions; zamba2's G 1 at head dim 80) and
+    G >= 4 (a warp per head); the lane of length 0 exactly 0."""
+    dt = DTYPES[dtype]
+    q, k, v, lens = _k3_case(dev, dt, D, G, K3_LENS, K3_S, HKV, seed=17)
+    window, softcap = K2_EDGE_VARIANTS[variant]
+    kw = dict(window=window, logit_softcap=softcap)
+    n0, n2 = flash_decode.dense_launches, flash_decode.launches
+    got = flash_decode.flash_decode(q, k, v, lens, **kw)
+    want = flash_decode.dense_reference(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert flash_decode.dense_launches == n0 + 1
+    assert flash_decode.launches == n2, "K3 counted as K2"
+    _close(got, want, dt)
+    assert not got[0].any(), "lane of length 0 not zero"
+
+
+# (lanes, S, Hq, Hkv, D): the dense serving shape; zamba2's decode
+K3_BIT_SHAPES = {"dense": ([0, 1, 257, 640, 1024, 1500, 1999, 2048], 2048, 32,
+                           8, 64),
+                 "zamba2_d80": ([0, 100, 300, 511], 512, 32, 32, 80)}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", list(K3_BIT_SHAPES))
+def test_dense_decode_kernel_bits_do_not_depend_on_the_batch(dev, shape,
+                                                            dtype):
+    """K3's split is fixed, so each lane of the dense serving shape (8
+    strips of 2048, 32 / 8 heads of 64) and of zamba2's decode (4 strips of
+    512, 32 heads of 80, G 1) gets the same bits alone as inside the batch,
+    and the batch the same bits from call to call."""
+    dt = DTYPES[dtype]
+    lens, S, hq, hkv, D = K3_BIT_SHAPES[shape]
+    q, k, v, lens = _k3_case(dev, dt, D, hq // hkv, lens, S, hkv, seed=18)
+    batch = flash_decode.flash_decode(q, k, v, lens)
+    for _ in range(2):
+        assert torch.equal(flash_decode.flash_decode(q, k, v, lens), batch), \
+            "not the same bits from call to call"
+    for b in range(len(lens)):
+        one = lambda t: t[b:b + 1].contiguous()
+        alone = flash_decode.flash_decode(one(q), one(k), one(v), one(lens))
+        assert torch.equal(alone[0], batch[b]), f"lane {b} alone"
+    _close(batch, flash_decode.dense_reference(q, k, v, lens), dt)
+    assert not batch[0].any(), "lane of length 0 not zero"
+
+
+def test_bf16_dense_decode_refuses_misaligned_operands(dev):
+    """The bf16 K3 moves K/V (and q) 16 bytes at a time (cp.async): a
+    contiguous q or cache that starts 2 bytes past a 16-byte boundary is
+    refused with cudaErrorMisalignedAddress (716), not read wrongly."""
+    q, k, v, lens = _k3_case(dev, torch.bfloat16, 80, 1, [5, 300], 300, 4,
+                             seed=19)
+
+    def odd(t):
+        shifted = torch.empty(t.numel() + 8, dtype=t.dtype, device=dev)
+        out = shifted[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16
+        return out
+
+    n0 = flash_decode.dense_launches
+    for args in ((odd(q), k, v), (q, odd(k), v), (q, k, odd(v))):
+        with pytest.raises(RuntimeError, match="cudaError_t 716"):
+            flash_decode.flash_decode(*args, lens)
+    assert flash_decode.dense_launches == n0
+    flash_decode.flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # K6 mamba2_scan and K7 rwkv6_scan
 # ---------------------------------------------------------------------------
@@ -740,6 +840,7 @@ MAMBA_CASES = {"short": (1, 50, 3, 64, 64, 1.0),
                "state16": (2, 150, 2, 64, 16, 1.0),
                "state32": (1, 129, 3, 24, 32, 1.0),
                "state128": (1, 140, 3, 64, 128, 1.0),
+               "odd_p": (1, 100, 3, 21, 32, 1.0),
                "full_zamba2": (2, 2048, 80, 64, 64, 1.0)}
 # (B, S, H, K, V, w: "random" | "one" | "clamp", u zero) per case
 RWKV_CASES = {"short": (1, 20, 3, 64, 64, "random", False),
