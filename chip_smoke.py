@@ -1536,7 +1536,9 @@ def phase_times(runs, captured):
 # the device functions of each port kernel (csrc/*.cu), as the profiler
 # names them: K2's and K3's split and combine kernels (the split-KV kernel
 # of csrc/split_decode.cuh, named after paged_decode::Pages and
-# dense_decode::Strip) count together, and so do K6's two launches
+# dense_decode::Strip) count together, and so do K6's and K7's two bf16
+# launches (their state scan and output kernels; rwkv6_scan_state_kernel
+# and rwkv6_scan_chunk_out_kernel for K7)
 PORT_KERNEL_NAMES = {"K1": ("paged_prefill",), "K2": ("paged_decode",),
                      "K3": ("dense_decode",), "K4": ("flash_attention",),
                      "K5": ("flash_bwd", "dq_bf16", "dkv_bf16"),

@@ -191,32 +191,6 @@ constexpr int CG = 16;          // chunks whose weights the state kernel
 // [B][H][nc][2][P][N] (hi, then lo); chunk 0's slot (a zero state) is
 // neither written nor read.
 
-// a (rows x COLS) bf16 tile of a row-major global array (row stride
-// gstride) into shared memory (row stride ld) by NTH threads, rows at or
-// past nrows and columns at or past ncols zero; vec: 16-byte cp.async
-// chunks (every pointer 16-byte aligned, ncols and gstride multiples of
-// 8), else element by element
-template <int COLS, int NTH>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          long long gstride, int rows,
-                                          int nrows, int ncols, bool vec,
-                                          int tid) {
-  constexpr int CPR = COLS / 8;       // 16-byte chunks per row
-  for (int i = tid; i < rows * CPR; i += NTH) {
-    const int r = i / CPR, c = i - r * CPR;
-    bf16* d = dst + r * ld + c * 8;
-    const bool live = r < nrows && c * 8 < ncols;
-    if (vec) {
-      cp_async16(d, live ? src + r * gstride + c * 8 : src, live);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d[j] = r < nrows && c * 8 + j < ncols ? src[r * gstride + c * 8 + j]
-                                              : __float2bfloat16(0.f);
-    }
-  }
-}
-
 // One warp: the inclusive cumulative sum of -dt * a over a chunk's T steps
 // (dt_s, 0 past the sequence), lane l's steps 4l .. 4l + 3 into cs (in
 // order, then a shuffle scan of the lanes' totals: a fixed order, so both
@@ -240,15 +214,6 @@ __device__ __forceinline__ float warp_csum(const float* dt_s, float a,
 #pragma unroll
   for (int i = 0; i < T / 32; ++i) cs[i] += before;
   return __shfl_sync(0xffffffffu, cs[T / 32 - 1], 31);
-}
-
-// two fp32 values as two bf16 parts, hi = bf16(v) and lo = bf16(v - hi)
-// (the remainder is exact in fp32), each pair packed for an mma operand
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack(v0 - __low2float(h), v1 - __high2float(h));
 }
 
 // Launch 1, the state scan: grid (ceil(P / PB), H, B), 8 warps.  The block

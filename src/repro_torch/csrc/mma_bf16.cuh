@@ -1,7 +1,9 @@
-// Tensor-core helpers shared by the bf16 FlashAttention kernels
-// (csrc/flash_attention.cu, csrc/flash_backward.cu): inline PTX for
-// cp.async staging, ldmatrix fragment loads and the bf16 mma.sync tile,
-// and the lane arithmetic that places a 16 x 16 or 16 x 8 fragment.
+// Tensor-core helpers shared by the bf16 kernels (csrc/flash_attention.cu,
+// csrc/flash_backward.cu, csrc/paged_prefill.cu, csrc/mamba2_scan.cu,
+// csrc/rwkv6_scan.cu): inline PTX for cp.async staging, ldmatrix fragment
+// loads and the bf16 mma.sync tile, the lane arithmetic that places a 16 x
+// 16 or 16 x 8 fragment, tile loads and the split of fp32 values into two
+// bf16 parts.
 //
 // The tile is mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: A is 16 x 16
 // bf16 (4 registers), B is 16 x 8 bf16 (2 registers), C / D are 16 x 8
@@ -134,6 +136,41 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// a (rows x COLS) bf16 tile of a row-major global array (row stride
+// gstride) into shared memory (row stride ld) by NTH threads, rows at or
+// past nrows and columns at or past ncols zero; vec: 16-byte cp.async
+// chunks (every pointer 16-byte aligned, ncols and gstride multiples of
+// 8), else element by element
+template <int COLS, int NTH>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
+                                          long long gstride, int rows,
+                                          int nrows, int ncols, bool vec,
+                                          int tid) {
+  constexpr int CPR = COLS / 8;       // 16-byte chunks per row
+  for (int i = tid; i < rows * CPR; i += NTH) {
+    const int r = i / CPR, c = i - r * CPR;
+    __nv_bfloat16* d = dst + r * ld + c * 8;
+    const bool live = r < nrows && c * 8 < ncols;
+    if (vec) {
+      cp_async16(d, live ? src + r * gstride + c * 8 : src, live);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        d[j] = r < nrows && c * 8 + j < ncols ? src[r * gstride + c * 8 + j]
+                                              : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// two fp32 values as two bf16 parts, hi = bf16(v) and lo = bf16(v - hi)
+// (the remainder is exact in fp32), each pair packed for an mma operand
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack(v0 - __low2float(h), v1 - __high2float(h));
 }
 
 // host side: every bf16 operand 16-byte aligned (cp.async moves 16 bytes,

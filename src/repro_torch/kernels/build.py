@@ -59,8 +59,8 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
                        (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P)),
     # x, dt, A, Bm, Cm, y, scratch, B, S, H, P, N, is_bf16, stream
     "mamba2_scan": ("mamba2_scan_launch", (_P,) * 7 + (_I,) * 6 + (_P,)),
-    # r, k, v, w, u, y, B, S, H, K, V, is_bf16, stream
-    "rwkv6_scan": ("rwkv6_scan_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
+    # r, k, v, w, u, y, scratch, B, S, H, K, V, is_bf16, stream
+    "rwkv6_scan": ("rwkv6_scan_launch", (_P,) * 7 + (_I,) * 6 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -626,3 +626,98 @@ def _rwkv6_chunked(r, k, v, w, u, *, chunk: int = 32):
         ys.append(y.to(r.dtype))
     y = torch.cat(ys, 1) if ys else r.new_zeros(v.shape)
     return y[:, :S], st
+
+
+def rwkv6_scan_chunk_parallel(r, k, v, w, u, *, chunk: int = 64,
+                              operand=None):
+    """The chunk-parallel form of the chunked WKV6 whose arithmetic K7's
+    bf16 kernel runs (csrc/rwkv6_scan.cu: passes 1 and 2 in one launch,
+    serial over the chunks with the state in registers, pass 3 in a
+    second), in three passes.  With cw the inclusive cumulative sum of
+    log w within each chunk of `chunk` steps, per key channel, and cw_last
+    its value at the chunk's last step:
+
+      1. chunk-local, every chunk at once: the chunk's state contribution
+         dS_c = sum_s (k_s e^{cw_last - cw_s})^T v_s and its decay
+         e^{cw_last};
+      2. state, serial over the chunks only: S_c = diag(e^{cw_last})
+         S_{c-1} + dS_c from S_{-1} = 0, which gives each chunk its
+         carry-in state S_{c-1};
+      3. output, every chunk at once: y_t = sum_{s<t} A[t, s] v_s + (r_t
+         u . k_t) v_t + (r_t e^{cw_{t-1}}) S_{c-1}, with the intra-chunk
+         weights A[t, s] = sum_c r_tc k_sc e^{cw_{t-1,c} - cw_{s,c}}.
+
+    Pass 3 cuts the chunk into sub-chunks of 16 steps, the kernel's m-tile
+    (the secondary chunking of Yang et al., arXiv:2312.06635; `chunk` is
+    a multiple of 16): between two sub-chunks A
+    is the product of r_t e^{cw_{t-1} - b} and k_s e^{b - cw_s}, b the cw
+    just before t's sub-chunk; inside one, each weight is formed from its
+    own difference, the pairs s >= t masked before the exp.  Only
+    differences of cw are exponentiated and none is positive, so no
+    factor exceeds 1 and the result stays finite for any w in (0, 1] (the
+    chunked form's e^{-cw} overflows below the model's clamp).
+
+    operand(name, t) (identity by default) is applied to each float32
+    operand of a product before it: "r_sub" (r_t e^{cw_{t-1} - b}),
+    "k_sub" (k_s e^{b - cw_s}), "weights" (A, with the bonus (r_t u . k_t)
+    on its diagonal), "r_dec" (r_t e^{cw_{t-1}}), "state" (S_{c-1}) and
+    "k_out" (k_s e^{cw_last - cw_s}); tests pass the kernel's bf16 parts
+    to emulate its tensor-core arithmetic.  S is padded to a chunk
+    multiple with w = 1 (a no-op decay).  Returns y (B, S, H, V) in r's
+    dtype; the same function as rwkv6_scan_chunked."""
+    sub = 16
+    if chunk % sub:
+        raise ValueError(f"chunk {chunk} is no multiple of {sub}")
+    op = operand if operand is not None else (lambda name, t: t)
+    Bsz, S, H, K = r.shape
+    V = v.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        zp = (0, 0, 0, 0, 0, pad)
+        r, k, v = (torch.nn.functional.pad(t, zp) for t in (r, k, v))
+        w = torch.nn.functional.pad(w, zp, value=1.0)
+    nc, ns = (S + pad) // chunk, chunk // sub
+    rf, kf, wf = (t.float().reshape(Bsz, nc, chunk, H, K) for t in (r, k, w))
+    vf = v.float().reshape(Bsz, nc, chunk, H, V)
+    logw = torch.log(torch.clamp_min(wf, 1e-30))
+    cw = torch.cumsum(logw, 2)                              # (B, nc, T, H, K)
+    # cw_{t-1}, shifted (not cw - log w, whose rounding at |cw| ~ 400 moves
+    # the weight of s = t - 1, exactly 1, by ~3e-5)
+    cwp = torch.nn.functional.pad(cw[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    last = cw[:, :, -1]                                     # (B, nc, H, K)
+    # 1. chunk-local state contributions
+    k_out = op("k_out", kf * torch.exp(last[:, :, None] - cw))
+    dS = torch.einsum("bcthk,bcthv->bchkv", k_out, vf)
+    # 2. the state pass, serial over chunks
+    st = torch.zeros((Bsz, H, K, V), dtype=torch.float32, device=r.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(st)
+        st = torch.exp(last[:, c])[..., None] * st + dS[:, c]
+    s_in = torch.stack(s_in, 1)                             # (B, nc, H, K, V)
+    # 3. the intra-chunk weights, sub-chunk by sub-chunk
+    sh = (Bsz, nc, ns, sub, H, K)
+    rs, ks, cws, cwps = (t.reshape(sh) for t in (rf, kf, cw, cwp))
+    b = cwps[:, :, :, :1]                # cw before each sub-chunk
+    r_sub = op("r_sub", rs * torch.exp(cwps - b))
+    A = torch.zeros((Bsz, nc, H, chunk, chunk), dtype=torch.float32,
+                    device=r.device)
+    for i in range(ns):
+        for j in range(i):
+            k_sub = op("k_sub", ks[:, :, j] * torch.exp(b[:, :, i]
+                                                        - cws[:, :, j]))
+            A[..., i * sub:(i + 1) * sub, j * sub:(j + 1) * sub] = \
+                torch.einsum("bcthk,bcshk->bchts", r_sub[:, :, i], k_sub)
+    lower = torch.tril(torch.ones((sub, sub), dtype=torch.bool,
+                                  device=r.device), -1)[:, :, None, None]
+    diff = cwps[:, :, :, :, None] - cws[:, :, :, None]      # (.., t, s, H, K)
+    L = torch.exp(torch.where(lower, diff, float("-inf")))
+    D = torch.einsum("bcnthk,bcnshk,bcntshk->bcnhts", rs, ks, L)
+    bonus = torch.einsum("bcnthk,hk,bcnthk->bcnht", rs, u.float(), ks)
+    D = D + torch.diag_embed(bonus)
+    for i in range(ns):
+        A[..., i * sub:(i + 1) * sub, i * sub:(i + 1) * sub] = D[:, :, i]
+    y = torch.einsum("bchts,bcshv->bcthv", op("weights", A), vf) \
+        + torch.einsum("bcthk,bchkv->bcthv", op("r_dec", rf * torch.exp(cwp)),
+                       op("state", s_in))
+    return y.to(r.dtype).reshape(Bsz, nc * chunk, H, V)[:, :S]

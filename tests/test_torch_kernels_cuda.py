@@ -27,10 +27,11 @@ and zamba2's decode, and its refusal of misaligned bf16 operands; the
 Mamba2 scan K6 and the RWKV6 scan K7 (a sequence shorter than one chunk,
 one that is no chunk multiple, batch 1, an odd head count, dt near 0 and
 a large dt * A, the decay w = 1 and w at the model's clamp over whole
-chunks, u = 0, every state and key size the kernels take, ragged state
-rows and columns, the full-width shapes of zamba2 and rwkv6, and the
-refusal of a call autograd would have to differentiate), in float32 and
-bfloat16.
+chunks, w = 1e-3 far below it, u = 0, every state and key size the
+kernels take, ragged state rows and columns, K7 over 16 chunks with a
+ragged tail and 100 value columns, the full-width shapes of zamba2 and
+rwkv6, and the refusal of a call autograd would have to differentiate),
+in float32 and bfloat16.
 
 Needs an NVIDIA GPU and nvcc: every test skips with a reason elsewhere.
 Run on the card with
@@ -51,11 +52,13 @@ p and ds to bfloat16 before their products, as its plain version does,
 so its bfloat16 bar is the same kind: 2**-7 x (|g| + the magnitude of the
 summed terms, ref.flash_attention_bwd(terms=True)) + 1e-6; in float32 its
 gradients agree within 1e-5 of the largest |gradient|.  Dead rows, pad
-lanes and empty decode lanes are exactly 0.  K7, and K6 in float32, run
-the recurrence step by step, K6 in bfloat16 the chunk-parallel matrix form
-on the tensor cores (its float32 operands as two bf16 parts,
-tests/test_torch_mamba2_parts.py), their plain versions the chunked matrix
-form (cumulative log decays, exp of their differences): in float32 they
+lanes and empty decode lanes are exactly 0.  K6 and K7 in float32 run
+the recurrence step by step, in bfloat16 the chunk-parallel matrix form
+on the tensor cores (their float32 operands as two bf16 parts,
+tests/test_torch_mamba2_parts.py and tests/test_torch_rwkv6_parts.py),
+their plain versions the chunked matrix form (cumulative log decays, exp
+of their differences; below the clamp, where K7's chunked plain version
+overflows, K7 is held against the naive step-by-step scan): in float32 they
 agree within 1e-5 of the largest term - `terms` is the plain scan of the
 inputs' absolute values, the magnitude of the summed terms - and in
 bfloat16 within one rounding step of the output, 2**-7 x |y|, plus that
@@ -842,7 +845,9 @@ MAMBA_CASES = {"short": (1, 50, 3, 64, 64, 1.0),
                "state128": (1, 140, 3, 64, 128, 1.0),
                "odd_p": (1, 100, 3, 21, 32, 1.0),
                "full_zamba2": (2, 2048, 80, 64, 64, 1.0)}
-# (B, S, H, K, V, w: "random" | "one" | "clamp", u zero) per case
+# (B, S, H, K, V, w: "random" | "one" | "clamp" | "below", u zero) per
+# case; "below": w = 1e-3 a step, far below the model's clamp, where the
+# chunked plain version's e^{-cw} overflows - held against the naive scan
 RWKV_CASES = {"short": (1, 20, 3, 64, 64, "random", False),
               "ragged": (2, 100, 5, 64, 64, "random", False),
               "w_one": (2, 70, 3, 64, 64, "one", False),
@@ -851,6 +856,8 @@ RWKV_CASES = {"short": (1, 20, 3, 64, 64, "random", False),
               "clamp_u_zero": (1, 64, 3, 64, 64, "clamp", True),
               "key16": (2, 50, 2, 16, 16, "random", False),
               "key32_ragged_cols": (1, 45, 3, 32, 40, "random", False),
+              "many_chunks_v100": (1, 1000, 2, 64, 100, "random", False),
+              "below_clamp": (2, 200, 3, 64, 64, "below", False),
               "full_rwkv6": (2, 2048, 32, 64, 64, "random", False)}
 
 
@@ -870,21 +877,21 @@ def rwkv_args(dev, dtype, B, S, H, K, V, w_kind, u_zero, seed=0):
     w = np.exp(-np.exp(np.clip(rng.standard_normal((B, S, H, K)), -8,
                                0.75)))
     if w_kind != "random":
-        w[:] = 1.0 if w_kind == "one" else CLAMP_W
+        w[:] = {"one": 1.0, "clamp": CLAMP_W, "below": 1e-3}[w_kind]
     u = rng.standard_normal((H, K)) * 0.1 * (0.0 if u_zero else 1.0)
     return dict(r=_randn(rng, dev, dtype, B, S, H, K),
                 k=_randn(rng, dev, dtype, B, S, H, K),
                 v=_randn(rng, dev, dtype, B, S, H, V), w=f32(w), u=f32(u))
 
 
-def scan_terms(kind, a):
-    """The plain scan of the inputs' absolute values: the magnitude of the
-    terms each output sums (the decays are positive)."""
+def scan_terms(kind, a, impl="ref"):
+    """The plain scan (impl) of the inputs' absolute values: the magnitude
+    of the terms each output sums (the decays are positive)."""
     if kind == "mamba2":
-        return mamba2_scan.reference(a["x"].abs(), a["dt"], a["A"],
-                                     a["Bm"].abs(), a["Cm"].abs())
-    return rwkv6_scan.reference(a["r"].abs(), a["k"].abs(), a["v"].abs(),
-                                a["w"], a["u"].abs())
+        return ops.mamba2_scan(a["x"].abs(), a["dt"], a["A"], a["Bm"].abs(),
+                               a["Cm"].abs(), impl=impl)
+    return ops.rwkv6_scan(a["r"].abs(), a["k"].abs(), a["v"].abs(), a["w"],
+                          a["u"].abs(), impl=impl)
 
 
 def scan_close(got, want, terms, dtype):
@@ -921,13 +928,15 @@ def test_mamba2_scan_kernel_matches_plain(dev, case, dtype):
 def test_rwkv6_scan_kernel_matches_plain(dev, case, dtype):
     dt = DTYPES[dtype]
     a = rwkv_args(dev, dt, *RWKV_CASES[case])
+    # below the clamp the chunked plain version is not finite: the naive
+    plain = "naive" if RWKV_CASES[case][5] == "below" else "ref"
     n0 = rwkv6_scan.launches
     got = ops.rwkv6_scan(**a)
-    want = ops.rwkv6_scan(**a, impl="ref")
+    want = ops.rwkv6_scan(**a, impl=plain)
     torch.cuda.synchronize()
     assert rwkv6_scan.launches == n0 + 1
     assert got.dtype == dt and got.shape == a["v"].shape
-    scan_close(got, want, scan_terms("rwkv6", a), dt)
+    scan_close(got, want, scan_terms("rwkv6", a, plain), dt)
     assert torch.equal(rwkv6_scan.rwkv6_scan(**a), got), "not the same bits"
 
 

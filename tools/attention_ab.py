@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time two versions of the kernels K1 (paged_prefill.cu), K2
 (paged_decode.cu), K3 (dense_decode.cu), K4 (flash_attention.cu), K5
-(flash_backward.cu) and K6 (mamba2_scan.cu) against each other on one
-NVIDIA GPU.
+(flash_backward.cu), K6 (mamba2_scan.cu) and K7 (rwkv6_scan.cu) against
+each other on one NVIDIA GPU.
 
-    python3 tools/attention_ab.py --old DIR [--kernels K1,K2,K3,K4,K5,K6]
+    python3 tools/attention_ab.py --old DIR [--kernels K1,K2,K3,K4,K5,K6,K7]
 
 DIR holds the other version's kernel sources (the .cu files, with any
 header they include), for example src/repro_torch/csrc of an earlier commit
@@ -12,7 +12,8 @@ unpacked with `git archive` into build/, which .gitignore lists.  Both
 versions of each kernel asked for are built with the flags of
 repro_torch/kernels/build.py into build/attention_ab/{old,new}, all nvcc
 processes started together, and called through their C entry points on
-the same inputs at the shapes of the port's main paths, in bf16:
+the same inputs at the shapes of the port's main paths, in bf16 (K7 also
+in float32):
 
   K1  the chunked run's chunk batch (chip_smoke.py serving_shape_args): 4
       chunk rows of 256 over prefixes up to 1792, one dead, 32 / 8 heads
@@ -30,16 +31,18 @@ the same inputs at the shapes of the port's main paths, in bf16:
       block (2, 2048), 32 heads of 80, G 1; all causal
   K6  zamba2's forward: x (2, 2048, 80, 64), B / C state 64, seeded dt
       and A as chip_smoke.py's scans get them
+  K7  rwkv6's forward: r, k, v (2, 2048, 32, 64), seeded w =
+      exp(-exp(N(0, 1) clipped to [-8, 0.75])) and u, in bf16 and float32
 
 K2's and K3's C entry points took no scratch and no split before their
-split-KV form, K6's no scratch before its chunk-parallel form; the
-signature each version takes is read from its source.  For each shape
+split-KV form, K6's and K7's no scratch before their chunk-parallel
+forms; the signature each version takes is read from its source.  For each shape
 it prints the old and the new kernel's times, taken in turns (old, new,
 new, old: CUDA events, L2 flushed before each run, median of 25 a turn),
 one scaled_dot_product_attention call (its backward alone for K5; for K1
 and K2 on K/V gathered into contiguous strips beforehand, chip_smoke.py's
-k1_library / k2_library; none for K6, which no single PyTorch call
-computes) on the same inputs as the library's yardstick,
+k1_library / k2_library; none for K6 and K7, which no single PyTorch
+call computes) on the same inputs as the library's yardstick,
 the bound the data sheet allows, the achieved rates, the new version's
 device time by device kernel (torch.profiler: each pass of a kernel that
 launches several), and the largest difference between the old and the
@@ -51,8 +54,8 @@ number of bf16 tensor-core instructions (HMMA.16816.F32.BF16) in its SASS.
 With --serve it then runs, with the wrappers routed to the old and the
 new build of the kernels asked for in turns (serve_ab): chip_smoke.py's
 chunked and paged-monolithic traffic on full-width granite-3-2b (K1,
-K2), its dense traffic (K3), and the bf16 forward of full-width
-zamba2-2.7b over chip_smoke.py's 2 x 2048 batch (K6).  The last line is
+K2), its dense traffic (K3), and the bf16 forward over chip_smoke.py's
+2 x 2048 batch of full-width zamba2-2.7b (K6) and rwkv6-1.6b (K7).  The last line is
 {"ab": [...], "serve": [...], "device": ...}.  Needs a GPU and nvcc;
 exits non-zero without them.
 """
@@ -78,14 +81,14 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import build, flash_decode  # noqa: E402
-from repro_torch.kernels import mamba2_scan  # noqa: E402
+from repro_torch.kernels import mamba2_scan, rwkv6_scan  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12          # H100 SXM data sheet: HBM bandwidth
 PEAK_FLOP_S = 989e12            # and dense bf16 tensor-core rate
 # kernel -> the source it is built from
 SOURCES = {"K1": "paged_prefill", "K2": "paged_decode", "K3": "dense_decode",
            "K4": "flash_attention", "K5": "flash_backward",
-           "K6": "mamba2_scan"}
+           "K6": "mamba2_scan", "K7": "rwkv6_scan"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures before the scratch pointer: (argtypes, the indices of the
 # current call's arguments the old entry point takes)
@@ -101,6 +104,9 @@ OLD_SIGNATURES = {
     # x, dt, A, Bm, Cm, y, B, S, H, P, N, is_bf16, stream
     "mamba2_scan": ((_P,) * 6 + (_I,) * 6 + (_P,),
                     [*range(6), *range(7, 14)]),
+    # r, k, v, w, u, y, B, S, H, K, V, is_bf16, stream
+    "rwkv6_scan": ((_P,) * 6 + (_I,) * 6 + (_P,),
+                   [*range(6), *range(7, 14)]),
 }
 # (label, B, S, Hq, Hkv, D) of the K4 shapes
 K4_SHAPES = [("dense prefill (1, 1904)", 1, 1904, 32, 8, 64),
@@ -120,6 +126,9 @@ K3_D80_SHAPE = ("zamba2 decode (4 strips of 512, 911 positions, head dim "
                 "80)", 4, 32, 32, 80)
 K6_SHAPE = ("zamba2 forward scan (2, 2048, 80 heads of 64, state 64)", 2,
             2048, 80, 64, 64)
+# (label, B, S, H, K, V) of the K7 calls
+K7_SHAPE = ("rwkv6 forward scan (2, 2048, 32 heads, K = V = 64)", 2, 2048,
+            32, 64, 64)
 
 
 def build_both(old_dir: Path, names):
@@ -403,6 +412,39 @@ def k6_case(fns, g):
     return call, None, nbytes, flops, lambda ver: [outs[ver]]
 
 
+def k7_args(g, dtype, B, S, H, K, V):
+    """Seeded inputs of rwkv6's scan: r, k, v in dtype; float32 w =
+    exp(-exp(N(0, 1) clipped to [-8, 0.75])) (the model's clamp) and u =
+    0.1 N(0, 1)."""
+    f32 = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    return dict(r=f32(B, S, H, K).to(dtype), k=f32(B, S, H, K).to(dtype),
+                v=f32(B, S, H, V).to(dtype),
+                w=torch.exp(-torch.exp(f32(B, S, H, K).clamp(-8.0, 0.75))),
+                u=f32(H, K) * 0.1)
+
+
+def k7_case(fns, g, dtype=torch.bfloat16):
+    a = k7_args(g, dtype, *K7_SHAPE[1:])
+    r, v = a["r"], a["v"]
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    outs = {ver: torch.empty_like(v) for ver in fns}
+    # the new kernel's carry-in states as two bf16 parts (rwkv6_scan.py)
+    scratch = torch.empty(B * H * -(-S // rwkv6_scan.CHUNK) * 2 * K * V,
+                          dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(ver):
+        err = fns[ver]["rwkv6_scan"](
+            r.data_ptr(), a["k"].data_ptr(), v.data_ptr(), a["w"].data_ptr(),
+            a["u"].data_ptr(), outs[ver].data_ptr(), scratch.data_ptr(), B,
+            S, H, K, V, int(dtype == torch.bfloat16), stream)
+        build.check("rwkv6_scan", err)
+
+    nbytes, flops = chip_smoke.k7_work(a)
+    return call, None, nbytes, flops, lambda ver: [outs[ver]]
+
+
 def measure(label, kernel, case, fns, flush, g):
     call, library, nbytes, flops, results = case(fns, g)
     for ver in ("old", "new"):
@@ -455,7 +497,7 @@ def device_us_by_kernel(fn, n: int = 10) -> dict:
 
 
 # the serving runs of chip_smoke.py that each kernel's old / new turns
-# drive (K6 drives the zamba2 forward, forward_ab)
+# drive (K6 and K7 drive the zamba2 and rwkv6 forwards, forward_ab)
 SERVE_RUNS = {"K1": ("chunked", "paged_monolithic"),
               "K2": ("chunked", "paged_monolithic"), "K3": ("dense",)}
 
@@ -516,30 +558,39 @@ def serve_ab(fns, kernels):
     return rows
 
 
-def forward_ab(fns):
-    """The bf16 forward of full-width zamba2-2.7b (54 Mamba2 layers, seeded
-    weights) over chip_smoke.py's 2 x 2048 batch, the wrapper's K6 routed
-    to the old and the new build in turns (old, new, new, old): per turn
-    the wall of 3 forwards (each ending in a synchronise; median), and the
-    device's busy time, busy share and port kernels' device time of a
-    fourth, profiled forward.  The logits of the two versions are compared
-    (printed, not judged: the kernels' checks are chip_smoke.py's)."""
-    cfg = chip_smoke.get_config("zamba2-2.7b")
+# the architecture whose bf16 forward each scan kernel's old / new turns
+# drive, and the kernel's source
+FORWARDS = {"K6": ("zamba2-2.7b", "mamba2_scan"),
+            "K7": ("rwkv6-1.6b", "rwkv6_scan")}
+
+
+def forward_ab(fns, kernel):
+    """The bf16 forward of a full-width recurrent model (zamba2-2.7b for
+    K6: 54 Mamba2 layers; rwkv6-1.6b for K7: 24 RWKV6 layers; seeded
+    weights) over chip_smoke.py's 2 x 2048 batch, the wrapper of the
+    model's scan routed to the old and the new build in turns (old, new,
+    new, old): per turn the wall of 3 forwards (each ending in a
+    synchronise; median), and the device's busy time, busy share and port
+    kernels' device time of a fourth, profiled forward.  The logits of the
+    two versions are compared (printed, not judged: the kernels' checks are
+    chip_smoke.py's)."""
+    arch, name = FORWARDS[kernel]
+    cfg = chip_smoke.get_config(arch)
     model = chip_smoke.build_model(cfg)
     params = model.init(seed=0)
     batch = chip_smoke._rec_batch(model)
     logits = {}
     with torch.no_grad():
         for ver in ("old", "new"):       # warm-up; each version's logits
-            _route(fns, ["mamba2_scan"], ver)
+            _route(fns, [name], ver)
             logits[ver] = model.forward(params, batch)[0].float()
-        print(f"# zamba2 forward: max |logits old - new| "
+        print(f"# {arch} forward: max |logits old - new| "
               f"{float((logits['old'] - logits['new']).abs().max()):.3e}",
               flush=True)
         del logits
         rows = []
         for ver in ("old", "new", "new", "old"):
-            _route(fns, ["mamba2_scan"], ver)
+            _route(fns, [name], ver)
             times = []
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -549,9 +600,8 @@ def forward_ab(fns):
                 times.append(time.perf_counter() - t0)
             trace = chip_smoke.device_trace(
                 lambda: model.forward(params, batch))
-            row = {"forward": "zamba2-2.7b", "batch": list(
-                       chip_smoke.REC_BATCH), "version": ver,
-                   "wall_ms": [t * 1e3 for t in times],
+            row = {"forward": arch, "batch": list(chip_smoke.REC_BATCH),
+                   "version": ver, "wall_ms": [t * 1e3 for t in times],
                    "wall_ms_median": float(np.median(times)) * 1e3,
                    "profiled_wall_s": trace["profiled_wall_s"],
                    "device_busy_s": trace["device_busy_s"],
@@ -560,6 +610,8 @@ def forward_ab(fns):
             print(json.dumps(row), flush=True)
             rows.append(row)
     build._loaded.clear()
+    del model, params
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -569,12 +621,13 @@ def main() -> int:
                     help="directory with the other version's sources")
     ap.add_argument("--kernels", default="K1,K2,K4,K5",
                     help="comma-separated kernels to time (K1, K2, K3, K4, "
-                         "K5, K6)")
+                         "K5, K6, K7)")
     ap.add_argument("--serve", action="store_true",
                     help="also run, with the old and the new kernels in "
                          "turns, chip_smoke.py's chunked and "
                          "paged-monolithic traffic (K1, K2), its dense "
-                         "traffic (K3) and the zamba2 bf16 forward (K6)")
+                         "traffic (K3) and the zamba2 (K6) and rwkv6 (K7) "
+                         "bf16 forwards")
     ap.add_argument("--k2-splits", default="",
                     help="comma-separated other splits (multiples of 64) at "
                          "which to time the new K2 against the old one, "
@@ -584,8 +637,8 @@ def main() -> int:
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(SOURCES):
         ap.error(f"--kernels takes {sorted(SOURCES)}")
-    if args.serve and not {"K1", "K2", "K3", "K6"} & set(kernels):
-        ap.error("--serve needs K1, K2, K3 or K6 among --kernels")
+    if args.serve and not {"K1", "K2", "K3", "K6", "K7"} & set(kernels):
+        ap.error("--serve needs K1, K2, K3, K6 or K7 among --kernels")
     if not torch.cuda.is_available():
         print("attention_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -616,6 +669,11 @@ def main() -> int:
             f, gg, zamba2=True), fns, flush, g))
     if "K6" in kernels:
         rows.append(measure(K6_SHAPE, "K6", k6_case, fns, flush, g))
+    if "K7" in kernels:
+        rows.append(measure(K7_SHAPE, "K7", k7_case, fns, flush, g))
+        label = (f"{K7_SHAPE[0]}, float32",) + K7_SHAPE[1:]
+        rows.append(measure(label, "K7", lambda f, gg: k7_case(
+            f, gg, torch.float32), fns, flush, g))
     if "K5" in kernels:
         rows.append(measure(K5_SHAPE, "K5", lambda f, gg: k5_case(
             f, *K5_SHAPE[1:], gg), fns, flush, g))
@@ -623,8 +681,9 @@ def main() -> int:
         rows += [measure(sh, "K4", lambda f, gg, sh=sh: k4_case(
             f, *sh[1:], gg), fns, flush, g) for sh in K4_SHAPES]
     serve = serve_ab(fns, kernels) if args.serve else []
-    if args.serve and "K6" in kernels:
-        serve += forward_ab(fns)
+    for kernel in FORWARDS:
+        if args.serve and kernel in kernels:
+            serve += forward_ab(fns, kernel)
     print(card, flush=True)
     print(json.dumps({"ab": rows, "serve": serve,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
