@@ -40,6 +40,25 @@ Phases (each raises on failure, so the run exits non-zero):
                         first-token fetch excepted) and must be 0.  Then
                         the model's entry points at full width through the
                         kernels and through impl="ref".
+                        speculation, prefix cache, preemption: the same
+                        model serves, counted as above, each beside a
+                        reference run of the same traffic without the
+                        feature: speculative (spec_k 4, spec_ngram 3; 8
+                        prompts of 200-1900 tokens repeating their own
+                        n-grams; K1 = 40 x chunk batches + verify launches)
+                        against speculation off; prefix (a 1024-token
+                        shared prefix, 8 suffixes of 16-256 tokens in two
+                        waves, and the bare prefix, wholly cached, in the
+                        second) and prefix_monolithic (chunked=False: each
+                        admission one chunk through K1 at K = 1) against
+                        the cache off; preempt (prefix cache on, 260 usable
+                        pages: a priority-5 burst sheds prefilling and
+                        decoding requests, which resume and finish) against
+                        the whole pool.  Each run's outputs equal its
+                        reference's, or every token of a request that
+                        differs passes the teacher-forced check at
+                        SERVED_TOKEN_BAR; at least one verify launch, a
+                        prefix hit, and preemptions that all resumed.
                         training: granite-3-2b at full width trains 4 x
                         2048 tokens a step with remat "full" through
                         init_train_state, make_train_step and
@@ -85,14 +104,17 @@ Phases (each raises on failure, so the run exits non-zero):
                         (K1/K2 the chunked run, K3/K4 the dense run, K5 the
                         training run, K6/K7 the recurrent forwards; K3/K4
                         also at zamba2's head dim 80, K4 also at the
-                        training step's shape): kernel, plain version and
+                        training step's shape, K1 also at the speculative
+                        run's largest verify launch): kernel, plain version and
                         library times (CUDA events, L2 flushed, median of
                         25) beside the bound the card's data sheet allows
                         and the achieved rate (tflops: the FLOPs the call's
                         data needs over the kernel's time); then the
                         end-to-end numbers of the counted runs.
-  5. trace              the chunked, the dense and the paged-monolithic
-                        traffic once more, 2 training steps, and one zamba2
+  5. trace              the chunked, the dense, the paged-monolithic, the
+                        speculative, the prefix, the prefix_monolithic and
+                        the preempt traffic once more, 2 training steps,
+                        and one zamba2
                         forward, under torch.profiler (device activity
                         only): device time by kernel name and by port
                         kernel (K1-K7, each one's share of the busy time),
@@ -101,12 +123,14 @@ Phases (each raises on failure, so the run exits non-zero):
 
 Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K7), one
 {"trace": ...}, one {"trace_dense": ...}, one {"trace_paged_monolithic":
-...}, one {"trace_train": ...} and one {"trace_recurrent": ...} line, one
-{"e2e": ...} line (the chunked run),
+...}, one {"trace_train": ...}, one {"trace_recurrent": ...} and one
+{"trace_<run>": ...} line for each of speculative, prefix,
+prefix_monolithic and preempt, one {"e2e": ...} line (the chunked run),
 one {"e2e_dense": ...}, one {"e2e_paged_monolithic": ...}, one
-{"e2e_train": ...} and one {"e2e_recurrent": ...} line, and as the last
-line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
-prints no result.
+{"e2e_train": ...}, one {"e2e_recurrent": ...} and one {"e2e_<run>": ...}
+line for each of those four runs (its reference run inside), and as the
+last line {"ok": true, "device": {...}}.  Without a GPU it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -168,20 +192,54 @@ NEW_TOKENS = 32
 SCFG = dict(max_batch=8, max_seq=2048, page_size=16, prefill_chunk=256,
             tick_token_budget=1024, max_new_tokens=NEW_TOKENS, paged=True,
             chunked=True, batched=True)
+# speculative decoding (the JAX defaults spec_k 4, spec_ngram 3): prompts
+# of repeated n-grams, so the drafter finds the history's own patterns
+SPEC_LENS = (200, 420, 640, 860, 1100, 1350, 1600, 1900)
+SPEC = dict(SCFG, speculative=True, spec_k=4, spec_ngram=3)
+# the prefix cache: a 1024-token shared prefix with 8 distinct suffixes in
+# two waves (the second wave starts when the first has drained and
+# published its pages) and, in the second, the bare prefix, which is
+# wholly cached and so copies its last page on write
+PREFIX_LEN = 1024
+PREFIX_SUFFIXES = ((16, 80, 144, 208), (48, 112, 176, 256, 0))
+# preemption: low-priority requests at tick 0, a priority-5 burst at tick
+# 2 that does not fit in PREEMPT_USABLE of the pool's 1024 usable pages;
+# it sheds the two long prompts mid-prefill and a short one mid-decode
+# (the same scheduling for any weights: no stop token, no speculation)
+PREEMPT_BACKGROUND = (200, 300, 1500, 1900)
+PREEMPT_BURST = (1800, 1800)
+PREEMPT_USABLE = 260
 RUNS = {"chunked": SCFG,
         "dense": dict(max_batch=8, max_seq=2048, max_new_tokens=NEW_TOKENS,
                       paged=False, chunked=False),
-        "paged_monolithic": dict(SCFG, chunked=False)}
-# per run: kernel -> the launch kind whose count x n_layers it must equal
-# (None: the run must not launch it)
+        "paged_monolithic": dict(SCFG, chunked=False),
+        "speculative": SPEC, "speculative_off": SCFG,
+        "prefix": dict(SCFG, prefix_cache=True), "prefix_off": SCFG,
+        "prefix_monolithic": dict(SCFG, chunked=False, prefix_cache=True),
+        "preempt": dict(SCFG, preemption=True, prefix_cache=True,
+                        usable_pages=PREEMPT_USABLE),
+        "preempt_free": dict(SCFG, preemption=True, prefix_cache=True)}
+# the traffic of each run (see traffic())
+TRAFFIC = {"speculative": "ngrams", "speculative_off": "ngrams",
+           "prefix": "prefix", "prefix_off": "prefix",
+           "prefix_monolithic": "prefix", "preempt": "burst",
+           "preempt_free": "burst"}
+# the runs of the speculative, prefix and preemption slice, each beside
+# the run it is checked against (the same traffic without the feature)
+M6_RUNS = {"speculative": "speculative_off", "prefix": "prefix_off",
+           "prefix_monolithic": "prefix_off", "preempt": "preempt_free"}
+# per run: kernel -> the launch kinds whose count x n_layers it must equal
+# (empty: the run must not launch it)
+_CHUNKED = {"K1": ("chunk_batch",), "K2": ("decode",)}
 EXPECTED = {
-    "chunked": {"K1": "chunk_batch", "K2": "decode", "K3": None, "K4": None,
-                "K5": None, "K6": None, "K7": None},
-    "dense": {"K1": None, "K2": None, "K3": "decode", "K4": "prefill",
-              "K5": None, "K6": None, "K7": None},
-    "paged_monolithic": {"K1": None, "K2": "decode", "K3": None,
-                         "K4": "prefill_paged", "K5": None, "K6": None,
-                         "K7": None}}
+    "chunked": _CHUNKED,
+    "dense": {"K3": ("decode",), "K4": ("prefill",)},
+    "paged_monolithic": {"K2": ("decode",), "K4": ("prefill_paged",)},
+    "speculative": {"K1": ("chunk_batch", "spec_verify"),
+                    "K2": ("decode",)},
+    "speculative_off": _CHUNKED, "prefix": _CHUNKED, "prefix_off": _CHUNKED,
+    "prefix_monolithic": {"K1": ("chunk",), "K2": ("decode",)},
+    "preempt": _CHUNKED, "preempt_free": _CHUNKED}
 # kernel -> (module, launch counter)
 COUNTERS = {"K1": (paged_prefill, "launches"),
             "K2": (flash_decode, "launches"),
@@ -503,23 +561,65 @@ def _quiet(fetch):
     return quiet
 
 
-def run_traffic(model, params, scfg, count_syncs: bool,
-                prompt_lens=PROMPT_LENS):
-    """Serve one request per prompt length (seeded prompts) to completion.
-    Returns (engine, per-tick wall seconds, implicit sync warnings, wall
-    seconds)."""
-    eng = ServeEngine(model, params, ServeConfig(**scfg))
+def traffic(kind: str, vocab: int, lens=PROMPT_LENS):
+    """A run's requests as waves of (tick, prompt, priority); a wave is
+    submitted tick by tick from the moment the wave before it has drained.
+    "random": one seeded prompt per `lens`, all at tick 0; "ngrams":
+    per SPEC_LENS a prompt repeating its own seeded n-gram of 3 to 10
+    tokens; "prefix": PREFIX_LEN shared tokens plus a seeded suffix of
+    each PREFIX_SUFFIXES length, in two waves; "burst": PREEMPT_BACKGROUND
+    at priority 0, tick 0, then PREEMPT_BURST at priority 5, tick 2."""
     rng = np.random.default_rng(0)
-    for n in prompt_lens:
-        eng.submit(rng.integers(1, model.cfg.vocab_size, n).tolist())
+    rand = lambda n: rng.integers(1, vocab, n).tolist()
+    if kind == "random":
+        return [[(0, rand(n), 0) for n in lens]]
+    if kind == "ngrams":
+        return [[(0, (rand(3 + i) * n)[:n], 0)
+                 for i, n in enumerate(SPEC_LENS)]]
+    if kind == "prefix":
+        shared = rand(PREFIX_LEN)
+        return [[(0, shared + rand(n), 0) for n in wave]
+                for wave in PREFIX_SUFFIXES]
+    return [[(0, rand(n), 0) for n in PREEMPT_BACKGROUND]
+            + [(2, rand(n), 5) for n in PREEMPT_BURST]]
+
+
+def run_traffic(model, params, run: str, count_syncs: bool,
+                scfg=None, waves=None):
+    """Serve the run's traffic (traffic(TRAFFIC[run]), or `waves`) under
+    ServeConfig(**RUNS[run]) (or `scfg`) to completion.  Returns (engine,
+    per-tick wall seconds, implicit sync warnings, wall seconds, the
+    preempted requests as (tick, uid, state, prefill cursor, tokens out)
+    at their preemption)."""
+    eng = ServeEngine(model, params, ServeConfig(**(scfg or RUNS[run])))
+    pending = waves or traffic(TRAFFIC.get(run, "random"),
+                               model.cfg.vocab_size)
+    pending = [list(w) for w in pending]
     fetches = ("_fetch_tokens", "_fetch_first_token")
     if count_syncs:
         for name in fetches:
             setattr(eng, name, _quiet(getattr(eng, name)))
-    tick_s, syncs = [], 0
+    victims = []
+    preempt = eng._preempt
+
+    def noted_preempt(v):
+        victims.append((eng.sched.ticks, v.uid, v.state.value,
+                        v.prefill_pos, len(v.out_tokens)))
+        preempt(v)
+    eng._preempt = noted_preempt
+    tick_s, syncs, wave_t0 = [], 0, 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    while eng.queue or any(s is not None for s in eng.slots):
+    while pending or eng.queue or any(s is not None for s in eng.slots):
+        idle = not eng.queue and all(s is None for s in eng.slots)
+        if pending and idle and not pending[0]:
+            pending.pop(0)
+            wave_t0 = len(tick_s)
+            continue
+        while pending and pending[0] and pending[0][0][0] \
+                <= len(tick_s) - wave_t0:
+            _, prompt, prio = pending[0].pop(0)
+            eng.submit(prompt, priority=prio)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             if count_syncs:
@@ -536,46 +636,53 @@ def run_traffic(model, params, scfg, count_syncs: bool,
             raise AssertionError("traffic did not drain in 1000 ticks")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for name in fetches:
+    for name in fetches + ("_preempt",):
         eng.__dict__.pop(name, None)
-    return eng, tick_s, syncs, wall
+    return eng, tick_s, syncs, wall, victims
 
 
 def counted_run(model, params, run: str):
     """Every launch count set to 0, the run's traffic with sync counting,
-    the counts read; raises unless each kernel launched 40 x its kind's
+    the counts read; raises unless each kernel launched 40 x its kinds'
     engine launches (and the others not at all), every request got its
-    tokens, every launch had its fetch, and no implicit sync happened."""
+    tokens, every tick kept its launch and fetch shape, and no implicit
+    sync happened."""
     cfg, scfg = model.cfg, RUNS[run]
+    n_requests = sum(map(len, traffic(TRAFFIC.get(run, "random"), 1 << 15)))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    eng, tick_s, syncs, wall = run_traffic(model, params, scfg,
-                                           count_syncs=True)
+    eng, tick_s, syncs, wall, victims = run_traffic(model, params, run,
+                                                    count_syncs=True)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     done = eng.sched.finished
-    if len(done) != len(PROMPT_LENS) or any(
+    if len(done) != n_requests or any(
             len(r.out_tokens) != NEW_TOKENS for r in done):
         raise AssertionError(f"{run}: not every request finished with "
                              f"{NEW_TOKENS} tokens: "
                              f"{[len(r.out_tokens) for r in done]}")
     for calls, host, _, n_chunks, n_dec in eng.launch_log:
-        # chunked: at most a chunk batch and a decode, one fetch; monolithic:
-        # one fetch per launch (the first token of an admission, the tokens
-        # of a decode)
-        ok = (calls <= 2 and host == (1 if calls else 0)) \
+        # chunked: at most a chunk batch, a verify and a decode launch and
+        # at most one fetch, one in every tick with a decoding slot;
+        # monolithic: one fetch per launch (the first token of an
+        # admission, the tokens of a decode)
+        ok = (calls <= 2 + scfg.get("speculative", False) and host <= 1
+              and (host == 1 or not n_dec)) \
             if scfg["chunked"] else host == calls
         if not ok:
             raise AssertionError(f"{run}: tick made {calls} launches and "
                                  f"{host} fetches")
     kinds = [r.kind for r in eng.launch_records()]
-    if any(sum(1 for r in eng.launch_records() if r.tick == t
-               and r.kind == "decode") > 1
-           for t in range(len(eng.launch_log))):
-        raise AssertionError(f"{run}: a tick made two decode launches")
+    by_tick = {}
+    for r in eng.launch_records():
+        by_tick[(r.tick, r.kind)] = by_tick.get((r.tick, r.kind), 0) + 1
+    if any(n > 1 for (_, kind), n in by_tick.items() if kind in
+           ("chunk_batch", "spec_verify", "decode")):
+        raise AssertionError(f"{run}: a tick made two launches of a kind")
     L = cfg.n_layers
-    want = {k: L * kinds.count(kind) if kind else 0
-            for k, kind in EXPECTED[run].items()}
+    want = {k: L * sum(kinds.count(kind)
+                       for kind in EXPECTED[run].get(k, ()))
+            for k in COUNTERS}
     if launches != want:
         raise AssertionError(f"{run}: kernel launches {launches} != "
                              f"{want} ({L} x the engine's launches)")
@@ -591,6 +698,10 @@ def counted_run(model, params, run: str):
         f"launches {launches}, implicit host syncs in the ticks: {syncs}")
     stats = eng.stats()
     ticks = len(eng.launch_log)
+    slice_stats = {k: stats[k] for k in (
+        "decode_launches", "kv_pages_read", "work_tokens", "spec_drafted",
+        "spec_accepted", "prefix_hit_tokens", "cow_copies", "cached_pages",
+        "preemptions", "resumes", "pages_reclaimed", "pages_parked")}
     e2e = {"gen_tokens": stats["gen_tokens"],
            "prefill_tokens": stats["prefill_tokens"],
            "ticks": ticks,
@@ -606,9 +717,13 @@ def counted_run(model, params, run: str):
            "kv_cache_gb": eng.kv_cache_bytes() / 1e9,
            "implicit_syncs": syncs,
            "host_syncs": stats["host_syncs"]}
+    if run in M6_RUNS or run in M6_RUNS.values():
+        e2e.update(slice_stats, victims=victims)
     return {"launches": launches,
             "per_tick": {k: n / ticks for k, n in launches.items()},
-            "e2e": e2e}
+            "e2e": e2e, "stats": slice_stats, "victims": victims,
+            "finished": [(r.uid, list(r.prompt), list(r.out_tokens))
+                         for r in sorted(done, key=lambda r: r.uid)]}
 
 
 def phase_slice():
@@ -626,11 +741,11 @@ def phase_slice():
     with Capture(paged_prefill, "batched_paged_prefill_attention",
                  _k1_weight) as c1, \
             Capture(flash_decode, "paged_flash_decode", _lens_weight) as c2:
-        run_traffic(model, params, RUNS["chunked"], count_syncs=False)
+        run_traffic(model, params, "chunked", count_syncs=False)
     runs["chunked"] = counted_run(model, params, "chunked")
     with Capture(flash_attention, "flash_attention_fwd", _k4_weight) as c4, \
             Capture(flash_decode, "flash_decode", _lens_weight) as c3:
-        run_traffic(model, params, RUNS["dense"], count_syncs=False)
+        run_traffic(model, params, "dense", count_syncs=False)
     runs["dense"] = counted_run(model, params, "dense")
     runs["paged_monolithic"] = counted_run(model, params, "paged_monolithic")
     model_check(model, params)
@@ -694,6 +809,95 @@ def model_check(model, params):
             f"(bf16 bar {bar}, logit scale {float(b.abs().max()):.2f})")
         if err > bar:
             raise AssertionError(f"{name}: kernels and ref disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 3, speculative decoding, the prefix cache, preemption
+# ---------------------------------------------------------------------------
+
+# a served bf16 token against the teacher-forced kernel forward at its
+# position: the served logits (K1 chunk or verify rows, K2 decode) and the
+# forward's (K4) are each within their MODEL_BARS of impl="ref", so the two
+# differ by at most 0.12 + 0.18 per logit, and a served argmax sits at most
+# twice that below the forward's
+SERVED_TOKEN_BAR = 2 * (MODEL_BARS["chunk batch"] + MODEL_BARS["forward"])
+
+
+def _verify_weight(q, kp, vp, tables, offs, tls, qls=None):
+    """K1's verify launches only (S = spec_k + 1), by their work."""
+    return _k1_weight(q, kp, vp, tables, offs, tls) \
+        if q.shape[1] == SPEC["spec_k"] + 1 else -1
+
+
+def outputs_agree(model, params, run, ref, got, want):
+    """The run's outputs equal those of the reference run `ref` (the same
+    traffic without the feature), or every token of each request that
+    differs passes teacher_forced_check at SERVED_TOKEN_BAR.  Speculation
+    moves no work-clock stamp, so there equal outputs must come with equal
+    work clocks (the prefix cache and preemption change the prefill work
+    by design).  Returns the e2e fields."""
+    w_out = {uid: out for uid, _, out in want["finished"]}
+    differ = [f for f in got["finished"] if f[2] != w_out[f[0]]]
+    ties = teacher_forced_check(model, params, differ, SERVED_TOKEN_BAR)
+    if run == "speculative" and not differ \
+            and got["stats"]["work_tokens"] != want["stats"]["work_tokens"]:
+        raise AssertionError(f"{run}: outputs equal {ref}'s, work clocks "
+                             f"differ")
+    log(f"# {run} against {ref}: {len(got['finished']) - len(differ)} of "
+        f"{len(got['finished'])} requests equal; the others teacher-forced "
+        f"(bar {SERVED_TOKEN_BAR:.2f}), near ties {ties}")
+    return {"against": ref, "requests_equal":
+            len(got["finished"]) - len(differ), "near_ties": ties}
+
+
+def phase_m6(model, params):
+    """The speculative, prefix-cache and preemption runs of granite-3-2b
+    at full width, each counted beside its reference run (the same traffic
+    without the feature, also counted): a warm-up speculative run first
+    keeps K1's largest verify call for the timing phase."""
+    with Capture(paged_prefill, "batched_paged_prefill_attention",
+                 _verify_weight) as cv:
+        run_traffic(model, params, "speculative", count_syncs=False)
+    runs = {}
+    for run in ("speculative_off", "speculative", "prefix_off", "prefix",
+                "prefix_monolithic", "preempt_free", "preempt"):
+        runs[run] = counted_run(model, params, run)
+    for run, ref in M6_RUNS.items():
+        runs[run]["e2e"]["outputs"] = outputs_agree(
+            model, params, run, ref, runs[run], runs[ref])
+    on, off = runs["speculative"], runs["speculative_off"]
+    n_verify = on["e2e"]["engine_launches"].get("spec_verify", 0)
+    log(f"# speculative: {n_verify} verify launches, "
+        f"{on['stats']['spec_drafted']} tokens drafted, "
+        f"{on['stats']['spec_accepted']} accepted; decode launches (verify "
+        f"included) {on['stats']['decode_launches']} on, "
+        f"{off['stats']['decode_launches']} off; KV pages read "
+        f"{on['stats']['kv_pages_read']} on, "
+        f"{off['stats']['kv_pages_read']} off")
+    if not n_verify:
+        raise AssertionError("speculative: no verify launch ran")
+    on["e2e"]["decode_launches_off"] = off["stats"]["decode_launches"]
+    on["e2e"]["kv_pages_read_off"] = off["stats"]["kv_pages_read"]
+    for run in ("prefix", "prefix_monolithic"):
+        st = runs[run]["stats"]
+        log(f"# {run}: {st['prefix_hit_tokens']} prompt tokens from the "
+            f"cache, {st['cow_copies']} copy-on-write copies, "
+            f"{st['cached_pages']} pages cached at the end")
+        if not st["prefix_hit_tokens"] > 0:
+            raise AssertionError(f"{run}: no prefix hit")
+    st, victims = runs["preempt"]["stats"], runs["preempt"]["victims"]
+    finished = {uid for uid, _, _ in runs["preempt"]["finished"]}
+    log(f"# preempt: {st['preemptions']} preemptions (tick, uid, state, "
+        f"prefill cursor, tokens out: {victims}), {st['resumes']} resumes, "
+        f"{st['pages_reclaimed']} pages reclaimed, {st['pages_parked']} "
+        f"parked in the prefix tree")
+    if st["preemptions"] < 1 or st["resumes"] != st["preemptions"] \
+            or not {v[1] for v in victims} <= finished \
+            or {v[2] for v in victims} != {"prefilling", "decoding"}:
+        raise AssertionError("preempt: the burst did not shed prefilling "
+                             "and decoding victims that all resumed and "
+                             "finished")
+    return runs, {"K1_verify": cv.best}
 
 
 # ---------------------------------------------------------------------------
@@ -990,29 +1194,29 @@ def recurrent_fp32(m32, p32, arch, ref16):
     return err, noise
 
 
-def teacher_forced_check(model, params, eng, bar):
-    """Every generated token must be the argmax of a teacher-forced kernel
-    forward over the request's prompt and generated tokens at its
-    position, or within `bar` of that argmax (a near tie).  Returns the
-    near ties."""
+def teacher_forced_check(model, params, finished, bar):
+    """Every generated token of `finished` ((uid, prompt, generated
+    tokens) each) must be the argmax of a teacher-forced kernel forward
+    over the request's prompt and generated tokens at its position, or
+    within `bar` of that argmax (a near tie).  Returns the near ties."""
     ties = []
-    for r in sorted(eng.sched.finished, key=lambda r: r.uid):
-        seq = list(r.prompt) + list(r.out_tokens)
+    for uid, prompt, out in finished:
+        seq = list(prompt) + list(out)
         toks = torch.tensor([seq[:-1]], dtype=torch.int32,
                             device=model.device)
         logits = model.forward(params, {"tokens": toks})[0][0]
-        for i, tok in enumerate(r.out_tokens):
-            row = logits[len(r.prompt) - 1 + i]
+        for i, tok in enumerate(out):
+            row = logits[len(prompt) - 1 + i]
             top = int(torch.argmax(row))
             if top == tok:
                 continue
             gap = float(row[top] - row[tok])
             if gap > bar:
                 raise AssertionError(
-                    f"request {r.uid} token {i}: generated {tok}, the "
+                    f"request {uid} token {i}: generated {tok}, the "
                     f"teacher-forced forward's argmax is {top}, {gap:.3f} "
                     f"above it (bar {bar})")
-            ties.append({"uid": r.uid, "index": i, "token": tok,
+            ties.append({"uid": uid, "index": i, "token": tok,
                          "argmax": top, "gap": gap})
     return ties
 
@@ -1025,8 +1229,9 @@ def recurrent_serving(model, params, arch, check_tokens: bool):
     cfg = model.cfg
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    eng, tick_s, syncs, wall = run_traffic(model, params, REC_SCFG, True,
-                                           REC_PROMPTS)
+    eng, tick_s, syncs, wall, _ = run_traffic(
+        model, params, "recurrent", True, scfg=REC_SCFG,
+        waves=traffic("random", cfg.vocab_size, REC_PROMPTS))
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     done = eng.sched.finished
@@ -1055,8 +1260,9 @@ def recurrent_serving(model, params, arch, check_tokens: bool):
                              f"in the ticks")
     if eng.host_syncs != len(REC_PROMPTS) + kinds.count("decode"):
         raise AssertionError(f"{arch} serving: {eng.host_syncs} fetches")
-    ties = teacher_forced_check(model, params, eng, REC_F32_BARS[arch]) \
-        if check_tokens else None
+    ties = teacher_forced_check(
+        model, params, [(r.uid, r.prompt, r.out_tokens) for r in done],
+        REC_F32_BARS[arch]) if check_tokens else None
     stats = eng.stats()
     dtype = str(cfg.dtype)
     log(f"# {arch} serving ({dtype}): {len(done)} requests x {REC_NEW} "
@@ -1521,8 +1727,10 @@ def phase_times(runs, captured):
                "transposed beforehand, not timed)" if key == "K5"
                else " (inputs transposed beforehand, not timed)"))
         # zamba2's shared attention block (head dim 80, 32 heads, G 1); the
-        # training step's forward (4 x 2048 tokens, 32 / 8 heads of 64)
-        for tag, label in (("d80", "at_zamba2_d80"), ("train", "at_train")):
+        # training step's forward (4 x 2048 tokens, 32 / 8 heads of 64); K1's
+        # speculative verify launch (rows of spec_k + 1 with ragged q_lens)
+        for tag, label in (("d80", "at_zamba2_d80"), ("train", "at_train"),
+                           ("verify", "at_spec_verify")):
             if f"{key}_{tag}" in captured:
                 row[label] = _timed(key, captured[f"{key}_{tag}"], flush)
         rows.append(row)
@@ -1584,7 +1792,7 @@ def device_trace(fn) -> dict:
 
 def phase_trace(model, params, run: str, counted_wall_s: float):
     """The run's traffic once more under the device-only profiler."""
-    out = device_trace(lambda: run_traffic(model, params, RUNS[run],
+    out = device_trace(lambda: run_traffic(model, params, run,
                                            count_syncs=False))
     out.update(run=run, counted_wall_s=counted_wall_s)
     shares = ", ".join(f"{k} {v['ms']:.1f} ms ({v['share_of_busy']:.2f})"
@@ -1608,10 +1816,15 @@ def main() -> int:
     phase_device_and_build()
     phase_kernel_parity()
     runs, captured, mp = phase_slice()
+    m6_runs, m6_captured = phase_m6(*mp)
+    runs.update(m6_runs)
+    captured.update(m6_captured)
     trace = phase_trace(*mp, "chunked", runs["chunked"]["e2e"]["wall_s"])
     trace_dense = phase_trace(*mp, "dense", runs["dense"]["e2e"]["wall_s"])
     trace_pm = phase_trace(*mp, "paged_monolithic",
                            runs["paged_monolithic"]["e2e"]["wall_s"])
+    m6_traces = {run: phase_trace(*mp, run, runs[run]["e2e"]["wall_s"])
+                 for run in M6_RUNS}
     del mp                       # the serving model, before the training one
     gc.collect()
     torch.cuda.empty_cache()
@@ -1628,12 +1841,17 @@ def main() -> int:
     print(json.dumps({"trace_paged_monolithic": trace_pm}), flush=True)
     print(json.dumps({"trace_train": trace_train}), flush=True)
     print(json.dumps({"trace_recurrent": trace_rec}), flush=True)
+    for run, tr in m6_traces.items():
+        print(json.dumps({f"trace_{run}": tr}), flush=True)
     print(json.dumps({"e2e": runs["chunked"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_dense": runs["dense"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_paged_monolithic":
                       runs["paged_monolithic"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_train": e2e_train}), flush=True)
     print(json.dumps({"e2e_recurrent": e2e_rec}), flush=True)
+    for run, ref in M6_RUNS.items():
+        print(json.dumps({f"e2e_{run}": dict(runs[run]["e2e"], reference=dict(
+            runs[ref]["e2e"], name=ref))}), flush=True)
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

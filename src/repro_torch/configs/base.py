@@ -105,9 +105,10 @@ def dense_equivalent_pages(batch: int, max_len: int, page_size: int) -> int:
 @dataclass(frozen=True)
 class ServeConfig:
     """Serving knobs, field for field those of the JAX package (see its
-    configs/base.py for the meaning of each).  The port's engine serves the
-    paged + chunked + batched path and refuses the others at construction
-    (serve/engine.py)."""
+    configs/base.py for the meaning of each).  The port's engine serves
+    every path but request deadlines (default_deadline_tokens), the span
+    tracer (telemetry) and tensor parallelism (tp_degree > 1), which it
+    refuses at construction (serve/engine.py)."""
     max_batch: int = 8
     max_seq: int = 4096
     prefill_chunk: int = 512

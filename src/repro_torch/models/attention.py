@@ -195,3 +195,7 @@ def attn_prefill_chunk_paged(params, x: torch.Tensor, cfg: ModelConfig,
         params, x, cfg, k_pages, v_pages,
         page_row.reshape(1, -1).to(torch.int32), off, off + x.shape[1],
         window=window, impl=impl)
+
+
+# the prefix-cache suffix is the final-chunk special case
+attn_prefill_suffix_paged = attn_prefill_chunk_paged

@@ -340,12 +340,40 @@ class Model(nn.Module):
             x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
         return unembed(params["tok"], x_last, cfg), cache, lens
 
+    @torch.no_grad()
+    def verify_chunks(self, params, batch, cache, page_tables, *,
+                      impl: Optional[str] = None):
+        """Score a ragged batch of speculative draft chains: row k holds
+        [pending token, draft_1 .. draft_m] at positions batch["offset"]
+        [k] + arange(S), the prefill_chunks contract (each row's K/V
+        scatters into its pages, then the offset-causal kernel attends
+        over everything resident), but every position's logits come back,
+        since acceptance needs the target at each chain position.
+        batch["q_lens"] (K,) holds each row's real query count 1 + m, fed
+        to K1's q_lens lane so pad positions come back as exact zeros.
+        K/V written past the accepted frontier stays behind the row's
+        lens, masked wherever KV is read and overwritten by the next
+        write.  Returns (logits (K, S, V) float32, cache)."""
+        self._need_attention("speculative verification")
+        cfg = self.cfg
+        x = embed(params["tok"], batch["tokens"], cfg)
+        x = T.stack_prefill_chunks_paged(
+            params["blocks"], x, cfg, cache, page_tables, batch["offset"],
+            batch["true_lens"], q_lens=batch["q_lens"], impl=impl)
+        x = apply_norm(params["final_norm"], x, cfg)
+        return unembed(params["tok"], x, cfg), cache
+
     def prefill_chunk(self, params, batch, cache, page_row, *,
                       impl: Optional[str] = None):
         """One mid-prompt chunk of one sequence: the K=1 case of
-        prefill_chunks (batch holds one row; page_row is (n_max,))."""
+        prefill_chunks (batch holds one row; page_row is (n_max,)).  A
+        final chunk's logits seed decoding."""
         return self.prefill_chunks(params, batch, cache,
                                    page_row.reshape(1, -1), impl=impl)
+
+    # the prefix-cached suffix is a final chunk whose cursor is the full
+    # prompt length (the JAX Model's name for it)
+    prefill_suffix = prefill_chunk
 
     @torch.no_grad()
     def decode_step(self, params, tokens, lens, cache, *,

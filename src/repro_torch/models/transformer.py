@@ -161,6 +161,22 @@ def stack_prefill_chunks_paged(blocks, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
+def stack_prefill_chunk_paged(blocks, x: torch.Tensor, cfg: ModelConfig,
+                              cache, page_row: torch.Tensor, offset: int, *,
+                              impl: Optional[str] = None) -> torch.Tensor:
+    """ONE mid-prompt chunk of ONE sequence, the K=1 case of
+    stack_prefill_chunks_paged: x (1, S, D) at positions offset +
+    arange(S), every position real; page_row (n_max,)."""
+    off = torch.full((1,), int(offset), dtype=torch.int32, device=x.device)
+    return stack_prefill_chunks_paged(
+        blocks, x, cfg, cache, page_row.reshape(1, -1).to(torch.int32),
+        off, off + x.shape[1], impl=impl)
+
+
+# the prefix-cache suffix is the final-chunk special case
+stack_prefill_suffix_paged = stack_prefill_chunk_paged
+
+
 def stack_decode_paged(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                        lens: torch.Tensor, *,
                        impl: Optional[str] = None) -> torch.Tensor:

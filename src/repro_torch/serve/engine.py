@@ -1,6 +1,7 @@
 """Continuous-batching serve engine: dense or paged KV cache, monolithic or
-chunked prefill, batched one-launch ticks; the recurrent families (hybrid,
-ssm) on their state caches with stepwise admission.
+chunked prefill, batched one-launch ticks, speculative decoding, the radix
+prefix cache and preemption; the recurrent families (hybrid, ssm) on their
+state caches with stepwise admission.
 
 Slot-based: up to `max_batch` sequences share one batched KV cache -
 dense strips (one (L, max_batch, max_seq, Hkv, D) K and V), or a global
@@ -34,21 +35,47 @@ with two ways to admit:
               the token array.  A slot that is still prefilling keeps
               lens 0 and a zeroed row in the DEVICE block table, so the
               decode launch's write lane for it lands in the reserved null
-              page.
+              page.  batched=False runs one launch per chunk instead
+              (_run_chunk, the sequential oracle), each final chunk
+              fetching its first token at once.
+
+Speculative decoding (speculative=True, chunked + batched): each tick a
+DECODING slot may propose a draft chain by n-gram lookup over its own
+history (serve/drafting.py), out of the budget its guaranteed token
+leaves; all chains verify in ONE extra launch through K1's q_lens lane
+(serve_step.make_spec_verify_step), which samples the target's token at
+every position, accepts the matching draft prefix and sets tokens / lens
+on the device; the acceptance counts come back in the tick's one fetch.
+The work clock advances per accepted token only.
+
+Prefix cache (prefix_cache=True, paged): finished requests publish their
+full prompt pages into a radix tree (serve/prefix_cache.py); admission
+attaches the longest cached prefix refcounted and prefills only the rest
+(a monolithic admission as one K=1 chunk, _admit_prefix -> _run_chunk).
+A slot about to write into a shared page gets a private copy first
+(copy-on-write, _cow_guard).
+
+Preemption (preemption=True, chunked): when the page pool or the slot
+table cannot place a queued request that outranks a running one, the
+lowest-priority victims are shed one at a time (_try_preempt): their
+fully written pages park in the prefix tree (or return to the pool), and
+they requeue as RESUMING with prompt + generated-so-far as their target,
+so a resumed greedy request emits what an uninterrupted one would.
 
 Host-side decisions read the host mirror of the lengths (`_lens_np`),
 never the device tensor, so the only synchronisations are the token
 fetches (_fetch_tokens per tick, _fetch_first_token per monolithic
-admission).  Uploads go through fresh pinned buffers copied
-asynchronously; the host block table is always copied first, because
-torch.from_numpy aliases the array and the allocator mutates it in place.
+admission and per final chunk of the sequential oracle).  Uploads go
+through fresh pinned buffers copied asynchronously; the host block table
+is always copied first, because torch.from_numpy aliases the array and
+the allocator mutates it in place.
 
-Settings outside these paths (prefix cache, preemption, speculation,
-deadlines, span tracing, the sequential chunked oracle, tensor
-parallelism) raise NotImplementedError naming their ROADMAP item.
+Request deadlines, span tracing and tensor parallelism raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -58,11 +85,13 @@ import torch
 from ..configs.base import ServeConfig
 from ..models.model import ATTENTION_FAMILIES, RECURRENT_LEAVES
 from .paged_cache import PageAllocator, pages_needed
-from .scheduler import (ChunkTask, Request, RequestState,
+from .prefix_cache import RadixPrefixCache
+from .scheduler import (ChunkTask, DraftTask, Request, RequestState,
                         TokenBudgetScheduler)
-from .serve_step import (make_chunk_batch_step, make_fused_decode_step,
-                         make_paged_prefill_step, make_prefill_step,
-                         make_serve_step, sample_token)
+from .serve_step import (make_chunk_batch_step, make_chunk_prefill_step,
+                         make_fused_decode_step, make_paged_prefill_step,
+                         make_prefill_step, make_serve_step,
+                         make_spec_verify_step, sample_token)
 from .telemetry import LaunchRecord, MetricsRegistry, Telemetry, TickRecord
 
 # dense-cache prompts are padded to a multiple of this before the
@@ -75,22 +104,18 @@ def _refuse_unported(scfg: ServeConfig):
     """NotImplementedError for every ServeConfig setting this slice of the
     port does not serve, naming the ROADMAP item that brings it."""
     todo = [
-        (scfg.chunked and not scfg.batched,
-         "batched=False (sequential chunked oracle path)", "M6"),
-        (scfg.prefix_cache, "prefix_cache=True", "M6"),
-        (scfg.preemption, "preemption=True", "M6"),
-        (scfg.speculative, "speculative=True", "M6"),
-        (scfg.default_deadline_tokens > 0, "request deadlines", "M6"),
-        (scfg.telemetry, "telemetry=True (span tracer)", "M6"),
+        (scfg.default_deadline_tokens > 0, "request deadlines", "M6d"),
+        (scfg.telemetry, "telemetry=True (span tracer)", "M6d"),
         (scfg.tp_degree > 1, f"tp_degree={scfg.tp_degree}", "M10"),
     ]
     for bad, what, item in todo:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to the PyTorch engine yet (ROADMAP "
-                f"{item}); it serves chunked=True with batched=True on the "
-                f"paged cache, and chunked=False on the dense or paged "
-                f"cache")
+                f"{item}); it serves chunked=True (batched or the "
+                f"sequential oracle) on the paged cache and chunked=False "
+                f"on the dense or paged cache, with speculative decoding, "
+                f"the prefix cache and preemption")
 
 
 def _registry_counter(name: str):
@@ -134,9 +159,14 @@ class ServeEngine:
                   "Device->host transfers (token fetches)")
         m.counter("serve_prefill_tokens_total",
                   "Prompt tokens actually computed by prefill")
+        m.counter("serve_prefix_hit_tokens_total",
+                  "Prompt tokens served from the prefix cache instead of "
+                  "being recomputed")
+        m.counter("serve_cow_copies_total",
+                  "Device-side copy-on-write page copies")
         m.counter("serve_gen_tokens_total", "Generation tokens emitted")
         m.counter("serve_decode_launches_total",
-                  "Token-emitting launches (fused decode)")
+                  "Token-emitting launches (fused decode + spec verify)")
         m.counter("serve_kv_pages_read_total",
                   "KV pages read by token-emitting launches (analytic "
                   "host-side count, not a device counter)")
@@ -153,7 +183,13 @@ class ServeEngine:
                 "unspent generation budget)")
         self.paged = scfg.paged
         self._attention_family = model.cfg.family in ATTENTION_FAMILIES
+        if scfg.speculative and not self._attention_family:
+            raise ValueError(f"speculative serving needs an attention "
+                             f"family, got {model.cfg.family}")
+        if scfg.prefix_cache and not scfg.paged:
+            raise ValueError("prefix_cache requires paged=True")
         self.allocator: Optional[PageAllocator] = None
+        self.prefix: Optional[RadixPrefixCache] = None
         if self.paged:
             if not self._attention_family:
                 raise ValueError(f"paged serving needs an attention family, "
@@ -170,6 +206,9 @@ class ServeEngine:
             self.cache = model.init_cache(B, scfg.max_seq,
                                           page_size=scfg.page_size,
                                           num_pages=num_pages)
+            if scfg.prefix_cache:
+                self.prefix = RadixPrefixCache(self.allocator,
+                                               scfg.page_size, metrics=m)
         else:
             self.cache = model.init_cache(B, scfg.max_seq)
         self.lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -192,13 +231,19 @@ class ServeEngine:
         self._decode = make_serve_step(model)
         self._prefill = make_prefill_step(model)
         self._prefill_paged = make_paged_prefill_step(model)
+        # one step serves the prefix-cached suffix and the sequential
+        # oracle's chunks: a suffix is a final chunk
+        self._prefill_chunk = make_chunk_prefill_step(model)
         self._prefill_chunks = make_chunk_batch_step(model, **self._knobs)
         self._decode_fused = make_fused_decode_step(model, **self._knobs)
+        self._spec_verify = make_spec_verify_step(model, **self._knobs)
 
     # registry-backed views (one source of truth: the metrics registry)
     jit_calls = _registry_counter("serve_jit_calls_total")
     host_syncs = _registry_counter("serve_host_syncs_total")
     prefill_tokens = _registry_counter("serve_prefill_tokens_total")
+    prefix_hit_tokens = _registry_counter("serve_prefix_hit_tokens_total")
+    cow_copies = _registry_counter("serve_cow_copies_total")
     gen_tokens = _registry_counter("serve_gen_tokens_total")
     decode_launches = _registry_counter("serve_decode_launches_total")
     kv_pages_read = _registry_counter("serve_kv_pages_read_total")
@@ -234,11 +279,19 @@ class ServeEngine:
         buf = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
         return buf.to(self.device, non_blocking=True)
 
-    def _fetch_tokens(self) -> np.ndarray:
+    def _fetch_tokens(self, n_acc: Optional[torch.Tensor] = None):
         """THE tick's device->host transfer: the (B, 1) token array after
-        the fused steps wrote every lane's sampled token into it."""
+        the fused steps wrote every lane's sampled token into it.  With
+        the verify launch's (K,) acceptance counts `n_acc`, both come back
+        in the same transfer (concatenated on the device) as (tokens,
+        counts)."""
         self.host_syncs += 1
-        return self.tokens.cpu().numpy()
+        if n_acc is None:
+            return self.tokens.cpu().numpy()
+        B = self.tokens.shape[0]
+        both = torch.cat([self.tokens[:, 0], n_acc.to(self.tokens.dtype)])
+        both = both.cpu().numpy()
+        return both[:B, None], both[B:]
 
     def _fetch_first_token(self, tok: torch.Tensor) -> int:
         """A monolithic admission's device->host transfer: the first
@@ -327,6 +380,18 @@ class ServeEngine:
                 return i
         return None
 
+    def prefix_stats(self) -> Dict[str, int]:
+        """Prefill / prefix-cache counters (zeros when caching is off)."""
+        return {"prefill_tokens": self.prefill_tokens,
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "prompt_tokens": self.prefill_tokens
+                + self.prefix_hit_tokens,
+                "cow_copies": self.cow_copies,
+                "cached_pages": self.prefix.cached_pages
+                if self.prefix is not None else 0,
+                "peak_pages": self.peak_pages,
+                "peak_live_pages": self.peak_live_pages}
+
     def load_stats(self) -> Dict[str, int]:
         """Occupancy view for dispatch decisions: queue depth, in-flight
         requests, outstanding work tokens and page headroom (host-side
@@ -341,7 +406,8 @@ class ServeEngine:
                 "outstanding_work_tokens": work,
                 "free_pages": int(self.allocator.free_pages) if self.paged
                 else 1 << 30,            # dense KV never backpressures
-                "evictable_pages": 0}
+                "evictable_pages": self.prefix.evictable_pages()
+                if self.prefix is not None else 0}
 
     def stats(self) -> Dict[str, float]:
         """Scheduler latency aggregates (TTFT / time-between-tokens, wall
@@ -349,19 +415,13 @@ class ServeEngine:
         accounting (launches, device->host transfers, host wall per
         tick)."""
         out: Dict[str, float] = dict(self.sched.stats())
-        out.update({"prefill_tokens": self.prefill_tokens,
-                    "prefix_hit_tokens": 0,
-                    "prompt_tokens": self.prefill_tokens,
-                    "cow_copies": 0,
-                    "cached_pages": 0,
-                    "peak_pages": self.peak_pages,
-                    "peak_live_pages": self.peak_live_pages})
+        out.update(self.prefix_stats())
         out["tick_token_budget"] = self.scfg.tick_token_budget
         out["chunked"] = self.scfg.chunked
         out["batched"] = self.scfg.batched
         out["jit_calls"] = self.jit_calls
         out["host_syncs"] = self.host_syncs
-        out["speculative"] = False
+        out["speculative"] = self.scfg.speculative
         out["telemetry"] = False
         out["tp_degree"] = self.scfg.tp_degree
         out["gen_tokens"] = self.gen_tokens
@@ -387,9 +447,12 @@ class ServeEngine:
     def check_invariants(self):
         """Host-side consistency checks (the replay fixtures call this after
         every tick): allocator refcount conservation and block-table
-        mirroring (paged), slot back-references, queue states and the lens
-        mirror.  Never touches a device tensor."""
-        if self.paged:
+        mirroring (paged), the prefix tree against the allocator, slot
+        back-references, queue states and the lens mirror.  Never touches
+        a device tensor."""
+        if self.prefix is not None:
+            self.prefix.check_invariants()
+        elif self.paged:
             self.allocator.check_invariants()
         for i, r in enumerate(self.slots):
             if r is None:
@@ -404,7 +467,7 @@ class ServeEngine:
                                    RequestState.DECODING), \
                     f"slot {i} holds a {r.state} request"
         for r in self.queue:
-            assert r.state is RequestState.QUEUED
+            assert r.state in (RequestState.QUEUED, RequestState.RESUMING)
             assert r.slot is None, \
                 f"queued request {r.uid} still holds slot {r.slot}"
             assert r.remaining_new >= 1
@@ -435,8 +498,8 @@ class ServeEngine:
         return False
 
     def _finish(self, req: Request):
-        """Free the request's slot; its pages go back to the pool the same
-        tick."""
+        """Free the request's slot; its pages go back to the pool (or its
+        full prompt pages into the prefix tree) the same tick."""
         i = req.slot
         req.state = RequestState.DONE
         req.done = True
@@ -445,8 +508,11 @@ class ServeEngine:
         # copy it from the host and synchronise
         self.lens[i:i + 1].zero_()
         self._lens_np[i] = 0
-        if self.paged:
+        if self.prefix is not None:
+            self.prefix.release(i, req.prompt)
+        elif self.paged:
             self.allocator.free_slot(i)
+        if self.paged:
             self._table_dirty = True     # zero the slot's device row
         self.sched.note_finished(req)
         self.tm.registry.get("serve_requests_finished_total").inc()
@@ -514,10 +580,15 @@ class ServeEngine:
         req.slot = slot
         req.prefill_pos = len(req.prompt)
         req.state = RequestState.DECODING
-        req.admit_seq = self._admit_seq
-        self._admit_seq += 1
+        self._stamp_admit(req)
         if self._emit(req, nxt):
             self._finish(req)
+
+    def _stamp_admit(self, req: Request):
+        """Monotone admission stamp: preemption sheds the most recently
+        admitted PREFILLING victim first (least sunk prefill work)."""
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
 
     def _admit_prefill(self, slot: int, req: Request):
         """Dense cache: one prefill of the padded prompt straight into the
@@ -570,10 +641,31 @@ class ServeEngine:
         self.sched.note_work(n)
         self._place(slot, req, logits, n)
 
+    def _ensure_free(self, n: int, protect=frozenset()) -> bool:
+        """True if n pages are (or can be made) free: with the prefix cache
+        LRU-evicts unreferenced cached pages, never those in `protect`
+        (about to be attached) or any a slot references."""
+        if self.allocator.can_alloc(n):
+            return True
+        if self.prefix is not None:
+            self.prefix.evict(n - self.allocator.free_pages,
+                              protect=frozenset(protect))
+        return self.allocator.can_alloc(n)
+
+    def _copy_page(self, src: int, dst: int):
+        """The data half of copy-on-write: page src into page dst in every
+        layer's K and V pool, on the device (views of the stacked (L, P,
+        ps, Hkv, D) pools; no host sync)."""
+        for key in ("k_pages", "v_pages"):
+            pool = self.cache[key]
+            pool[:, dst].copy_(pool[:, src])
+
     def _admit_paged(self, slot: int, req: Request) -> bool:
         """Paged cache: reserve the request's worst case up front and
         prefill the prompt straight into its pages.  False = out of pages
         (reservations that can never fit were refused at submit)."""
+        if self.prefix is not None:
+            return self._admit_prefix(slot, req)
         ps = self.scfg.page_size
         need = pages_needed(len(req.prompt) + req.max_new_tokens, ps)
         if not self.allocator.can_alloc(need):
@@ -600,6 +692,55 @@ class ServeEngine:
         self._place(slot, req, logits, s_real)
         return True
 
+    def _reserve_prefix(self, slot: int, req: Request) -> Optional[int]:
+        """Prefix-cached reservation: attach the longest cached prefix of
+        the request's target, allocate the rest of its worst case, and
+        copy-on-write the final cached page when the whole prompt is
+        covered (its last token is recomputed for its logits, and that
+        token's K/V lands in that page).  Returns the cursor computation
+        starts from, or None when out of pages even after eviction.  A
+        RESUMING request's target is prompt + pre-preemption output: the
+        match finds the pages that survived, only the rest re-prefills."""
+        ps = self.scfg.page_size
+        target = req.target
+        P = len(target)
+        matched = self.prefix.match(target)
+        full_cover = bool(matched) and len(matched) * ps >= P
+        shared = matched[:-1] if full_cover else matched
+        n_fresh = pages_needed(P + req.remaining_new, ps) - len(shared)
+        if not self._ensure_free(n_fresh, protect=matched):
+            return None
+        if shared:
+            self.allocator.attach(slot, shared)
+        owned = self.allocator.alloc(slot, n_fresh)
+        if full_cover:
+            self._copy_page(matched[-1], owned[len(shared)])
+            self.cow_copies += 1
+        self._note_alloc()
+        start = P - 1 if full_cover else len(shared) * ps
+        self.prefix_hit_tokens += start
+        return start
+
+    def _admit_prefix(self, slot: int, req: Request) -> bool:
+        """Prefix-cached monolithic admission: the uncached suffix prefills
+        in one launch - it is the request's final chunk, so _run_chunk
+        runs it (and samples the first token).  False = out of pages even
+        after eviction."""
+        start = self._reserve_prefix(slot, req)
+        if start is None:
+            return False
+        self.sched.pop(req)
+        self.slots[slot] = req
+        req.slot = slot
+        req.prefill_pos = start
+        req.state = RequestState.PREFILLING
+        self._stamp_admit(req)
+        # the decode launch later this tick walks the slot's device row
+        self.cache["block_table"] = self._upload(self.allocator.table)
+        self._run_chunk(ChunkTask(req, slot, start,
+                                  len(req.prompt) - start))
+        return True
+
     def _tick_monolithic(self) -> List[Request]:
         """Admit (whole-prompt prefills), then one fused decode launch over
         every lane and one fetch of the tokens."""
@@ -618,6 +759,8 @@ class ServeEngine:
                 self.sched.note_tick(0, self.sched.work_clock - w0)
             return self._finished_this_tick
         self._tick_profile = (0, len(active))
+        if self.prefix is not None:
+            self._cow_guard()
         live = np.zeros((len(self.slots),), bool)
         live[active] = True
         self.jit_calls += 1
@@ -648,6 +791,7 @@ class ServeEngine:
         self.sched.note_tick(len(active),
                              self.sched.work_clock - w0 - len(active))
         if self._finished_this_tick and self.paged:
+            self._maybe_evict_watermark()
             self._sync_table()
         return self._finished_this_tick
 
@@ -660,22 +804,70 @@ class ServeEngine:
                                    self.allocator.live_pages())
 
     def _reserve_chunked(self, slot: int, req: Request) -> bool:
-        """Reserve the request's worst-case pages and mark it PREFILLING
-        with its cursor at 0; the chunks stream in over the coming ticks.
-        False = not enough free pages (it stays queued)."""
-        need = pages_needed(len(req.target) + req.remaining_new,
-                            self.scfg.page_size)
-        if not self.allocator.can_alloc(need):
-            return False
-        self.allocator.alloc(slot, need)
-        self._note_alloc()
+        """Reserve the request's worst-case pages (through the prefix cache
+        when it is on) and mark it PREFILLING with its cursor at the cached
+        prefix's end; the chunks stream in over the coming ticks.  False =
+        not enough free pages (it stays queued)."""
+        if self.prefix is not None:
+            start = self._reserve_prefix(slot, req)
+            if start is None:
+                return False
+        else:
+            need = pages_needed(len(req.target) + req.remaining_new,
+                                self.scfg.page_size)
+            if not self.allocator.can_alloc(need):
+                return False
+            self.allocator.alloc(slot, need)
+            self._note_alloc()
+            start = 0
         self.slots[slot] = req
         req.slot = slot
-        req.prefill_pos = 0
+        req.prefill_pos = start
         req.state = RequestState.PREFILLING
-        req.admit_seq = self._admit_seq
-        self._admit_seq += 1
+        self._stamp_admit(req)
         return True
+
+    def _run_chunk(self, task: ChunkTask):
+        """One planned chunk in one launch (K1 at K = 1): its K/V lands in
+        the slot's pages and its queries attend over everything already
+        written (cached prefix, earlier chunks).  A final chunk samples
+        the first token on the device, fetches it at once and flips the
+        request to DECODING.  The sequential oracle (batched=False) and
+        the prefix-cached monolithic admission run chunks this way."""
+        req, slot = task.req, task.slot
+        ps = self.scfg.page_size
+        start, n = task.start, task.length
+        s_pad = -(-n // ps) * ps
+        toks = np.zeros((1, s_pad), np.int32)
+        toks[0, :n] = req.target[start:start + n]
+        batch = {"tokens": self._upload(toks),
+                 "offset": self._upload(np.array([start], np.int32)),
+                 "true_lens": self._upload(np.array([start + n], np.int32))}
+        self.jit_calls += 1
+        logits, self.cache, _ = self._prefill_chunk(
+            self.params, batch, self.cache,
+            self._upload(self.allocator.table[slot]))
+        req.prefill_pos = start + n
+        self.prefill_tokens += n
+        self.sched.note_work(n)
+        self.sched.chunks_run += 1
+        self._note_launch("chunk", rows=1, live_rows=1, true_tokens=n,
+                          padded_tokens=s_pad,
+                          kv_pages_read=self._row_pages(slot, start + n),
+                          kv_pages_written=self._span_pages(start,
+                                                            start + n),
+                          new_kv_tokens=n)
+        if req.prefill_pos >= len(req.target):
+            # device-side writes, no host scalar copies (see _place)
+            self.lens[slot:slot + 1].fill_(len(req.target))
+            self._lens_np[slot] = len(req.target)
+            tok = sample_token(logits, generator=self._gen, **self._knobs)
+            self.tokens[slot:slot + 1] = tok
+            nxt = self._fetch_first_token(tok)
+            req.state = RequestState.DECODING
+            self._table_dirty = True     # unmask the slot's device row
+            if self._emit(req, nxt):
+                self._finish(req)
 
     def _run_chunk_batch(self, tasks: List[ChunkTask]):
         """Execute every prefill chunk planned this tick in ONE launch: the
@@ -723,23 +915,166 @@ class ServeEngine:
             new_kv_tokens=n_true)
         return finals
 
+    def _run_spec_verify(self, tasks: List[DraftTask]):
+        """Every draft chain planned this tick in ONE launch through K1's
+        q_lens lane: the scheduler packs the chains into a ragged verify
+        batch with per-row table rows from the host allocator; the device
+        samples the target at every chain position, accepts the matching
+        draft prefix, writes the bonus token into tokens and the new KV
+        frontier into lens (rejected positions past it are dead).  Returns
+        (the SpecBatch, the (K,) acceptance counts on the device, for the
+        tick's one fetch)."""
+        pack = self.sched.pack_drafts(tasks, self._lens_np)
+        tables = np.zeros((pack.tokens.shape[0],
+                           self.allocator.table.shape[1]), np.int32)
+        live = pack.row_slots < self.scfg.max_batch
+        tables[live] = self.allocator.table[pack.row_slots[live]]
+        batch = {"tokens": self._upload(pack.tokens),
+                 "offset": self._upload(pack.offsets),
+                 "true_lens": self._upload(pack.true_lens),
+                 "q_lens": self._upload(pack.q_lens),
+                 "draft_lens": self._upload(pack.draft_lens),
+                 "row_slot": self._upload(pack.row_slots)}
+        self.jit_calls += 1
+        self.decode_launches += 1
+        ps = self.scfg.page_size
+        self.kv_pages_read += sum(-(-int(t) // ps)
+                                  for t in pack.true_lens[live])
+        self.cache, self.tokens, self.lens, n_acc = \
+            self._spec_verify(self.params, batch, self.cache,
+                              self._upload(tables), self.tokens, self.lens,
+                              self._gen)
+        n_q = sum(1 + len(t.draft) for t in pack.tasks)
+        self._note_launch(
+            "spec_verify", rows=int(pack.tokens.shape[0]),
+            live_rows=len(pack.tasks), true_tokens=n_q,
+            padded_tokens=int(pack.tokens.shape[0] * pack.tokens.shape[1]),
+            kv_pages_read=sum(self._row_pages(t.slot,
+                                              t.offset + 1 + len(t.draft))
+                              for t in pack.tasks),
+            kv_pages_written=sum(
+                self._span_pages(t.offset, t.offset + 1 + len(t.draft))
+                for t in pack.tasks),
+            new_kv_tokens=n_q)
+        return pack, n_acc
+
+    # ------------------------------------------------------------------
+    # preemption: shed lower-priority load when the page pool or the slot
+    # table cannot place a higher-priority admission candidate
+    # ------------------------------------------------------------------
+    def _next_victim(self, cand: Request) -> Optional[Request]:
+        """Only requests CAND strictly outranks are eligible (equal
+        priority never preempts).  PREFILLING victims first - lowest
+        priority, most recently admitted first - then DECODING ones,
+        lowest priority, longest remaining generation first."""
+        best, best_key = None, None
+        for r in self.slots:
+            if r is None or r.priority >= cand.priority:
+                continue
+            if r.state is RequestState.PREFILLING:
+                key = (0, r.priority, -r.admit_seq)
+            elif r.state is RequestState.DECODING:
+                key = (1, r.priority, -r.remaining_new, -r.admit_seq)
+            else:
+                continue
+            if best_key is None or key < best_key:
+                best, best_key = r, key
+        return best
+
+    def _preempt(self, victim: Request):
+        """Shed one running request: drop its slot's reference on every
+        page (private pages return to the pool, tree pages survive), zero
+        its lane, and requeue it as RESUMING; a mid-decode victim resumes
+        from prompt + generated-so-far (Request.target).  With the prefix
+        cache its fully written pages park in the tree, keyed by the
+        tokens whose K/V they hold - only fully valid positions: the
+        cursor of a PREFILLING victim, the lens mirror of a DECODING one
+        (the pending token's K/V is unwritten, and rejected draft K/V past
+        lens must never enter the tree)."""
+        slot = victim.slot
+        free0 = self.allocator.free_pages
+        if self.prefix is not None:
+            if victim.state is RequestState.PREFILLING:
+                n_valid = victim.prefill_pos
+                seq = list(victim.target)
+            else:
+                seq = victim.prompt + list(victim.out_tokens)
+                n_valid = int(self._lens_np[slot])
+            cached0 = self.prefix.cached_pages
+            self.prefix.release(slot, seq[:n_valid])
+            self.sched.pages_parked += self.prefix.cached_pages - cached0
+        else:
+            self.allocator.free_slot(slot)
+        self.sched.pages_reclaimed += self.allocator.free_pages - free0
+        self.sched.preemptions += 1
+        victim.n_preemptions += 1
+        self.slots[slot] = None
+        self.lens[slot:slot + 1].zero_()     # device-side, no host sync
+        self._lens_np[slot] = 0
+        victim.slot = None
+        victim.prefill_pos = 0
+        if victim.out_tokens:
+            victim.resume_tokens = victim.prompt + list(victim.out_tokens)
+        victim.state = RequestState.RESUMING
+        self.sched.requeue(victim)
+        self._table_dirty = True     # the lane must mask to the null page
+
+    def _try_preempt(self, cand: Request) -> bool:
+        """Shed ONE victim toward placing CAND (admission retries after
+        each).  False when preemption is off, no victim is eligible, or
+        shedding every eligible victim and evicting the whole prefix cache
+        could still not cover CAND's worst-case reservation."""
+        if not self.scfg.preemption:
+            return False
+        victim = self._next_victim(cand)
+        if victim is None:
+            return False
+        need = pages_needed(len(cand.target) + cand.remaining_new,
+                            self.scfg.page_size)
+        headroom = self.allocator.free_pages
+        if self.prefix is not None:
+            headroom += self.prefix.evictable_pages()
+        # distinct pages: one shared by two victims frees only once
+        victim_pages = {p for r in self.slots
+                        if r is not None and r.priority < cand.priority
+                        for p in self.allocator.slot_pages(r.slot)}
+        if need > headroom + len(victim_pages):
+            return False
+        self._preempt(victim)
+        return True
+
     def _tick_chunked(self) -> List[Request]:
-        """One budgeted iteration: admit, fill the budget with prefill
-        chunks (one chunk-batch launch), one fused decode launch for the
-        slots that were already decoding, one fetch.  Total work never
-        exceeds tick_token_budget."""
+        """One budgeted iteration: admit (preempting where a queued request
+        outranks a running one and cannot be placed), fill the budget with
+        draft chains and prefill chunks, then ONE chunk-batch launch, ONE
+        verify launch, ONE fused decode launch for the slots without a
+        chain, and ONE fetch.  Total work never exceeds
+        tick_token_budget.  batched=False runs one launch per chunk."""
         w0 = self.sched.work_clock
-        # admission first: slots + page reservations for as many queued
-        # requests as the policy head allows (no prompt computation yet);
-        # head-of-line backpressure when the head cannot be placed
+        # admission first (a decoding victim shed here must not join this
+        # tick's launches): reserve slots + pages for as many queued
+        # requests as the policy head allows; when the head cannot be
+        # placed, shed victims one at a time and retry, else head-of-line
+        # backpressure
         while True:
             req = self.sched.peek()
             if req is None:
                 break
-            slot = self._free_slot()
-            if slot is None or not self._reserve_chunked(slot, req):
+            resuming = req.state is RequestState.RESUMING
+            placed = False
+            while True:
+                slot = self._free_slot()
+                if slot is not None and self._reserve_chunked(slot, req):
+                    placed = True
+                    break
+                if not self._try_preempt(req):
+                    break
+            if not placed:
                 break
             self.sched.pop(req)
+            if resuming:
+                self.sched.resumes += 1
+                req.n_resumes += 1
         if self._table_dirty:
             self._sync_table()
         decode_slots = [i for i, r in enumerate(self.slots)
@@ -748,47 +1083,128 @@ class ServeEngine:
         prefilling = [(i, r) for i, r in enumerate(self.slots)
                       if r is not None
                       and r.state is RequestState.PREFILLING]
-        budget = self.sched.prefill_budget(len(decode_slots))
+        # drafts come out of the budget left after every decoding slot's
+        # guaranteed token; prefill planning gets what remains
+        spec_tasks: List[DraftTask] = []
+        if self.scfg.speculative and decode_slots:
+            room = self.scfg.tick_token_budget - len(decode_slots)
+            spec_tasks = self.sched.plan_drafts(
+                [(i, self.slots[i]) for i in decode_slots], room)
+        spec_tokens = sum(len(t.draft) for t in spec_tasks)
+        budget = self.sched.prefill_budget(len(decode_slots) + spec_tokens)
         chunks = self.sched.plan_chunks(prefilling, budget)
         self._tick_profile = (len(chunks), len(decode_slots))
-        finals = self._run_chunk_batch(chunks) if chunks else []
-        if decode_slots:
+        finals = []
+        if chunks and self.scfg.batched:
+            finals = self._run_chunk_batch(chunks)
+        else:
+            for task in chunks:
+                self._run_chunk(task)
+        # drafted slots verify their chain in the spec launch; the rest
+        # take their one token through the fused decode
+        spec_slots = {t.slot for t in spec_tasks}
+        plain_slots = [i for i in decode_slots if i not in spec_slots]
+        if decode_slots and self.prefix is not None:
+            self._cow_guard({t.slot: len(t.draft) for t in spec_tasks})
+        spec_pack = spec_nacc = None
+        if spec_tasks:
+            spec_pack, spec_nacc = self._run_spec_verify(spec_tasks)
+        if plain_slots:
             live = np.zeros((len(self.slots),), bool)
-            live[decode_slots] = True
+            live[plain_slots] = True
             self.jit_calls += 1
             self.decode_launches += 1
             self.kv_pages_read += sum(
                 -(-(int(self._lens_np[i]) + 1) // self.scfg.page_size)
-                for i in decode_slots)
+                for i in plain_slots)
             pages_read = sum(self._row_pages(i, int(self._lens_np[i]) + 1)
-                             for i in decode_slots)
+                             for i in plain_slots)
             self.cache, self.tokens, self.lens = self._decode_fused(
                 self.params, self.cache, self.tokens, self.lens,
                 self._upload(live), self._gen)
             self._note_launch("decode", rows=len(self.slots),
-                              live_rows=len(decode_slots),
-                              true_tokens=len(decode_slots),
+                              live_rows=len(plain_slots),
+                              true_tokens=len(plain_slots),
                               padded_tokens=len(self.slots),
                               kv_pages_read=pages_read,
-                              kv_pages_written=len(decode_slots),
-                              new_kv_tokens=len(decode_slots))
-            self.sched.note_work(len(decode_slots))
-            self._lens_np[decode_slots] += 1
-        if finals or decode_slots:
-            # THE device->host transfer: every sampled token of the tick
-            toks = self._fetch_tokens()
+                              kv_pages_written=len(plain_slots),
+                              new_kv_tokens=len(plain_slots))
+            self.sched.note_work(len(plain_slots))
+            self._lens_np[plain_slots] += 1
+        gen_work = len(plain_slots)
+        if finals or plain_slots or spec_pack is not None:
+            # THE device->host transfer: every sampled token of the tick,
+            # and with a verify launch every chain's acceptance count
+            if spec_pack is not None:
+                toks, naccs = self._fetch_tokens(spec_nacc)
+            else:
+                toks = self._fetch_tokens()
             for req, slot, work in finals:
                 if self._emit(req, int(toks[slot, 0]), work=work):
                     self._finish(req)
-            for i in decode_slots:
+            if spec_pack is not None:
+                for r, t in enumerate(spec_pack.tasks):
+                    n = int(naccs[r])
+                    self.sched.note_spec(len(t.draft), n)
+                    # the host mirror from the fetched count, never a
+                    # device read
+                    self._lens_np[t.slot] = t.offset + n + 1
+                    # the accepted drafts and the target's bonus token; the
+                    # work clock advances per accepted token only
+                    for tok in list(t.draft[:n]) + [int(toks[t.slot, 0])]:
+                        self.sched.note_work(1)
+                        gen_work += 1
+                        if self._emit(t.req, tok):
+                            self._finish(t.req)
+                            break
+            for i in plain_slots:
                 req = self.slots[i]
                 if self._emit(req, int(toks[i, 0])):
                     self._finish(req)
-        self.sched.note_tick(len(decode_slots),
-                             self.sched.work_clock - w0 - len(decode_slots))
+        self.sched.note_tick(gen_work,
+                             self.sched.work_clock - w0 - gen_work)
+        if self._finished_this_tick:
+            self._maybe_evict_watermark()
         if self._table_dirty:
             self._sync_table()
         return self._finished_this_tick
+
+    def _cow_guard(self, spec_spans: Optional[Dict[int, int]] = None):
+        """Give any decoding slot about to WRITE into a shared page a
+        private copy first, so no launch ever writes a cached page.
+        Generation pages are private by construction (the one structural
+        copy happens at admission), so this is a defensive sweep.
+        `spec_spans` maps slots with a draft chain to its length m: the
+        verify launch writes positions lens .. lens + m, and every page of
+        that range gets the same guard.  Reads the host lens mirror; a
+        copy re-uploads the (masked, copied) table."""
+        ps = self.scfg.page_size
+        spans = spec_spans or {}
+        dirty = False
+        for i, req in enumerate(self.slots):
+            if req is None or req.state is not RequestState.DECODING:
+                continue
+            lo = int(self._lens_np[i]) // ps
+            hi = (int(self._lens_np[i]) + spans.get(i, 0)) // ps
+            for idx in range(lo, hi + 1):
+                page = int(self.allocator.table[i, idx])
+                if self.allocator.refcount(page) > 1:
+                    src, dst = self.allocator.cow(i, idx)
+                    self._copy_page(src, dst)
+                    self.cow_copies += 1
+                    dirty = True
+        if dirty:
+            self._sync_table()
+
+    def _maybe_evict_watermark(self):
+        """Evict cached pages until the free list holds
+        prefix_evict_watermark of the usable pool (0 = off)."""
+        if self.prefix is not None and self.scfg.prefix_evict_watermark > 0:
+            target = math.ceil(self.scfg.prefix_evict_watermark
+                               * self.allocator.usable_pages)
+            short = target - self.allocator.free_pages
+            if short > 0:
+                self.prefix.evict(short)
 
     def tick(self) -> List[Request]:
         """One engine iteration: monolithic (admissions + one fused

@@ -1,6 +1,8 @@
 """Serving steps: the single-token decode step (stepwise admission of the
-recurrent families), the monolithic prefill steps (dense and paged), and
-the chunk-batch and fused decode steps of the one-launch tick.
+recurrent families), the monolithic prefill steps (dense and paged), the
+single-chunk step (the sequential chunk oracle and the prefix-cached
+suffix), and the chunk-batch, fused decode and speculative verify steps
+of the one-launch tick.
 
 Each step is one eager call into the model; the chunk-batch and decode
 steps add device-side sampling and masked updates of the engine's (B, 1)
@@ -75,6 +77,35 @@ def make_paged_prefill_step(model):
     return paged_prefill_step
 
 
+def make_suffix_prefill_step(model):
+    """suffix_prefill_step(params, batch, cache, page_row) -> (last_logits,
+    cache, lens).  Prefix-cached prefill: batch["tokens"] (1, S_pad) holds
+    only the uncached prompt suffix (zero-padded), its absolute start in
+    batch["offset"], the full prompt length in batch["true_lens"];
+    page_row (n_max,) the sequence's block-table row, cached prefix pages
+    first (Model.prefill_suffix)."""
+
+    def suffix_prefill_step(params, batch, cache, page_row):
+        return model.prefill_suffix(params, batch, cache, page_row)
+
+    return suffix_prefill_step
+
+
+def make_chunk_prefill_step(model):
+    """chunk_prefill_step(params, batch, cache, page_row) ->
+    (chunk_last_logits, cache, cursor).  One chunk of one sequence's
+    prompt: batch["tokens"] (1, S_pad) the chunk zero-padded to a page
+    multiple, its absolute start in batch["offset"], the cursor after its
+    last real token in batch["true_lens"] (the full prompt length only
+    for the final chunk, whose logits seed decoding); page_row (n_max,)
+    (Model.prefill_chunk)."""
+
+    def chunk_prefill_step(params, batch, cache, page_row):
+        return model.prefill_chunk(params, batch, cache, page_row)
+
+    return chunk_prefill_step
+
+
 def make_chunk_batch_step(model, *, temperature: float, top_k: int = 0,
                           top_p: float = 1.0):
     """chunk_batch_step(params, batch, cache, page_tables, tokens, lens,
@@ -115,3 +146,36 @@ def make_fused_decode_step(model, *, temperature: float, top_k: int = 0,
         return cache, tokens, lens
 
     return fused_decode_step
+
+
+def make_spec_verify_step(model, *, temperature: float, top_k: int = 0,
+                          top_p: float = 1.0):
+    """spec_verify_step(params, batch, cache, page_tables, tokens, lens,
+    generator) -> (cache, tokens, lens, n_acc).  One call verifies every
+    draft chain planned this tick (the scheduler's SpecBatch): row r
+    holds [pending token, d_1 .. d_m] at offset = the slot's lens, scored
+    through K1 (Model.verify_chunks), the chain's K/V written into the
+    slot's pages on the way.  The target's token is sampled at every
+    position (sampling.sample_chain); a draft token is accepted iff it
+    matches, and the first mismatch (or the chain's end) yields the
+    target's own token as the bonus, so each row nets n_acc + 1 tokens.
+    tokens[slot] becomes the bonus and lens[slot] offset + n_acc + 1;
+    K/V past it is dead (masked, later overwritten).  Rows whose
+    batch["row_slot"] is the sentinel max_batch are dropped.  The host
+    reads n_acc in the tick's one fetch."""
+
+    def spec_verify_step(params, batch, cache, page_tables, tokens, lens,
+                         generator):
+        logits, cache = model.verify_chunks(params, batch, cache,
+                                            page_tables)
+        tgt = sampling.sample_chain(logits, generator,
+                                    temperature=temperature, top_k=top_k,
+                                    top_p=top_p)
+        n_acc, bonus = sampling.speculative_accept(
+            tgt, batch["tokens"], batch["draft_lens"])
+        slots = batch["row_slot"]
+        tokens = _set_rows(tokens[:, 0], slots, bonus)[:, None]
+        lens = _set_rows(lens, slots, batch["offset"] + n_acc + 1)
+        return cache, tokens, lens, n_acc
+
+    return spec_verify_step

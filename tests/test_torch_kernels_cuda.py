@@ -11,7 +11,8 @@ through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
 tensor-core tiles (lengths 1, 15, 17 and 200, fewer queries than keys,
 GQA groups of 1 to 8, a window shorter than one tile, softcap, no key at
 all) and K5's bits from call to call; K1 at the edges of its tensor-core
-tiles (pages of 16, chunks of 1 to 256 tokens starting at a page, mid-page,
+tiles (pages of 16, chunks of 1 to 256 tokens - 5, the speculative verify
+rows, among them - starting at a page, mid-page,
 mid-tile and at the table's end, ragged rows and q_lens lanes ending inside
 a 16-row fragment, two chunks of one sequence, a dead row, GQA groups of 1
 to 8, a window shorter than one tile, softcap) and K2 at the edges of its
@@ -573,7 +574,8 @@ def test_bf16_flash_kernels_refuse_misaligned_operands(dev):
 
 # K1: pages of 16, table rows of 48 pages (768 positions)
 K1_PS, K1_NMAX, K1_PAGES = 16, 48, 256
-K1_CHUNKS = [1, 15, 17, 64, 200, 256]
+# 5: the speculative verify launch's rows (spec_k + 1, ragged q_lens)
+K1_CHUNKS = [1, 5, 15, 17, 64, 200, 256]
 # (window, softcap, explicit q_lens) per variant: the window is shorter
 # than one 64-position tile
 K1_EDGE_VARIANTS = {"causal": (0, 0.0, False), "window": (37, 0.0, False),

@@ -275,9 +275,8 @@ def test_finish_at_admission_matches_jax(models, served):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(prefix_cache=True), dict(preemption=True), dict(speculative=True),
     dict(default_deadline_tokens=500), dict(telemetry=True),
-    dict(tp_degree=2), dict(batched=False)])
+    dict(tp_degree=2)])
 def test_unported_settings_raise(models, knob):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="ROADMAP M"):
