@@ -7,13 +7,18 @@ from typing import Dict
 from .base import (ModelConfig, ServeConfig, TrainConfig,
                    dense_equivalent_pages, pages_for_tokens)
 
-# the architectures the port runs so far: two dense decoders, the hybrid
-# Mamba2 zamba2 and the RWKV6 rwkv6
+# the architectures the port runs so far: the dense decoders (the paper's
+# own OPT and QWEN among them), the hybrid Mamba2 zamba2 and the RWKV6
+# rwkv6
 ARCH_MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "gemma3-4b": "gemma3_4b",
+    "granite-8b": "granite_8b",
+    "olmo-1b": "olmo_1b",
     "zamba2-2.7b": "zamba2_2_7b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "opt-6.7b": "opt_6_7b",
+    "qwen-7b": "qwen_7b",
 }
 
 

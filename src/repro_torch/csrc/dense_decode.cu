@@ -21,8 +21,9 @@
 // whole strip - each tile copied with 16-byte cp.async two buffers deep,
 // the fp32 partials merged in split order by a second kernel.  Head dims
 // 64, 80 (zamba2's shared attention block: a bf16 row of 160 B is 10
-// chunks of 16 B) and 128; at G < 4 (zamba2 decodes at G = 1) every warp
-// scores positions, so no warp idles through the scores.
+// chunks of 16 B), 128 and 256 (gemma3-4b; one K/V buffer in float32,
+// split_kv::kv_stages); at G < 4 (zamba2 decodes at G = 1, gemma3-4b at
+// G = 2) every warp scores positions, so no warp idles through the scores.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -58,7 +59,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* lens,
 // block owns, a positive multiple of 64.  Element type: is_bf16 = 1 for
 // bfloat16, 0 for float32; q, the caches, out and scratch 16-byte aligned
 // (the loads are 16-byte cp.async), else cudaErrorMisalignedAddress.  Head
-// dim 64, 80 or 128; at most 16 query heads per KV head.  Anything else
+// dim 64, 80, 128 or 256; at most 16 query heads per KV head.  Anything else
 // returns cudaErrorInvalidValue without launching (the Python wrapper
 // checks first).
 extern "C" int dense_decode_launch(const void* q, const void* k_cache,
@@ -82,10 +83,12 @@ extern "C" int dense_decode_launch(const void* q, const void* k_cache,
     if (D == 64) DENSE_DECODE_CASE(__nv_bfloat16, 64);
     if (D == 80) DENSE_DECODE_CASE(__nv_bfloat16, 80);
     if (D == 128) DENSE_DECODE_CASE(__nv_bfloat16, 128);
+    if (D == 256) DENSE_DECODE_CASE(__nv_bfloat16, 256);
   } else {
     if (D == 64) DENSE_DECODE_CASE(float, 64);
     if (D == 80) DENSE_DECODE_CASE(float, 80);
     if (D == 128) DENSE_DECODE_CASE(float, 128);
+    if (D == 256) DENSE_DECODE_CASE(float, 256);
   }
 #undef DENSE_DECODE_CASE
   return (int)cudaErrorInvalidValue;

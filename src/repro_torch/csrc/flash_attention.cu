@@ -29,14 +29,17 @@
 //
 // The C entry point dispatches on the dtype:
 //  * bfloat16 runs on the tensor cores (csrc/mma_bf16.cuh), FA-2 style:
-//    4 warps, each owning 16 rows, hold q as mma.sync A fragments in
-//    registers; K and V tiles stay bf16 in shared memory (rows padded by 16
-//    bytes, so ldmatrix meets no bank conflict) and arrive by cp.async into
-//    two buffers, the load of tile j + 1 overlapping the products on tile
-//    j.  s = q k^T accumulates in fp32 fragments (K as B, as it lies);
-//    scale, softcap, the mask (only on a tile that crosses an edge) and the
-//    online softmax run on the fragments, the row max and sum over the 4
-//    lanes that share a row, l from the unrounded p; p is rounded to
+//    4 warps, each owning 16 rows, read q's mma.sync A fragments by
+//    ldmatrix from shared memory, where q stays for the whole walk, at
+//    each k-step of every tile (fewer registers than holding them; the
+//    A/B times are in PERF.md); K and V tiles stay bf16 in shared memory
+//    (rows padded by 16 bytes, so ldmatrix meets no bank conflict) and
+//    arrive by cp.async into two buffers, the load of tile j + 1
+//    overlapping the products on tile j.  s = q k^T accumulates in fp32
+//    fragments (K as B, as it lies); scale, softcap, the mask (only on a
+//    tile that crosses an edge) and the online softmax run on the
+//    fragments, the row max and sum over the 4 lanes that share a row, l
+//    from the unrounded p; p is rounded to
 //    bf16 and used in place as the A operand of o += p v (V through
 //    ldmatrix.trans).  What still bounds it: mma.sync issues per warp,
 //    synchronously, and every warp reads the whole K/V tile from shared
@@ -51,6 +54,12 @@
 //    what the tight float32 checks run (the recurrent float32 forward at
 //    head dim 80 among them), not a fallback: a bf16 launch that fails
 //    returns its error.
+// Head dim 256 (gemma3-4b) keeps the bf16 tile's shape, (256 + 8) x (64 +
+// 4 x 64) x 2 B = 169 KB of shared memory, one block an SM: o's 128 fp32
+// accumulators a thread and the scores' 32 fit in the 255 registers a
+// thread may have because q is not held in registers at any head dim.
+// The float32 kernel takes 32 rows a block there, 4 a thread, in 172 KB
+// of shared memory (f32_rows).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -60,10 +69,14 @@
 namespace {
 
 constexpr int NT = 128;      // threads per block: 8 row groups x 16 columns
-constexpr int BR = 64;       // flattened query rows per block
 constexpr int TILE = 64;     // KV positions per tile
-constexpr int RI = BR / 8;   // rows per thread
 constexpr int CI = TILE / 16;  // score columns per thread
+// flattened query rows per block of the float32 kernel: 64, 8 a thread;
+// at head dim 256 a thread's 8 x 16 fp32 output tile would not fit its
+// registers beside the scores, so 32 rows, 4 a thread
+__host__ __device__ constexpr int f32_rows(int D) {
+  return D > 128 ? 32 : 64;
+}
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -96,6 +109,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     int Sq, int Skv, int Hkv, int G, int causal, int window, float scale,
     float softcap) {
   constexpr int DC = D / 16;   // output columns per thread
+  constexpr int BR = f32_rows(D), RI = BR / 8;   // rows: per block, a thread
   extern __shared__ float smem[];
   float* q_s = smem;                    // BR x (D + 1)
   float* k_s = q_s + BR * (D + 1);      // TILE x (D + 1)
@@ -322,17 +336,11 @@ __global__ void __launch_bounds__(NT_TC) flash_attention_bf16_kernel(
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  uint32_t qa[KS][4];
 
   for (int j = 0; j < n_tiles; ++j) {
     const int t0 = kv_lo + j * BN;
     cp_async_wait_all();
     __syncthreads();     // tile j landed; every warp is done with j - 1
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qa[kk], q_s + a_offset(lane, LD, wr, kk * 16));
-    }
     if (j + 1 < n_tiles) load_kv(t0 + BN, (j + 1) & 1);
     cp_async_commit();
     const bf16* ks = kv_s + (j & 1) * 2 * BN * LD;
@@ -345,14 +353,17 @@ __global__ void __launch_bounds__(NT_TC) flash_attention_bf16_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qf[4];   // q stays in shared memory for the whole walk
+      ldmatrix_x4(qf, q_s + a_offset(lane, LD, wr, kk * 16));
 #pragma unroll
       for (int np = 0; np < NC / 2; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, ks + b_offset(lane, LD, np * 16, kk * 16));
-        mma(sc[2 * np], qa[kk], kf[0], kf[1]);
-        mma(sc[2 * np + 1], qa[kk], kf[2], kf[3]);
+        mma(sc[2 * np], qf, kf[0], kf[1]);
+        mma(sc[2 * np + 1], qf, kf[2], kf[3]);
       }
+    }
 
     // scale, softcap and the mask (only where the tile crosses an edge)
     const bool edge = !(t0 + BN <= kv_hi &&
@@ -440,6 +451,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            void* lse, int B, int Sq, int Skv, int Hkv, int G, int causal,
            int window, float scale, float softcap, cudaStream_t stream) {
+  constexpr int BR = f32_rows(D);
   const size_t smem =
       sizeof(float) * ((size_t)BR * (D + 1) + (size_t)TILE * (D + 1) +
                        (size_t)TILE * D + (size_t)BR * (TILE + 1));
@@ -485,7 +497,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // Element type: is_bf16 = 1 for bfloat16 (the tensor-core kernel; q, k, v
 // and out 16-byte aligned, else cudaErrorMisalignedAddress), 0 for float32
 // (the CUDA-core kernel); lse is always float32; head dim 64, 80 (zamba2's
-// shared attention block) or 128.
+// shared attention block), 128 or 256 (gemma3-4b).
 // Anything else returns cudaErrorInvalidValue without launching (the Python
 // wrapper checks first).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -507,6 +519,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (D == 128)
       return launch_bf16<128>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
                               window, scale, softcap, s);
+    if (D == 256)
+      return launch_bf16<256>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
+                              window, scale, softcap, s);
   } else {
     if (D == 64)
       return launch<float, 64>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
@@ -516,6 +531,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                window, scale, softcap, s);
     if (D == 128)
       return launch<float, 128>(q, k, v, out, lse, B, Sq, Skv, Hkv, G,
+                                causal, window, scale, softcap, s);
+    if (D == 256)
+      return launch<float, 256>(q, k, v, out, lse, B, Sq, Skv, Hkv, G,
                                 causal, window, scale, softcap, s);
   }
   return (int)cudaErrorInvalidValue;

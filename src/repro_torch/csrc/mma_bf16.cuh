@@ -17,9 +17,9 @@
 // 16 columns (FA-2's register reuse: no trip through shared memory).
 //
 // Shared-memory tiles are row-major bf16 with rows padded by 8 elements
-// (16 bytes): a row of 64, 80 or 128 elements is then 36, 44 or 68 words,
-// and the 8 row addresses of one ldmatrix 8 x 8 matrix fall in 8 distinct
-// 4-bank groups - no bank conflicts.
+// (16 bytes): a row of 64, 80, 128 or 256 elements is then 36, 44, 68 or
+// 132 words, and the 8 row addresses of one ldmatrix 8 x 8 matrix fall in
+// 8 distinct 4-bank groups - no bank conflicts.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -53,7 +53,7 @@ int launch(const void* q, const void* kp, const void* vp, const void* table,
 // positions a block owns, a positive multiple of 64.  Element type: is_bf16
 // = 1 for bfloat16, 0 for float32; every pointer but the tables 16-byte
 // aligned (the loads are 16-byte cp.async), else cudaErrorMisalignedAddress.
-// Head dim 64 or 128; at most 16 query heads per KV head.  Anything else
+// Head dim 64, 128 or 256; at most 16 query heads per KV head.  Anything else
 // returns cudaErrorInvalidValue without launching (the Python wrapper
 // checks first).
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
@@ -79,9 +79,11 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
   if (is_bf16) {
     if (D == 64) PAGED_DECODE_CASE(__nv_bfloat16, 64);
     if (D == 128) PAGED_DECODE_CASE(__nv_bfloat16, 128);
+    if (D == 256) PAGED_DECODE_CASE(__nv_bfloat16, 256);
   } else {
     if (D == 64) PAGED_DECODE_CASE(float, 64);
     if (D == 128) PAGED_DECODE_CASE(float, 128);
+    if (D == 256) PAGED_DECODE_CASE(float, 256);
   }
 #undef PAGED_DECODE_CASE
   return (int)cudaErrorInvalidValue;

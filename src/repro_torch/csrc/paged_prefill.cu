@@ -26,9 +26,10 @@
 //
 // The C entry point dispatches on the dtype:
 //  * bfloat16 runs on the tensor cores (csrc/mma_bf16.cuh), K4's FA-2 tile
-//    (csrc/flash_attention.cu) over the page pool: 4 warps of 16 rows hold
-//    q as mma.sync A fragments; K/V tiles of 64 positions stay bf16 in
-//    shared memory (rows padded by 16 bytes) and arrive by cp.async into
+//    (csrc/flash_attention.cu) over the page pool: 4 warps of 16 rows read
+//    q's mma.sync A fragments from shared memory at each k-step; K/V
+//    tiles of 64 positions stay bf16 in shared memory (rows padded by 16
+//    bytes) and arrive by cp.async into
 //    two buffers, tile j + 1 loading under the products on tile j.  Each
 //    position of a tile has its own page, tables[k][pos / ps], slot pos %
 //    ps: 64 threads turn the tile's positions into pool offsets once, a
@@ -52,6 +53,17 @@
 //    the output, so every value loaded from shared memory feeds several
 //    FMAs.  It is what the tight float32 checks run, not a fallback: a
 //    bf16 launch that fails returns its error.
+// Head dim 256 (gemma3-4b) keeps the bf16 tile's shape, (256 + 8) x (64 +
+// 4 x 64) x 2 B + 1 KB of offsets = 170 KB of shared memory, one block an
+// SM, but not its registers: o's 128 fp32 accumulators a thread, the
+// scores' 32 and the 12 of a k-step's three weight parts, beside q's
+// fragments read from shared memory, left 255 registers and 224 bytes of
+// spills.  So two warps share each 16-row slab, each holding o for 128
+// of its columns (o_split): both score the slab and run its softmax, the
+// same instructions on the same data, so the same bits - the scores'
+// product is done twice, 8 warps a block.
+// The float32 kernel takes 32 rows a block there, 4 a thread, in 172 KB of
+// shared memory (f32_rows).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -61,10 +73,14 @@
 namespace {
 
 constexpr int NT = 128;      // threads per block: 8 row groups x 16 columns
-constexpr int BR = 64;       // flattened query rows per block
 constexpr int TILE = 64;     // KV positions per tile
-constexpr int RI = BR / 8;   // rows per thread
 constexpr int CI = TILE / 16;  // score columns per thread
+// flattened query rows per block of the float32 kernel: 64, 8 a thread;
+// at head dim 256 a thread's 8 x 16 fp32 output tile would not fit its
+// registers beside the scores, so 32 rows, 4 a thread
+__host__ __device__ constexpr int f32_rows(int D) {
+  return D > 128 ? 32 : 64;
+}
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -94,6 +110,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const int* __restrict__ qls, T* __restrict__ out, int S, int Hkv, int G,
     int ps, int n_max, int window, float scale, float softcap) {
   constexpr int DC = D / 16;   // output columns per thread
+  constexpr int BR = f32_rows(D), RI = BR / 8;   // rows: per block, a thread
   extern __shared__ float smem[];
   float* q_s = smem;                    // BR x (D + 1)
   float* k_s = q_s + BR * (D + 1);      // TILE x (D + 1)
@@ -249,6 +266,7 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
            const void* offs, const void* tls, const void* qls, void* out,
            int K, int S, int Hkv, int G, int ps, int n_max, int window,
            float scale, float softcap, cudaStream_t stream) {
+  constexpr int BR = f32_rows(D);
   const size_t smem =
       sizeof(float) * ((size_t)BR * (D + 1) + (size_t)TILE * (D + 1) +
                        (size_t)TILE * D + (size_t)BR * (TILE + 1));
@@ -267,14 +285,18 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 kernel on the tensor cores: 4 warps, each owning 16 of the
-// block's 64 flattened query rows.
+// bfloat16 kernel on the tensor cores: 4 warps (8 at head dim 256), each
+// owning 16 of the block's 64 flattened query rows.
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int NW = 4;            // warps per block
 constexpr int NT_TC = 32 * NW;
 constexpr int BM = 16 * NW;      // flattened query rows per block
 constexpr int BN = 64;           // KV positions per tile
+// warps that share each 16-row slab of the block's rows, each holding o
+// for D / o_split(D) of its columns: two at head dim 256 (the note at the
+// top), one below
+__host__ __device__ constexpr int o_split(int D) { return D > 128 ? 2 : 1; }
 
 // The A operands of k-step `ks` (16 key columns) from the fp32 weights of
 // its two 8-column tiles, as three bf16 parts whose sum carries each weight
@@ -304,14 +326,17 @@ __device__ __forceinline__ void weights_to_a3(uint32_t (&hi)[4],
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT_TC) paged_prefill_bf16_kernel(
+__global__ void __launch_bounds__(NT_TC * o_split(D))
+    paged_prefill_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ kp,
     const bf16* __restrict__ vp, const int* __restrict__ tables,
     const int* __restrict__ offs, const int* __restrict__ tls,
     const int* __restrict__ qls, bf16* __restrict__ out, int S, int Hkv,
     int G, int ps, int n_max, int window, float scale, float softcap) {
   using namespace mma_bf16;
-  constexpr int LD = D + PAD, KS = D / 16, ND = D / 8, NC = BN / 8,
+  // DO: the columns of o a warp holds, ND / 2 16-column steps of them
+  constexpr int NTH = NT_TC * o_split(D), DO = D / o_split(D);
+  constexpr int LD = D + PAD, KS = D / 16, ND = DO / 8, NC = BN / 8,
                 CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // BM x LD
@@ -321,7 +346,9 @@ __global__ void __launch_bounds__(NT_TC) paged_prefill_bf16_kernel(
 
   const int row_k = blockIdx.x, h = blockIdx.y;
   const int r0 = (gridDim.z - 1 - blockIdx.z) * BM;   // longest walks first
-  const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this warp's 16 rows and its columns d0 .. d0 + DO of o
+  const int wr = (warp % NW) * 16, d0 = (warp / NW) * DO;
   const int g4 = lane >> 2, t4 = lane & 3;
   const int Hq = Hkv * G, R = S * G;
   const int off = offs[row_k], tl = tls[row_k], ql = qls[row_k];
@@ -356,7 +383,7 @@ __global__ void __launch_bounds__(NT_TC) paged_prefill_bf16_kernel(
     const long long* po = pos_s + (j & 1) * BN;
     bf16* ks = kv_s + (j & 1) * 2 * BN * LD;
     bf16* vs = ks + BN * LD;
-    for (int i = tid; i < BN * CH; i += NT_TC) {
+    for (int i = tid; i < BN * CH; i += NTH) {
       const int rr = i / CH, c = i % CH;
       const long long o = po[rr];
       const bool live = o >= 0;
@@ -368,7 +395,7 @@ __global__ void __launch_bounds__(NT_TC) paged_prefill_bf16_kernel(
 
   fill_offsets(0);
   fill_offsets(1);
-  for (int i = tid; i < BM * CH; i += NT_TC) {
+  for (int i = tid; i < BM * CH; i += NTH) {
     const int rr = i / CH, c = i % CH, r = r0 + rr;
     const bool live = r < R;
     cp_async16(q_s + rr * LD + c * 8, q + row_of(live ? r : r0) * D + c * 8,
@@ -395,17 +422,11 @@ __global__ void __launch_bounds__(NT_TC) paged_prefill_bf16_kernel(
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  uint32_t qa[KS][4];
 
   for (int j = 0; j < n_tiles; ++j) {
     const int t0 = kv_lo + j * BN;
     cp_async_wait_all();
     __syncthreads();     // tile j landed; every warp is done with j - 1
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qa[kk], q_s + a_offset(lane, LD, wr, kk * 16));
-    }
     if (j + 1 < n_tiles) load_kv(j + 1);
     cp_async_commit();
     fill_offsets(j + 2);   // tile j's buffer: its load was issued before
@@ -419,14 +440,17 @@ __global__ void __launch_bounds__(NT_TC) paged_prefill_bf16_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qf[4];   // q stays in shared memory for the whole walk
+      ldmatrix_x4(qf, q_s + a_offset(lane, LD, wr, kk * 16));
 #pragma unroll
       for (int np = 0; np < NC / 2; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, ks + b_offset(lane, LD, np * 16, kk * 16));
-        mma(sc[2 * np], qa[kk], kf[0], kf[1]);
-        mma(sc[2 * np + 1], qa[kk], kf[2], kf[3]);
+        mma(sc[2 * np], qf, kf[0], kf[1]);
+        mma(sc[2 * np + 1], qf, kf[2], kf[3]);
       }
+    }
 
     // scale, softcap and the mask (only where the tile crosses an edge:
     // past kv_hi, above the first row's diagonal, left of the last live
@@ -487,7 +511,8 @@ __global__ void __launch_bounds__(NT_TC) paged_prefill_bf16_kernel(
 #pragma unroll
       for (int np = 0; np < ND / 2; ++np) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + bt_offset(lane, LD, kk * 16, np * 16));
+        ldmatrix_x4_trans(vf,
+                          vs + bt_offset(lane, LD, kk * 16, d0 + np * 16));
         mma(acc[2 * np], ph, vf[0], vf[1]);
         mma(acc[2 * np + 1], ph, vf[2], vf[3]);
         mma(acc[2 * np], pm, vf[0], vf[1]);
@@ -505,7 +530,7 @@ __global__ void __launch_bounds__(NT_TC) paged_prefill_bf16_kernel(
     const int r = r0 + wr + g4 + 8 * h2;
     if (r >= R) continue;
     const float inv = 1.f / l;
-    bf16* o = out + row_of(r) * D + 2 * t4;
+    bf16* o = out + row_of(r) * D + d0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<__nv_bfloat162*>(o + n * 8) = __floats2bfloat162_rn(
@@ -530,7 +555,8 @@ int launch_bf16(const void* q, const void* kp, const void* vp,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(K, Hkv, (unsigned)tiles), NT_TC, smem, stream>>>(
+  kern<<<dim3(K, Hkv, (unsigned)tiles), NT_TC * o_split(D), smem,
+         stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
       static_cast<const bf16*>(vp), static_cast<const int*>(tables),
       static_cast<const int*>(offs), static_cast<const int*>(tls),
@@ -544,7 +570,7 @@ int launch_bf16(const void* q, const void* kp, const void* vp,
 // C entry point bound through ctypes.  Returns a cudaError_t (0 = launched).
 // Element type: is_bf16 = 1 for bfloat16 (the tensor-core kernel; q, the
 // pools and out 16-byte aligned, else cudaErrorMisalignedAddress), 0 for
-// float32 (the CUDA-core kernel); head dim 64 or 128.  Anything else
+// float32 (the CUDA-core kernel); head dim 64, 128 or 256.  Anything else
 // returns cudaErrorInvalidValue without launching (the Python wrapper
 // checks first).
 extern "C" int paged_prefill_launch(const void* q, const void* k_pages,
@@ -569,6 +595,10 @@ extern "C" int paged_prefill_launch(const void* q, const void* k_pages,
       return launch_bf16<128>(q, k_pages, v_pages, page_tables, q_offsets,
                               true_lens, q_lens, out, K, S, Hkv, G,
                               page_size, n_max, window, scale, softcap, s);
+    if (D == 256)
+      return launch_bf16<256>(q, k_pages, v_pages, page_tables, q_offsets,
+                              true_lens, q_lens, out, K, S, Hkv, G,
+                              page_size, n_max, window, scale, softcap, s);
   } else {
     if (D == 64)
       return launch<float, 64>(q, k_pages, v_pages, page_tables, q_offsets,
@@ -576,6 +606,10 @@ extern "C" int paged_prefill_launch(const void* q, const void* k_pages,
                                page_size, n_max, window, scale, softcap, s);
     if (D == 128)
       return launch<float, 128>(q, k_pages, v_pages, page_tables, q_offsets,
+                                true_lens, q_lens, out, K, S, Hkv, G,
+                                page_size, n_max, window, scale, softcap, s);
+    if (D == 256)
+      return launch<float, 256>(q, k_pages, v_pages, page_tables, q_offsets,
                                 true_lens, q_lens, out, K, S, Hkv, G,
                                 page_size, n_max, window, scale, softcap, s);
   }

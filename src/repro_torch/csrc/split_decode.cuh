@@ -40,10 +40,11 @@
 //    every position's head row (D elements, contiguous) as 16-byte
 //    cp.async chunks into shared memory (rows padded by 16 bytes), two
 //    buffers deep: the whole of tile j + 1 is in flight while tile j is
-//    computed.  With a table, 64 threads turn a tile's positions into
-//    offsets a tile ahead of its load; without one, a chunk's address is
-//    computed where it is loaded.  All G query heads of the group use each
-//    K/V row from shared memory.
+//    computed (one buffer for float32 at head dim 256, where two would
+//    not fit: kv_stages).  With a table, 64 threads turn a tile's
+//    positions into offsets a tile ahead of its load; without one, a
+//    chunk's address is computed where it is loaded.  All G query heads of
+//    the group use each K/V row from shared memory.
 //  * Scores.  With G >= 4, warp w scores the heads g = w, w + 4, ... against
 //    the tile (a lane two positions, K read as 16-byte vectors, q
 //    pre-scaled in shared memory) and runs their online softmax with warp
@@ -78,6 +79,24 @@ constexpr int GMAX = 16;         // most query heads per KV head
 constexpr int RPW = GMAX / NWARP;  // most heads per warp
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may have
+
+// Shared memory of the split kernel beside its K/V buffers, at most: q, the
+// weights and the rescale factors of GMAX heads, and two tiles' offsets.
+template <int D>
+__host__ __device__ constexpr int smem_rest() {
+  return 4 * (GMAX * D + GMAX * TILE + GMAX) + 8 * 2 * TILE;
+}
+// K/V buffers: two, so the whole of tile j + 1 is in flight while tile j
+// is computed, where they fit a block's shared memory; one where they do
+// not - float32 at head dim 256 would need 4 x 64 x 260 x 4 B = 266 KB for
+// two, 133 KB for one.  With one, tile j + 1's load is issued once every
+// thread is done with tile j.  The math is the same, and so are the bits.
+template <typename T, int D>
+__host__ __device__ constexpr int kv_stages() {
+  return (int)sizeof(T) * 4 * TILE * (D + 16 / (int)sizeof(T)) +
+                     smem_rest<D>() <= SMEM_MAX ? 2 : 1;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -202,9 +221,10 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   constexpr int CH = D / EPC;              // chunks per head row
   constexpr int LD = D + EPC;              // padded shared-memory row
   constexpr int NP = GMAX * D / 2 / NT;    // accumulator pairs per thread
+  constexpr int NS = kv_stages<T, D>();    // K/V buffers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kv_s = reinterpret_cast<T*>(smem_raw);        // 2 x (K, V) x TILE x LD
-  float* q_s = reinterpret_cast<float*>(kv_s + 4 * TILE * LD);  // G x D
+  T* kv_s = reinterpret_cast<T*>(smem_raw);        // NS x (K, V) x TILE x LD
+  float* q_s = reinterpret_cast<float*>(kv_s + NS * 2 * TILE * LD);  // G x D
   float* p_s = q_s + G * D;                        // G x TILE weights
   float* a_s = p_s + G * TILE;                     // G rescale factors
   // with a table: offsets (elements) of the positions of two tiles, -1
@@ -244,7 +264,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
     }
   };
   auto load_kv = [&](int j) {
-    T* ks = kv_s + (j & 1) * 2 * TILE * LD;
+    T* ks = kv_s + (j % NS) * 2 * TILE * LD;
     T* vs = ks + TILE * LD;
     for (int i = tid; i < TILE * CH; i += NT) {
       const int rr = i / CH, c = i % CH;
@@ -286,10 +306,12 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
     const int t0 = a + j * TILE;
     mma_bf16::cp_async_wait_all();
     __syncthreads();     // tile j landed; every thread is done with j - 1
-    if (j + 1 < n_tiles) load_kv(j + 1);
-    mma_bf16::cp_async_commit();
-    fill_offsets(j + 2);   // tile j's buffer: its load was issued before
-    const T* ks = kv_s + (j & 1) * 2 * TILE * LD;
+    if constexpr (NS == 2) {
+      if (j + 1 < n_tiles) load_kv(j + 1);
+      mma_bf16::cp_async_commit();
+      fill_offsets(j + 2);   // tile j's offsets: its load was issued before
+    }
+    const T* ks = kv_s + (j % NS) * 2 * TILE * LD;
     const T* vs = ks + TILE * LD;
 
     if (G >= NWARP) {
@@ -342,6 +364,12 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
         acc[u][0] = o0;
         acc[u][1] = o1;
       }
+    }
+    if constexpr (NS == 1) {
+      __syncthreads();   // every thread is done with the one buffer
+      if (j + 1 < n_tiles) load_kv(j + 1);
+      mma_bf16::cp_async_commit();
+      fill_offsets(j + 2);
     }
   }
   mma_bf16::cp_async_wait_all();
@@ -414,7 +442,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* lens,
   if (!mma_bf16::aligned16({q, kc, vc, out, scratch}))
     return (int)cudaErrorMisalignedAddress;
   if (n_split > 0) {
-    const size_t smem = sizeof(T) * 4 * TILE * LD +
+    const size_t smem = sizeof(T) * kv_stages<T, D>() * 2 * TILE * LD +
                         sizeof(float) * ((size_t)G * D + (size_t)G * TILE +
                                          ((G + 1) & ~1)) +
                         (Addr::kTable ? sizeof(long long) * 2 * TILE : 0);

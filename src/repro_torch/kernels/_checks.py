@@ -5,10 +5,12 @@ from __future__ import annotations
 import torch
 
 # head dims of the dense-cache kernels K3 and K4 (80: zamba2's shared
-# attention block); the paged kernels K1, K2 and the backward K5 take
-# HEAD_DIMS_64_128 (no path runs them at 80)
-HEAD_DIMS = (64, 80, 128)
-HEAD_DIMS_64_128 = (64, 128)
+# attention block; 256: gemma3-4b); the paged kernels K1 and K2 take
+# PAGED_HEAD_DIMS (no path runs them at 80), the backward K5
+# BACKWARD_HEAD_DIMS (training at 80 or 256 waits for it: ROADMAP §2)
+HEAD_DIMS = (64, 80, 128, 256)
+PAGED_HEAD_DIMS = (64, 128, 256)
+BACKWARD_HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -126,6 +127,31 @@ def build_all() -> Tuple[float, Dict[str, str]]:
         else:
             logs[name] = _finish(name, out, tmp, proc)
     return time.perf_counter() - t0, logs
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel instantiation in an nvcc log (-Xptxas -v): its mangled
+    name -> registers, spill bytes (stores + loads) and static shared
+    memory bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "spill_bytes": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        for st, ld in re.findall(r"(\d+) bytes spill stores, (\d+) bytes "
+                                 r"spill loads", line):
+            out[name]["spill_bytes"] += int(st) + int(ld)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def kernel(name: str):

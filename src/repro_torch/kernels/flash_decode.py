@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from . import build, ref
-from ._checks import HEAD_DIMS_64_128, check_operands
+from ._checks import PAGED_HEAD_DIMS, check_operands
 
 # kernel launches made by the wrappers below (CPU calls do not count)
 launches = 0            # K2, paged_flash_decode
@@ -109,7 +109,7 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
     n_max = block_table.shape[-1]
     check_operands("paged_flash_decode", q, k_pages, v_pages, {
         "block_table": (block_table, (B, n_max)),
-        "cache_len": (cache_len, (B,))}, head_dims=HEAD_DIMS_64_128)
+        "cache_len": (cache_len, (B,))}, head_dims=PAGED_HEAD_DIMS)
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
     if Sq != 1:
         raise ValueError(f"paged_flash_decode: one query token per "

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from . import build, ref
-from ._checks import HEAD_DIMS_64_128, check_operands
+from ._checks import PAGED_HEAD_DIMS, check_operands
 
 # kernel launches made by the wrapper below (CPU calls do not count)
 launches = 0
@@ -46,7 +46,7 @@ def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
     check_operands("batched_paged_prefill_attention", q, k_pages, v_pages, {
         "page_tables": (page_tables, (K, n_max)),
         "q_offsets": (q_offsets, (K,)), "true_lens": (true_lens, (K,)),
-        "q_lens": (q_lens, (K,))}, head_dims=HEAD_DIMS_64_128)
+        "q_lens": (q_lens, (K,))}, head_dims=PAGED_HEAD_DIMS)
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
     out = torch.empty_like(q)
     err = build.kernel("paged_prefill")(

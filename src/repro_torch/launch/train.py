@@ -4,9 +4,11 @@ Smoke scale, on the GPU:
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --smoke
 
-The smoke configs' head dim (16) is below what the CUDA attention kernels
-take (64 and 128), so on a CUDA device --smoke raises it to 64; on the CPU
-(--device cpu) the smoke config runs as it is, as in the JAX package.
+The smoke configs' head dim (16) is below what the CUDA attention backward
+K5 takes (64 and 128), so on a CUDA device --smoke raises it to 64; on the
+CPU (--device cpu) the smoke config runs as it is, as in the JAX package.
+A full config whose head dim K5 does not take (gemma3-4b's 256) is refused
+on CUDA by the Trainer, naming K5, before anything is built.
 
 Without --smoke the full config trains on one device with no mesh.  The
 JAX defaults for the full config (a global batch of 256 x 4096 tokens)
@@ -20,7 +22,7 @@ import torch
 
 from ..configs import get_config, get_smoke_config
 from ..configs.base import TrainConfig
-from ..kernels._checks import HEAD_DIMS_64_128
+from ..kernels._checks import BACKWARD_HEAD_DIMS
 
 
 def main(argv=None):
@@ -41,8 +43,8 @@ def main(argv=None):
     if args.smoke:
         cfg = get_smoke_config(args.arch)
         if torch.device(args.device).type == "cuda" \
-                and cfg.head_dim not in HEAD_DIMS_64_128:
-            cfg = cfg.replace(head_dim=HEAD_DIMS_64_128[0])
+                and cfg.head_dim not in BACKWARD_HEAD_DIMS:
+            cfg = cfg.replace(head_dim=BACKWARD_HEAD_DIMS[0])
         tcfg = TrainConfig(global_batch=args.global_batch or 8,
                            seq_len=args.seq or 64, total_steps=args.steps,
                            warmup_steps=5, checkpoint_dir=args.ckpt_dir,

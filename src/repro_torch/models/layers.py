@@ -72,6 +72,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                      -1).to(x.dtype)
 
 
+# the JAX package's absolute positions come from a 65536-row table: every
+# position past its last row reads that row
+MAX_POSITION = 65535
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal absolute position embeddings (OPT here) of an int tensor
+    of positions, any shape: (..., d) float32, sin of the first d / 2
+    frequencies, then cos, with the JAX package's formula in float32
+    (models/layers.py sinusoidal_positions).  The JAX package builds a
+    65536 x d table and gathers from it; this computes only the positions
+    asked for, on their device (callers clamp at MAX_POSITION where the
+    JAX package's gather does)."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(10_000.0) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
 def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = dense(params["w_in"], x)
     if cfg.act == "silu":
@@ -86,8 +107,10 @@ def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = params["embed"][tokens]
     if cfg.family == "dense" and cfg.qk_norm:     # gemma-style input scaling
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        # sqrt(d_model) rounded to x's dtype, as the JAX package rounds it,
+        # on the host: a scalar tensor made on the card would be a host to
+        # device copy, a sync, in every model pass
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return x
 
 

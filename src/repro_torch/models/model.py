@@ -34,7 +34,8 @@ from ..configs.base import (ModelConfig, dense_equivalent_pages,
                             pages_for_tokens)
 from . import mamba2, rwkv6
 from . import transformer as T
-from .layers import apply_norm, embed, pdtype, unembed
+from .layers import (MAX_POSITION, apply_norm, embed, pdtype,
+                     sinusoidal_positions, unembed)
 
 ATTENTION_FAMILIES = ("dense",)
 PORTED_FAMILIES = ("dense", "hybrid", "ssm")
@@ -117,10 +118,6 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP M13); "
                 f"the port runs the families {PORTED_FAMILIES}")
-        if not cfg.use_rope and not cfg.rwkv:
-            raise NotImplementedError(
-                "absolute position embeddings are not ported yet "
-                "(ROADMAP M13)")
         self.cfg = cfg
         dt, dev = pdtype(cfg), torch.device(device)
         L, d = cfg.n_layers, cfg.d_model
@@ -224,9 +221,27 @@ class Model(nn.Module):
                 "block_table": torch.zeros((batch_size, n_max),
                                            dtype=torch.int32, device=dev)}
 
+    def _embed(self, params, tokens: torch.Tensor,
+               start: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings of tokens (B, S), plus, for a model without
+        rotary embeddings (OPT), the sinusoidal absolute position term where
+        the JAX Model adds it: positions arange(S) from 0, or, given start
+        (B,) int32 on the device, start[b] + arange(S) for row b, clamped
+        at MAX_POSITION as the JAX package's table gather is (chunks, draft
+        chains, decode steps).  No host sync."""
+        cfg = self.cfg
+        x = embed(params["tok"], tokens, cfg)
+        if cfg.use_rope or cfg.rwkv:
+            return x
+        pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                           device=x.device)
+        if start is not None:
+            pos = torch.clamp(start[:, None] + pos, max=MAX_POSITION)
+        return x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+
     def _forward(self, params, batch, impl: Optional[str], remat: bool):
         cfg = self.cfg
-        x = embed(params["tok"], batch["tokens"], cfg)
+        x = self._embed(params, batch["tokens"])
         stack = {"dense": T.stack_forward, "hybrid": T.hybrid_forward,
                  "ssm": T.rwkv_forward}[cfg.family]
         x = stack(params["blocks"], x, cfg, impl=impl, remat=remat)
@@ -290,7 +305,7 @@ class Model(nn.Module):
         row's last real token (B, 1, V) float32, cache, lens (B,))."""
         prefill = {"dense": T.stack_prefill, "hybrid": T.hybrid_prefill,
                    "ssm": T.rwkv_prefill}[self.cfg.family]
-        x = embed(params["tok"], batch["tokens"], self.cfg)
+        x = self._embed(params, batch["tokens"])
         x = prefill(params["blocks"], x, self.cfg, cache, impl=impl)
         logits, lens = self._prompt_tail(params, x, batch)
         return logits, cache, lens
@@ -309,7 +324,7 @@ class Model(nn.Module):
         the sequence's pages.  Returns (last logits (1, 1, V) float32,
         cache, lens (1,))."""
         self._need_attention("paged prefill")
-        x = embed(params["tok"], batch["tokens"], self.cfg)
+        x = self._embed(params, batch["tokens"])
         x = T.stack_prefill_paged(params["blocks"], x, self.cfg, cache,
                                   page_ids, impl=impl)
         logits, lens = self._prompt_tail(params, x, batch)
@@ -331,7 +346,7 @@ class Model(nn.Module):
         cfg = self.cfg
         tokens = batch["tokens"]
         offs, lens = batch["offset"], batch["true_lens"]
-        x = embed(params["tok"], tokens, cfg)
+        x = self._embed(params, tokens, offs)
         x = T.stack_prefill_chunks_paged(params["blocks"], x, cfg, cache,
                                          page_tables, offs, lens, impl=impl)
         x = apply_norm(params["final_norm"], x, cfg)
@@ -356,7 +371,7 @@ class Model(nn.Module):
         write.  Returns (logits (K, S, V) float32, cache)."""
         self._need_attention("speculative verification")
         cfg = self.cfg
-        x = embed(params["tok"], batch["tokens"], cfg)
+        x = self._embed(params, batch["tokens"], batch["offset"])
         x = T.stack_prefill_chunks_paged(
             params["blocks"], x, cfg, cache, page_tables, batch["offset"],
             batch["true_lens"], q_lens=batch["q_lens"], impl=impl)
@@ -382,7 +397,7 @@ class Model(nn.Module):
         dense or paged (init_cache), or the recurrent states.  Returns
         (logits (B, 1, V) float32, cache)."""
         cfg = self.cfg
-        x = embed(params["tok"], tokens, cfg)
+        x = self._embed(params, tokens, lens)
         if cfg.family == "hybrid":
             x = T.hybrid_decode(params["blocks"], x, cfg, cache, lens,
                                 impl=impl)

@@ -20,11 +20,27 @@ import statistics
 import time
 from typing import Dict, Optional
 
+import torch
+
 from ..configs.base import ModelConfig, TrainConfig
 from ..data.pipeline import DataPipeline
+from ..kernels._checks import BACKWARD_HEAD_DIMS
 from ..models import build_model
 from .checkpoint import restore_latest, save_checkpoint
 from .train_step import init_train_state, make_train_step
+
+
+def check_backward(cfg: ModelConfig, device) -> None:
+    """On the card the attention gradient is K5 (kernels/flash_backward.py,
+    csrc/flash_backward.cu), with no fallback, and K5 takes the head dims
+    BACKWARD_HEAD_DIMS: refuse any other before a model is built or a
+    kernel launched (gemma3-4b's 256, zamba2's 80; ROADMAP §2)."""
+    if torch.device(device).type == "cuda" and cfg.family != "ssm" \
+            and cfg.head_dim not in BACKWARD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"training {cfg.name} on CUDA needs K5 flash_attention_bwd "
+            f"(csrc/flash_backward.cu) at head dim {cfg.head_dim}; K5 takes "
+            f"{BACKWARD_HEAD_DIMS} (ROADMAP §2)")
 
 
 class Trainer:
@@ -35,6 +51,7 @@ class Trainer:
             raise NotImplementedError(
                 "sharded training over a mesh is not ported yet (ROADMAP "
                 "M10 / M14): the port trains on one device")
+        check_backward(cfg, device)
         self.cfg = cfg
         self.tcfg = tcfg
         self.model = build_model(cfg, device)

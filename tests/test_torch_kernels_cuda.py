@@ -7,8 +7,10 @@ that is no tile multiple, fewer queries than keys; dense decode lengths 0,
 1 and the whole strip, one length for every lane; the FA-2 backward K5
 over causal, full, window and softcap attention at S = 200 and 256, and
 through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
-80, zamba2's shared attention block); K4 and K5 at the edges of their
-tensor-core tiles (lengths 1, 15, 17 and 200, fewer queries than keys,
+80, zamba2's shared attention block; K1-K4 also 256, gemma3-4b's, and
+K1 and K2 GQA groups of 7, qwen-7b's 28 / 4 heads); K4 and K5 at the
+edges of their tensor-core tiles (lengths 1, 15, 17 and 200, fewer
+queries than keys,
 GQA groups of 1 to 8, a window shorter than one tile, softcap, no key at
 all) and K5's bits from call to call; K1 at the edges of its tensor-core
 tiles (pages of 16, chunks of 1 to 256 tokens - 5, the speculative verify
@@ -130,8 +132,8 @@ def _prefill_case(G, D, dev, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(VARIANTS))
-@pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 7])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_prefill_kernel_matches_plain(dev, D, G, variant, dtype):
     dt = DTYPES[dtype]
     q, k, v, tb, off, tl, ql = _prefill_case(G, D, dev, dt)
@@ -168,8 +170,8 @@ def _decode_case(G, D, dev, dtype, seed=1):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", ["plain", "window", "softcap"])
-@pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 7])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_decode_kernel_matches_plain(dev, D, G, variant, dtype):
     dt = DTYPES[dtype]
     q, k, v, bt, lens = _decode_case(G, D, dev, dt)
@@ -185,7 +187,7 @@ def test_decode_kernel_matches_plain(dev, D, G, variant, dtype):
     assert not got[4].any(), "idle lane (length 0) not zero"
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_single_row_wrapper_runs_the_kernel(dev, D):
     q, k, v, tb, off, tl, _ = _prefill_case(4, D, dev, torch.float32)
     n0 = paged_prefill.launches
@@ -235,7 +237,7 @@ def _randn(rng, dev, dtype, *shape):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(FA_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_flash_attention_kernel_matches_plain(dev, D, G, variant, dtype):
     dt = DTYPES[dtype]
     causal, window, softcap, sq, skv = FA_VARIANTS[variant]
@@ -270,7 +272,7 @@ FD_VARIANTS = {"plain": (0, 0.0, None), "window": (8, 0.0, None),
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(FD_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_dense_decode_kernel_matches_plain(dev, D, G, variant, dtype):
     dt = DTYPES[dtype]
     window, softcap, scalar = FD_VARIANTS[variant]
@@ -432,7 +434,8 @@ EDGE_LENS = [(1, 1), (1, 200), (15, 17), (17, 200), (200, 200), (15, 0)]
 EDGE_VARIANTS = {"causal": (True, 0, 0.0), "full": (False, 0, 0.0),
                  "window": (True, 5, 0.0), "softcap": (True, 0, 30.0)}
 # (D, G): every group size at head dim 64, then the other head dims
-FWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (80, 2), (128, 2)]
+FWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (80, 2), (128, 2),
+               (256, 2)]
 BWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 2)]
 
 
@@ -613,8 +616,8 @@ def _k1_edge_case(dev, dt, D, G, S, seed):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(K1_EDGE_VARIANTS))
 @pytest.mark.parametrize("S", K1_CHUNKS)
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_prefill_kernel_at_tile_edges(dev, D, G, S, variant, dtype):
     """K1 against its plain version at the bars of
     test_prefill_kernel_matches_plain; pad lanes and the dead row exactly
@@ -667,7 +670,7 @@ def _k2_case(dev, dt, D, G, lens, ps, n_max, seed):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(K2_EDGE_VARIANTS))
 @pytest.mark.parametrize("G", list(range(1, 17)))
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_decode_kernel_at_split_edges(dev, D, G, variant, dtype):
     """K2 against its plain version at the bars of
     test_decode_kernel_matches_plain, lengths 0, 1, around one and two
@@ -687,12 +690,13 @@ def test_decode_kernel_at_split_edges(dev, D, G, variant, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_decode_kernel_bits_do_not_depend_on_the_batch(dev, D, dtype):
     """K2's split is fixed, so each sequence of the serving shape's batch (8
     sequences of 38..1932 positions, 32 / 8 heads, pages of 16, 128-page
-    table rows) gets the same bits alone as inside the batch, and the batch
-    the same bits from call to call."""
+    table rows; at head dims 64, 128 and 256, where the float32 kernel has
+    one K/V buffer) gets the same bits alone as inside the batch, and the
+    batch the same bits from call to call."""
     dt = DTYPES[dtype]
     lens = [38, 129, 301, 512, 701, 0, 1501, 1932]
     rng = np.random.default_rng(14)
@@ -758,7 +762,7 @@ def _k3_case(dev, dt, D, G, lens, S, hkv, seed):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(K2_EDGE_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 16])
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_dense_decode_kernel_at_split_edges(dev, D, G, variant, dtype):
     """K3 against its plain version at the bars of
     test_dense_decode_kernel_matches_plain: lengths 0, 1, around one and two
@@ -780,10 +784,13 @@ def test_dense_decode_kernel_at_split_edges(dev, D, G, variant, dtype):
     assert not got[0].any(), "lane of length 0 not zero"
 
 
-# (lanes, S, Hq, Hkv, D): the dense serving shape; zamba2's decode
+# (lanes, S, Hq, Hkv, D): the dense serving shape; zamba2's decode;
+# gemma3-4b's decode (G 2, head dim 256: one K/V buffer in float32)
 K3_BIT_SHAPES = {"dense": ([0, 1, 257, 640, 1024, 1500, 1999, 2048], 2048, 32,
                            8, 64),
-                 "zamba2_d80": ([0, 100, 300, 511], 512, 32, 32, 80)}
+                 "zamba2_d80": ([0, 100, 300, 511], 512, 32, 32, 80),
+                 "gemma3_d256": ([0, 1, 129, 700, 1024, 1900], 2048, 8, 4,
+                                 256)}
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -791,9 +798,10 @@ K3_BIT_SHAPES = {"dense": ([0, 1, 257, 640, 1024, 1500, 1999, 2048], 2048, 32,
 def test_dense_decode_kernel_bits_do_not_depend_on_the_batch(dev, shape,
                                                             dtype):
     """K3's split is fixed, so each lane of the dense serving shape (8
-    strips of 2048, 32 / 8 heads of 64) and of zamba2's decode (4 strips of
-    512, 32 heads of 80, G 1) gets the same bits alone as inside the batch,
-    and the batch the same bits from call to call."""
+    strips of 2048, 32 / 8 heads of 64), of zamba2's decode (4 strips of
+    512, 32 heads of 80, G 1) and of gemma3-4b's (6 strips of 2048, 8 / 4
+    heads of 256) gets the same bits alone as inside the batch, and the
+    batch the same bits from call to call."""
     dt = DTYPES[dtype]
     lens, S, hq, hkv, D = K3_BIT_SHAPES[shape]
     q, k, v, lens = _k3_case(dev, dt, D, hq // hkv, lens, S, hkv, seed=18)

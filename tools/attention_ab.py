@@ -17,18 +17,22 @@ in float32):
 
   K1  the chunked run's chunk batch (chip_smoke.py serving_shape_args): 4
       chunk rows of 256 over prefixes up to 1792, one dead, 32 / 8 heads
-      of 64, pages of 16
+      of 64, pages of 16; and the same rows at head dim 128 with qwen-7b's
+      28 / 4 heads (G 7) and opt-6.7b's 32 / 32 (G 1)
   K2  the chunked run's decode: 8 sequences of 0..1932 positions, 6348 in
       all, through 128-page table rows, 32 / 8 heads of 64; and the same
-      sequences at G 1 (32 KV heads of 64)
+      sequences at G 1 (32 KV heads of 64) and at head dim 128 with
+      qwen-7b's 28 / 4 heads (G 7) and opt-6.7b's 32 / 32 (G 1)
   K3  the dense run's decode (chip_smoke.py serving_shape_args): 8 strips
-      of 2048, lengths 0..2048, 7469 positions, 32 / 8 heads of 64; and
-      zamba2's decode: 4 strips of 512, lengths 0..511, 32 heads of 80, G 1
+      of 2048, lengths 0..2048, 7469 positions, 32 / 8 heads of 64, and
+      the same strips with 32 / 8 heads of 128; and zamba2's decode: 4
+      strips of 512, lengths 0..511, 32 heads of 80, G 1
   K5  the training backward: q (4, 2048, 32, 64), k / v 8 heads, causal,
       o and lse from the new K4, a random do
   K4  the dense prefill (1, 1904) and (2, 256), 32 / 8 heads of 64; the
       training forward (4, 2048), 32 / 8 heads of 64; zamba2's shared
-      block (2, 2048), 32 heads of 80, G 1; all causal
+      block (2, 2048), 32 heads of 80, G 1; granite-8b's forward (1,
+      2048), 32 / 8 heads of 128; all causal
   K6  zamba2's forward: x (2, 2048, 80, 64), B / C state 64, seeded dt
       and A as chip_smoke.py's scans get them
   K7  rwkv6's forward: r, k, v (2, 2048, 32, 64), seeded w =
@@ -112,18 +116,33 @@ OLD_SIGNATURES = {
 K4_SHAPES = [("dense prefill (1, 1904)", 1, 1904, 32, 8, 64),
              ("dense prefill (2, 256)", 2, 256, 32, 8, 64),
              ("training forward (4, 2048)", 4, 2048, 32, 8, 64),
-             ("zamba2 head dim 80 (2, 2048)", 2, 2048, 32, 32, 80)]
+             ("zamba2 head dim 80 (2, 2048)", 2, 2048, 32, 32, 80),
+             ("granite-8b forward, head dim 128 (1, 2048)", 1, 2048, 32, 8,
+              128)]
 K5_SHAPE = ("training backward (4, 2048)", 4, 2048, 32, 8, 64)
 # (label, rows x chunk or sequences, Hq, Hkv, D) of the K1 and K2 calls
 K1_SHAPE = ("chunk batch (4 x 256 over prefixes up to 1792)", 4, 256, 32, 8,
             64)
+# the same chunk rows at head dim 128: qwen-7b's 28 / 4 heads (G 7) and
+# opt-6.7b's 32 / 32 (G 1)
+K1_HEAD_SHAPES = [("chunk batch G 7, head dim 128", 4, 256, 28, 4, 128),
+                  ("chunk batch G 1, head dim 128", 4, 256, 32, 32, 128)]
 K2_SHAPE = ("decode (8 sequences, 6348 positions)", 8, 1, 32, 8, 64)
-K2_G1_SHAPE = ("decode G 1 (8 sequences, 6348 positions)", 8, 1, 32, 32, 64)
+# the same sequences at G 1 (32 KV heads of 64), and at head dim 128 with
+# qwen-7b's and opt-6.7b's heads
+K2_HEAD_SHAPES = [("decode G 1 (8 sequences, 6348 positions)",
+                   8, 1, 32, 32, 64),
+                  ("decode G 7, head dim 128 (8 sequences, 6348 positions)",
+                   8, 1, 28, 4, 128),
+                  ("decode G 1, head dim 128 (8 sequences, 6348 positions)",
+                   8, 1, 32, 32, 128)]
 # (label, sequences, Hq, Hkv, D) of the K3 calls; (label, B, S, H, P, N)
 # of the K6 call
 K3_SHAPE = ("dense decode (8 strips of 2048, 7469 positions)", 8, 32, 8, 64)
 K3_D80_SHAPE = ("zamba2 decode (4 strips of 512, 911 positions, head dim "
                 "80)", 4, 32, 32, 80)
+K3_D128_SHAPE = ("dense decode at head dim 128 (8 strips of 2048, 7469 "
+                 "positions)", 8, 32, 8, 128)
 K6_SHAPE = ("zamba2 forward scan (2, 2048, 80 heads of 64, state 64)", 2,
             2048, 80, 64, 64)
 # (label, B, S, H, K, V) of the K7 calls
@@ -298,8 +317,13 @@ def _i32_ptrs(a, *names):
     return [a[n].data_ptr() for n in names]
 
 
-def k1_case(fns, g):
+def k1_case(fns, g, heads=None):
     a = chip_smoke.serving_shape_args(torch.bfloat16)[0]
+    if heads:                    # the same chunk rows at (Hq, Hkv, D)
+        hq, hkv, d = heads
+        a["q"] = rnd(g, 4, 256, hq, d)
+        a["k_pages"], a["v_pages"] = (rnd(g, 1025, 16, hkv, d)
+                                      for _ in range(2))
     q = a["q"]
     K, S, Hq, D = q.shape
     ps, Hkv = a["k_pages"].shape[1], a["k_pages"].shape[2]
@@ -322,10 +346,12 @@ def k1_case(fns, g):
             lambda ver: [outs[ver]])
 
 
-def k2_case(fns, g, split=flash_decode.SPLIT, g1=False):
+def k2_case(fns, g, split=flash_decode.SPLIT, heads=None):
     a = chip_smoke.serving_shape_args(torch.bfloat16)[1]
-    if g1:                       # the same sequences over 32 KV heads
-        a["k_pages"], a["v_pages"] = (rnd(g, 1025, 16, 32, 64)
+    if heads:                    # the same sequences at (Hq, Hkv, D)
+        hq, hkv, d = heads
+        a["q"] = rnd(g, 8, 1, hq, d)
+        a["k_pages"], a["v_pages"] = (rnd(g, 1025, 16, hkv, d)
                                       for _ in range(2))
     q = a["q"]
     B, _, Hq, D = q.shape
@@ -351,7 +377,7 @@ def k2_case(fns, g, split=flash_decode.SPLIT, g1=False):
             lambda ver: [outs[ver]])
 
 
-def k3_case(fns, g, zamba2=False):
+def k3_case(fns, g, zamba2=False, heads=None):
     if zamba2:
         lens = torch.tensor([0, 100, 300, 511], dtype=torch.int32,
                             device="cuda")
@@ -359,6 +385,11 @@ def k3_case(fns, g, zamba2=False):
                  v_cache=rnd(g, 4, 512, 32, 80), cache_len=lens)
     else:
         a = chip_smoke.serving_shape_args(torch.bfloat16)[2]
+    if heads:                    # the same strips at (Hq, Hkv, D)
+        hq, hkv, d = heads
+        a["q"] = rnd(g, 8, 1, hq, d)
+        a["k_cache"], a["v_cache"] = (rnd(g, 8, 2048, hkv, d)
+                                      for _ in range(2))
     q, kc = a["q"], a["k_cache"]
     B, _, Hq, D = q.shape
     S, Hkv = kc.shape[1], kc.shape[2]
@@ -655,18 +686,22 @@ def main() -> int:
     rows = []
     if "K1" in kernels:
         rows.append(measure(K1_SHAPE, "K1", k1_case, fns, flush, g))
+        rows += [measure(sh, "K1", lambda f, gg, sh=sh: k1_case(
+            f, gg, heads=sh[3:]), fns, flush, g) for sh in K1_HEAD_SHAPES]
     if "K2" in kernels:
         rows.append(measure(K2_SHAPE, "K2", k2_case, fns, flush, g))
         for split in filter(None, args.k2_splits.split(",")):
             label = (f"{K2_SHAPE[0]}, split {split}",) + K2_SHAPE[1:]
             rows.append(measure(label, "K2", lambda f, gg, n=int(split):
                                 k2_case(f, gg, n), fns, flush, g))
-        rows.append(measure(K2_G1_SHAPE, "K2", lambda f, gg: k2_case(
-            f, gg, g1=True), fns, flush, g))
+        rows += [measure(sh, "K2", lambda f, gg, sh=sh: k2_case(
+            f, gg, heads=sh[3:]), fns, flush, g) for sh in K2_HEAD_SHAPES]
     if "K3" in kernels:
         rows.append(measure(K3_SHAPE, "K3", k3_case, fns, flush, g))
         rows.append(measure(K3_D80_SHAPE, "K3", lambda f, gg: k3_case(
             f, gg, zamba2=True), fns, flush, g))
+        rows.append(measure(K3_D128_SHAPE, "K3", lambda f, gg: k3_case(
+            f, gg, heads=K3_D128_SHAPE[2:]), fns, flush, g))
     if "K6" in kernels:
         rows.append(measure(K6_SHAPE, "K6", k6_case, fns, flush, g))
     if "K7" in kernels:
