@@ -17,7 +17,9 @@ Phases (each raises on failure, so the run exits non-zero):
                         (1, 1904) and (2, 256), K3 8 strips of 2048 with
                         lengths spread over [0, 2048]) and K5 at the
                         training shape (4 x 2048 tokens, 32 / 8 heads,
-                        causal, o and lse from K4), in float32 and
+                        causal, o and lse from K4) and at gemma3-4b's (8 /
+                        4 heads of 256, causal, and with its window of
+                        1024), in float32 and
                         bfloat16; the test file also holds K3 and K4 at
                         head dim 80 and the edge cases of the scans K6 and
                         K7 (their full-width shapes among them).
@@ -100,6 +102,18 @@ Phases (each raises on failure, so the run exits non-zero):
                         forward at its position or within REC_F32_BARS of
                         it (near ties printed); a corrupted recurrent
                         state moves the logits by O(1).
+                        the dense family: opt-6.7b, qwen-7b and gemma3-4b
+                        at full width serve the chunked traffic (gemma3-4b
+                        also the dense), counted and checked as above;
+                        olmo-1b (head dim 128) and gemma3-4b (34 layers,
+                        8 / 4 heads of 256, windows of 1024 on 29 layers,
+                        vocab 262144) train DF_TRAIN_STEPS steps of
+                        2048-token rows: one step against impl="ref"
+                        within TRAIN_BARS, K4 2 x n_layers and K5 n_layers
+                        launches a step and nothing else, finite losses
+                        from near ln(vocab), step time, MFU and peak
+                        memory; granite-8b runs one forward against
+                        impl="ref".
   4. times              per kernel, at the largest call its run gave it
                         (K1/K2 the chunked run, K3/K4 the dense run, K5 the
                         training run, K6/K7 the recurrent forwards; K3/K4
@@ -485,18 +499,28 @@ def k5_compare(a, dtype) -> float:
                for g, w, t in zip(got, want, terms))
 
 
-def k5_training_args(dtype, seed=0):
-    """K5 at the training shape: q (4, 2048, 32, 64), k / v (4, 2048, 8,
-    64), causal, o and lse from K4, a random do."""
+def k5_training_args(dtype, seed=0, shape=(4, 2048, 32, 8, 64), window=0):
+    """K5 at a training shape (B, S, Hq, Hkv, D), by default granite-3-2b's:
+    q (4, 2048, 32, 64), k / v (4, 2048, 8, 64); causal, under `window`
+    if > 0; o and lse from K4, a random do."""
+    B, S, Hq, Hkv, D = shape
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev,
                                      dtype=torch.float32).to(dtype)
-    a = dict(q=rnd(4, 2048, 32, 64), k=rnd(4, 2048, 8, 64),
-             v=rnd(4, 2048, 8, 64), do=rnd(4, 2048, 32, 64), causal=True)
-    a["o"], a["lse"] = flash_attention.flash_attention_fwd(a["q"], a["k"],
-                                                           a["v"])
+    a = dict(q=rnd(B, S, Hq, D), k=rnd(B, S, Hkv, D), v=rnd(B, S, Hkv, D),
+             do=rnd(B, S, Hq, D), causal=True, window=window)
+    a["o"], a["lse"] = flash_attention.flash_attention_fwd(
+        a["q"], a["k"], a["v"], window=window)
     return a
+
+
+def k5_gemma_shape():
+    """gemma3-4b's training backward at the training phase's batch, (B, S,
+    8, 4, 256), and its sliding window."""
+    cfg = get_config("gemma3-4b")
+    return (TRAIN["global_batch"], TRAIN["seq_len"], cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim), cfg.sliding_window
 
 
 def phase_kernel_parity():
@@ -536,6 +560,12 @@ def phase_kernel_parity():
             else "2^-7 of the terms"
         log(f"# training shape {str(dtype)[6:]}: K5 (4, 2048, 32/8, 64) "
             f"causal max abs err {e5:.3e} (bar {bar})")
+        shape, window = k5_gemma_shape()
+        for w in (0, window):
+            e5 = k5_compare(k5_training_args(dtype, shape=shape, window=w),
+                            dtype)
+            log(f"# gemma3-4b training shape {str(dtype)[6:]}: K5 {shape} "
+                f"causal, window {w}: max abs err {e5:.3e} (bar {bar})")
     torch.cuda.synchronize()
 
 
@@ -545,7 +575,8 @@ def phase_kernel_parity():
 
 class Capture:
     """Wraps a kernel module's wrapper and keeps the arguments of its
-    largest call (by `weight`), cloned, for the timing phase.  Used in the
+    largest call (by `weight` of the call's arguments, keywords included;
+    the first of equal calls), cloned, for the timing phase.  Used in the
     warm-up runs only; the wrapped call is the original."""
 
     def __init__(self, module, attr, weight):
@@ -555,7 +586,7 @@ class Capture:
 
     def __enter__(self):
         def wrapped(*args, **kw):
-            w = self.weight(*args)
+            w = self.weight(*args, **kw)
             if w > self.best_w:
                 self.best_w = w
                 self.best = ([a.clone() if torch.is_tensor(a) else a
@@ -568,16 +599,16 @@ class Capture:
         setattr(self.module, self.attr, self.orig)
 
 
-def _k1_weight(q, kp, vp, tables, offs, tls, qls=None):
+def _k1_weight(q, kp, vp, tables, offs, tls, qls=None, **_):
     return int((tls - offs).clamp(min=0).sum()) * 1_000_000 + int(tls.sum())
 
 
-def _lens_weight(q, kc, vc, *rest):
+def _lens_weight(q, kc, vc, *rest, **_):
     lens = rest[-1]
     return int(lens.sum()) if torch.is_tensor(lens) else lens * q.shape[0]
 
 
-def _k4_weight(q, k, v):
+def _k4_weight(q, k, v, **_):
     return q.shape[0] * q.shape[1] * k.shape[1]
 
 
@@ -854,7 +885,7 @@ def model_check(model, params):
 SERVED_TOKEN_BAR = 2 * (MODEL_BARS["chunk batch"] + MODEL_BARS["forward"])
 
 
-def _verify_weight(q, kp, vp, tables, offs, tls, qls=None):
+def _verify_weight(q, kp, vp, tables, offs, tls, qls=None, **_):
     """K1's verify launches only (S = spec_k + 1), by their work."""
     return _k1_weight(q, kp, vp, tables, offs, tls) \
         if q.shape[1] == SPEC["spec_k"] + 1 else -1
@@ -935,8 +966,10 @@ def phase_m6(model, params):
 # phase 3, training
 # ---------------------------------------------------------------------------
 
-def _k5_weight(q, k, v, o, lse, do):
-    return q.shape[0] * q.shape[1] * k.shape[1]
+def _k5_weight(q, k, v, o, lse, do, causal=True, window=0, **_):
+    """The call's attended (query, key) pairs: under gemma3-4b's windows
+    a global layer's backward is the largest."""
+    return q.shape[0] * _pairs(q.shape[1], k.shape[1], causal, window)
 
 
 def train_check(model, params, batch):
@@ -1320,7 +1353,7 @@ def recurrent_serving(model, params, arch, check_tokens: bool):
     return launches, e2e
 
 
-def _scan_weight(t, *rest):
+def _scan_weight(t, *rest, **_):
     return t.numel()
 
 
@@ -1425,12 +1458,13 @@ def _zamba2_decode_args(model):
 # time, seeded weights, bf16: the paper's OPT (MHA, sinusoidal positions)
 # and QWEN (GQA group 7) and gemma3-4b (head dim 256, a 1024-position
 # window on 5 of 6 layers, QK-norm) serve the chunked run's traffic
-# (gemma3-4b also on the dense engine, K4 / K3); olmo-1b trains
-# DF_TRAIN_STEPS steps of the training phase's shape (K4 / K5 at head dim
-# 128, MHA); granite-8b runs one forward of DF_FORWARD_BATCH tokens
+# (gemma3-4b also on the dense engine, K4 / K3); olmo-1b (K4 / K5 at head
+# dim 128, MHA) and gemma3-4b (head dim 256, G 2, its windows) train
+# DF_TRAIN_STEPS steps of the training phase's shape; granite-8b runs one
+# forward of DF_FORWARD_BATCH tokens
 DF_SERVE = {"opt-6.7b": ("chunked",), "qwen-7b": ("chunked",),
             "gemma3-4b": ("chunked", "dense")}
-DF_TRAIN_ARCH, DF_TRAIN_STEPS = "olmo-1b", 3
+DF_TRAIN_ARCHS, DF_TRAIN_STEPS = ("olmo-1b", "gemma3-4b"), 3
 DF_FORWARD_ARCH, DF_FORWARD_BATCH = "granite-8b", (1, 2048)
 # per engine: (kernel, module, wrapper, weight) captured in its warm-up run
 DF_CAPTURE = {"chunked": (("K1", paged_prefill,
@@ -1493,74 +1527,98 @@ def dense_family_serving(arch):
     return runs, captured, e2e, traces
 
 
-def dense_family_training():
-    """olmo-1b at full width: one step's loss and gradient norm through the
+def train_flops(cfg, n_params, B, S):
+    """Model FLOPs of one training step: 6 x params x tokens, plus 12 x
+    batch x heads x head_dim x the attended (query, key) pairs of every
+    layer under its window (S (S + 1) / 2 a causal layer)."""
+    pairs = sum(_pairs(S, S, True, T._windowed(cfg, g))
+                for g in T._layer_windows(cfg))
+    return 6 * n_params * B * S + 12 * B * cfg.n_heads * cfg.head_dim * pairs
+
+
+def dense_family_training(arch):
+    """`arch` at full width: one step's loss and gradient norm through the
     kernels against impl="ref" (train_check, TRAIN_BARS), then
     DF_TRAIN_STEPS counted steps on the pipeline's batches: K4 2 x
     n_layers and K5 n_layers launches a step, nothing else, finite losses
-    from near ln(vocab)."""
-    cfg = get_config(DF_TRAIN_ARCH)
+    from near ln(vocab); one more step under the profiler.  Returns
+    (run, captured, e2e, trace)."""
+    cfg = get_config(arch)
     tcfg = TrainConfig(**TRAIN)
+    B, S = tcfg.global_batch, tcfg.seq_len
     model = build_model(cfg)
     state = init_train_state(model, 0, tcfg)
     pipe = DataPipeline(cfg, tcfg)
     n_params = sum(p.numel() for p in leaves(state.params))
-    log(f"# training {DF_TRAIN_ARCH}: {cfg.n_layers} layers, "
+    log(f"# training {arch}: {cfg.n_layers} layers, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
-        f"{cfg.norm}, {n_params / 1e9:.3f} B params, batch "
-        f"{tcfg.global_batch} x {tcfg.seq_len}, remat {tcfg.remat}")
+        f"{cfg.norm}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+        f"params, batch {B} x {S}, remat {tcfg.remat}")
     rng = np.random.default_rng(0)
     check = train_check(model, state.params, {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (tcfg.global_batch, tcfg.seq_len),
-                     dtype=np.int32)).to(model.device)})
+        rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)).to(
+            model.device)})
     step = make_train_step(model, tcfg)
-    batches = [pipe.device_batch(s) for s in range(DF_TRAIN_STEPS)]
+    batches = [pipe.device_batch(s) for s in range(DF_TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     times, outs = [], []
     with Capture(flash_backward, "flash_attention_bwd", _k5_weight) as c5, \
             Capture(flash_attention, "flash_attention_fwd", _k4_weight) as c4:
-        for b in batches:
+        for b in batches[:DF_TRAIN_STEPS]:
             t = time.perf_counter()
             state, m = step(state, b)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             outs.append(m)
     launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     L, N = cfg.n_layers, DF_TRAIN_STEPS
     want = {k: 0 for k in COUNTERS}
     want.update(K4=2 * L * N, K5=L * N)
     losses = [float(m["loss"]) for m in outs]
     gnorms = [float(m["grad_norm"]) for m in outs]
     ln_v = math.log(cfg.vocab_size)
-    log(f"# {DF_TRAIN_ARCH} training: {N} steps, kernel launches {launches} "
+    log(f"# {arch} training: {N} steps, kernel launches {launches} "
         f"(want {want}), losses {[round(x, 4) for x in losses]}, ln(vocab) "
-        f"{ln_v:.4f}, step ms {[round(t * 1e3, 1) for t in times]}")
+        f"{ln_v:.4f}, step ms {[round(t * 1e3, 1) for t in times]}, peak "
+        f"memory {peak / 1e9:.2f} GB")
     if launches != want:
-        raise AssertionError(f"{DF_TRAIN_ARCH} training launches {launches} "
-                             f"!= {want}")
+        raise AssertionError(f"{arch} training launches {launches} != "
+                             f"{want}")
     if not all(np.isfinite(losses + gnorms)) or abs(losses[0] - ln_v) > 1.0:
-        raise AssertionError(f"{DF_TRAIN_ARCH} training: losses {losses} "
-                             f"not finite from near ln(vocab)")
-    B, S = tcfg.global_batch, tcfg.seq_len
+        raise AssertionError(f"{arch} training: losses {losses} not finite "
+                             f"from near ln(vocab)")
+    trace = device_trace(lambda: step(state, batches[-1]))
+    trace.update(run=f"{arch} train", steps=1)
     med = float(np.median(times[1:]))
+    flops = train_flops(cfg, n_params, B, S)
     e2e = {"config": cfg.name, "params": n_params, "global_batch": B,
            "seq_len": S, "remat": tcfg.remat, "steps": N,
            "step_ms": [t * 1e3 for t in times],
            "step_ms_median_after_first": med * 1e3,
-           "tokens_per_s": B * S / med,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tokens_per_s": B * S / med, "peak_mem_gb": peak / 1e9,
+           "model_flops_per_step": flops,
+           "mfu": flops / (med * PEAK_FLOP_S),
+           "mfu_formula": "(6 * params * tokens + 12 * batch * heads * "
+                          "head_dim * attended pairs of every layer under "
+                          "its window) / (median step s * 989e12)",
            "losses": losses, "grad_norms": gnorms,
            "kernel_launches": launches,
            "kernels_vs_ref": {"loss": [check[None][0], check["ref"][0]],
                               "grad_norm": [check[None][1],
                                             check["ref"][1]]}}
+    log(f"# {arch} training: median step {med * 1e3:.1f} ms, "
+        f"{B * S / med:.0f} tokens/s, mfu {e2e['mfu']:.3f}; trace: device "
+        f"busy {trace['device_busy_s']:.3f} s of "
+        f"{trace['profiled_wall_s']:.3f} s")
     del state, model, step, batches
     _free()
-    return ({"launches": launches},
-            {f"K5@{DF_TRAIN_ARCH}": c5.best, f"K4@{DF_TRAIN_ARCH}": c4.best},
-            e2e)
+    # the K4 forward of a served model was captured from its serving run
+    k4 = f"K4@{arch}" + ("_train" if arch in DF_SERVE else "")
+    return {"launches": launches}, {f"K5@{arch}": c5.best, k4: c4.best}, \
+        e2e, trace
 
 
 def dense_family_forward():
@@ -1616,18 +1674,19 @@ def dense_family_forward():
 
 
 def phase_dense_family():
-    """The served models, olmo-1b's training and granite-8b's forward, one
+    """The served models, the training runs and granite-8b's forward, one
     model at a time.  Returns (runs, captured, e2e, traces)."""
     runs, captured, e2e, traces = {}, {}, {}, {}
     for arch in DF_SERVE:
-        r, c, e, t = dense_family_serving(arch)
+        r, c, e2e[arch], t = dense_family_serving(arch)
         runs.update(r)
         captured.update(c)
         traces.update(t)
-        e2e[arch] = e
-    r, c, e2e[DF_TRAIN_ARCH] = dense_family_training()
-    runs[f"{DF_TRAIN_ARCH} train"] = r
-    captured.update(c)
+    for arch in DF_TRAIN_ARCHS:
+        r, c, e, traces[f"{arch} train"] = dense_family_training(arch)
+        e2e.setdefault(arch, {})["train"] = e
+        runs[f"{arch} train"] = r
+        captured.update(c)
     r, c, e2e[DF_FORWARD_ARCH] = dense_family_forward()
     runs[f"{DF_FORWARD_ARCH} forward"] = r
     captured.update(c)
@@ -1713,12 +1772,10 @@ def k4_work(a):
 
 def _pairs(sq, skv, causal, window):
     """(query, attended key) pairs of one head under the mask."""
-    pairs = 0
-    for s in range(sq):
-        hi = min(s + 1, skv) if causal or window > 0 else skv
-        lo = max(0, s - window + 1) if window > 0 else 0
-        pairs += max(hi - lo, 0)
-    return pairs
+    s = np.arange(sq)
+    hi = np.minimum(s + 1, skv) if causal or window > 0 else np.full(sq, skv)
+    lo = np.maximum(0, s - window + 1) if window > 0 else 0
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 def _sdpa(q, k, v, **kw):
@@ -1807,11 +1864,16 @@ def k4_library(a):
     kw = _k4_kw(a)
     if kw["window"] <= 0:
         return _sdpa(a["q"], a["k"], a["v"], is_causal=kw["causal"])
-    dev = a["q"].device
-    row = torch.arange(a["q"].shape[1], device=dev)[:, None]
-    col = torch.arange(a["k"].shape[1], device=dev)[None, :]
-    mask = (col <= row) & (col > row - kw["window"])
-    return _sdpa(a["q"], a["k"], a["v"], attn_mask=mask)
+    return _sdpa(a["q"], a["k"], a["v"], attn_mask=_window_mask(
+        a["q"].shape[1], a["k"].shape[1], kw["window"], a["q"].device))
+
+
+def _window_mask(sq, skv, window, device):
+    """The causal window as an explicit (sq, skv) mask: key j is attended
+    by query i where i - window < j <= i."""
+    row = torch.arange(sq, device=device)[:, None]
+    col = torch.arange(skv, device=device)[None, :]
+    return (col <= row) & (col > row - window)
 
 
 def k5_work(a):
@@ -1830,12 +1892,17 @@ def k5_work(a):
 def k5_library(a):
     """The backward alone of one causal scaled_dot_product_attention call
     with enable_gqa: torch.autograd.grad of its output with respect to
-    q, k and v, on inputs laid out as (B, H, S, D) beforehand."""
+    q, k and v, on inputs laid out as (B, H, S, D) beforehand; under a
+    window, with the causal window as an explicit mask."""
     qq, kk, vv = (a[n].transpose(1, 2).contiguous().requires_grad_(True)
                   for n in ("q", "k", "v"))
     dd = a["do"].transpose(1, 2).contiguous()
+    kw = _k5_kw(a)
+    mask = dict(attn_mask=_window_mask(qq.shape[2], kk.shape[2],
+                                       kw["window"], qq.device)) \
+        if kw["window"] > 0 else dict(is_causal=kw["causal"])
     out = torch.nn.functional.scaled_dot_product_attention(
-        qq, kk, vv, is_causal=_k5_kw(a)["causal"], enable_gqa=True)
+        qq, kk, vv, enable_gqa=True, **mask)
     return lambda: torch.autograd.grad(out, (qq, kk, vv), dd,
                                        retain_graph=True)
 
@@ -2009,7 +2076,8 @@ def phase_times(runs, captured):
             if f"{key}_{tag}" in captured:
                 row[label] = _timed(key, captured[f"{key}_{tag}"], flush)
         # the dense family's shapes: qwen-7b (G 7, head dim 128), opt-6.7b
-        # (G 1, 128), gemma3-4b (G 2, 256), olmo-1b's training, granite-8b
+        # (G 1, 128), gemma3-4b (G 2, 256; its training as K5@gemma3-4b and
+        # K4@gemma3-4b_train), olmo-1b's training, granite-8b
         for ck, args_kw in captured.items():
             if ck.startswith(f"{key}@"):
                 row[f"at_{ck[len(key) + 1:]}"] = _timed(key, args_kw, flush)
@@ -2036,7 +2104,10 @@ PORT_KERNEL_NAMES = {"K1": ("paged_prefill",), "K2": ("paged_decode",),
 def device_trace(fn) -> dict:
     """fn() under torch.profiler, tracing device activity only (no host op
     recording, so the wall time stays near the unprofiled one): device
-    time by kernel name, and the device's busy share of that wall time."""
+    time by kernel name, and the device's busy share of that wall time.
+    The sums are read from the profiler's raw events: key_averages()
+    gives the same sums but first builds an event tree, which took many
+    times the traced run's own wall."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2044,29 +2115,27 @@ def device_trace(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum(dev_us(e) for e in kernels) / 1e6
-    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    by_name = {}                       # kernel name -> [device us, count]
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e3
+            acc[1] += 1
+    busy = sum(us for us, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     if not busy:
         log("# the profiler recorded no device time: not measured")
     port = {}
     for key, names in PORT_KERNEL_NAMES.items():
-        mine = [e for e in kernels if any(n in e.key for n in names)]
+        mine = [v for k, v in by_name.items() if any(n in k for n in names)]
         if mine:
-            us = sum(dev_us(e) for e in mine)
-            port[key] = {"ms": us / 1e3, "launches": sum(e.count
-                                                         for e in mine),
+            us = sum(v[0] for v in mine)
+            port[key] = {"ms": us / 1e3, "launches": sum(v[1] for v in mine),
                          "share_of_busy": us / 1e6 / busy if busy else None}
     return {"profiled_wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall,
-            "top_kernels_ms": [[e.key[:80], dev_us(e) / 1e3, e.count]
-                               for e in top],
+            "top_kernels_ms": [[k[:80], us / 1e3, n]
+                               for k, (us, n) in top[:10]],
             "port_kernels": port}
 
 

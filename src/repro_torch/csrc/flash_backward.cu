@@ -64,12 +64,21 @@
 //    bounds them: mma.sync issues per warp, synchronously, and every warp
 //    reads its B fragments from shared memory for only 16 rows of A (wgmma
 //    over a 64-row warpgroup would read each once), and the 7/5 recompute.
+//    Head dim 256 (gemma3-4b) breaks a limit of the card in each kernel,
+//    and each takes another shape there: the dq kernel a KV tile of 32
+//    positions (dq_cols: shared memory, and registers beside dq's 128
+//    accumulators a thread), the dk/dv kernel two warps per 16-row KV
+//    slab, each with dk and dv for 128 of the columns (kv_split: their
+//    256 accumulators a thread would pass the 255 registers a thread may
+//    have), at the price of s^T and dp^T computed twice, 9/5 of the
+//    necessary operations.
 //  * float32 runs on the CUDA cores in fp32 FMAs, since the tensor cores'
 //    fp32 input is TF32, which would miss the float32 bar of 1e-5: K4's
 //    tiling with operands widened to fp32 in shared memory, register tiles
-//    of accumulators, the work the mask removes cut before each loop.  It
-//    is what the tight float32 checks run, not a fallback: a bf16 launch
-//    that fails returns its error.
+//    of accumulators, the work the mask removes cut before each loop; at
+//    head dim 256 each block owns 32 rows, not 64 (f32_rows).  It is what
+//    the tight float32 checks run, not a fallback: a bf16 launch that
+//    fails returns its error.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -80,6 +89,14 @@ namespace {
 
 constexpr int BR = 64;       // flattened query rows per tile
 constexpr int TILE = 64;     // KV positions per tile
+// rows a float32 block owns - flattened query rows of the dq kernel, KV
+// positions of the dk/dv kernel: 64; at head dim 256 its operand tiles
+// would pass the 227 KB of shared memory a block may have, so 32 (as
+// K4's f32_rows), and each thread holds half the rows of dq (or of dk
+// and dv) over twice the columns
+__host__ __device__ constexpr int f32_rows(int D) {
+  return D > 128 ? 32 : 64;
+}
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -115,11 +132,11 @@ __device__ __forceinline__ void p_and_ds(float qk, float dp, float lse,
 }
 
 // ---------------------------------------------------------------------------
-// float32 dq kernel: 128 threads = 8 row groups x 16 columns; each thread holds 8
-// rows x 4 score columns and 8 rows x D/16 columns of dq.
+// float32 dq kernel: 128 threads = 8 row groups x 16 columns; each thread
+// holds f32_rows / 8 rows x 4 score columns and f32_rows / 8 rows x D/16
+// columns of dq.
 // ---------------------------------------------------------------------------
 constexpr int NT_Q = 128;
-constexpr int RI = BR / 8;
 constexpr int CI = TILE / 16;
 
 template <typename T, int D>
@@ -129,7 +146,7 @@ __global__ void __launch_bounds__(NT_Q) flash_bwd_dq_kernel(
     const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ delta,
     int Sq, int Skv, int Hkv, int G, int causal, int window, float scale,
     float softcap) {
-  constexpr int DC = D / 16;
+  constexpr int DC = D / 16, BR = f32_rows(D), RI = BR / 8;
   extern __shared__ float smem[];
   float* q_s = smem;                     // BR x (D + 1)
   float* do_s = q_s + BR * (D + 1);      // BR x (D + 1)
@@ -278,12 +295,12 @@ __global__ void __launch_bounds__(NT_Q) flash_bwd_dq_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// float32 dk/dv kernel: 256 threads = 16 KV-row groups x 16 columns; each thread
-// holds 4 KV rows x 4 query-row columns of the transposed scores and 4 KV
-// rows x D/16 columns of dk and of dv.
+// float32 dk/dv kernel: 256 threads = 16 KV-row groups x 16 columns; each
+// thread holds f32_rows / 16 KV rows x 4 query-row columns of the
+// transposed scores and f32_rows / 16 KV rows x D/16 columns of dk and of
+// dv.
 // ---------------------------------------------------------------------------
 constexpr int NT_KV = 256;
-constexpr int KI = TILE / 16;
 constexpr int QJ = BR / 16;
 
 template <typename T, int D>
@@ -293,7 +310,7 @@ __global__ void __launch_bounds__(NT_KV) flash_bwd_dkv_kernel(
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int Sq, int Skv, int Hkv, int G, int causal, int window, float scale,
     float softcap) {
-  constexpr int DC = D / 16;
+  constexpr int DC = D / 16, TILE = f32_rows(D), KI = TILE / 16;
   extern __shared__ float smem[];
   float* k_s = smem;                     // TILE x (D + 1)
   float* v_s = k_s + TILE * (D + 1);     // TILE x (D + 1)
@@ -453,8 +470,19 @@ using bf16 = __nv_bfloat16;
 constexpr int NW = 4;            // warps per block
 constexpr int NT_TC = 32 * NW;
 constexpr int BM = 16 * NW;      // rows a block owns
-constexpr int BN = 64;           // KV positions per tile of the dq kernel
 constexpr int BQ = 32;           // query rows per tile of the dk/dv kernel
+// KV positions per tile of the dq kernel: 64; at head dim 256 two staged
+// 64-row K/V tiles beside q, do and o would need 236,544 B of shared
+// memory (the card allows 232,448), and the tile's s and dp fragments
+// beside dq's 128 fp32 accumulators a thread would spill, so 32
+__host__ __device__ constexpr int dq_cols(int D) { return D > 128 ? 32 : 64; }
+// warps that share each 16-row KV slab of the dk/dv kernel, each holding dk
+// and dv for D / kv_split of the columns: one; at head dim 256, dk's and
+// dv's accumulators alone would be 256 fp32 registers a thread (a thread
+// may have 255), so two (8 warps a block, as K1's o_split).  Both warps
+// of a slab compute its s^T and dp^T, the same bits: 9 products a pair
+// where 7 do at the other head dims (9/5 of the necessary operations)
+__host__ __device__ constexpr int kv_split(int D) { return D > 128 ? 2 : 1; }
 // blocks an SM holds at once: at head dim 64 ptxas keeps each kernel
 // within 168 registers, so three blocks (12 warps) fit an SM - 12% faster
 // at the training shape than two, with no spills
@@ -468,6 +496,7 @@ __global__ void __launch_bounds__(NT_TC, MIN_BLOCKS<D>) dq_bf16_kernel(
     bf16* __restrict__ dq, float* __restrict__ delta, int Sq, int Skv,
     int Hkv, int G, int causal, int window, float scale, float softcap) {
   using namespace mma_bf16;
+  constexpr int BN = dq_cols(D);
   constexpr int LD = D + PAD, KS = D / 16, ND = D / 8, NC = BN / 8,
                 CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -634,14 +663,17 @@ __global__ void __launch_bounds__(NT_TC, MIN_BLOCKS<D>) dq_bf16_kernel(
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT_TC, MIN_BLOCKS<D>) dkv_bf16_kernel(
+__global__ void __launch_bounds__(NT_TC * kv_split(D), MIN_BLOCKS<D>)
+    dkv_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ lse,
     const bf16* __restrict__ dout, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hkv,
     int G, int causal, int window, float scale, float softcap) {
   using namespace mma_bf16;
-  constexpr int LD = D + PAD, KS = D / 16, ND = D / 8, NQ = BQ / 8,
+  // NTH threads; each warp's dk and dv columns: [c0, c0 + DO)
+  constexpr int NTH = NT_TC * kv_split(D), DO = D / kv_split(D);
+  constexpr int LD = D + PAD, KS = D / 16, ND = DO / 8, NQ = BQ / 8,
                 CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);   // BM x LD
@@ -652,7 +684,8 @@ __global__ void __launch_bounds__(NT_TC, MIN_BLOCKS<D>) dkv_bf16_kernel(
   int* qpos_s = reinterpret_cast<int*>(delta_s + 2 * BQ);        // 2 x BQ
 
   const int b = blockIdx.x, h = blockIdx.y, t0 = blockIdx.z * BM;
-  const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wr = ((tid >> 5) % NW) * 16, c0 = (tid >> 5) / NW * DO;
   const int g4 = lane >> 2, t4 = lane & 3;
   const int Hq = Hkv * G;
   const bool masked = causal || window > 0;
@@ -670,7 +703,7 @@ __global__ void __launch_bounds__(NT_TC, MIN_BLOCKS<D>) dkv_bf16_kernel(
   auto load_q = [&](int r0, int stage) {
     bf16* qs = qd_s + stage * 2 * BQ * LD;
     bf16* ds = qs + BQ * LD;
-    for (int i = tid; i < BQ * CH; i += NT_TC) {
+    for (int i = tid; i < BQ * CH; i += NTH) {
       const int rr = i / CH, c = i % CH, r = r0 + rr;
       const bool live = r < r_hi;
       const size_t off = row_of(live ? r : r_lo) * D + c * 8;
@@ -687,7 +720,7 @@ __global__ void __launch_bounds__(NT_TC, MIN_BLOCKS<D>) dkv_bf16_kernel(
     }
   };
 
-  for (int i = tid; i < BM * CH; i += NT_TC) {
+  for (int i = tid; i < BM * CH; i += NTH) {
     const int rr = i / CH, c = i % CH, kpos = t0 + rr;
     const bool live = kpos < kv_end;
     const size_t off =
@@ -773,8 +806,10 @@ __global__ void __launch_bounds__(NT_TC, MIN_BLOCKS<D>) dkv_bf16_kernel(
 #pragma unroll
       for (int np = 0; np < ND / 2; ++np) {
         uint32_t df[4], qf[4];
-        ldmatrix_x4_trans(df, dos + bt_offset(lane, LD, kk * 16, np * 16));
-        ldmatrix_x4_trans(qf, qs + bt_offset(lane, LD, kk * 16, np * 16));
+        ldmatrix_x4_trans(df,
+                          dos + bt_offset(lane, LD, kk * 16, c0 + np * 16));
+        ldmatrix_x4_trans(qf,
+                          qs + bt_offset(lane, LD, kk * 16, c0 + np * 16));
         mma(acc_v[2 * np], pa, df[0], df[1]);
         mma(acc_v[2 * np + 1], pa, df[2], df[3]);
         mma(acc_k[2 * np], sa, qf[0], qf[1]);
@@ -788,7 +823,7 @@ __global__ void __launch_bounds__(NT_TC, MIN_BLOCKS<D>) dkv_bf16_kernel(
   for (int h2 = 0; h2 < 2; ++h2) {
     if (kpos[h2] >= kv_end) continue;
     const size_t off = ((size_t)b * Skv + kpos[h2]) * tok + (size_t)h * D +
-                       2 * t4;
+                       c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
@@ -805,8 +840,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dq, void* dk, void* dv,
            void* delta, int B, int Sq, int Skv, int Hkv, int G, int causal,
            int window, float scale, float softcap, cudaStream_t stream) {
-  const long long q_tiles = ((long long)Sq * G + BR - 1) / BR;
-  const long long kv_tiles = ((long long)Skv + TILE - 1) / TILE;
+  constexpr int ROWS = f32_rows(D);   // dq's query rows, dk/dv's KV rows
+  const long long q_tiles = ((long long)Sq * G + ROWS - 1) / ROWS;
+  const long long kv_tiles = ((long long)Skv + ROWS - 1) / ROWS;
   if (q_tiles > 65535 || kv_tiles > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidConfiguration;
   const T* qt = static_cast<const T*>(q);
@@ -818,9 +854,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t err;
   // dq first: it writes delta, which the dk/dv kernel reads
   if (Sq > 0) {
-    const size_t smem = sizeof(float) * (2 * (size_t)BR * (D + 1) +
+    const size_t smem = sizeof(float) * (2 * (size_t)ROWS * (D + 1) +
                                          2 * (size_t)TILE * (D + 1) +
-                                         (size_t)BR * (TILE + 1));
+                                         (size_t)ROWS * (TILE + 1));
     auto kern = flash_bwd_dq_kernel<T, D>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -832,9 +868,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     if (err != cudaSuccess) return (int)err;
   }
   if (Skv > 0) {
-    const size_t smem = sizeof(float) * (2 * (size_t)TILE * (D + 1) +
+    const size_t smem = sizeof(float) * (2 * (size_t)ROWS * (D + 1) +
                                          2 * (size_t)BR * (D + 1) +
-                                         2 * (size_t)TILE * (BR + 1) + 2 * BR);
+                                         2 * (size_t)ROWS * (BR + 1) + 2 * BR);
     auto kern = flash_bwd_dkv_kernel<T, D>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -870,7 +906,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   cudaError_t err;
   // dq first: it writes delta, which the dk/dv kernel reads
   if (Sq > 0) {
-    const size_t smem = row * (3 * BM + 4 * BN);
+    const size_t smem = row * (3 * BM + 4 * dq_cols(D));
     auto kern = dq_bf16_kernel<D>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -888,7 +924,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kern<<<dim3(B, Hkv, (unsigned)kv_tiles), NT_TC, smem, stream>>>(
+    kern<<<dim3(B, Hkv, (unsigned)kv_tiles), NT_TC * kv_split(D), smem,
+           stream>>>(
         qt, kt, vt, lsef, dot, deltaf, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), Sq, Skv, Hkv, G, causal, window, scale,
         softcap);
@@ -905,7 +942,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
 // cudaError_t (0 = both launched).  Element type: is_bf16 = 1 for
 // bfloat16 (the tensor-core kernels; every bf16 pointer 16-byte aligned,
 // else cudaErrorMisalignedAddress), 0 for float32 (the CUDA-core kernels);
-// lse and delta are always float32; head dim 64 or 128.  Anything else
+// lse and delta are always float32; head dim 64, 128 or 256.  Anything else
 // returns cudaErrorInvalidValue without launching (the Python wrapper
 // checks first).
 extern "C" int flash_backward_launch(const void* q, const void* k,
@@ -927,6 +964,10 @@ extern "C" int flash_backward_launch(const void* q, const void* k,
       return launch_bf16<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
                               Sq, Skv, Hkv, G, causal, window, scale,
                               softcap, s);
+    if (D == 256)
+      return launch_bf16<256>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
+                              Sq, Skv, Hkv, G, causal, window, scale,
+                              softcap, s);
   } else {
     if (D == 64)
       return launch<float, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
@@ -934,6 +975,10 @@ extern "C" int flash_backward_launch(const void* q, const void* k,
                                softcap, s);
     if (D == 128)
       return launch<float, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
+                                Sq, Skv, Hkv, G, causal, window, scale,
+                                softcap, s);
+    if (D == 256)
+      return launch<float, 256>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
                                 Sq, Skv, Hkv, G, causal, window, scale,
                                 softcap, s);
   }

@@ -7,10 +7,11 @@ import torch
 # head dims of the dense-cache kernels K3 and K4 (80: zamba2's shared
 # attention block; 256: gemma3-4b); the paged kernels K1 and K2 take
 # PAGED_HEAD_DIMS (no path runs them at 80), the backward K5
-# BACKWARD_HEAD_DIMS (training at 80 or 256 waits for it: ROADMAP §2)
+# BACKWARD_HEAD_DIMS (256: gemma3-4b's training; zamba2's 80 waits for it
+# and for a Mamba2 backward: ROADMAP §2)
 HEAD_DIMS = (64, 80, 128, 256)
 PAGED_HEAD_DIMS = (64, 128, 256)
-BACKWARD_HEAD_DIMS = (64, 128)
+BACKWARD_HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -5,10 +5,15 @@ Smoke scale, on the GPU:
         --smoke
 
 The smoke configs' head dim (16) is below what the CUDA attention backward
-K5 takes (64 and 128), so on a CUDA device --smoke raises it to 64; on the
-CPU (--device cpu) the smoke config runs as it is, as in the JAX package.
-A full config whose head dim K5 does not take (gemma3-4b's 256) is refused
-on CUDA by the Trainer, naming K5, before anything is built.
+K5 takes (64, 128 and 256), so on a CUDA device --smoke raises it to 64; on
+the CPU (--device cpu) the smoke config runs as it is, as in the JAX
+package.  A full config whose head dim K5 does not take (zamba2's 80) is
+refused on CUDA by the Trainer, naming K5, before anything is built.
+
+gemma3-4b at full width on one H100 (2.99 B parameters, ~12 bytes each of
+training state):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \
+        --global-batch 4 --seq 2048 --steps 10
 
 Without --smoke the full config trains on one device with no mesh.  The
 JAX defaults for the full config (a global batch of 256 x 4096 tokens)

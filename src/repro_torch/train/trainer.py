@@ -33,8 +33,9 @@ from .train_step import init_train_state, make_train_step
 def check_backward(cfg: ModelConfig, device) -> None:
     """On the card the attention gradient is K5 (kernels/flash_backward.py,
     csrc/flash_backward.cu), with no fallback, and K5 takes the head dims
-    BACKWARD_HEAD_DIMS: refuse any other before a model is built or a
-    kernel launched (gemma3-4b's 256, zamba2's 80; ROADMAP §2)."""
+    BACKWARD_HEAD_DIMS (64, 128 and gemma3-4b's 256): refuse any other
+    before a model is built or a kernel launched (zamba2's 80; ROADMAP
+    §2)."""
     if torch.device(device).type == "cuda" and cfg.family != "ssm" \
             and cfg.head_dim not in BACKWARD_HEAD_DIMS:
         raise NotImplementedError(

@@ -11,19 +11,23 @@ tests/conformance.py) through both engines (tests/torch_replay.py).  Then
 three train steps of opt-6.7b's smoke config (LayerNorm, gelu and the
 position term under autograd), the sinusoidal positions themselves, the
 plain K1-K4 at gemma3-4b's head dim 256 against the JAX Pallas kernels in
-interpret mode, and the Trainer's refusal, on CUDA, of a head dim K5 does
-not take.
+interpret mode, the Trainer's refusal, on CUDA, of a head dim K5 does not
+take (80), and gemma3-4b's smoke config at head dim 256: its loss and
+gradients (float32 and bfloat16) and one train step.
 
 Bars: logits and written pools 1e-5 absolute (ROADMAP §3: XLA and ATen
 sum the projections in other orders); engine outputs equal or the
 teacher-forced near tie of tests/traffic.py, every count equal; train
 steps as test_train_steps_match_jax without compression (metrics 1e-5
 relative, params 1e-5 absolute, m and v 1e-5 of each leaf's largest
-|entry|); plain kernels 1e-5 absolute.  The position term: XLA's and
-ATen's float32 exp give frequencies up to one ulp apart (ROADMAP §3), and
-the angle p x f carries that ulp times p and its own float32 rounding,
-so the term at position p is held within 1e-6 + p |f_port - f_jax| + one
-ulp of p f per frequency - 1e-6 wherever the two frequencies are equal.
+|entry|); plain kernels 1e-5 absolute; gemma3-4b's loss and gradients at
+head dim 256 as test_loss_and_grads_match_jax (LOSS_BARS: float32 1e-5 on
+the loss and of each leaf's largest |gradient|, bfloat16 2e-2).  The
+position term: XLA's and ATen's float32 exp give frequencies up to one ulp
+apart (ROADMAP §3), and the angle p x f carries that ulp times p and its
+own float32 rounding, so the term at position p is held within 1e-6 + p
+|f_port - f_jax| + one ulp of p f per frequency - 1e-6 wherever the two
+frequencies are equal.
 """
 import math
 
@@ -50,8 +54,8 @@ from repro_torch.models import build_model
 from repro_torch.models.convert import (params_from_numpy,
                                         train_state_from_numpy)
 from repro_torch.models.layers import MAX_POSITION, sinusoidal_positions
-from repro_torch.train import make_train_step
-from repro_torch.train.trainer import Trainer
+from repro_torch.train import make_train_step, trainable
+from repro_torch.train.trainer import Trainer, check_backward
 from repro_torch.tree import leaves_with_paths
 from torch_replay import (assert_pages_conserved, assert_same_accounting,
                           one_torch_thread, replay_both, trace_kw)
@@ -299,18 +303,99 @@ def test_plain_dense_kernels_at_head_dim_256_match_jax():
     assert not got[0].any()
 
 
-def test_trainer_refuses_head_dim_256_on_cuda():
-    """On CUDA the attention gradient is K5, which takes head dims 64 and
-    128: gemma3-4b (256) is refused by the Trainer and the launcher,
-    naming K5, before a model is built or any kernel launched (on a
-    machine without a GPU, building would raise first otherwise)."""
+def test_trainer_refuses_head_dim_80_on_cuda():
+    """On CUDA the attention gradient is K5, which takes head dims 64, 128
+    and 256: zamba2 (80) and a dense config at head dim 80 are refused by
+    the Trainer and the launcher, naming K5, before a model is built or
+    any kernel launched (on a machine without a GPU, building would raise
+    first otherwise); gemma3-4b's 256 passes the check."""
     counts = (flash_attention.launches, flash_backward.launches)
     tcfg = TrainConfig(global_batch=1, seq_len=16, total_steps=1)
-    for cfg in (get_config("gemma3-4b"),
-                get_smoke_config("gemma3-4b").replace(head_dim=256)):
+    for cfg in (get_config("zamba2-2.7b"),
+                get_smoke_config("gemma3-4b").replace(head_dim=80)):
         with pytest.raises(NotImplementedError, match="K5"):
             Trainer(cfg, tcfg, device="cuda")
     with pytest.raises(NotImplementedError, match="K5 flash_attention_bwd"):
-        train_launcher.main(["--arch", "gemma3-4b", "--steps", "1",
+        train_launcher.main(["--arch", "zamba2-2.7b", "--steps", "1",
                              "--global-batch", "1", "--seq", "16"])
     assert (flash_attention.launches, flash_backward.launches) == counts
+    for cfg in (get_config("gemma3-4b"),
+                get_smoke_config("gemma3-4b").replace(head_dim=256)):
+        check_backward(cfg, "cuda")
+
+
+# gemma3-4b's smoke config at its full head dim 256, the same .replace in
+# both packages: the loss and its gradients, and one train step
+# dtype -> (loss bar, gradient bar relative to each leaf's max |grad|), as
+# tests/test_torch_train.py LOSS_BARS
+LOSS_BARS = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+# 64 tokens a row: the smoke window of 32 binds
+G256_BATCH = (2, 64)
+
+
+def _gemma256(dtype):
+    jcfg = jax_smoke_config("gemma3-4b").replace(dtype=dtype, head_dim=256)
+    cfg = get_smoke_config("gemma3-4b").replace(dtype=dtype, head_dim=256)
+    return jcfg, cfg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemma3_head_dim_256_loss_and_grads_match_jax(dtype):
+    """Model.loss and every gradient leaf (K4's forward and K5's backward
+    rule in their plain versions, QK-norm, the embedding scale, the tied
+    unembed) against jax.value_and_grad of the JAX Model.loss, on a
+    numpy-seeded batch."""
+    jcfg, cfg = _gemma256(dtype)
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(cfg, device="cpu")
+    tp = trainable(params_from_numpy(jax.device_get(jp), cfg, "cpu"))
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, G256_BATCH).astype(np.int32)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: jm.loss(p, {"tokens": jnp.asarray(toks)}),
+        has_aux=True)(jp)
+    tl, _ = tm.loss(tp, {"tokens": torch.from_numpy(toks)})
+    tl.backward()
+    loss_bar, grad_bar = LOSS_BARS[dtype]
+    assert abs(float(tl.detach()) - float(jl)) <= loss_bar
+    want = dict(leaves_with_paths(jax.device_get(jg)))
+    paths = [path for path, _ in leaves_with_paths(tp)]
+    assert sorted(paths) == sorted(want)
+    for path, p in leaves_with_paths(tp):
+        assert p.grad is not None and p.grad.dtype == p.dtype, path
+        g, w = _np32(p.grad), np.asarray(want[path], np.float32)
+        rel = np.abs(g - w).max() / np.abs(w).max()
+        assert rel <= grad_bar, (path, rel)
+
+
+def test_gemma3_head_dim_256_train_step_matches_jax():
+    """One train step (float32, remat full) from one JAX TrainState on a
+    numpy-seeded batch, at the bars of test_opt_train_steps_match_jax."""
+    jcfg, cfg = _gemma256("float32")
+    kw = dict(global_batch=G256_BATCH[0], seq_len=G256_BATCH[1],
+              learning_rate=1e-3, warmup_steps=1, total_steps=10,
+              remat="full")
+    jm = jax_build_model(jcfg)
+    jstate = j_init_train_state(jm, jax.random.PRNGKey(0),
+                                JaxTrainConfig(**kw))
+    host = jax.device_get(jstate)
+    b = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, G256_BATCH).astype(np.int32)
+    jstate, want = jax.jit(j_make_train_step(jm, JaxTrainConfig(**kw)))(
+        jstate, {"tokens": jnp.asarray(b)})
+    state = train_state_from_numpy(host.params, host.opt, host.ef, cfg,
+                                   "cpu")
+    step = make_train_step(build_model(cfg, device="cpu"), TrainConfig(**kw))
+    state, got = step(state, {"tokens": torch.from_numpy(b)})
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    for name, port, ref_tree in (("params", state.params, jstate.params),
+                                 ("m", state.opt.m, jstate.opt.m),
+                                 ("v", state.opt.v, jstate.opt.v)):
+        want_t = dict(leaves_with_paths(jax.device_get(ref_tree)))
+        for path, t in leaves_with_paths(port):
+            w = np.asarray(want_t[path])
+            bar = BAR if name == "params" else BAR * np.abs(w).max()
+            assert np.abs(_np32(t) - w).max() <= bar, (name, path)

@@ -2,10 +2,12 @@
 against the JAX package, and the port's attention gradient on the CPU.
 
 On the cases of tests/test_kernels_flash_bwd.py (GQA, non-causal, window
-128, softcap 25, S = 200 padding) the same numpy q, k, v, do - with o and
-lse from the port's forward - go through the port's plain backward, the
-JAX oracle ops._flash_bwd_rule (impl "ref") and the JAX Pallas backward
-kernels in interpret mode, as the JAX package's own tests run them.
+128, softcap 25, S = 200 padding), and at gemma3-4b's head dim 256 (GQA
+with G 2, causal, and with a window of 128), the same numpy q, k, v, do -
+with o and lse from the port's forward - go through the port's plain
+backward, the JAX oracle ops._flash_bwd_rule (impl "ref") and the JAX
+Pallas backward kernels in interpret mode, as the JAX package's own tests
+run them.
 
 Bars: float32 within 1e-5 of the largest |gradient|, against both.
 bfloat16 against the oracle only: the oracle and the port round p and ds
@@ -34,8 +36,11 @@ CASES = [
     (1, 256, 2, 2, 32, True, 128, 0.0),    # sliding window
     (1, 256, 2, 2, 32, True, 0, 25.0),     # softcap
     (1, 200, 2, 1, 32, True, 0, 0.0),      # padding + group 2
+    (1, 256, 4, 2, 256, True, 0, 0.0),     # gemma3-4b's head dim, G 2
+    (1, 256, 4, 2, 256, True, 128, 0.0),   # and its sliding window
 ]
-IDS = ["causal", "gqa", "full", "window", "softcap", "pad_g2"]
+IDS = ["causal", "gqa", "full", "window", "softcap", "pad_g2", "d256_g2",
+       "d256_window"]
 
 
 def _inputs(case, dtype=torch.float32, seed=0):

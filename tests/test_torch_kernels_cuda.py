@@ -7,7 +7,7 @@ that is no tile multiple, fewer queries than keys; dense decode lengths 0,
 1 and the whole strip, one length for every lane; the FA-2 backward K5
 over causal, full, window and softcap attention at S = 200 and 256, and
 through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
-80, zamba2's shared attention block; K1-K4 also 256, gemma3-4b's, and
+80, zamba2's shared attention block; K1-K5 also 256, gemma3-4b's, and
 K1 and K2 GQA groups of 7, qwen-7b's 28 / 4 heads); K4 and K5 at the
 edges of their tensor-core tiles (lengths 1, 15, 17 and 200, fewer
 queries than keys,
@@ -354,7 +354,7 @@ def bwd_close(got, want, terms, dtype, names=("dq", "dk", "dv")):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(BWD_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_backward_kernel_matches_plain(dev, D, G, variant, dtype, S):
     dt = DTYPES[dtype]
     causal, window, softcap = BWD_VARIANTS[variant]
@@ -436,7 +436,7 @@ EDGE_VARIANTS = {"causal": (True, 0, 0.0), "full": (False, 0, 0.0),
 # (D, G): every group size at head dim 64, then the other head dims
 FWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (80, 2), (128, 2),
                (256, 2)]
-BWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 2)]
+BWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 2), (256, 2)]
 
 
 def _edge_case(dev, dt, D, G, sq, skv, seed):
@@ -534,7 +534,7 @@ def single_key_close(got, want, terms, q, k, o, do, dtype):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", ["causal", "full"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_backward_is_bit_deterministic(dev, D, variant, dtype):
     """Three K5 calls on the same inputs give the same bits in dq, dk and
     dv: no atomics, one summation order (remat and resume rely on it)."""
