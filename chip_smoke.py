@@ -61,6 +61,28 @@ Phases (each raises on failure, so the run exits non-zero):
                         differs passes the teacher-forced check at
                         SERVED_TOKEN_BAR; at least one verify launch, a
                         prefix hit, and preemptions that all resumed.
+                        the span tracer, deadlines, the fleet: the same
+                        model serves, counted as above: telemetry (the
+                        chunked traffic with ServeConfig(telemetry=True):
+                        its tokens, launch records and launch_log rows
+                        without wall time equal the chunked run's, a
+                        second run traces the same deterministic records,
+                        the Perfetto export in both clocks written under
+                        chiprun_out/m6d_traces and parsed back, the
+                        movement model's totals - first-order bytes and
+                        the paper's 16 nm energy table, not a reading of
+                        the card); deadline (the chunked prompts on 4
+                        slots with DEADLINES: requests expire while
+                        queued, prefilling and decoding, every uid ends
+                        done or timeout, every page back in the pool,
+                        the done requests against the same traffic
+                        without deadlines); fleet (the prefix traffic
+                        through 2 replicas of 1 slot, affinity dispatch,
+                        replica 1 failed while it holds a queued and an
+                        in-flight request, every request done, K1 / K2 40
+                        x the replicas' chunk batches / decodes, no
+                        implicit sync in the router's ticks, outputs
+                        against a 1-replica fleet).
                         training: granite-3-2b at full width trains 4 x
                         2048 tokens a step with remat "full" through
                         init_train_state, make_train_step and
@@ -142,12 +164,16 @@ Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K7), one
 prefix_monolithic and preempt, one {"e2e": ...} line (the chunked run),
 one {"e2e_dense": ...}, one {"e2e_paged_monolithic": ...}, one
 {"e2e_train": ...}, one {"e2e_recurrent": ...} and one {"e2e_<run>": ...}
-line for each of those four runs (its reference run inside), and as the
-last line {"ok": true, "device": {...}}.  Without a GPU it exits
+line for each of those four runs (its reference run inside), one
+{"e2e_dense_family": ...}, one {"e2e_telemetry": ...} and one
+{"e2e_deadline": ...} line (each with its reference run inside) and one
+{"e2e_fleet": ...} line, the card line again, and as the last line {"ok":
+true, "device": {...}}.  Without a GPU it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -177,7 +203,8 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layers import embed  # noqa: E402
 from repro_torch.models.transformer import n_shared_applications  # noqa
 from repro_torch.optim import global_norm  # noqa: E402
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve import (FleetConfig, FleetRouter,  # noqa: E402
+                               ServeEngine)
 from repro_torch.train import init_train_state, make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_paths, map_tree  # noqa
@@ -222,6 +249,18 @@ PREFIX_SUFFIXES = ((16, 80, 144, 208), (48, 112, 176, 256, 0))
 PREEMPT_BACKGROUND = (200, 300, 1500, 1900)
 PREEMPT_BURST = (1800, 1800)
 PREEMPT_USABLE = 260
+# request deadlines: the chunked traffic's prompts on 4 slots, so that
+# requests queue, each with its work-clock deadline (None: none).  The
+# scheduler alone decides where each expires, the same for any weights:
+# requests 1 and 5 while decoding, 7 queued, 8 prefilling
+DEADLINE_SCFG = dict(SCFG, max_batch=4)
+DEADLINES = (990, None, None, None, 1050, None, 2500, 3000)
+# the fleet: replicas of 1 slot with the prefix cache, affinity dispatch,
+# over the prefix traffic (so each replica queues a request of the first
+# wave behind another); replica 1 fails at the first tick at which it
+# holds a queued request and one in flight
+FLEET_SCFG = dict(SCFG, prefix_cache=True, max_batch=1)
+FLEET_REPLICAS = 2
 RUNS = {"chunked": SCFG,
         "dense": dict(max_batch=8, max_seq=2048, max_new_tokens=NEW_TOKENS,
                       paged=False, chunked=False),
@@ -231,12 +270,14 @@ RUNS = {"chunked": SCFG,
         "prefix_monolithic": dict(SCFG, chunked=False, prefix_cache=True),
         "preempt": dict(SCFG, preemption=True, prefix_cache=True,
                         usable_pages=PREEMPT_USABLE),
-        "preempt_free": dict(SCFG, preemption=True, prefix_cache=True)}
+        "preempt_free": dict(SCFG, preemption=True, prefix_cache=True),
+        "telemetry": dict(SCFG, telemetry=True),
+        "deadline": DEADLINE_SCFG, "deadline_free": DEADLINE_SCFG}
 # the traffic of each run (see traffic())
 TRAFFIC = {"speculative": "ngrams", "speculative_off": "ngrams",
            "prefix": "prefix", "prefix_off": "prefix",
            "prefix_monolithic": "prefix", "preempt": "burst",
-           "preempt_free": "burst"}
+           "preempt_free": "burst", "deadline": "deadline"}
 # the runs of the speculative, prefix and preemption slice, each beside
 # the run it is checked against (the same traffic without the feature)
 M6_RUNS = {"speculative": "speculative_off", "prefix": "prefix_off",
@@ -252,7 +293,8 @@ EXPECTED = {
                     "K2": ("decode",)},
     "speculative_off": _CHUNKED, "prefix": _CHUNKED, "prefix_off": _CHUNKED,
     "prefix_monolithic": {"K1": ("chunk",), "K2": ("decode",)},
-    "preempt": _CHUNKED, "preempt_free": _CHUNKED}
+    "preempt": _CHUNKED, "preempt_free": _CHUNKED, "telemetry": _CHUNKED,
+    "deadline": _CHUNKED, "deadline_free": _CHUNKED}
 # kernel -> (module, launch counter)
 COUNTERS = {"K1": (paged_prefill, "launches"),
             "K2": (flash_decode, "launches"),
@@ -624,17 +666,20 @@ def _quiet(fetch):
 
 
 def traffic(kind: str, vocab: int, lens=PROMPT_LENS):
-    """A run's requests as waves of (tick, prompt, priority); a wave is
-    submitted tick by tick from the moment the wave before it has drained.
-    "random": one seeded prompt per `lens`, all at tick 0; "ngrams":
-    per SPEC_LENS a prompt repeating its own seeded n-gram of 3 to 10
-    tokens; "prefix": PREFIX_LEN shared tokens plus a seeded suffix of
-    each PREFIX_SUFFIXES length, in two waves; "burst": PREEMPT_BACKGROUND
-    at priority 0, tick 0, then PREEMPT_BURST at priority 5, tick 2."""
+    """A run's requests as waves of (tick, prompt, priority[, deadline]); a
+    wave is submitted tick by tick from the moment the wave before it has
+    drained.  "random": one seeded prompt per `lens`, all at tick 0;
+    "deadline": the same prompts with DEADLINES; "ngrams": per SPEC_LENS
+    a prompt repeating its own seeded n-gram of 3 to 10 tokens; "prefix":
+    PREFIX_LEN shared tokens plus a seeded suffix of each PREFIX_SUFFIXES
+    length, in two waves; "burst": PREEMPT_BACKGROUND at priority 0, tick
+    0, then PREEMPT_BURST at priority 5, tick 2."""
     rng = np.random.default_rng(0)
     rand = lambda n: rng.integers(1, vocab, n).tolist()
     if kind == "random":
         return [[(0, rand(n), 0) for n in lens]]
+    if kind == "deadline":
+        return [[(0, rand(n), 0, d) for n, d in zip(lens, DEADLINES)]]
     if kind == "ngrams":
         return [[(0, (rand(3 + i) * n)[:n], 0)
                  for i, n in enumerate(SPEC_LENS)]]
@@ -651,8 +696,9 @@ def run_traffic(model, params, run: str, count_syncs: bool,
     """Serve the run's traffic (traffic(TRAFFIC[run]), or `waves`) under
     ServeConfig(**RUNS[run]) (or `scfg`) to completion.  Returns (engine,
     per-tick wall seconds, implicit sync warnings, wall seconds, the
-    preempted requests as (tick, uid, state, prefill cursor, tokens out)
-    at their preemption)."""
+    preempted and the expired requests as (tick, uid, state, prefill
+    cursor, tokens out) at their preemption or expiry, each tagged with
+    its kind in the last field)."""
     eng = ServeEngine(model, params, ServeConfig(**(scfg or RUNS[run])))
     pending = waves or traffic(TRAFFIC.get(run, "random"),
                                model.cfg.vocab_size)
@@ -662,13 +708,9 @@ def run_traffic(model, params, run: str, count_syncs: bool,
         for name in fetches:
             setattr(eng, name, _quiet(getattr(eng, name)))
     victims = []
-    preempt = eng._preempt
-
-    def noted_preempt(v):
-        victims.append((eng.sched.ticks, v.uid, v.state.value,
-                        v.prefill_pos, len(v.out_tokens)))
-        preempt(v)
-    eng._preempt = noted_preempt
+    for name in ("_preempt", "_expire"):
+        eng.__dict__[name] = _noted(eng, getattr(eng, name), victims,
+                                    name[1:])
     tick_s, syncs, wave_t0 = [], 0, 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -680,8 +722,9 @@ def run_traffic(model, params, run: str, count_syncs: bool,
             continue
         while pending and pending[0] and pending[0][0][0] \
                 <= len(tick_s) - wave_t0:
-            _, prompt, prio = pending[0].pop(0)
-            eng.submit(prompt, priority=prio)
+            _, prompt, prio, *deadline = pending[0].pop(0)
+            eng.submit(prompt, priority=prio,
+                       deadline=deadline[0] if deadline else None)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             if count_syncs:
@@ -698,17 +741,29 @@ def run_traffic(model, params, run: str, count_syncs: bool,
             raise AssertionError("traffic did not drain in 1000 ticks")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for name in fetches + ("_preempt",):
+    for name in fetches + ("_preempt", "_expire"):
         eng.__dict__.pop(name, None)
     return eng, tick_s, syncs, wall, victims
 
 
-def counted_run(model, params, run: str):
+def _noted(eng, fn, log_, kind):
+    """fn (a request's preemption or expiry), which first logs (tick, uid,
+    state, prefill cursor, tokens out, kind) to log_."""
+    def noted(req):
+        log_.append((eng.sched.ticks, req.uid, req.state.value,
+                     req.prefill_pos, len(req.out_tokens), kind))
+        fn(req)
+    return noted
+
+
+def counted_run(model, params, run: str, keep=None):
     """Every launch count set to 0, the run's traffic with sync counting,
     the counts read; raises unless each kernel launched 40 x its kinds'
-    engine launches (and the others not at all), every request got its
-    tokens, every tick kept its launch and fetch shape, and no implicit
-    sync happened."""
+    engine launches (and the others not at all), every request finished
+    (the deadline run's may time out) and those done got their tokens,
+    every tick kept its launch and fetch shape, and no implicit sync
+    happened.  `keep(engine)` adds host values of the engine to the
+    result (the engine itself, and its cache, are let go)."""
     cfg, scfg = model.cfg, RUNS[run]
     n_requests = sum(map(len, traffic(TRAFFIC.get(run, "random"), 1 << 15)))
     torch.cuda.reset_peak_memory_stats()
@@ -718,11 +773,14 @@ def counted_run(model, params, run: str):
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     done = eng.sched.finished
+    ends = {"done", "timeout"} if run == "deadline" else {"done"}
     if len(done) != n_requests or any(
-            len(r.out_tokens) != NEW_TOKENS for r in done):
+            len(r.out_tokens) != NEW_TOKENS for r in done
+            if r.state.value == "done") \
+            or not {r.state.value for r in done} <= ends:
+        got = [(r.state.value, len(r.out_tokens)) for r in done]
         raise AssertionError(f"{run}: not every request finished with "
-                             f"{NEW_TOKENS} tokens: "
-                             f"{[len(r.out_tokens) for r in done]}")
+                             f"{NEW_TOKENS} tokens: {got}")
     for calls, host, _, n_chunks, n_dec in eng.launch_log:
         # chunked: at most a chunk batch, a verify and a decode launch and
         # at most one fetch, one in every tick with a decoding slot;
@@ -755,8 +813,10 @@ def counted_run(model, params, run: str):
     if toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError("generated token ids out of the vocabulary")
     counts = {k: kinds.count(k) for k in sorted(set(kinds))}
-    log(f"# {run}: served {len(done)} requests x {NEW_TOKENS} tokens in "
-        f"{len(eng.launch_log)} ticks: engine launches {counts}, kernel "
+    n_done = sum(r.state.value == "done" for r in done)
+    log(f"# {run}: served {n_done} of {len(done)} requests x {NEW_TOKENS} "
+        f"tokens in {len(eng.launch_log)} ticks: engine launches {counts}, "
+        f"kernel "
         f"launches {launches}, implicit host syncs in the ticks: {syncs}")
     stats = eng.stats()
     ticks = len(eng.launch_log)
@@ -781,11 +841,17 @@ def counted_run(model, params, run: str):
            "host_syncs": stats["host_syncs"]}
     if run in M6_RUNS or run in M6_RUNS.values():
         e2e.update(slice_stats, victims=victims)
-    return {"launches": launches,
-            "per_tick": {k: n / ticks for k, n in launches.items()},
-            "e2e": e2e, "stats": slice_stats, "victims": victims,
-            "finished": [(r.uid, list(r.prompt), list(r.out_tokens))
-                         for r in sorted(done, key=lambda r: r.uid)]}
+    out = {"launches": launches,
+           "per_tick": {k: n / ticks for k, n in launches.items()},
+           "e2e": e2e, "stats": slice_stats, "victims": victims,
+           "finished": [(r.uid, list(r.prompt), list(r.out_tokens))
+                        for r in sorted(done, key=lambda r: r.uid)],
+           "records": [dataclasses.astuple(r)
+                       for r in eng.launch_records()],
+           "log": [(c, h, n, d) for c, h, _, n, d in eng.launch_log]}
+    if keep is not None:
+        out.update(keep(eng))
+    return out
 
 
 def phase_slice():
@@ -960,6 +1026,221 @@ def phase_m6(model, params):
                              "and decoding victims that all resumed and "
                              "finished")
     return runs, {"K1_verify": cv.best}
+
+
+# ---------------------------------------------------------------------------
+# phase 3, request deadlines, the span tracer, the fleet router
+# ---------------------------------------------------------------------------
+
+TRACE_DIR = ROOT / "chiprun_out" / "m6d_traces"
+
+
+def _traced(eng):
+    """The telemetry run's host-side record: its tracer's deterministic
+    view, span count, the movement model's totals, and the Perfetto
+    export in both clocks, each written to TRACE_DIR and parsed back."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    exports = {}
+    for clock in ("wall", "work"):
+        path = TRACE_DIR / f"telemetry_{clock}.json"
+        trace = eng.export_trace(str(path), clock=clock)
+        if json.loads(path.read_text()) != json.loads(json.dumps(trace)):
+            raise AssertionError(f"telemetry: the {clock}-clock export "
+                                 f"does not parse back to what it wrote")
+        exports[clock] = {"events": len(trace["traceEvents"]),
+                          "bytes": path.stat().st_size}
+    tr = eng.tm.tracer
+    return {"trace": tr.deterministic_trace(), "spans": len(tr.spans()),
+            "events": len(tr.events()), "dropped": tr.dropped,
+            "movement": eng.movement_stats()["total"], "exports": exports}
+
+
+def _deadline_kept(eng):
+    return {"statuses": eng.request_statuses(),
+            "pages_in_use": eng.allocator.used_pages,
+            "table_clear": not eng.allocator.table.any()}
+
+
+def run_fleet(model, params, n: int, fail: bool):
+    """The prefix traffic through a FleetRouter of n replicas (FLEET_SCFG,
+    affinity), check_invariants() after every tick, implicit host syncs
+    counted inside the router's ticks (each replica's token fetches
+    excepted).  With `fail`, replica 1 fails at the first tick at which it
+    holds a queued request and one in flight.  Returns (router, per-tick
+    wall seconds, implicit syncs, wall seconds, (tick, the states replica
+    1 held, the fleet uids it owed) of the failure or None)."""
+    router = FleetRouter(model, params, ServeConfig(**FLEET_SCFG),
+                         FleetConfig(n_replicas=n))
+    fetches = ("_fetch_tokens", "_fetch_first_token")
+    for eng in router.engines:
+        for name in fetches:
+            setattr(eng, name, _quiet(getattr(eng, name)))
+    pending = [list(w) for w in traffic("prefix", model.cfg.vocab_size)]
+    tick_s, syncs, wave_t0, failed = [], 0, 0, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pending or not router.idle:
+        if pending and router.idle and not pending[0]:
+            pending.pop(0)
+            wave_t0 = len(tick_s)
+            continue
+        while pending and pending[0] and pending[0][0][0] \
+                <= len(tick_s) - wave_t0:
+            _, prompt, prio = pending[0].pop(0)
+            router.submit(prompt, priority=prio)
+        if fail and failed is None:
+            e1 = router.engines[1]
+            held = {r.state.value for r in e1.queue} \
+                | {r.state.value for r in e1.slots if r is not None}
+            if "queued" in held and held & {"prefilling", "decoding"}:
+                failed = (len(tick_s), sorted(held), router.fail(1))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            ts = time.perf_counter()
+            try:
+                router.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            tick_s.append(time.perf_counter() - ts)
+        syncs += sum("synchroniz" in str(w.message) for w in caught)
+        router.check_invariants()
+        if len(tick_s) > 1000:
+            raise AssertionError("fleet traffic did not drain in 1000 ticks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for eng in router.engines:
+        for name in fetches:
+            eng.__dict__.pop(name, None)
+    return router, tick_s, syncs, wall, failed
+
+
+def _fleet_finished(router):
+    return [(f, list(r.prompt), list(r.out_tokens))
+            for f, r in sorted(router.requests.items())]
+
+
+def phase_m6d_m7(model, params, chunked):
+    """The span tracer, request deadlines and the fleet router on
+    granite-3-2b at full width.  telemetry: the chunked traffic with the
+    tracer on, counted, against the chunked run (`chunked`: the same
+    tokens, launch records and launch_log rows), twice (the same
+    deterministic trace).  deadline: the chunked prompts on 4 slots with
+    DEADLINES, counted, expiring requests while queued, prefilling and
+    decoding, every page back after the drain, the done requests against
+    the same traffic without deadlines.  fleet: the prefix traffic
+    through FLEET_REPLICAS replicas, replica 1 failed mid-trace, every
+    request done, counted, against a 1-replica fleet."""
+    runs = {}
+    on = runs["telemetry"] = counted_run(model, params, "telemetry",
+                                         keep=_traced)
+    again = run_traffic(model, params, "telemetry", count_syncs=False)[0]
+    if again.tm.tracer.deterministic_trace() != on["trace"]:
+        raise AssertionError("telemetry: two runs of the same traffic "
+                             "traced different records")
+    del again
+    for key in ("finished", "records", "log"):
+        if on[key] != chunked[key]:
+            raise AssertionError(f"telemetry: {key} differ from the "
+                                 f"chunked run without the tracer")
+    mv = on["movement"]
+    log(f"# telemetry: tokens, {len(on['records'])} launch records and "
+        f"{len(on['log'])} launch_log rows equal to the chunked run's; "
+        f"{on['spans']} spans, {on['events']} events, {on['dropped']} "
+        f"dropped, the same deterministic trace twice; exports "
+        f"{on['exports']}; tick wall p50 {on['e2e']['tick_ms_median']:.2f} "
+        f"ms on, {chunked['e2e']['tick_ms_median']:.2f} ms off (the chunked "
+        f"run); the movement model (first-order bytes, the paper's 16 nm "
+        f"energy table - not a measurement of this card): "
+        f"{mv['hbm_bytes']:.4e} HBM bytes, {mv['sram_bytes']:.4e} SRAM "
+        f"bytes, {mv['energy_j']:.4e} J, padding {mv['padding_overhead']:.4f}")
+    on["e2e"].update(
+        spans=on["spans"], events=on["events"], dropped=on["dropped"],
+        exports=on["exports"], same_as_chunked=True,
+        tick_ms_median_off=chunked["e2e"]["tick_ms_median"],
+        movement_model_paper_16nm={k: mv[k] for k in (
+            "launches", "kv_read_bytes", "kv_write_bytes", "weight_bytes",
+            "act_bytes", "hbm_bytes", "sram_bytes", "energy_j",
+            "padding_overhead")})
+    del on["trace"]
+
+    free = runs["deadline_free"] = counted_run(model, params, "deadline_free")
+    dl = runs["deadline"] = counted_run(model, params, "deadline",
+                                        keep=_deadline_kept)
+    expired = [v for v in dl["victims"] if v[-1] == "expire"]
+    states = {v[2] for v in expired}
+    timeouts = sorted(u for u, s in dl["statuses"].items() if s == "timeout")
+    if not set(dl["statuses"].values()) <= {"done", "timeout"} \
+            or len(dl["statuses"]) != len(DEADLINES) \
+            or states != {"queued", "prefilling", "decoding"} \
+            or sorted(v[1] for v in expired) != timeouts \
+            or dl["pages_in_use"] or not dl["table_clear"]:
+        raise AssertionError(f"deadline: statuses {dl['statuses']}, "
+                             f"expired {expired}, {dl['pages_in_use']} "
+                             f"pages in use after the drain")
+    done = {u for u, s in dl["statuses"].items() if s == "done"}
+    dl["e2e"]["outputs"] = outputs_agree(
+        model, params, "deadline", "deadline_free",
+        dict(dl, finished=[f for f in dl["finished"] if f[0] in done]),
+        free)
+    dl["e2e"].update(statuses=dl["statuses"], expired=expired,
+                     timeouts=len(timeouts))
+    log(f"# deadline: {len(timeouts)} of {len(DEADLINES)} requests timed "
+        f"out (tick, uid, state, prefill cursor, tokens out: {expired}); "
+        f"every uid terminal, every page back in the pool")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    router, tick_s, syncs, wall, failed = run_fleet(model, params,
+                                                    FLEET_REPLICAS, True)
+    launches = read_counts()
+    kinds = [r.kind for e in router.engines for r in e.launch_records()]
+    want = {k: model.cfg.n_layers * sum(kinds.count(kind)
+                                        for kind in _CHUNKED.get(k, ()))
+            for k in COUNTERS}
+    statuses = router.statuses()
+    if failed is None or set(statuses.values()) != {"done"} \
+            or launches != want or syncs:
+        raise AssertionError(f"fleet: failure {failed}, statuses "
+                             f"{statuses}, kernel launches {launches} "
+                             f"(want {want}), {syncs} implicit syncs")
+    for i, eng in enumerate(router.engines):
+        if router.states[i].value != "dead" and eng.allocator.used_pages \
+                != eng.prefix.cached_pages:
+            raise AssertionError(f"fleet: replica {i} leaked pages")
+    one = run_fleet(model, params, 1, False)[0]
+    got = {"finished": _fleet_finished(router)}
+    st = router.fleet_stats()
+    e2e = {"replicas": FLEET_REPLICAS, "failed": failed,
+           "dispatch": st["dispatch"], "redispatches": st["redispatches"],
+           "affinity_hits": st["affinity_hits"],
+           "affinity_hit_tokens": st["affinity_hit_tokens"],
+           "replica_states": st["replica_states"],
+           "gen_tokens": st["gen_tokens"],
+           "prefill_tokens": st["prefill_tokens"],
+           "prefix_hit_tokens": st["prefix_hit_tokens"],
+           "ticks": len(tick_s), "wall_s": wall,
+           "gen_tok_s": st["gen_tokens"] / wall,
+           "tick_ms_median": float(np.median(tick_s)) * 1e3,
+           "tick_ms_p95": float(np.percentile(tick_s, 95)) * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "kernel_launches": launches, "implicit_syncs": syncs,
+           "host_syncs": st["host_syncs"],
+           "one_replica": {"dispatch": one.fleet_stats()["dispatch"],
+                           "gen_tokens": one.fleet_stats()["gen_tokens"]}}
+    e2e["outputs"] = outputs_agree(model, params, "fleet", "fleet of 1",
+                                   got, {"finished": _fleet_finished(one)})
+    log(f"# fleet: {FLEET_REPLICAS} replicas, replica 1 failed at tick "
+        f"{failed[0]} holding {failed[1]} requests, {len(failed[2])} "
+        f"redispatched; dispatch counts {st['dispatch']}, redispatches "
+        f"{st['redispatches']}, affinity hits {st['affinity_hits']} "
+        f"({st['affinity_hit_tokens']} tokens); every request done; kernel "
+        f"launches {launches}; implicit host syncs in the ticks: {syncs}")
+    runs["fleet"] = {"launches": launches, "e2e": e2e,
+                     "per_tick": {k: v / len(tick_s)
+                                  for k, v in launches.items()}}
+    del router, one
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2171,6 +2452,7 @@ def main() -> int:
     m6_runs, m6_captured = phase_m6(*mp)
     runs.update(m6_runs)
     captured.update(m6_captured)
+    runs.update(phase_m6d_m7(*mp, runs["chunked"]))
     trace = phase_trace(*mp, "chunked", runs["chunked"]["e2e"]["wall_s"])
     trace_dense = phase_trace(*mp, "dense", runs["dense"]["e2e"]["wall_s"])
     trace_pm = phase_trace(*mp, "paged_monolithic",
@@ -2213,6 +2495,12 @@ def main() -> int:
         print(json.dumps({f"e2e_{run}": dict(runs[run]["e2e"], reference=dict(
             runs[ref]["e2e"], name=ref))}), flush=True)
     print(json.dumps({"e2e_dense_family": e2e_df}), flush=True)
+    for run, ref in (("telemetry", "chunked"), ("deadline", "deadline_free"),
+                     ("fleet", None)):
+        e2e = dict(runs[run]["e2e"])
+        if ref is not None:
+            e2e["reference"] = dict(runs[ref]["e2e"], name=ref)
+        print(json.dumps({f"e2e_{run}": e2e}), flush=True)
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,35 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks), the JAX
+        package's formula for the families the port carries (its MoE and
+        encoder-decoder terms come with those families)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        n_ffn_mats = 3 if self.act == "silu" else 2
+        if self.rwkv:
+            per_layer = d * d * 4 + d * f * 2 + 10 * d
+        elif self.family in ("ssm", "hybrid"):
+            # Mamba2 block: in_proj (z, x, B, C, dt), depthwise conv,
+            # out_proj; zamba2-style hybrids put the MLP only in the shared
+            # attention block
+            d_in = self.ssm_expand * d
+            per_layer = d * (2 * d_in + 2 * self.ssm_state) + d_in * d
+        else:
+            per_layer = attn + n_ffn_mats * d * f
+        total = self.n_layers * per_layer \
+            + v * d * (1 if self.tie_embeddings else 2)
+        if self.shared_attn_every:
+            total += attn + n_ffn_mats * d * f
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token: all of them for every family the
+        port carries (MoE, where it differs, is not ported)."""
+        return self.param_count()
+
 
 @dataclass(frozen=True)
 class TrainConfig:

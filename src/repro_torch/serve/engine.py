@@ -62,6 +62,25 @@ fully written pages park in the prefix tree (or return to the pool), and
 they requeue as RESUMING with prompt + generated-so-far as their target,
 so a resumed greedy request emits what an uninterrupted one would.
 
+Request deadlines (submit(deadline=...) or
+ServeConfig.default_deadline_tokens): a request whose work-clock age - the
+engine work executed since its submit - reaches its deadline is expired
+at the top of the next tick, whether queued, prefilling or decoding
+(_expire_deadlines -> _expire): it finishes TIMEOUT, and its slot and
+pages are freed that tick the way a preemption victim's are (fully
+written positions publish into the prefix tree).  request_statuses()
+names every accepted request's state.  submit(max_retries=...) is stored
+for the fleet router (serve/router.py), which redispatches a dead
+replica's requests at most that many times.
+
+Span tracing (ServeConfig.telemetry): request lifecycle phases, launches
+and the tick's plan / device_get / tick phases go into a bounded ring
+(serve/telemetry.py SpanTracer), exportable as Perfetto JSON
+(export_trace).  Every stamp is the host's clock and every argument a host
+value, so tracing adds no launch and no device read; a launch span is the
+host's dispatch time, not the device's (device time comes from the
+profiler).
+
 Host-side decisions read the host mirror of the lengths (`_lens_np`),
 never the device tensor, so the only synchronisations are the token
 fetches (_fetch_tokens per tick, _fetch_first_token per monolithic
@@ -70,21 +89,21 @@ through fresh pinned buffers copied asynchronously; the host block table
 is always copied first, because torch.from_numpy aliases the array and
 the allocator mutates it in place.
 
-Request deadlines, span tracing and tensor parallelism raise
-NotImplementedError naming their ROADMAP item.
+Tensor parallelism (tp_degree > 1) raises NotImplementedError naming its
+ROADMAP item (M10).
 """
 from __future__ import annotations
 
 import math
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..configs.base import ServeConfig
 from ..models.model import ATTENTION_FAMILIES, RECURRENT_LEAVES
-from .paged_cache import PageAllocator, pages_needed
+from .paged_cache import PageAllocator, page_kv_bytes, pages_needed
 from .prefix_cache import RadixPrefixCache
 from .scheduler import (ChunkTask, DraftTask, Request, RequestState,
                         TokenBudgetScheduler)
@@ -92,7 +111,9 @@ from .serve_step import (make_chunk_batch_step, make_chunk_prefill_step,
                          make_fused_decode_step, make_paged_prefill_step,
                          make_prefill_step, make_serve_step,
                          make_spec_verify_step, sample_token)
-from .telemetry import LaunchRecord, MetricsRegistry, Telemetry, TickRecord
+from .telemetry import (TRACK_ENGINE, TRACK_QUEUE, LaunchRecord,
+                        MetricsRegistry, SpanTracer, Telemetry, TickRecord,
+                        export_chrome_trace, movement_breakdown)
 
 # dense-cache prompts are padded to a multiple of this before the
 # monolithic prefill (the JAX engine's jit bucket; kept so that both
@@ -101,21 +122,16 @@ PREFILL_BUCKET = 16
 
 
 def _refuse_unported(scfg: ServeConfig):
-    """NotImplementedError for every ServeConfig setting this slice of the
-    port does not serve, naming the ROADMAP item that brings it."""
-    todo = [
-        (scfg.default_deadline_tokens > 0, "request deadlines", "M6d"),
-        (scfg.telemetry, "telemetry=True (span tracer)", "M6d"),
-        (scfg.tp_degree > 1, f"tp_degree={scfg.tp_degree}", "M10"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch engine yet (ROADMAP "
-                f"{item}); it serves chunked=True (batched or the "
-                f"sequential oracle) on the paged cache and chunked=False "
-                f"on the dense or paged cache, with speculative decoding, "
-                f"the prefix cache and preemption")
+    """NotImplementedError for the ServeConfig setting this slice of the
+    port does not serve (tensor parallelism), naming its ROADMAP item."""
+    if scfg.tp_degree > 1:
+        raise NotImplementedError(
+            f"tp_degree={scfg.tp_degree} is not ported to the PyTorch "
+            f"engine yet (ROADMAP M10); it serves chunked=True (batched or "
+            f"the sequential oracle) on the paged cache and chunked=False "
+            f"on the dense or paged cache, with speculative decoding, the "
+            f"prefix cache, preemption, request deadlines and the span "
+            f"tracer")
 
 
 def _registry_counter(name: str):
@@ -151,12 +167,18 @@ class ServeEngine:
         _refuse_unported(scfg)
         self.device = model.device
         B = scfg.max_batch
-        self.tm = Telemetry(registry=MetricsRegistry())
+        # one metrics registry per engine (the scheduler, allocator and
+        # prefix cache register into it), plus the span tracer when
+        # ServeConfig.telemetry is on.  The metric names and help strings
+        # are the JAX engine's, so the two registries compare one to one
+        tracer = SpanTracer(scfg.telemetry_spans) if scfg.telemetry else None
+        self.tm = Telemetry(registry=MetricsRegistry(), tracer=tracer)
         m = self.tm.registry
         m.counter("serve_jit_calls_total",
-                  "Model-step launches dispatched")
+                  "Jitted model-step launches dispatched")
         m.counter("serve_host_syncs_total",
-                  "Device->host transfers (token fetches)")
+                  "Device->host transfers (token fetches and admission "
+                  "samples)")
         m.counter("serve_prefill_tokens_total",
                   "Prompt tokens actually computed by prefill")
         m.counter("serve_prefix_hit_tokens_total",
@@ -175,12 +197,28 @@ class ServeEngine:
         m.counter("serve_requests_finished_total",
                   "Requests finished (length or stop token)")
         m.gauge("serve_peak_pages",
-                "High-water mark of pool pages in use")
+                "High-water mark of pool pages in use (cached included)")
         m.gauge("serve_peak_live_pages",
                 "High-water mark of distinct pages referenced by slots")
         m.gauge("serve_outstanding_work_tokens",
                 "Queued + in-flight work tokens (prompt remaining plus "
-                "unspent generation budget)")
+                "unspent generation budget) - the load signal load_stats() "
+                "publishes for the fleet router")
+        m.gauge("serve_tp_degree",
+                "Tensor-parallel degree of this engine (devices the "
+                "head-sharded KV page pool spans; 1 = single-device)")
+        m.counter("serve_tp_shard_kv_bytes_read_total",
+                  "KV bytes read PER DEVICE by token-emitting launches "
+                  "(kv_pages_read converted through the head-sharded "
+                  "per-shard page bytes; equals the full page bytes at "
+                  "tp_degree 1)")
+        m.counter("serve_tp_table_bytes_replicated_total",
+                  "Block-table bytes uploaded times tp_degree - the "
+                  "replication overhead of keeping the table as scalar-"
+                  "prefetch state on every shard")
+        m.get("serve_tp_degree").set(scfg.tp_degree)
+        # bytes of one page on one device: the whole page (tp_degree 1)
+        self._shard_page_bytes = page_kv_bytes(model.cfg, scfg.page_size)
         self.paged = scfg.paged
         self._attention_family = model.cfg.family in ATTENTION_FAMILIES
         if scfg.speculative and not self._attention_family:
@@ -209,6 +247,7 @@ class ServeEngine:
             if scfg.prefix_cache:
                 self.prefix = RadixPrefixCache(self.allocator,
                                                scfg.page_size, metrics=m)
+                self.prefix.event_cb = self._prefix_event
         else:
             self.cache = model.init_cache(B, scfg.max_seq)
         self.lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -222,6 +261,9 @@ class ServeEngine:
             scfg.seed)
         self._finished_this_tick: List[Request] = []
         self._tick_profile = (0, 0)
+        # set by the first submit with a deadline: until then the per-tick
+        # expiry sweep is one boolean check
+        self._deadlines_active = False
         self._table_dirty = False    # device block table behind the host's
         # host mirror of `lens`: every host-side decision reads this instead
         # of syncing the device tensor - lengths follow from scheduling
@@ -259,6 +301,61 @@ class ServeEngine:
     def launch_records(self) -> List[LaunchRecord]:
         """Per-launch data-movement records, launch order."""
         return list(self.tm.launches)
+
+    # ------------------------------------------------------------------
+    # telemetry surface
+    # ------------------------------------------------------------------
+    def export_trace(self, path, clock: str = "wall") -> Dict[str, Any]:
+        """Write the span tracer's records as Chrome trace-event JSON
+        (open in Perfetto or chrome://tracing): request phases on per-slot
+        tracks, engine phases and launches on engine tracks.  clock="wall"
+        for the host's wall clock, "work" for the deterministic work
+        clock.  Returns the trace dict (path=None writes nothing)."""
+        if self.tm.tracer is None:
+            raise ValueError(
+                "span tracing is off: build the engine with "
+                "ServeConfig(telemetry=True) to record spans")
+        return export_chrome_trace(path, self.tm.tracer,
+                                   self.scfg.max_batch, clock=clock)
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """JSON-ready snapshot of every registered metric."""
+        return self.tm.registry.snapshot()
+
+    def prometheus_metrics(self) -> str:
+        """Every registered metric in Prometheus text exposition format."""
+        return self.tm.registry.prometheus_text()
+
+    def movement_stats(self) -> Dict[str, Dict[str, float]]:
+        """Data-movement breakdown per launch kind from the launch
+        records: a first-order byte model (HBM, SRAM) and the energy the
+        paper's 16 nm table gives those bytes (telemetry.
+        movement_breakdown) - neither is a measurement of the GPU."""
+        return movement_breakdown(self.tm.launches, self.model.cfg,
+                                  self.scfg)
+
+    def _prefix_event(self, name: str, **args):
+        """Prefix-cache hit / publish / evict instants onto the engine
+        track (RadixPrefixCache.event_cb; a no-op with the tracer off)."""
+        tr = self.tm.tracer
+        if tr is not None:
+            tr.add_event(name, "prefix", TRACK_ENGINE, self.sched.ticks,
+                         self.sched.work_clock, tr.now(), **args)
+
+    def _wall(self) -> float:
+        """Tracer wall stamp (host clock); 0.0, never read, with the
+        tracer off."""
+        tr = self.tm.tracer
+        return tr.now() if tr is not None else 0.0
+
+    def _phase(self, req: Request, phase: str, track: int, **args):
+        """A request's lifecycle phase onto the tracer (no-op off)."""
+        self.tm.request_phase(req.uid, phase, track, self.sched.ticks,
+                              self.sched.work_clock, **args)
+
+    def _event(self, req: Request, name: str, track: int, **args):
+        self.tm.request_event(req.uid, name, track, self.sched.ticks,
+                              self.sched.work_clock, **args)
 
     @property
     def queue(self) -> List[Request]:
@@ -304,13 +401,30 @@ class ServeEngine:
     def _note_launch(self, kind: str, rows: int, live_rows: int,
                      true_tokens: int, padded_tokens: int,
                      kv_pages_read: int, kv_pages_written: int,
-                     new_kv_tokens: int):
+                     new_kv_tokens: int, wall0: float = 0.0,
+                     wall1: float = 0.0):
+        """Record one launch's data-movement record and, with the tracer
+        on, its span on the engine track from wall0 to wall1 (host
+        stamps around the dispatch)."""
         self.tm.launch(LaunchRecord(
             tick=self.sched.ticks, kind=kind, rows=rows,
             live_rows=live_rows, true_tokens=true_tokens,
             padded_tokens=padded_tokens, kv_pages_read=kv_pages_read,
             kv_pages_written=kv_pages_written, new_kv_tokens=new_kv_tokens,
-            work_clock=self.sched.work_clock))
+            work_clock=self.sched.work_clock), wall0, wall1)
+
+    def _note_kv_pages_read(self, n_pages: int):
+        """Count pages a token-emitting launch read, in pages and in
+        per-device bytes (the whole page at tp_degree 1)."""
+        n = int(n_pages)
+        self.kv_pages_read += n
+        self.tm.registry.get("serve_tp_shard_kv_bytes_read_total").inc(
+            n * self._shard_page_bytes)
+
+    def _note_table_upload(self, nbytes: int):
+        """Count one block-table upload (the bytes times tp_degree, 1)."""
+        self.tm.registry.get("serve_tp_table_bytes_replicated_total").inc(
+            int(nbytes))
 
     def _row_pages(self, slot: int, true_len: int) -> int:
         """KV pages slot's attention reads at KV length `true_len`, counted
@@ -334,19 +448,34 @@ class ServeEngine:
                max_retries: Optional[int] = None) -> int:
         """Enqueue a request.  What can never be served - an empty prompt,
         no generation budget, overflowing max_seq, a page reservation
-        larger than the pool - fails here.  `stop_tokens` (merged with
+        larger than the pool, a deadline the prompt's own prefill would
+        already miss - fails here.  `stop_tokens` (merged with
         ServeConfig.eos_id) end generation the tick one is produced;
-        higher `priority` admits first."""
+        higher `priority` admits first.  `deadline` is a work-clock
+        deadline in tokens (default ServeConfig.default_deadline_tokens, 0
+        or None = none): once the engine has executed that much work since
+        the submit, the request expires TIMEOUT at the top of the next
+        tick.  `max_retries` caps how many times a fleet router may
+        redispatch the request off a failed replica (None = unbounded)."""
         n_new = self.scfg.max_new_tokens if max_new_tokens is None \
             else max_new_tokens
         if not prompt:
             raise ValueError("empty prompt")
         if n_new < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {n_new}")
+        if deadline is None:
+            deadline = self.scfg.default_deadline_tokens or None
         if deadline is not None:
-            raise NotImplementedError(
-                "request deadlines are not ported to the PyTorch engine "
-                "yet (ROADMAP M6)")
+            if deadline <= 0:
+                raise ValueError(f"deadline must be >= 1 work token, "
+                                 f"got {deadline}")
+            if deadline <= len(prompt):
+                # the prompt alone costs len(prompt) work tokens of prefill
+                # before a first token can exist
+                raise ValueError(
+                    f"deadline ({deadline}) is not above the prompt's "
+                    f"minimum prefill work ({len(prompt)} tokens): the "
+                    f"request could never produce a token in time")
         if max_retries is not None and max_retries < 0:
             raise ValueError(f"max_retries must be >= 0 (None = "
                              f"unbounded), got {max_retries}")
@@ -369,9 +498,14 @@ class ServeEngine:
             stops = stops | {self.scfg.eos_id}
         self._uid += 1
         req = Request(self._uid, list(prompt), n_new, stop_tokens=stops,
-                      priority=int(priority), max_retries=max_retries)
+                      priority=int(priority), deadline_tokens=deadline,
+                      max_retries=max_retries)
+        if deadline is not None:
+            self._deadlines_active = True
         self.sched.submit(req)
         self.tm.registry.get("serve_requests_submitted_total").inc()
+        self._phase(req, "QUEUED", TRACK_QUEUE,
+                    prompt_tokens=len(prompt), priority=int(priority))
         return self._uid
 
     def _free_slot(self) -> Optional[int]:
@@ -422,7 +556,7 @@ class ServeEngine:
         out["jit_calls"] = self.jit_calls
         out["host_syncs"] = self.host_syncs
         out["speculative"] = self.scfg.speculative
-        out["telemetry"] = False
+        out["telemetry"] = self.tm.enabled
         out["tp_degree"] = self.scfg.tp_degree
         out["gen_tokens"] = self.gen_tokens
         out["decode_launches"] = self.decode_launches
@@ -454,6 +588,15 @@ class ServeEngine:
             self.prefix.check_invariants()
         elif self.paged:
             self.allocator.check_invariants()
+        if self.paged:
+            # the per-device byte count follows the page count exactly
+            shard_bytes = int(self.tm.registry.get(
+                "serve_tp_shard_kv_bytes_read_total").value)
+            assert shard_bytes == self.kv_pages_read \
+                * self._shard_page_bytes, \
+                (f"per-shard KV byte accounting drifted: {shard_bytes} != "
+                 f"{self.kv_pages_read} pages x {self._shard_page_bytes} "
+                 f"bytes/shard-page")
         for i, r in enumerate(self.slots):
             if r is None:
                 if self.paged:
@@ -516,7 +659,76 @@ class ServeEngine:
             self._table_dirty = True     # zero the slot's device row
         self.sched.note_finished(req)
         self.tm.registry.get("serve_requests_finished_total").inc()
+        self._phase(req, "DONE", i, reason=req.finish_reason,
+                    out_tokens=len(req.out_tokens))
         self._finished_this_tick.append(req)
+
+    def _expire(self, req: Request):
+        """Deadline timeout: take the request out of the engine - queued,
+        prefilling or decoding - and free what it holds the same tick.  A
+        slot-holding request frees like a preemption victim (only fully
+        valid positions publish into the prefix tree: the cursor while
+        prefilling, the lens mirror while decoding; without the tree its
+        pages return to the pool), its lane zeroed on the device and the
+        table marked dirty; no device value is read.  It finishes TIMEOUT
+        (finish_reason "timeout") in the tick's finished list."""
+        i = req.slot
+        if i is not None:
+            if self.prefix is not None:
+                if req.state is RequestState.PREFILLING:
+                    n_valid = req.prefill_pos
+                    seq = list(req.target)
+                else:
+                    seq = req.prompt + list(req.out_tokens)
+                    n_valid = int(self._lens_np[i])
+                self.prefix.release(i, seq[:n_valid])
+            elif self.paged:
+                self.allocator.free_slot(i)
+            self.slots[i] = None
+            self.lens[i:i + 1].zero_()       # device-side, no host sync
+            self._lens_np[i] = 0
+            req.slot = None
+            if self.paged:
+                self._table_dirty = True
+        else:
+            self.sched.queue.remove(req)
+        req.state = RequestState.TIMEOUT
+        req.done = True
+        req.finish_reason = "timeout"
+        self.sched.timeouts += 1
+        self.sched.note_finished(req)
+        self._phase(req, "TIMEOUT", i if i is not None else TRACK_QUEUE,
+                    out_tokens=len(req.out_tokens))
+        self._finished_this_tick.append(req)
+
+    def _expire_deadlines(self):
+        """Top-of-tick sweep (both tick flavors): expire every request,
+        queued or in flight, whose work-clock age reached its deadline
+        (the scheduler's predicate, sched.expired).  Before admission and
+        planning, so an expired request does no work in the tick and the
+        pages it frees are admissible at once."""
+        if not self._deadlines_active:
+            return
+        expired = [r for r in self.sched.queue if self.sched.expired(r)]
+        expired += [r for r in self.slots
+                    if r is not None and self.sched.expired(r)]
+        for r in expired:
+            self._expire(r)
+
+    def request_statuses(self) -> Dict[int, str]:
+        """{uid: state} for every request this engine has accepted:
+        terminal ("done" / "timeout" / "failed") or live ("queued" /
+        "prefilling" / "decoding" / "resuming"), from the finished list,
+        the queue and the slots."""
+        out: Dict[int, str] = {}
+        for r in self.sched.finished:
+            out[r.uid] = r.state.value
+        for r in self.queue:
+            out[r.uid] = r.state.value
+        for r in self.slots:
+            if r is not None:
+                out[r.uid] = r.state.value
+        return out
 
     def _sync_table(self):
         """Upload the block table, MASKING rows of slots that are not yet
@@ -530,6 +742,7 @@ class ServeEngine:
         if masked:
             tbl[masked] = 0
         self.cache["block_table"] = self._upload(tbl)
+        self._note_table_upload(tbl.nbytes)
         self._table_dirty = False
 
     # ------------------------------------------------------------------
@@ -581,6 +794,7 @@ class ServeEngine:
         req.prefill_pos = len(req.prompt)
         req.state = RequestState.DECODING
         self._stamp_admit(req)
+        self._phase(req, "DECODING", slot)
         if self._emit(req, nxt):
             self._finish(req)
 
@@ -596,6 +810,7 @@ class ServeEngine:
         the JAX engine's sub-cache copy leaves there: the prompt's K/V at
         [0, s_pad), older contents past it."""
         self.sched.pop(req)
+        self._phase(req, "PREFILLING", slot)
         toks, s_real = self._padded_prompt(req.prompt, PREFILL_BUCKET)
         s_pad = toks.shape[1]
         strips = {"k": self.cache["k"][:, slot:slot + 1],
@@ -603,11 +818,13 @@ class ServeEngine:
         batch = {"tokens": toks,
                  "true_lens": self._upload(np.array([s_real], np.int32))}
         self.jit_calls += 1
+        w0 = self._wall()
         logits, _, _ = self._prefill(self.params, batch, strips)
         self._note_launch("prefill", rows=1, live_rows=1,
                           true_tokens=s_real, padded_tokens=s_pad,
                           kv_pages_read=0, kv_pages_written=0,
-                          new_kv_tokens=s_real)
+                          new_kv_tokens=s_real, wall0=w0,
+                          wall1=self._wall())
         self.prefill_tokens += s_real
         self.sched.note_work(s_real)
         self._place(slot, req, logits, s_real)
@@ -624,19 +841,22 @@ class ServeEngine:
         prompt token, one "stepwise" record, one fetch of the first
         token."""
         self.sched.pop(req)
+        self._phase(req, "PREFILLING", slot)
         lane = {k: v[:, slot:slot + 1] for k, v in self.cache.items()}
         for name in RECURRENT_LEAVES[self.model.cfg.family]:
             lane[name].zero_()
         n = len(req.prompt)
         toks = self._upload(np.asarray(req.prompt, np.int32)[None])
         pos = self._upload(np.arange(n, dtype=np.int32))
+        w0 = self._wall()
         for t in range(n):
             self.jit_calls += 1
             logits, _ = self._decode(self.params, lane, toks[:, t:t + 1],
                                      pos[t:t + 1])
         self._note_launch("stepwise", rows=1, live_rows=1, true_tokens=n,
                           padded_tokens=n, kv_pages_read=0,
-                          kv_pages_written=0, new_kv_tokens=n)
+                          kv_pages_written=0, new_kv_tokens=n, wall0=w0,
+                          wall1=self._wall())
         self.prefill_tokens += n
         self.sched.note_work(n)
         self._place(slot, req, logits, n)
@@ -671,22 +891,26 @@ class ServeEngine:
         if not self.allocator.can_alloc(need):
             return False
         self.sched.pop(req)
+        self._phase(req, "PREFILLING", slot)
         pages = self.allocator.alloc(slot, need)
         self._note_alloc()
         toks, s_real = self._padded_prompt(req.prompt, ps)
         page_ids = self._upload(np.asarray(pages[:toks.shape[1] // ps],
                                            np.int32))
         self.cache["block_table"] = self._upload(self.allocator.table)
+        self._note_table_upload(self.allocator.table.nbytes)
         batch = {"tokens": toks,
                  "true_lens": self._upload(np.array([s_real], np.int32))}
         self.jit_calls += 1
+        w0 = self._wall()
         logits, self.cache, _ = self._prefill_paged(self.params, batch,
                                                     self.cache, page_ids)
         self._note_launch("prefill_paged", rows=1, live_rows=1,
                           true_tokens=s_real, padded_tokens=toks.shape[1],
                           kv_pages_read=self._row_pages(slot, s_real),
                           kv_pages_written=self._span_pages(0, s_real),
-                          new_kv_tokens=s_real)
+                          new_kv_tokens=s_real, wall0=w0,
+                          wall1=self._wall())
         self.prefill_tokens += s_real
         self.sched.note_work(s_real)
         self._place(slot, req, logits, s_real)
@@ -735,8 +959,10 @@ class ServeEngine:
         req.prefill_pos = start
         req.state = RequestState.PREFILLING
         self._stamp_admit(req)
+        self._phase(req, "PREFILLING", slot, cached_tokens=start)
         # the decode launch later this tick walks the slot's device row
         self.cache["block_table"] = self._upload(self.allocator.table)
+        self._note_table_upload(self.allocator.table.nbytes)
         self._run_chunk(ChunkTask(req, slot, start,
                                   len(req.prompt) - start))
         return True
@@ -767,11 +993,12 @@ class ServeEngine:
         self.decode_launches += 1
         pages_read = 0
         if self.paged:
-            self.kv_pages_read += sum(
+            self._note_kv_pages_read(sum(
                 -(-(int(self._lens_np[i]) + 1) // self.scfg.page_size)
-                for i in active)
+                for i in active))
             pages_read = sum(self._row_pages(i, int(self._lens_np[i]) + 1)
                              for i in active)
+        lw0 = self._wall()
         self.cache, self.tokens, self.lens = self._decode_fused(
             self.params, self.cache, self.tokens, self.lens,
             self._upload(live), self._gen)
@@ -780,7 +1007,8 @@ class ServeEngine:
                           padded_tokens=len(self.slots),
                           kv_pages_read=pages_read,
                           kv_pages_written=len(active) if self.paged else 0,
-                          new_kv_tokens=len(active))
+                          new_kv_tokens=len(active), wall0=lw0,
+                          wall1=self._wall())
         self.sched.note_work(len(active))
         self._lens_np[active] += 1
         toks = self._fetch_tokens()
@@ -825,6 +1053,7 @@ class ServeEngine:
         req.prefill_pos = start
         req.state = RequestState.PREFILLING
         self._stamp_admit(req)
+        self._phase(req, "PREFILLING", slot, cached_tokens=start)
         return True
 
     def _run_chunk(self, task: ChunkTask):
@@ -844,6 +1073,7 @@ class ServeEngine:
                  "offset": self._upload(np.array([start], np.int32)),
                  "true_lens": self._upload(np.array([start + n], np.int32))}
         self.jit_calls += 1
+        w0 = self._wall()
         logits, self.cache, _ = self._prefill_chunk(
             self.params, batch, self.cache,
             self._upload(self.allocator.table[slot]))
@@ -856,7 +1086,7 @@ class ServeEngine:
                           kv_pages_read=self._row_pages(slot, start + n),
                           kv_pages_written=self._span_pages(start,
                                                             start + n),
-                          new_kv_tokens=n)
+                          new_kv_tokens=n, wall0=w0, wall1=self._wall())
         if req.prefill_pos >= len(req.target):
             # device-side writes, no host scalar copies (see _place)
             self.lens[slot:slot + 1].fill_(len(req.target))
@@ -865,6 +1095,7 @@ class ServeEngine:
             self.tokens[slot:slot + 1] = tok
             nxt = self._fetch_first_token(tok)
             req.state = RequestState.DECODING
+            self._phase(req, "DECODING", slot)
             self._table_dirty = True     # unmask the slot's device row
             if self._emit(req, nxt):
                 self._finish(req)
@@ -886,6 +1117,7 @@ class ServeEngine:
             self.sched.chunks_run += 1
             if t.req.prefill_pos >= len(t.req.target):
                 t.req.state = RequestState.DECODING
+                self._phase(t.req, "DECODING", t.slot)
                 self._table_dirty = True     # unmask the slot's device row
                 self._lens_np[t.slot] = len(t.req.target)
                 finals.append((t.req, t.slot, self.sched.work_clock))
@@ -899,6 +1131,7 @@ class ServeEngine:
                  "final_slot": self._upload(pack.final_slots)}
         self.jit_calls += 1
         self.sched.packs_run += 1
+        w0 = self._wall()
         self.cache, self.tokens, self.lens = self._prefill_chunks(
             self.params, batch, self.cache, self._upload(tables),
             self.tokens, self.lens, self._gen)
@@ -912,7 +1145,7 @@ class ServeEngine:
             kv_pages_written=sum(self._span_pages(t.start,
                                                   t.start + t.length)
                                  for t in tasks),
-            new_kv_tokens=n_true)
+            new_kv_tokens=n_true, wall0=w0, wall1=self._wall())
         return finals
 
     def _run_spec_verify(self, tasks: List[DraftTask]):
@@ -938,8 +1171,9 @@ class ServeEngine:
         self.jit_calls += 1
         self.decode_launches += 1
         ps = self.scfg.page_size
-        self.kv_pages_read += sum(-(-int(t) // ps)
-                                  for t in pack.true_lens[live])
+        self._note_kv_pages_read(sum(-(-int(t) // ps)
+                                     for t in pack.true_lens[live]))
+        w0 = self._wall()
         self.cache, self.tokens, self.lens, n_acc = \
             self._spec_verify(self.params, batch, self.cache,
                               self._upload(tables), self.tokens, self.lens,
@@ -955,7 +1189,7 @@ class ServeEngine:
             kv_pages_written=sum(
                 self._span_pages(t.offset, t.offset + 1 + len(t.draft))
                 for t in pack.tasks),
-            new_kv_tokens=n_q)
+            new_kv_tokens=n_q, wall0=w0, wall1=self._wall())
         return pack, n_acc
 
     # ------------------------------------------------------------------
@@ -1008,6 +1242,9 @@ class ServeEngine:
         self.sched.pages_reclaimed += self.allocator.free_pages - free0
         self.sched.preemptions += 1
         victim.n_preemptions += 1
+        self._event(victim, "PREEMPT", slot,
+                    pages_reclaimed=self.allocator.free_pages - free0)
+        self._phase(victim, "RESUMING", TRACK_QUEUE)
         self.slots[slot] = None
         self.lens[slot:slot + 1].zero_()     # device-side, no host sync
         self._lens_np[slot] = 0
@@ -1049,8 +1286,11 @@ class ServeEngine:
         draft chains and prefill chunks, then ONE chunk-batch launch, ONE
         verify launch, ONE fused decode launch for the slots without a
         chain, and ONE fetch.  Total work never exceeds
-        tick_token_budget.  batched=False runs one launch per chunk."""
+        tick_token_budget.  batched=False runs one launch per chunk.
+        With the tracer on, the planning (admission included) and the
+        fetch are spans of their own."""
         w0 = self.sched.work_clock
+        wp0 = self._wall()
         # admission first (a decoding victim shed here must not join this
         # tick's launches): reserve slots + pages for as many queued
         # requests as the policy head allows; when the head cannot be
@@ -1075,6 +1315,7 @@ class ServeEngine:
             if resuming:
                 self.sched.resumes += 1
                 req.n_resumes += 1
+                self._event(req, "RESUME", req.slot)
         if self._table_dirty:
             self._sync_table()
         decode_slots = [i for i, r in enumerate(self.slots)
@@ -1094,6 +1335,12 @@ class ServeEngine:
         budget = self.sched.prefill_budget(len(decode_slots) + spec_tokens)
         chunks = self.sched.plan_chunks(prefilling, budget)
         self._tick_profile = (len(chunks), len(decode_slots))
+        tr = self.tm.tracer
+        if tr is not None:
+            tr.add_span("plan", "tick", TRACK_ENGINE, self.sched.ticks,
+                        w0, self.sched.work_clock, wp0, tr.now(),
+                        n_chunks=len(chunks), n_decode=len(decode_slots),
+                        n_drafts=len(spec_tasks))
         finals = []
         if chunks and self.scfg.batched:
             finals = self._run_chunk_batch(chunks)
@@ -1114,11 +1361,12 @@ class ServeEngine:
             live[plain_slots] = True
             self.jit_calls += 1
             self.decode_launches += 1
-            self.kv_pages_read += sum(
+            self._note_kv_pages_read(sum(
                 -(-(int(self._lens_np[i]) + 1) // self.scfg.page_size)
-                for i in plain_slots)
+                for i in plain_slots))
             pages_read = sum(self._row_pages(i, int(self._lens_np[i]) + 1)
                              for i in plain_slots)
+            lw0 = self._wall()
             self.cache, self.tokens, self.lens = self._decode_fused(
                 self.params, self.cache, self.tokens, self.lens,
                 self._upload(live), self._gen)
@@ -1128,17 +1376,23 @@ class ServeEngine:
                               padded_tokens=len(self.slots),
                               kv_pages_read=pages_read,
                               kv_pages_written=len(plain_slots),
-                              new_kv_tokens=len(plain_slots))
+                              new_kv_tokens=len(plain_slots), wall0=lw0,
+                              wall1=self._wall())
             self.sched.note_work(len(plain_slots))
             self._lens_np[plain_slots] += 1
         gen_work = len(plain_slots)
         if finals or plain_slots or spec_pack is not None:
             # THE device->host transfer: every sampled token of the tick,
             # and with a verify launch every chain's acceptance count
+            wf0 = self._wall()
             if spec_pack is not None:
                 toks, naccs = self._fetch_tokens(spec_nacc)
             else:
                 toks = self._fetch_tokens()
+            if tr is not None:
+                tr.add_span("device_get", "tick", TRACK_ENGINE,
+                            self.sched.ticks, self.sched.work_clock,
+                            self.sched.work_clock, wf0, tr.now())
             for req, slot, work in finals:
                 if self._emit(req, int(toks[slot, 0]), work=work):
                     self._finish(req)
@@ -1146,6 +1400,8 @@ class ServeEngine:
                 for r, t in enumerate(spec_pack.tasks):
                     n = int(naccs[r])
                     self.sched.note_spec(len(t.draft), n)
+                    self._event(t.req, "SPEC_VERIFY", t.slot,
+                                drafted=len(t.draft), accepted=n)
                     # the host mirror from the fetched count, never a
                     # device read
                     self._lens_np[t.slot] = t.offset + n + 1
@@ -1211,16 +1467,29 @@ class ServeEngine:
         decode) or chunked (one token-budgeted round of chunks + decode).
         Returns the requests that finished in it.  Appends a dispatch row
         to launch_log: (jit_calls, host_syncs, host_wall_s, n_chunk_tasks,
-        n_decode)."""
+        n_decode).  Requests past their deadline expire first (before
+        the row's counts start)."""
         self._finished_this_tick = []
         self._tick_profile = (0, 0)
+        self._expire_deadlines()
         j0, s0 = self.jit_calls, self.host_syncs
+        tick0 = self.sched.ticks
+        work0 = self.sched.work_clock
+        wt0 = self._wall()
         t0 = time.perf_counter()
         out = self._tick_chunked() if self.scfg.chunked \
             else self._tick_monolithic()
         self.tm.ticks.append(TickRecord(
             self.jit_calls - j0, self.host_syncs - s0,
             time.perf_counter() - t0, *self._tick_profile))
+        tr = self.tm.tracer
+        if tr is not None:
+            tr.add_span("tick", "tick", TRACK_ENGINE, tick0, work0,
+                        self.sched.work_clock, wt0, tr.now(),
+                        jit_calls=self.jit_calls - j0,
+                        host_syncs=self.host_syncs - s0,
+                        n_chunks=self._tick_profile[0],
+                        n_decode=self._tick_profile[1])
         return out
 
     def run_until_done(self, max_ticks: int = 10_000) -> List[Request]:

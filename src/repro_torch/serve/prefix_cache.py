@@ -72,8 +72,8 @@ class RadixPrefixCache:
         self._pages: Set[int] = set()       # pages the tree holds a ref on
         # cache-traffic counters (serve/telemetry.py registry; the engine
         # shares its registry in, a standalone cache gets its own) plus an
-        # optional event hook for hit / publish / evict instants (the
-        # port's engine has no span tracer to point it at yet)
+        # optional event hook the engine points at its span tracer so
+        # hit / publish / evict instants land on the trace timeline
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         m = self.metrics
         self._m_lookups = m.counter("prefix_lookups_total",

@@ -38,6 +38,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert bad == "[]", f"repro_torch pulled in {bad}"
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.energy",
+                                    "repro_torch.serve.telemetry",
+                                    "repro_torch.serve.router"])
+def test_module_alone_imports_no_jax(module):
+    """The modules that keep copies of the JAX package's framework-free
+    code (the energy model, the tracer, the fleet router) import, each on
+    its own, no jax and nothing of the JAX package."""
+    res = _run(f"import sys, {module}\n"
+               "print(sorted(m for m in sys.modules if m == 'jax' or "
+               "m.startswith(('jax.', 'jaxlib', 'repro.')) "
+               "or m == 'repro'))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_chip_smoke_imports_no_jax():
     code = ("import sys\n"
             "import chip_smoke\n"

@@ -274,9 +274,7 @@ def test_finish_at_admission_matches_jax(models, served):
     assert t_eng.sched.work_clock == j_eng.sched.work_clock
 
 
-@pytest.mark.parametrize("knob", [
-    dict(default_deadline_tokens=500), dict(telemetry=True),
-    dict(tp_degree=2)])
+@pytest.mark.parametrize("knob", [dict(tp_degree=2)])
 def test_unported_settings_raise(models, knob):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="ROADMAP M"):
@@ -290,8 +288,10 @@ def test_submit_validates_like_jax(models):
         eng.submit([])
     with pytest.raises(ValueError):
         eng.submit([1] * 500, max_new_tokens=24)
-    with pytest.raises(NotImplementedError, match="M6"):
-        eng.submit([1, 2], deadline=100)
+    for bad in (dict(deadline=0), dict(deadline=-3), dict(deadline=2),
+                dict(deadline=1), dict(max_retries=-1)):
+        with pytest.raises(ValueError):
+            eng.submit([1, 2], **bad)
     uid = eng.submit([1, 2, 3], stop_tokens=[7])
     assert uid == 1 and eng.load_stats()["queue_depth"] == 1
 
