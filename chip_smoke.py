@@ -136,12 +136,50 @@ Phases (each raises on failure, so the run exits non-zero):
                         from near ln(vocab), step time, MFU and peak
                         memory; granite-8b runs one forward against
                         impl="ref".
+                        sequence-parallel decode (M11): the serving
+                        granite-3-2b, batch 1, prefills a 32768-token
+                        prompt into a dense cache (2.7 GB of K/V); on
+                        layer 0's strips _decode_partials over 4 slices,
+                        merged, and seq_parallel_decode in a one-rank
+                        NCCL group (its all-gather on the card) are held
+                        against K3 (bf16 one output rounding step, float32
+                        copies 1e-5); then 16 greedy decode steps with
+                        seq_parallel=True (ops.decode_attention_naive, no
+                        kernel) and through K3, each from the prefilled
+                        cache, counted: the tokens equal, or every
+                        seq-parallel token within NEAR_TIE of the top of
+                        K3's logits fed the same tokens, those logits
+                        within MODEL_BARS["seq-parallel decode step"], K3
+                        40 x 16 launches and the naive run none, 0
+                        implicit syncs; both step times.
+                        whisper-base (M13, M9) at full width (6 + 6
+                        layers, d_model 512, 8 heads of 64, vocab 51865,
+                        bf16, seeded weights): 16 clips of 1500 numpy-
+                        seeded frame embeddings (the frontend is a stub)
+                        and a 4-token prompt through init_cache(16, 448,
+                        enc_len=1500), prefill (counted: K4 18 = encoder 6
+                        + decoder self 6 + cross 6) and 124 greedy decode
+                        steps (counted: K3 12 a step, self and cross; 0
+                        implicit syncs): the prefill's logits against
+                        Model.forward's and each step's against a
+                        teacher-forced forward within MODEL_BARS; the
+                        largest K4 (encoder, cross) and K3 (self, cross)
+                        calls kept for phase 4, which holds them against
+                        their plain versions; the engine (4 requests,
+                        dense, stepwise, 2 slots, counted: K3 12 x its
+                        decode steps, 0 implicit syncs), each request's
+                        output equal to the same request served alone;
+                        training 3 steps of 8 x 1500 (frames and tokens)
+                        with remat "full": K4 30 and K5 18 a step, finite
+                        losses from near ln(vocab), step time, MFU, peak
+                        memory, the largest K5 call kept for phase 4.
   4. times              per kernel, at the largest call its run gave it
                         (K1/K2 the chunked run, K3/K4 the dense run, K5 the
                         training run, K6/K7 the recurrent forwards; K3/K4
                         also at zamba2's head dim 80, K4 also at the
                         training step's shape, K1 also at the speculative
-                        run's largest verify launch): kernel, plain version and
+                        run's largest verify launch, K3 / K4 / K5 also at
+                        whisper-base's): kernel, plain version and
                         library times (CUDA events, L2 flushed, median of
                         25) beside the bound the card's data sheet allows
                         and the achieved rate (tflops: the FLOPs the call's
@@ -167,13 +205,16 @@ one {"e2e_dense": ...}, one {"e2e_paged_monolithic": ...}, one
 line for each of those four runs (its reference run inside), one
 {"e2e_dense_family": ...}, one {"e2e_telemetry": ...} and one
 {"e2e_deadline": ...} line (each with its reference run inside) and one
-{"e2e_fleet": ...} line, the card line again, and as the last line {"ok":
-true, "device": {...}}.  Without a GPU it exits
+{"e2e_fleet": ...} line, one {"e2e_m11": ...} and one {"e2e_whisper":
+...} line, the card line again, and as the last line {"ok": true,
+"device": {...}}.  Without a GPU it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -219,11 +260,19 @@ BF16_RTOL = 2.0 ** -7            # one bfloat16 rounding step of the output
 # paged decode step 0.071, forward 0.104, dense prefill 0.071, dense
 # decode step 0.069, paged prefill 0.071, paged decode after it 0.077,
 # deterministic for the seeded weights; each bar leaves a margin of
-# ~1.6-1.7x over its measurement
+# ~1.6-1.7x over its measurement.  The same way, on the same card: the
+# seq-parallel decode step (decode_attention_naive) against K3's on the
+# same tokens 0.0773 (phase_m11); whisper-base's decode steps (K3)
+# against a teacher-forced forward (K4) 0.0188 at a logit scale of ~2,
+# and its prefill against its forward 0 - the same kernel calls on the
+# same shapes, only the float32 unembedding of the last row is a GEMM
+# of another shape, so that bar is the float32 one
 MODEL_BARS = {"chunk batch": 0.12, "paged decode step": 0.12,
               "forward": 0.18, "dense prefill": 0.12,
               "dense decode step": 0.12, "paged prefill": 0.12,
-              "paged decode after paged prefill": 0.13}
+              "paged decode after paged prefill": 0.13,
+              "seq-parallel decode step": 0.125,
+              "whisper prefill": 1e-5, "whisper decode step": 0.03}
 PROMPT_LENS = (37, 128, 300, 511, 700, 1024, 1500, 1900)
 NEW_TOKENS = 32
 # the engines: paged + chunked + batched; monolithic prefill on the dense
@@ -928,7 +977,8 @@ def model_check(model, params):
         got["paged decode after paged prefill"] = model.decode_step(
             params, argmax(lp), lens, cache, impl=impl)[0]
         out[impl] = got
-    for name, bar in MODEL_BARS.items():
+    for name in out[None]:
+        bar = MODEL_BARS[name]
         a, b = out[None][name], out["ref"][name]
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{name}: non-finite logits")
@@ -1975,6 +2025,498 @@ def phase_dense_family():
 
 
 # ---------------------------------------------------------------------------
+# phase 3, sequence-parallel decode (M11)
+# ---------------------------------------------------------------------------
+
+# the long-context decode the JAX package's seq-sharded cache layout is
+# for: granite-3-2b at full width, batch 1, a M11_CONTEXT-token prompt
+# prefilled into a dense cache (2.7 GB of bf16 K/V), then M11_STEPS greedy
+# steps through K3 and through ops.decode_attention_naive; the partials
+# are held against K3 over M11_SLICES slices of one layer's strips
+M11_CONTEXT, M11_STEPS, M11_SLICES = 32768, 16, 4
+# float32: a greedy token of the seq-parallel decode that is not K3's must
+# be within NEAR_TIE of the top logit of K3's decode fed the same tokens
+# (the engines' teacher-forced near-tie rule, tests/traffic.py), and the
+# logits within M11_F32_BAR of K3's (5.7e-6 measured on an H100 80GB HBM3,
+# 700 W; the tokens equal).  In bf16 the two paths part by one rounding
+# of the attention output, amplified through 40 layers (0.0773, the
+# MODEL_BARS entry), so there a differing token is held to the bar of a
+# served bf16 token, SERVED_TOKEN_BAR (measured: one differing token, at
+# step 12, 0.035 below the top)
+NEAR_TIE = 2e-3
+M11_F32_BAR = 1e-5
+
+
+def _merged_partials(q, kc, vc, lens, n):
+    """_decode_partials over n equal slices of the strips (the last one
+    shorter), merged as seq_parallel_decode merges the gathered partials:
+    the single-process form of an n-rank world."""
+    S = kc.shape[1]
+    per = -(-S // n)
+    parts = [ops._decode_partials(q, kc[:, r * per:(r + 1) * per],
+                                  vc[:, r * per:(r + 1) * per],
+                                  torch.clamp(lens - r * per, 0, per))
+             for r in range(n)]
+    m, l, o = (torch.stack(t) for t in zip(*parts))
+    _, l_c, o_c = ops.ref.combine_partial_softmax(m, l, o)
+    B, _, Hq, D = q.shape
+    o = o_c / torch.clamp_min(l_c, 1e-20)[..., None]
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _one_rank_nccl(fn):
+    """fn() inside a one-rank NCCL process group on this card (the
+    rendezvous on a free localhost port), destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        return fn()
+    finally:
+        dist.destroy_process_group()
+
+
+def m11_partials_check(model, cache, lens):
+    """The M11 functions against K3 over layer 0's strips, one query of
+    the model's shape: the partials over M11_SLICES slices, merged, and
+    seq_parallel_decode in a one-rank NCCL group; bf16 within one output
+    rounding step, and on float32 copies of the strips within 1e-5."""
+    cfg = model.cfg
+    g = torch.Generator(device=model.device).manual_seed(5)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, 1, cfg.n_heads, cfg.head_dim), generator=g,
+                        device=model.device).to(dtype)
+        kc, vc = cache["k"][0].to(dtype), cache["v"][0].to(dtype)
+        want = ops.flash_decode(q, kc, vc, lens)
+        merged = _merged_partials(q, kc, vc, lens, M11_SLICES)
+        gathered = _one_rank_nccl(
+            lambda: ops.seq_parallel_decode(q, kc, vc, lens))
+        out[str(dtype)[6:]] = {
+            "partials_merged": compare(merged, want, dtype),
+            "seq_parallel_decode_nccl": compare(gathered, want, dtype)}
+        del kc, vc
+    log(f"# M11 over layer 0's {lens.tolist()[0]} positions: "
+        f"_decode_partials on {M11_SLICES} slices merged, and "
+        f"seq_parallel_decode in a one-rank NCCL group (all_gather_into_"
+        f"tensor on the card), against K3: max abs err {out} (bar bf16 "
+        f"2^-7 rel + 1e-6, float32 1e-5)")
+    return out
+
+
+def _greedy_decode(model, params, cache, lens, first, n, seq_parallel,
+                   forced=None):
+    """n decode steps from `first` (B, 1): each step's input the argmax
+    of the step before, or forced[i - 1] (teacher forcing: forced[i] is
+    the input after step i).  Counted: the kernel launches, the implicit
+    host syncs (sync debug mode), the wall time.  Returns (logits (n B,
+    V) and tokens [n B], step-major; launches, syncs, wall s)."""
+    tok, logits, toks = first, [], []
+    # the first switch into the sync debug mode in a process warns, once,
+    # that the mode is a prototype: switched here, that notice is not
+    # counted as a sync
+    torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            for i in range(n):
+                lg, _ = model.decode_step(params, tok, lens + i, cache,
+                                          seq_parallel=seq_parallel)
+                logits.append(lg[:, -1])
+                nxt = torch.argmax(lg[:, -1], -1, keepdim=True).to(
+                    torch.int32)
+                toks.append(nxt)
+                tok = nxt if forced is None else forced[i]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    where = [f"{w.filename}:{w.lineno} {str(w.message)[:120]}"
+             for w in caught if "synchroniz" in str(w.message)]
+    if where:
+        log(f"# implicit syncs at {where}")
+    return (torch.cat(logits), [int(t) for t in torch.cat(toks)[:, 0]],
+            launches, len(where), wall)
+
+
+def m11_decode(model, params, cache, lens, first, tie_bar, logit_bar):
+    """M11_STEPS greedy decode steps with seq_parallel=True (from a copy
+    of the cache) and through K3 (on the cache itself), counted; where the
+    tokens differ, K3 once more fed the seq-parallel tokens.  Raises
+    unless the seq-parallel logits lie within logit_bar of K3's on the
+    same inputs, every seq-parallel token is K3's or within tie_bar of the
+    top of K3's logits on the same inputs, K3 launched n_layers x
+    M11_STEPS times and nothing else, the naive decode launched nothing,
+    and neither loop synchronised.  Returns the e2e fields."""
+    cfg = model.cfg
+    sp_cache = {k: v.clone() for k, v in cache.items()}
+    sp = _greedy_decode(model, params, sp_cache, lens, first, M11_STEPS,
+                        True)
+    del sp_cache
+    k3 = _greedy_decode(model, params, cache, lens, first, M11_STEPS, False)
+    forced = [torch.tensor([[t]], dtype=torch.int32, device=model.device)
+              for t in sp[1]]
+    tf = k3 if sp[1] == k3[1] else _greedy_decode(
+        model, params, cache, lens, first, M11_STEPS, False, forced=forced)
+    err = float((sp[0] - tf[0]).abs().max())
+    gaps = [float(tf[0][i].max() - tf[0][i][t])
+            for i, t in enumerate(sp[1])]
+    none = {k: 0 for k in COUNTERS}
+    want_k3 = dict(none, K3=cfg.n_layers * M11_STEPS)
+    ms = (sp[4] / M11_STEPS * 1e3, k3[4] / M11_STEPS * 1e3)
+    dtype = cfg.dtype
+    log(f"# M11 decode ({dtype}), {M11_STEPS} greedy steps at "
+        f"{M11_CONTEXT}+: tokens equal {sp[1] == k3[1]}, seq-parallel "
+        f"logits vs K3's (fed the same tokens) max |diff| {err:.3e} (bar "
+        f"{logit_bar}), largest gap of a seq-parallel token below the top "
+        f"of K3's logits {max(gaps):.3e} (bar {tie_bar}); kernel launches "
+        f"seq-parallel {sp[2]}, K3 {k3[2]}; implicit syncs {sp[3]} / "
+        f"{k3[3]}; step ms naive {ms[0]:.2f}, K3 {ms[1]:.2f}")
+    if sp[2] != none or k3[2] != want_k3:
+        raise AssertionError(f"M11 launches {sp[2]} / {k3[2]}, want "
+                             f"{none} / {want_k3}")
+    if sp[3] or k3[3]:
+        raise AssertionError("M11: implicit host syncs in the decode loop")
+    if not bool(torch.isfinite(sp[0]).all()) or err > logit_bar:
+        raise AssertionError("M11: seq-parallel logits and K3's disagree")
+    if max(gaps) > tie_bar:
+        raise AssertionError(f"M11: greedy tokens differ past a near tie: "
+                             f"{sp[1]} vs {k3[1]}")
+    return {"step_ms_seq_parallel_naive": ms[0], "step_ms_k3": ms[1],
+            "tokens_equal": sp[1] == k3[1], "tokens_seq_parallel": sp[1],
+            "tokens_k3": k3[1], "logits_max_abs_diff": err,
+            "largest_gap": max(gaps), "implicit_syncs": sp[3] + k3[3],
+            "kernel_launches": {"seq_parallel": sp[2], "k3": k3[2]}}
+
+
+def phase_m11(model, params):
+    """granite-3-2b at full width, batch 1: a M11_CONTEXT-token prompt
+    prefilled (K4) into a dense cache; the partials and the one-rank NCCL
+    seq_parallel_decode against K3 (m11_partials_check); then m11_decode
+    in bf16 - the logits within MODEL_BARS["seq-parallel decode step"],
+    a differing token within SERVED_TOKEN_BAR, the bar of a served bf16
+    token against a teacher-forced one - and, from the same prefilled
+    cache and first token, in float32 (the model's weights and the cache
+    cast, exactly), where a differing token must be a near tie within
+    NEAR_TIE and the logits within M11_F32_BAR.  Returns (runs, e2e)."""
+    cfg = model.cfg
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        1, M11_CONTEXT), dtype=np.int32)).to(model.device)
+    cache = model.init_cache(1, M11_CONTEXT + M11_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, cache, lens = model.prefill(params, {"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    kv_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    log(f"# M11: granite-3-2b prefilled {M11_CONTEXT} tokens into a dense "
+        f"cache of {kv_gb:.2f} GB in {prefill_s:.2f} s")
+    first = torch.argmax(lp[:, -1], -1, keepdim=True).to(torch.int32)
+    cache32 = {k: v.float() for k, v in cache.items()}
+    bf16 = m11_decode(model, params, cache, lens, first, SERVED_TOKEN_BAR,
+                      MODEL_BARS["seq-parallel decode step"])
+    # the decode wrote past lens only: positions [0, lens) are the prompt's
+    parity = m11_partials_check(model, cache, lens)
+    del cache
+    _free()
+    m32, p32 = fp32_copy(model, params)
+    f32 = m11_decode(m32, p32, cache32, lens, first, NEAR_TIE, M11_F32_BAR)
+    del m32, p32, cache32
+    _free()
+    e2e = {"config": cfg.name, "context": M11_CONTEXT, "steps": M11_STEPS,
+           "kv_cache_gb": kv_gb, "prefill_s": prefill_s, "parity": parity,
+           "bfloat16": bf16, "float32": f32,
+           "note": "one card: the all-gather runs in a one-rank NCCL group; "
+                   "traffic between cards is not measured"}
+    runs = {"m11 seq_parallel": {"launches": bf16["kernel_launches"][
+        "seq_parallel"]}, "m11 k3": {"launches": bf16["kernel_launches"][
+            "k3"]}}
+    return runs, e2e
+
+
+# ---------------------------------------------------------------------------
+# phase 3, whisper-base (M13 encoder-decoder, M9 cross-attention)
+# ---------------------------------------------------------------------------
+
+# 16 clips of whisper's 30 s window after its conv frontend (1500 frames;
+# the frontend is a stub, as in the JAX package), a 4-token decoder prompt
+# and 124 greedy tokens in its 448-token text context; training 3 steps of
+# 8 x 1500 (the pipeline gives audio and tokens one length); the engine: 4
+# requests on 2 slots, dense, stepwise, and each alone
+WHISPER = "whisper-base"
+W_CLIPS, W_FRAMES, W_PROMPT, W_NEW, W_TEXT = 16, 1500, 4, 124, 448
+W_TRAIN = dict(global_batch=8, seq_len=1500, remat="full", warmup_steps=2,
+               total_steps=100)
+W_TRAIN_STEPS = 3
+W_ENGINE_PROMPTS, W_ENGINE_NEW = (4, 9, 17, 30), 16
+W_SCFG = dict(max_batch=2, max_seq=W_TEXT, max_new_tokens=W_ENGINE_NEW,
+              paged=False, chunked=False)
+
+
+def _q_len_weight(same: bool):
+    """K4 calls with Sq == Skv (self-attention, the encoder) or Sq != Skv
+    (cross-attention), by their work; the others -1 (never kept)."""
+    def weight(q, k, v, **_):
+        return _k4_weight(q, k, v) if (q.shape[1] == k.shape[1]) == same \
+            else -1
+    return weight
+
+
+def _strip_weight(S: int):
+    """K3 calls over strips of S positions, by their lengths."""
+    def weight(q, kc, vc, *rest, **kw):
+        return _lens_weight(q, kc, vc, *rest, **kw) if kc.shape[1] == S \
+            else -1
+    return weight
+
+
+def whisper_serving(model, params):
+    """W_CLIPS clips through init_cache(W_CLIPS, W_TEXT, enc_len=W_FRAMES),
+    prefill and W_NEW greedy decode steps (counted: K4 3 x layers in the
+    prefill, K3 2 x layers a step, nothing else; 0 implicit syncs in the
+    decode loop); the prefill's logits against Model.forward's, each
+    step's against a teacher-forced forward over prompt plus output.
+    Returns (runs, captured, e2e)."""
+    cfg = model.cfg
+    rng = np.random.default_rng(12)
+    audio = torch.from_numpy((rng.standard_normal(
+        (W_CLIPS, W_FRAMES, cfg.d_model)) * 0.02).astype(np.float32)).to(
+            model.device, torch.bfloat16)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        W_CLIPS, W_PROMPT), dtype=np.int32)).to(model.device)
+    batch = {"tokens": prompt, "audio_embeds": audio}
+    argmax = lambda lg: torch.argmax(lg[:, -1], -1, keepdim=True).to(
+        torch.int32)
+    # a warm-up pass keeps the largest K4 (encoder, cross) and K3 (self,
+    # cross) calls; a Capture weighs a K3 call by its lengths, on the host,
+    # so it runs outside the counted pass.  Each Capture wraps the wrapper
+    # as it finds it: two on one wrapper are made one after the other
+    with contextlib.ExitStack() as stack:
+        caps = [stack.enter_context(Capture(mod, attr, weight))
+                for mod, attr, weight in (
+                    (flash_attention, "flash_attention_fwd",
+                     _q_len_weight(True)),
+                    (flash_attention, "flash_attention_fwd",
+                     _q_len_weight(False)),
+                    (flash_decode, "flash_decode", _strip_weight(W_TEXT)),
+                    (flash_decode, "flash_decode",
+                     _strip_weight(W_FRAMES)))]
+        cache = model.init_cache(W_CLIPS, W_TEXT, enc_len=W_FRAMES)
+        lp, cache, lens = model.prefill(params, batch, cache)
+        tok = argmax(lp)
+        for i in range(W_NEW):
+            tok = argmax(model.decode_step(params, tok, lens + i, cache)[0])
+    cache = model.init_cache(W_CLIPS, W_TEXT, enc_len=W_FRAMES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    lp, cache, lens = model.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = read_counts()
+    first = argmax(lp)
+    logits, toks, dec, syncs, wall = _greedy_decode(
+        model, params, cache, lens, first, W_NEW, False)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    want_pre = dict({k: 0 for k in COUNTERS},
+                    K4=cfg.encoder_layers + 2 * L)
+    want_dec = dict({k: 0 for k in COUNTERS}, K3=2 * L * W_NEW)
+    if pre != want_pre or dec != want_dec or syncs:
+        raise AssertionError(f"whisper serving: launches {pre} / {dec} "
+                             f"(want {want_pre} / {want_dec}), {syncs} "
+                             f"implicit syncs")
+    # logits (W_NEW, V) per clip are rows i * W_CLIPS + b of `logits`
+    steps = logits.view(W_NEW, W_CLIPS, -1).transpose(0, 1)
+    out = torch.tensor(toks, device=model.device).view(W_NEW, W_CLIPS).t()
+    fwd = model.forward(params, batch)[0]
+    err_pre = float((lp[:, -1] - fwd[:, -1]).abs().max())
+    seq = torch.cat([prompt, first, out[:, :-1].to(torch.int32)], 1)
+    tf = model.forward(params, {"tokens": seq, "audio_embeds": audio})[0]
+    err_dec = float((steps - tf[:, W_PROMPT:]).abs().max())
+    scale = float(tf.abs().max())
+    del fwd, tf
+    bars = (MODEL_BARS["whisper prefill"], MODEL_BARS["whisper decode step"])
+    n_tok = W_CLIPS * W_NEW
+    log(f"# whisper serving: {W_CLIPS} clips x {W_FRAMES} frames, prompt "
+        f"{W_PROMPT}, {W_NEW} greedy tokens each: prefill "
+        f"{prefill_s * 1e3:.1f} ms, kernel launches {pre}; decode "
+        f"{wall / W_NEW * 1e3:.2f} "
+        f"ms a step, {n_tok / wall:.0f} tokens/s, kernel launches {dec}, "
+        f"implicit syncs {syncs}; peak {peak / 1e9:.2f} GB; logits max "
+        f"|prefill - forward| {err_pre:.3e} (bar {bars[0]}), |decode - "
+        f"teacher-forced forward| {err_dec:.3e} (bar {bars[1]}), logit "
+        f"scale {scale:.2f}")
+    if not bool(torch.isfinite(steps).all()) or err_pre > bars[0] \
+            or err_dec > bars[1]:
+        raise AssertionError("whisper serving: logits disagree with the "
+                             "forward")
+    e2e = {"clips": W_CLIPS, "frames": W_FRAMES, "prompt": W_PROMPT,
+           "new_tokens": W_NEW, "text_context": W_TEXT,
+           "prefill_ms": prefill_s * 1e3, "decode_step_ms":
+           wall / W_NEW * 1e3, "decode_tokens_per_s": n_tok / wall,
+           "peak_mem_gb": peak / 1e9, "prefill_launches": pre,
+           "decode_launches": dec, "implicit_syncs": syncs,
+           "prefill_vs_forward": err_pre, "decode_vs_forward": err_dec,
+           "logit_scale": scale}
+    captured = {f"K4@{WHISPER}_encoder": caps[0].best,
+                f"K4@{WHISPER}_cross": caps[1].best,
+                f"K3@{WHISPER}_self": caps[2].best,
+                f"K3@{WHISPER}_cross": caps[3].best}
+    runs = {"whisper prefill": {"launches": pre},
+            "whisper decode": {"launches": dec}}
+    return runs, captured, e2e
+
+
+def whisper_train_flops(cfg, n_params, B, S):
+    """Model FLOPs of one whisper training step with S frames and S
+    tokens a row: 6 x params x the row's S (each parameter touches one
+    frame or one token: the encoder's frames, the decoder's and the
+    unembedding's tokens), plus 12 x batch x heads x head_dim x the
+    attended pairs: the encoder's and the cross-attention's S^2 a layer,
+    the decoder self-attention's S (S + 1) / 2."""
+    pairs = cfg.encoder_layers * S * S + cfg.n_layers * (
+        S * S + S * (S + 1) // 2)
+    return 6 * n_params * B * S + 12 * B * cfg.n_heads * cfg.head_dim * pairs
+
+
+def whisper_training():
+    """W_TRAIN_STEPS steps of the pipeline's batches (audio frames and
+    tokens of one length): K4 (encoder + decoder self + cross, and the
+    decoder's again under remat) and K5 (every attention) launches, finite
+    losses from near ln(vocab), step time, MFU and peak memory.  Returns
+    (run, captured, e2e)."""
+    cfg = get_config(WHISPER)
+    tcfg = TrainConfig(**W_TRAIN)
+    B, S = tcfg.global_batch, tcfg.seq_len
+    model = build_model(cfg)
+    state = init_train_state(model, 0, tcfg)
+    pipe = DataPipeline(cfg, tcfg)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    step = make_train_step(model, tcfg)
+    batches = [pipe.device_batch(s) for s in range(W_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, outs = [], []
+    with Capture(flash_backward, "flash_attention_bwd", _k5_weight) as c5:
+        for b in batches:
+            t = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            outs.append(m)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    E, L, N = cfg.encoder_layers, cfg.n_layers, W_TRAIN_STEPS
+    want = dict({k: 0 for k in COUNTERS}, K4=(E + 4 * L) * N,
+                K5=(E + 2 * L) * N)
+    losses = [float(m["loss"]) for m in outs]
+    gnorms = [float(m["grad_norm"]) for m in outs]
+    ln_v = math.log(cfg.vocab_size)
+    med = float(np.median(times[1:]))
+    flops = whisper_train_flops(cfg, n_params, B, S)
+    log(f"# whisper training: {N} steps of {B} x {S} (frames and tokens), "
+        f"remat {tcfg.remat}, {n_params / 1e6:.1f} M params: kernel "
+        f"launches {launches} (want {want}), losses "
+        f"{[round(x, 4) for x in losses]}, ln(vocab) {ln_v:.4f}, step ms "
+        f"{[round(t * 1e3, 1) for t in times]}, {B * S / med:.0f} tokens/s, "
+        f"mfu {flops / (med * PEAK_FLOP_S):.3f}, peak {peak / 1e9:.2f} GB")
+    if launches != want:
+        raise AssertionError(f"whisper training launches {launches} != "
+                             f"{want}")
+    if not all(np.isfinite(losses + gnorms)) or abs(losses[0] - ln_v) > 1.0:
+        raise AssertionError(f"whisper training: losses {losses} not finite "
+                             f"from near ln(vocab)")
+    e2e = {"config": cfg.name, "params": n_params, "global_batch": B,
+           "seq_len": S, "remat": tcfg.remat, "steps": N,
+           "step_ms": [t * 1e3 for t in times],
+           "step_ms_median_after_first": med * 1e3,
+           "tokens_per_s": B * S / med, "peak_mem_gb": peak / 1e9,
+           "model_flops_per_step": flops,
+           "mfu": flops / (med * PEAK_FLOP_S),
+           "mfu_formula": "(6 * params * batch * seq + 12 * batch * heads "
+                          "* head_dim * (encoder and cross layers x seq^2 "
+                          "+ decoder layers x seq (seq + 1) / 2)) / (median "
+                          "step s after the first * 989e12)",
+           "losses": losses, "grad_norms": gnorms,
+           "kernel_launches": launches}
+    del state, model, step, batches
+    _free()
+    return {"launches": launches}, {f"K5@{WHISPER}_train": c5.best}, e2e
+
+
+def whisper_engine(model, params):
+    """The 4 requests through ServeEngine (dense, stepwise admission, 2
+    slots), counted (K3 2 x layers per decode step, nothing else; 0
+    implicit syncs in the ticks); each request again alone on an engine
+    of the same config: the outputs equal (one request's lane computes
+    the same bits beside another lane or an idle one)."""
+    cfg = model.cfg
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in W_ENGINE_PROMPTS]
+    reset_counts()
+    eng, tick_s, syncs, wall, _ = run_traffic(
+        model, params, "whisper", True, scfg=W_SCFG,
+        waves=[[(0, p, 0) for p in prompts]])
+    launches = read_counts()
+    got = {r.uid: r.out_tokens for r in eng.sched.finished}
+    steps = eng.jit_calls
+    want = dict({k: 0 for k in COUNTERS}, K3=2 * cfg.n_layers * steps)
+    alone = []
+    for p in prompts:
+        e, *_ = run_traffic(model, params, "whisper", False, scfg=W_SCFG,
+                            waves=[[(0, p, 0)]])
+        alone.append(e.sched.finished[0].out_tokens)
+    equal = sum(got[uid] == out for uid, out in
+                zip(sorted(got), alone))
+    log(f"# whisper engine: {len(got)} requests x {W_ENGINE_NEW} tokens on "
+        f"{W_SCFG['max_batch']} slots in {len(tick_s)} ticks, {steps} decode "
+        f"steps, kernel launches {launches} (want {want}), implicit syncs "
+        f"{syncs}; {equal} of {len(prompts)} requests equal to the request "
+        f"served alone")
+    if launches != want or syncs or equal != len(prompts) or any(
+            len(o) != W_ENGINE_NEW for o in got.values()):
+        raise AssertionError("whisper engine: launches, syncs or outputs")
+    stats = eng.stats()
+    return {"launches": launches}, {
+        "requests": len(got), "ticks": len(tick_s), "decode_steps": steps,
+        "wall_s": wall, "gen_tok_s": stats["gen_tokens"] / wall,
+        "tick_ms_median": float(np.median(tick_s)) * 1e3,
+        "kernel_launches": launches, "implicit_syncs": syncs,
+        "requests_equal_alone": equal}
+
+
+def phase_whisper():
+    """whisper-base at full width: serving through the model's entry
+    points, the engine, then training.  Returns (runs, captured, e2e)."""
+    model, params, n_params = _seeded_model(WHISPER)
+    runs, captured, e2e = whisper_serving(model, params)
+    e2e = {"params": n_params, "serving": e2e}
+    runs["whisper engine"], e2e["engine"] = whisper_engine(model, params)
+    del model, params
+    _free()
+    runs["whisper train"], c, e2e["train"] = whisper_training()
+    captured.update(c)
+    return runs, captured, e2e
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -2460,6 +3002,9 @@ def main() -> int:
     m6_traces = {run: phase_trace(*mp, run, runs[run]["e2e"]["wall_s"])
                  for run in M6_RUNS}
     at("granite-3-2b serving")
+    m11_runs, e2e_m11 = phase_m11(*mp)
+    runs.update(m11_runs)
+    at("M11")
     del mp                       # the serving model, before the training one
     _free()
     runs["train"], train_captured, e2e_train, trace_train = phase_train()
@@ -2474,6 +3019,10 @@ def main() -> int:
     runs.update(df_runs)
     captured.update(df_captured)
     at("dense family")
+    w_runs, w_captured, e2e_whisper = phase_whisper()
+    runs.update(w_runs)
+    captured.update(w_captured)
+    at("whisper")
     rows = phase_times(runs, captured)
     at("times")
     print(json.dumps({"kernels": rows}), flush=True)
@@ -2501,6 +3050,8 @@ def main() -> int:
         if ref is not None:
             e2e["reference"] = dict(runs[ref]["e2e"], name=ref)
         print(json.dumps({f"e2e_{run}": e2e}), flush=True)
+    print(json.dumps({"e2e_m11": e2e_m11}), flush=True)
+    print(json.dumps({"e2e_whisper": e2e_whisper}), flush=True)
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

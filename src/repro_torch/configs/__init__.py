@@ -8,8 +8,8 @@ from .base import (ModelConfig, ServeConfig, TrainConfig,
                    dense_equivalent_pages, pages_for_tokens)
 
 # the architectures the port runs so far: the dense decoders (the paper's
-# own OPT and QWEN among them), the hybrid Mamba2 zamba2 and the RWKV6
-# rwkv6
+# own OPT and QWEN among them), the hybrid Mamba2 zamba2, the RWKV6 rwkv6
+# and the whisper encoder-decoder
 ARCH_MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "gemma3-4b": "gemma3_4b",
@@ -19,6 +19,7 @@ ARCH_MODULES: Dict[str, str] = {
     "rwkv6-1.6b": "rwkv6_1_6b",
     "opt-6.7b": "opt_6_7b",
     "qwen-7b": "qwen_7b",
+    "whisper-base": "whisper_base",
 }
 
 

@@ -3,8 +3,9 @@
 The port keeps its own copy of the configuration schema: the field names,
 defaults and validation rules are those of the JAX package.  ModelConfig
 carries the fields of the families the port runs - dense, hybrid (Mamba2
-with a shared attention block) and ssm (RWKV6); the MoE, encoder-decoder
-and frontend fields come with those families (ROADMAP M13).  ServeConfig
+with a shared attention block), ssm (RWKV6) and audio (the whisper
+encoder-decoder, its frontend a stub as in the JAX package); the MoE and
+vision fields come with those families (ROADMAP M13).  ServeConfig
 carries every field, so one set of keyword arguments builds either
 package's serve config, and the engine refuses the settings it does not
 serve yet.  TrainConfig is a copy of the
@@ -57,6 +58,12 @@ class ModelConfig:
     # --- RWKV --------------------------------------------------------------
     rwkv: bool = False
 
+    # --- encoder-decoder (whisper) -----------------------------------------
+    encoder_layers: int = 0     # > 0 => enc-dec
+
+    # --- modality frontend stubs -------------------------------------------
+    frontend: str = ""          # "" | "audio" (the vision stub is not ported)
+
     max_seq: int = 524_288
 
     def __post_init__(self):
@@ -71,8 +78,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks), the JAX
-        package's formula for the families the port carries (its MoE and
-        encoder-decoder terms come with those families)."""
+        package's formula for the families the port carries (its MoE term
+        comes with that family)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.head_dim
         attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
@@ -91,6 +98,9 @@ class ModelConfig:
             + v * d * (1 if self.tie_embeddings else 2)
         if self.shared_attn_every:
             total += attn + n_ffn_mats * d * f
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn + n_ffn_mats * d * f) \
+                + attn * self.n_layers
         return int(total)
 
     def active_param_count(self) -> int:

@@ -6,8 +6,11 @@ Batches are made on the host with numpy from (seed, step), exactly as the
 JAX package makes them (SyntheticCorpus is a copy, down to its per-step
 seed hash(("batch", step)), so a port batch equals the JAX batch of the
 same step in the same process), then moved to the device; tokens stay
-int32.  The frontend families' extra inputs (vlm, audio) come with those
-families (ROADMAP M13).
+int32, and the audio family's frame embeddings (audio_embeds, the
+frontend stub's input: numpy-seeded N(0, 0.02^2) from default_rng(step +
+11), one frame per token) go over in bfloat16, whatever the model's
+dtype, as the JAX package's device_batch casts them.  The vlm inputs come
+with that family (ROADMAP M13).
 """
 from __future__ import annotations
 
@@ -65,16 +68,22 @@ class DataPipeline:
 
     # ---- raw host batches --------------------------------------------------
     def host_batch(self, step: int) -> Dict[str, np.ndarray]:
-        if self.cfg.family in ("vlm", "audio"):
+        cfg = self.cfg
+        if cfg.family == "vlm":
             raise NotImplementedError(
-                f"the {self.cfg.family} frontend inputs are not ported yet "
-                f"(ROADMAP M13)")
+                "the vlm frontend inputs are not ported yet (ROADMAP M13)")
         B, S = self.tcfg.global_batch, self.tcfg.seq_len
-        return {"tokens": self.corpus.batch(step, B, S)}
+        batch = {"tokens": self.corpus.batch(step, B, S)}
+        if cfg.family == "audio":
+            rng = np.random.default_rng(step + 11)
+            batch["audio_embeds"] = rng.standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32) * 0.02
+        return batch
 
     # ---- device placement ---------------------------------------------------
     def device_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device)
+        return {k: torch.from_numpy(v).to(self.device, None if k == "tokens"
+                                          else torch.bfloat16)
                 for k, v in self.host_batch(step).items()}
 
     # ---- prefetch -------------------------------------------------------------

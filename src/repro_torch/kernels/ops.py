@@ -9,11 +9,14 @@ the other.  impl="ref" forces the plain version on any device - the tests
 and chip_smoke.py's parity phases use it to hold the kernels against it.
 The scans also take impl="naive", the step-by-step recurrence, as the
 JAX package's ops do.  The single-step decode updates of the recurrent
-states (mamba2_step, rwkv6_step) are plain PyTorch, as in the JAX
-package: no TPU kernel stands behind them.
+states (mamba2_step, rwkv6_step) and the sequence-parallel decode
+(decode_attention_naive, _decode_partials, seq_parallel_decode) are plain
+PyTorch on any device, as they are plain jnp in the JAX package: no TPU
+kernel stands behind them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -132,6 +135,112 @@ def paged_prefill_attention(q, k_pages, v_pages, page_row, q_offset, *,
         else pp.paged_prefill_attention
     return fn(q, k_pages, v_pages, page_row, q_offset, window=window,
               logit_softcap=logit_softcap, scale=scale)
+
+
+def decode_attention_naive(q, k_cache, v_cache, cache_len, *,
+                           logit_softcap: float = 0.0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Unchunked decode attention over the whole cache (no window), the
+    JAX package's decode_attention_naive: one einsum for the scores, the
+    max / sum reductions over the cache's sequence axis, one einsum for
+    the output, all in float32.  Under SPMD the JAX package relies on this
+    form for a sequence-sharded cache (XLA turns the reductions into
+    partial reductions and small all-reduces); here it is the
+    single-device form of seq_parallel_decode.  q: (B, 1, Hq, D); caches
+    (B, S, Hkv, D); cache_len (B,) or one int.  A lane of length 0 gives
+    an exactly zero output.  Returns (B, 1, Hq, D) in q's dtype."""
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    sc = scale if scale is not None else 1.0 / math.sqrt(D)
+    cache_len = ref._as_lens(cache_len, B, q.device)
+    qf = (q.float() * sc).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
+    if logit_softcap > 0.0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < cache_len[:, None])[:, None, None, :]
+    s = torch.where(mask, s, ref.NEG_INF)
+    m = torch.amax(s, -1, keepdim=True)
+    p = torch.where(mask, torch.exp2((s - m) * ref.LOG2E), 0.0)
+    l = torch.sum(p, -1, keepdim=True)
+    o = torch.einsum("bhgk,bkhd->bhgd", p / torch.clamp_min(l, 1e-20),
+                     v_cache.float())
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _decode_partials(q, kc, vc, valid_len, *,
+                     scale: Optional[float] = None, block_kv: int = 1024):
+    """The unnormalised partial softmax (m, l, o) of one query token per
+    lane over the first valid_len positions of its cache slice, the JAX
+    package's _decode_partials: an online softmax over blocks of block_kv
+    positions (the slice zero-padded to a whole block), no window and no
+    softcap.  q: (B, 1, Hq, D); kc, vc (B, S, Hkv, D); valid_len (B,) or
+    one int.  Returns m, l (B, Hkv, G) and o (B, Hkv, G, D), float32; a
+    lane with nothing valid has m = NEG_INF, l = 0, o = 0."""
+    B, _, Hq, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    G = Hq // Hkv
+    sc = scale if scale is not None else 1.0 / math.sqrt(D)
+    valid_len = ref._as_lens(valid_len, B, q.device)
+    qf = (q.float() * sc).reshape(B, Hkv, G, D)
+    m = torch.full((B, Hkv, G), ref.NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hkv, G), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
+    for start in range(0, S, block_kv):
+        kblk = kc[:, start:start + block_kv]
+        vblk = vc[:, start:start + block_kv]
+        pad = block_kv - kblk.shape[1]
+        if pad:
+            kblk = torch.nn.functional.pad(kblk, (0, 0, 0, 0, 0, pad))
+            vblk = torch.nn.functional.pad(vblk, (0, 0, 0, 0, 0, pad))
+        pos = start + torch.arange(block_kv, device=q.device)
+        mask = (pos[None, :] < valid_len[:, None])[:, None, None, :]
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, kblk.float())
+        s = torch.where(mask, s, ref.NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, -1))
+        m_safe = torch.where(m_new <= ref.NEG_INF / 2, 0.0, m_new)
+        p = torch.where(mask, torch.exp2((s - m_safe[..., None])
+                                         * ref.LOG2E), 0.0)
+        alpha = torch.where(m <= ref.NEG_INF / 2, 0.0,
+                            torch.exp2((m - m_new) * ref.LOG2E))
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum("bhgk,bkhd->bhgd", p,
+                                                vblk.float())
+        m = m_new
+    return m, l, o
+
+
+def seq_parallel_decode(q, k_cache_local, v_cache_local, cache_len, *,
+                        group=None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Sequence-parallel decode across the ranks of a torch.distributed
+    process group, the JAX package's seq_parallel_decode (there inside
+    shard_map): rank r holds positions [r S_local, (r + 1) S_local) of
+    every lane's cache, computes the partial (m, l, o) over its
+    local_len = clamp(cache_len - r S_local, 0, S_local) valid positions,
+    all-gathers the small partials over `group` (the default group when
+    None) and merges them with the log-sum-exp combine.  q: (B, 1, Hq, D),
+    the same on every rank; caches (B, S_local, Hkv, D), this rank's
+    slice; cache_len (B,) or one int, the lanes' whole lengths.  Returns
+    (B, 1, Hq, D) in q's dtype, the same on every rank."""
+    import torch.distributed as dist
+    B, _, Hq, D = q.shape
+    S_local = k_cache_local.shape[1]
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    cache_len = ref._as_lens(cache_len, B, q.device)
+    local_len = torch.clamp(cache_len - rank * S_local, 0, S_local)
+    parts = _decode_partials(q, k_cache_local, v_cache_local, local_len,
+                             scale=scale)
+    gathered = []
+    for t in parts:
+        out = t.new_empty((world * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+        gathered.append(out.view((world,) + tuple(t.shape)))
+    _, l_c, o_c = ref.combine_partial_softmax(*gathered)
+    o = o_c / torch.clamp_min(l_c, 1e-20)[..., None]
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
 def _check_scan_impl(impl):

@@ -1,6 +1,6 @@
-"""Attention layers of the dense decoder: QKV projection, RoPE, the K/V
-write into the cache (dense strips or the page pool), the attention
-kernel, and the output projection.
+"""Attention layers: QKV projection (K and V from the encoder output for
+cross-attention), RoPE, the K/V write into the cache (dense strips or the
+page pool), the attention kernel, and the output projection.
 
 The caches are updated IN PLACE (JAX returns new arrays; here layer l
 writes into its (B, S_max, Hkv, D) strips or its (P, page_size, Hkv, D)
@@ -19,31 +19,62 @@ from ..kernels import ops
 from .layers import dense, rms_head_norm, rope
 
 
-def _qkv(params, x: torch.Tensor, cfg: ModelConfig):
+def _q(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, S = x.shape[:2]
     q = dense(params["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = dense(params["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(params["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return rms_head_norm(q, params["q_norm"]) if cfg.qk_norm else q
+
+
+def _qkv(params, x: torch.Tensor, cfg: ModelConfig,
+         kv_x: Optional[torch.Tensor] = None):
+    """q from x; k and v from kv_x (cross-attention: the encoder output),
+    or from x when it is None."""
+    src = x if kv_x is None else kv_x
+    B, S = src.shape[:2]
+    k = dense(params["wk"], src).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = dense(params["wv"], src).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_head_norm(q, params["q_norm"])
         k = rms_head_norm(k, params["k_norm"])
-    return q, k, v
+    return _q(params, x, cfg), k, v
 
 
 def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                  causal: bool = True, window: int = 0,
                  positions: Optional[torch.Tensor] = None,
+                 kv_x: Optional[torch.Tensor] = None,
                  impl: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence self-attention (training / teacher forcing).  x: (B,
-    S, D); positions (S,) default arange(S).  Returns (B, S, D)."""
-    q, k, v = _qkv(params, x, cfg)
+    """Full-sequence attention (training / teacher forcing).  x: (B, S,
+    D); positions (S,) default arange(S).  kv_x (B, S_kv, D): cross-
+    attention, K and V from kv_x and no RoPE (whisper's decoder over its
+    encoder output, with causal=False).  Returns (B, S, D)."""
+    q, k, v = _qkv(params, x, cfg, kv_x)
     B, S = x.shape[:2]
-    if cfg.use_rope:
+    if cfg.use_rope and kv_x is None:
         pos = positions if positions is not None \
             else torch.arange(S, device=x.device)
         q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
+                            logit_softcap=cfg.attn_logit_softcap, impl=impl)
+    return dense(params["wo"], o.reshape(B, S, cfg.n_heads * cfg.head_dim))
+
+
+def attn_prefill_cross(params, x: torch.Tensor, cfg: ModelConfig,
+                       enc_out: torch.Tensor, cache_k: torch.Tensor,
+                       cache_v: torch.Tensor, *,
+                       impl: Optional[str] = None) -> torch.Tensor:
+    """Cross-attention of a decoder prefill: K and V of the encoder output
+    enc_out (B, S_enc, D) written into positions [0, S_enc) of the (B,
+    S_cross, Hkv, D) cross strips, then x (B, S, D) attends over all of
+    them, non-causal.  (The JAX package projects enc_out twice, for the
+    strips and for its attn_forward(kv_x=), to the same values.)  Returns
+    (B, S, D)."""
+    q, k, v = _qkv(params, x, cfg, enc_out)
+    B, S = x.shape[:2]
+    Se = enc_out.shape[1]
+    cache_k[:, :Se] = k.to(cache_k.dtype)
+    cache_v[:, :Se] = v.to(cache_v.dtype)
+    o = ops.flash_attention(q, k, v, causal=False,
                             logit_softcap=cfg.attn_logit_softcap, impl=impl)
     return dense(params["wo"], o.reshape(B, S, cfg.n_heads * cfg.head_dim))
 
@@ -97,26 +128,38 @@ def attn_prefill_paged(params, x: torch.Tensor, cfg: ModelConfig,
 def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
                 cache_k: torch.Tensor, cache_v: torch.Tensor,
                 lens: torch.Tensor, *, window: int = 0,
-                impl: Optional[str] = None,
-                seq_parallel: bool = False) -> torch.Tensor:
+                impl: Optional[str] = None, seq_parallel: bool = False,
+                cross: bool = False) -> torch.Tensor:
     """Single-token decode against the dense strips.  x: (B, 1, D);
     caches (B, S_max, Hkv, D); lens (B,) int32 current lengths - the new
     token's K/V goes to position lens of its own strip.  An idle lane
     (lens 0) writes position 0 of its strip and attends over that one
-    position, as the JAX package's decode does.  Returns (B, 1, D)."""
-    if seq_parallel:
-        raise NotImplementedError(
-            "sequence-parallel decode is not ported yet (ROADMAP M11)")
+    position, as the JAX package's decode does.  cross=True: cross-
+    attention over the encoder's K/V already in the strips, the first
+    lens positions of each; nothing is written and no RoPE applied.
+    seq_parallel=True: the attention is ops.decode_attention_naive over
+    the whole strips, as in the JAX package - which takes no window, so a
+    sliding window is dropped there (ROADMAP §3).  Returns (B, 1, D)."""
     B = x.shape[0]
-    q, k, v = _qkv(params, x, cfg)
-    if cfg.use_rope:
-        q = rope(q, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
-        k = rope(k, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
-    bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, lens.long()] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, lens.long()] = v[:, 0].to(cache_v.dtype)
-    o = ops.flash_decode(q, cache_k, cache_v, lens + 1, window=window,
-                         logit_softcap=cfg.attn_logit_softcap, impl=impl)
+    if cross:
+        q = _q(params, x, cfg)
+        attend = lens
+    else:
+        q, k, v = _qkv(params, x, cfg)
+        if cfg.use_rope:
+            q = rope(q, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
+            k = rope(k, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
+        bidx = torch.arange(B, device=x.device)
+        cache_k[bidx, lens.long()] = k[:, 0].to(cache_k.dtype)
+        cache_v[bidx, lens.long()] = v[:, 0].to(cache_v.dtype)
+        attend = lens + 1
+    if seq_parallel:
+        o = ops.decode_attention_naive(q, cache_k, cache_v, attend,
+                                       logit_softcap=cfg.attn_logit_softcap)
+    else:
+        o = ops.flash_decode(q, cache_k, cache_v, attend, window=window,
+                             logit_softcap=cfg.attn_logit_softcap,
+                             impl=impl)
     return dense(params["wo"], o.reshape(B, 1, cfg.n_heads * cfg.head_dim))
 
 

@@ -26,7 +26,13 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., d_in) @ w: (d_in, d_out), result in x's dtype."""
+    """x: (..., d_in) @ w: (d_in, d_out), result in x's dtype.  Operands of
+    two dtypes (bfloat16 audio frames through float32 weights: the
+    pipeline hands the audio over in bfloat16 whatever the model's dtype)
+    multiply in the wider one, as XLA's dot promotes them."""
+    if w.dtype != x.dtype:
+        wide = torch.promote_types(w.dtype, x.dtype)
+        return torch.matmul(x.to(wide), w.to(wide)).to(x.dtype)
     return torch.matmul(x, w).to(x.dtype)
 
 

@@ -1,14 +1,17 @@
 """The language model as an nn.Module, with its forward and serving entry
 points: the dense decoder over the dense and the paged KV cache, the
 hybrid zamba2 (family "hybrid") and RWKV6 (family "ssm") models over their
-recurrent-state caches.
+recurrent-state caches, and whisper's encoder-decoder (family "audio")
+over its self-attention and cross-attention strips.
 
 `Model` holds the JAX package's parameter tree as nn.Parameters in the same
 stacked layout - {"tok": {"embed"}, "final_norm": {"scale"}, "blocks":
 ...} with a leading layer axis on every per-layer leaf; the dense blocks
 are {"n1", "attn", "n2", "mlp"}, the hybrid ones {"mamba": Mamba2 leaves,
 "shared": one unstacked attention block}, the RWKV6 ones {"n1", "n2",
-"mix"} - and exposes it as a plain nested dict (`Model.params`).  Every
+"mix"}, the audio ones {"encoder": stacked dense blocks, "decoder":
+stacked dense blocks with "n_cross" and "cross_attn", "enc_norm"} - and
+exposes it as a plain nested dict (`Model.params`).  Every
 leaf is in the config's dtype but those the JAX init keeps in float32
 (Mamba2's A_log and dt_bias, RWKV6's w_base and u).  Like the
 JAX package's Model, the entry points take the parameter tree as their
@@ -38,11 +41,13 @@ from .layers import (MAX_POSITION, apply_norm, embed, pdtype,
                      sinusoidal_positions, unembed)
 
 ATTENTION_FAMILIES = ("dense",)
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
-# per family, the cache leaves that carry a recurrent state (the batch on
-# axis 1): a lane that starts a new sequence starts them from zero
+PORTED_FAMILIES = ("dense", "hybrid", "ssm", "audio")
+# per family served stepwise, the cache leaves that carry a recurrent state
+# (the batch on axis 1): a lane that starts a new sequence starts them from
+# zero.  whisper's strips carry none: a new sequence overwrites its self-
+# attention strip position by position, and the cross strips are read only
 RECURRENT_LEAVES = {"hybrid": ("conv", "ssm"),
-                    "ssm": ("wkv", "tm_prev", "cm_prev")}
+                    "ssm": ("wkv", "tm_prev", "cm_prev"), "audio": ()}
 
 
 def _params(shapes: Dict[str, tuple], dtype, device,
@@ -88,10 +93,12 @@ def _norm_shapes(cfg: ModelConfig, lead: tuple = ()) -> Dict[str, tuple]:
     return {}
 
 
-def _block_params(cfg: ModelConfig, lead: tuple, dt, dev) -> nn.ModuleDict:
+def _block_params(cfg: ModelConfig, lead: tuple, dt, dev,
+                  cross: bool = False) -> nn.ModuleDict:
     """An attention + MLP block {"n1", "attn", "n2", "mlp"}, with `lead`
     (the layer axis, or nothing for the hybrid stack's shared block) in
-    front of every leaf."""
+    front of every leaf; cross=True adds whisper's decoder cross-attention
+    {"n_cross", "cross_attn"}."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = {"wq": (*lead, d, nq), "wk": (*lead, d, nkv),
@@ -101,16 +108,21 @@ def _block_params(cfg: ModelConfig, lead: tuple, dt, dev) -> nn.ModuleDict:
     ffn = {"w_in": (*lead, d, f), "w_out": (*lead, f, d)}
     if cfg.act == "silu":
         ffn["w_gate"] = (*lead, d, f)
-    return nn.ModuleDict({
+    block = nn.ModuleDict({
         "n1": _params(_norm_shapes(cfg, lead), dt, dev),
         "attn": _params(attn, dt, dev),
         "n2": _params(_norm_shapes(cfg, lead), dt, dev),
         "mlp": _params(ffn, dt, dev)})
+    if cross:
+        block["n_cross"] = _params(_norm_shapes(cfg, lead), dt, dev)
+        block["cross_attn"] = _params(attn, dt, dev)
+    return block
 
 
 class Model(nn.Module):
-    """The dense decoder, the hybrid zamba2 model or the RWKV6 model (the
-    MoE, encoder-decoder and VLM families are not ported yet)."""
+    """The dense decoder, the hybrid zamba2 model, the RWKV6 model or the
+    whisper encoder-decoder (the MoE and VLM families are not ported
+    yet)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -128,6 +140,11 @@ class Model(nn.Module):
         self.final_norm = _params(_norm_shapes(cfg), dt, dev)
         if cfg.family == "dense":
             self.blocks = _block_params(cfg, (L,), dt, dev)
+        elif cfg.family == "audio":
+            self.blocks = nn.ModuleDict({
+                "encoder": _block_params(cfg, (cfg.encoder_layers,), dt, dev),
+                "decoder": _block_params(cfg, (L,), dt, dev, cross=True),
+                "enc_norm": _params(_norm_shapes(cfg), dt, dev)})
         elif cfg.family == "hybrid":
             shapes = {k: (L, *s) for k, s in mamba2.mamba2_shapes(cfg).items()}
             self.blocks = nn.ModuleDict({
@@ -172,6 +189,14 @@ class Model(nn.Module):
                           "ln_x": 1.0},
                   stds={"w_b": 0.01, "u": 0.1})
             return self.params
+        if fam == "audio":
+            for stack in ("encoder", "decoder"):
+                for name, group in self.blocks[stack].items():
+                    _fill(group, True, gen, consts=norms if name in (
+                        "n1", "n2", "n_cross") else {"q_norm": 1.0,
+                                                     "k_norm": 1.0})
+            _fill(self.blocks["enc_norm"], False, gen, consts=norms)
+            return self.params
         block = self.blocks
         if fam == "hybrid":
             _fill(self.blocks["mamba"], True, gen, consts={
@@ -185,8 +210,8 @@ class Model(nn.Module):
                   consts={"q_norm": 1.0, "k_norm": 1.0})
         return self.params
 
-    def init_cache(self, batch_size: int, max_len: int, *,
-                   page_size: int = 0, num_pages: int = 0):
+    def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0,
+                   *, page_size: int = 0, num_pages: int = 0):
         """The dense layout by default: one (L, batch, max_len, Hkv, D)
         strip per K and V.  page_size > 0 selects the paged layout: a
         global (L, num_pages, page_size, Hkv, D) K and V pool shared by all
@@ -195,13 +220,18 @@ class Model(nn.Module):
         per-layer conv windows and float32 SSM states plus dense K / V
         strips for each application of its shared block; the ssm family
         per-layer float32 WKV states and token-shift carries (their
-        recurrent leaves have the batch on axis 1, as the strips do)."""
+        recurrent leaves have the batch on axis 1, as the strips do); the
+        audio family self-attention strips of max_len and cross strips of
+        enc_len positions (max_len when 0) per decoder layer."""
         cfg = self.cfg
         dev, dt = self.device, pdtype(cfg)
         if cfg.family not in ATTENTION_FAMILIES:
             if page_size > 0:
                 raise ValueError(f"paged KV cache needs an attention "
                                  f"family, got {cfg.family}")
+            if cfg.family == "audio":
+                return T.encdec_init_cache(cfg, batch_size, max_len,
+                                           enc_len or max_len, dt, dev)
             if cfg.family == "hybrid":
                 return T.hybrid_init_cache(cfg, batch_size, max_len, dt, dev)
             return T.rwkv_init_cache(cfg, batch_size, dt, dev)
@@ -239,19 +269,35 @@ class Model(nn.Module):
             pos = torch.clamp(start[:, None] + pos, max=MAX_POSITION)
         return x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
 
+    def _audio(self, batch) -> torch.Tensor:
+        """The encoder's input: batch["audio_embeds"] (B, S_enc, d_model),
+        the frontend stub's frame embeddings, plus sinusoidal positions
+        from 0, in the frames' dtype."""
+        enc = batch["audio_embeds"]
+        pos = torch.arange(enc.shape[1], dtype=torch.int32,
+                           device=enc.device)
+        return enc + sinusoidal_positions(pos, self.cfg.d_model).to(
+            enc.dtype)
+
     def _forward(self, params, batch, impl: Optional[str], remat: bool):
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
-        stack = {"dense": T.stack_forward, "hybrid": T.hybrid_forward,
-                 "ssm": T.rwkv_forward}[cfg.family]
-        x = stack(params["blocks"], x, cfg, impl=impl, remat=remat)
+        if cfg.family == "audio":
+            x = T.encdec_forward(params["blocks"], self._audio(batch), x,
+                                 cfg, impl=impl, remat=remat)
+        else:
+            stack = {"dense": T.stack_forward, "hybrid": T.hybrid_forward,
+                     "ssm": T.rwkv_forward}[cfg.family]
+            x = stack(params["blocks"], x, cfg, impl=impl, remat=remat)
         x = apply_norm(params["final_norm"], x, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return unembed(params["tok"], x, cfg), aux
 
     @torch.no_grad()
     def forward(self, params, batch, *, impl: Optional[str] = None):
-        """Teacher-forced pass over batch["tokens"] (B, S) int32.  Returns
+        """Teacher-forced pass over batch["tokens"] (B, S) int32 (the audio
+        family's decoder tokens, with its frames in batch["audio_embeds"]
+        (B, S_enc, d_model)).  Returns
         (logits (B, S, V) float32, aux loss (a float32 zero: no ported
         family has an auxiliary loss))."""
         return self._forward(params, batch, impl, remat=False)
@@ -301,12 +347,18 @@ class Model(nn.Module):
         batch["tokens"] (B, S) from position 0.  Prompts padded to a
         bucketed S carry their real lengths in batch["true_lens"] (B,); the
         pad K/V is masked by the lengths downstream (a recurrent state, as
-        in the JAX package, runs over the pad).  Returns (logits of each
-        row's last real token (B, 1, V) float32, cache, lens (B,))."""
-        prefill = {"dense": T.stack_prefill, "hybrid": T.hybrid_prefill,
-                   "ssm": T.rwkv_prefill}[self.cfg.family]
+        in the JAX package, runs over the pad).  The audio family runs its
+        encoder over batch["audio_embeds"] and fills the cross strips with
+        its K/V.  Returns (logits of each row's last real token (B, 1, V)
+        float32, cache, lens (B,))."""
         x = self._embed(params, batch["tokens"])
-        x = prefill(params["blocks"], x, self.cfg, cache, impl=impl)
+        if self.cfg.family == "audio":
+            x = T.encdec_prefill(params["blocks"], self._audio(batch), x,
+                                 self.cfg, cache, impl=impl)
+        else:
+            prefill = {"dense": T.stack_prefill, "hybrid": T.hybrid_prefill,
+                       "ssm": T.rwkv_prefill}[self.cfg.family]
+            x = prefill(params["blocks"], x, self.cfg, cache, impl=impl)
         logits, lens = self._prompt_tail(params, x, batch)
         return logits, cache, lens
 
@@ -392,24 +444,38 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, params, tokens, lens, cache, *,
-                    impl: Optional[str] = None):
+                    impl: Optional[str] = None, seq_parallel: bool = False,
+                    enc_lens: Optional[torch.Tensor] = None):
         """tokens: (B, 1) int32; lens: (B,) int32 positions to write; cache
-        dense or paged (init_cache), or the recurrent states.  Returns
-        (logits (B, 1, V) float32, cache)."""
+        dense or paged (init_cache), the recurrent states, or the audio
+        family's strips.  seq_parallel=True decodes the attention through
+        ops.decode_attention_naive in place of K3 (a paged cache raises, as
+        in the JAX package).  enc_lens (B,) int32: the cross strips'
+        positions each lane attends (the audio family; default the strips'
+        whole length, as in the JAX package).  Returns (logits (B, 1, V)
+        float32, cache)."""
         cfg = self.cfg
+        blocks = params["blocks"]
         x = self._embed(params, tokens, lens)
-        if cfg.family == "hybrid":
-            x = T.hybrid_decode(params["blocks"], x, cfg, cache, lens,
-                                impl=impl)
+        if cfg.family == "audio":
+            if enc_lens is None:
+                enc_lens = torch.full_like(lens, cache["cross_k"].shape[2])
+            x = T.encdec_decode(blocks, x, cfg, cache, lens, enc_lens,
+                                impl=impl, seq_parallel=seq_parallel)
+        elif cfg.family == "hybrid":
+            x = T.hybrid_decode(blocks, x, cfg, cache, lens, impl=impl,
+                                seq_parallel=seq_parallel)
         elif cfg.family == "ssm":
-            x = T.rwkv_decode(params["blocks"], x, cfg, cache, lens,
-                              impl=impl)
+            x = T.rwkv_decode(blocks, x, cfg, cache, lens, impl=impl,
+                              seq_parallel=seq_parallel)
         elif "k_pages" in cache:
-            x = T.stack_decode_paged(params["blocks"], x, cfg, cache, lens,
-                                     impl=impl)
+            if seq_parallel:
+                raise ValueError("paged decode does not compose with the "
+                                 "sequence-parallel cache layout")
+            x = T.stack_decode_paged(blocks, x, cfg, cache, lens, impl=impl)
         else:
-            x = T.stack_decode(params["blocks"], x, cfg, cache, lens,
-                               impl=impl)
+            x = T.stack_decode(blocks, x, cfg, cache, lens, impl=impl,
+                               seq_parallel=seq_parallel)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["tok"], x, cfg), cache
 

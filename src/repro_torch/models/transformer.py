@@ -1,7 +1,9 @@
 """Layer loops of every ported family: the dense decoder (full-sequence
 forward, and prefill and decode over the dense or the paged KV cache), the
 hybrid zamba2 stack (Mamba2 layers with one shared-weight attention block
-after every shared_attn_every-th layer) and the RWKV6 stack.
+after every shared_attn_every-th layer), the RWKV6 stack, and whisper's
+encoder-decoder (a non-causal encoder stack, then decoder blocks of causal
+self-attention, cross-attention over the encoder output and the MLP).
 
 A Python loop over layers takes the place of the JAX package's lax.scan:
 layer l reads its slices of the stacked (L, ...) parameters and updates its
@@ -24,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_decode_paged, attn_forward,
                         attn_prefill, attn_prefill_chunks_paged,
-                        attn_prefill_paged)
+                        attn_prefill_cross, attn_prefill_paged)
 from .layers import apply_norm, mlp
 from .mamba2 import (mamba2_decode, mamba2_forward, mamba2_init_state,
                      mamba2_prefill)
@@ -77,9 +79,9 @@ def _run(fn, remat: bool, *args):
 
 
 def _block(p, x: torch.Tensor, cfg: ModelConfig, window: int,
-           impl: Optional[str]) -> torch.Tensor:
+           impl: Optional[str], causal: bool = True) -> torch.Tensor:
     h = attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
-                     window=window, impl=impl)
+                     causal=causal, window=window, impl=impl)
     return _ffn_tail(p, x + h, cfg)
 
 
@@ -112,7 +114,9 @@ def stack_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
 def stack_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                  lens: torch.Tensor, *, impl: Optional[str] = None,
                  seq_parallel: bool = False) -> torch.Tensor:
-    """Batched single-token decode against the dense cache."""
+    """Batched single-token decode against the dense cache; seq_parallel
+    runs ops.decode_attention_naive in place of K3 (and drops the
+    windows: attn_decode)."""
     for l, is_global in enumerate(_layer_windows(cfg)):
         p = _layer(blocks, l)
         h = attn_decode(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
@@ -275,11 +279,11 @@ def hybrid_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
 
 
 def hybrid_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
-                  lens: torch.Tensor, *,
-                  impl: Optional[str] = None) -> torch.Tensor:
+                  lens: torch.Tensor, *, impl: Optional[str] = None,
+                  seq_parallel: bool = False) -> torch.Tensor:
     """One token per lane: each Mamba2 layer steps its conv window and SSM
     state, the shared block decodes against its strips at lens (written
-    in place)."""
+    in place; seq_parallel as in stack_decode)."""
     k = cfg.shared_attn_every
     shared = blocks["shared"]
     for idx in range(cfg.n_layers):
@@ -293,7 +297,8 @@ def hybrid_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
             h = attn_decode(shared["attn"],
                             apply_norm(shared["n1"], x, cfg), cfg,
                             cache["shared_k"][idx // k],
-                            cache["shared_v"][idx // k], lens, impl=impl)
+                            cache["shared_v"][idx // k], lens, impl=impl,
+                            seq_parallel=seq_parallel)
             x = _ffn_tail(shared, x + h, cfg)
     return x
 
@@ -354,10 +359,11 @@ def rwkv_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
 
 
 def rwkv_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
-                lens: torch.Tensor, *,
-                impl: Optional[str] = None) -> torch.Tensor:
-    """One token per lane through every layer's recurrent state (lens is
-    unused: the state carries the position)."""
+                lens: torch.Tensor, *, impl: Optional[str] = None,
+                seq_parallel: bool = False) -> torch.Tensor:
+    """One token per lane through every layer's recurrent state (lens and
+    seq_parallel are unused, as in the JAX package: the state carries the
+    position and has no sequence axis)."""
     for l in range(cfg.n_layers):
         p = _layer(blocks, l)
         h, (tm_last, wkv) = rwkv6_time_mix(
@@ -371,4 +377,93 @@ def rwkv_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
         cache["wkv"][l].copy_(wkv)
         cache["tm_prev"][l].copy_(tm_last)
         cache["cm_prev"][l].copy_(cm_last)
+    return x
+
+
+# ===========================================================================
+# encoder-decoder (whisper)
+# ===========================================================================
+
+def encode(blocks, x_enc: torch.Tensor, cfg: ModelConfig, *,
+           impl: Optional[str] = None) -> torch.Tensor:
+    """The encoder stack over the audio frames x_enc (B, S_enc, D), non-
+    causal self-attention blocks, then its final norm.  blocks: {"encoder":
+    stacked (L_enc, ...) blocks, "enc_norm", ...}."""
+    for p in _layers(blocks["encoder"], cfg.encoder_layers):
+        x_enc = _block(p, x_enc, cfg, 0, impl, causal=False)
+    return apply_norm(blocks["enc_norm"], x_enc, cfg)
+
+
+def _decoder_block(p, x: torch.Tensor, enc_out: torch.Tensor,
+                   impl: Optional[str], *, cfg: ModelConfig) -> torch.Tensor:
+    """Causal self-attention, cross-attention over enc_out, the MLP."""
+    x = x + attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
+                         impl=impl)
+    x = x + attn_forward(p["cross_attn"], apply_norm(p["n_cross"], x, cfg),
+                         cfg, causal=False, kv_x=enc_out, impl=impl)
+    return _ffn_tail(p, x, cfg)
+
+
+def encdec_forward(blocks, x_enc: torch.Tensor, x_dec: torch.Tensor,
+                   cfg: ModelConfig, *, impl: Optional[str] = None,
+                   remat: bool = False) -> torch.Tensor:
+    """Encoder, then the decoder stack over x_dec (B, S, D).  remat=True
+    recomputes each decoder layer in the backward (the JAX package
+    checkpoints the decoder's scan body only, not the encoder's)."""
+    enc_out = encode(blocks, x_enc, cfg, impl=impl)
+    for p in _layers(blocks["decoder"], cfg.n_layers):
+        x_dec = _run(partial(_decoder_block, cfg=cfg), remat, p, x_dec,
+                     enc_out, impl)
+    return x_dec
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      enc_len: int, dtype, device):
+    """Per decoder layer a self-attention strip of max_len and a cross
+    strip of enc_len positions for K and for V, (L, batch, S, Hkv, D)."""
+    mk = lambda s: torch.zeros((cfg.n_layers, batch, s, cfg.n_kv_heads,
+                                cfg.head_dim), dtype=dtype, device=device)
+    return {"self_k": mk(max_len), "self_v": mk(max_len),
+            "cross_k": mk(enc_len), "cross_v": mk(enc_len)}
+
+
+def encdec_prefill(blocks, x_enc: torch.Tensor, x_dec: torch.Tensor,
+                   cfg: ModelConfig, cache, *,
+                   impl: Optional[str] = None) -> torch.Tensor:
+    """Decoder prefill from position 0 in one pass: the encoder runs once,
+    each decoder layer fills its self-attention strips with the prompt's
+    K/V and its cross strips with the encoder output's; the cache is
+    updated in place.  Returns the decoder's (B, S, D)."""
+    enc_out = encode(blocks, x_enc, cfg, impl=impl)
+    for l in range(cfg.n_layers):
+        p = _layer(blocks["decoder"], l)
+        x_dec = x_dec + attn_prefill(
+            p["attn"], apply_norm(p["n1"], x_dec, cfg), cfg,
+            cache["self_k"][l], cache["self_v"][l], impl=impl)
+        x_dec = x_dec + attn_prefill_cross(
+            p["cross_attn"], apply_norm(p["n_cross"], x_dec, cfg), cfg,
+            enc_out, cache["cross_k"][l], cache["cross_v"][l], impl=impl)
+        x_dec = _ffn_tail(p, x_dec, cfg)
+    return x_dec
+
+
+def encdec_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
+                  lens: torch.Tensor, enc_lens: torch.Tensor, *,
+                  impl: Optional[str] = None,
+                  seq_parallel: bool = False) -> torch.Tensor:
+    """One decoder token per lane: self-attention against the strips at
+    lens (written in place), cross-attention over the first enc_lens
+    positions of the cross strips (read only); seq_parallel as in
+    stack_decode, for both."""
+    for l in range(cfg.n_layers):
+        p = _layer(blocks["decoder"], l)
+        x = x + attn_decode(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
+                            cache["self_k"][l], cache["self_v"][l], lens,
+                            impl=impl, seq_parallel=seq_parallel)
+        x = x + attn_decode(p["cross_attn"],
+                            apply_norm(p["n_cross"], x, cfg), cfg,
+                            cache["cross_k"][l], cache["cross_v"][l],
+                            enc_lens, impl=impl, seq_parallel=seq_parallel,
+                            cross=True)
+        x = _ffn_tail(p, x, cfg)
     return x

@@ -1,7 +1,8 @@
 """Continuous-batching serve engine: dense or paged KV cache, monolithic or
 chunked prefill, batched one-launch ticks, speculative decoding, the radix
 prefix cache and preemption; the recurrent families (hybrid, ssm) on their
-state caches with stepwise admission.
+state caches and whisper's encoder-decoder (audio) on its strips, with
+stepwise admission.
 
 Slot-based: up to `max_batch` sequences share one batched KV cache -
 dense strips (one (L, max_batch, max_seq, Hkv, D) K and V), or a global
@@ -21,11 +22,15 @@ with two ways to admit:
               queued) - and samples its first token, fetched at once (one
               host sync per admission).  Then each tick is ONE fused
               decode launch over every lane and ONE fetch of the tokens.
-  stepwise    (chunked=False, paged=False, the hybrid and ssm families,
-              whose state cannot be prefilled into one batch lane) admission
-              feeds the prompt token by token through the single-token
-              decode step on the admitted slot's lane, then samples and
-              fetches the first token; the ticks are those of monolithic.
+  stepwise    (chunked=False, paged=False, the hybrid, ssm and audio
+              families, whose state cannot be prefilled into one batch
+              lane) admission feeds the prompt token by token through the
+              single-token decode step on the admitted slot's lane, then
+              samples and fetches the first token; the ticks are those of
+              monolithic.  As in the JAX engine, a request carries no
+              audio: whisper's cross strips (max_seq positions, built with
+              the cache) stay zero and every lane attends over all of them
+              (ROADMAP §3).
   chunked     (paged only) every tick has tick_token_budget tokens of
               work: each decoding slot takes one, prompt chunks of
               PREFILLING slots fill the rest.  The tick is ONE chunk-batch
@@ -249,7 +254,8 @@ class ServeEngine:
                                                scfg.page_size, metrics=m)
                 self.prefix.event_cb = self._prefix_event
         else:
-            self.cache = model.init_cache(B, scfg.max_seq)
+            self.cache = model.init_cache(B, scfg.max_seq,
+                                          enc_len=scfg.max_seq)
         self.lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
         self.tokens = torch.zeros((B, 1), dtype=torch.int32,
                                   device=self.device)
@@ -618,7 +624,8 @@ class ServeEngine:
     def kv_cache_bytes(self) -> int:
         """Allocated cache bytes, every leaf: K and V strips or pools, the
         block table when paged, the recurrent states of the hybrid and ssm
-        families.  Caches are preallocated, so allocated == peak."""
+        families, the audio family's self-attention and cross strips.
+        Caches are preallocated, so allocated == peak."""
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     # ------------------------------------------------------------------
@@ -831,15 +838,16 @@ class ServeEngine:
 
     def _admit_stepwise(self, slot: int, req: Request):
         """Token-by-token prefill through the single-token decode step (the
-        recurrent families).  The JAX engine runs each of these steps over
-        every lane, which advances the recurrent state of every other live
-        slot by one token per prompt token, and never clears a reused
-        slot's state.  Here the admitted slot's recurrent leaves are zeroed
-        first, and every step runs on that slot's lane alone - views of its
-        batch row, updated in place - so no other lane's state or K/V strip
-        moves.  The host counters are the JAX engine's: one launch per
-        prompt token, one "stepwise" record, one fetch of the first
-        token."""
+        recurrent families and whisper).  The JAX engine runs each of these
+        steps over every lane, which advances the recurrent state of every
+        other live slot by one token per prompt token, and never clears a
+        reused slot's state (whisper has no such state: the other lanes'
+        steps rewrite the self-attention K/V their next decode writes).  Here
+        the admitted slot's recurrent leaves are zeroed first, and every step
+        runs on that slot's lane alone - views of its batch row, updated in
+        place - so no other lane's state or K/V strip moves.  The host
+        counters are the JAX engine's: one launch per prompt token, one
+        "stepwise" record, one fetch of the first token."""
         self.sched.pop(req)
         self._phase(req, "PREFILLING", slot)
         lane = {k: v[:, slot:slot + 1] for k, v in self.cache.items()}

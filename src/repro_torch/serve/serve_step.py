@@ -44,13 +44,15 @@ def sample_token(logits: torch.Tensor, *, temperature: float = 0.0,
                            top_p=top_p)[:, None]
 
 
-def make_serve_step(model):
+def make_serve_step(model, *, seq_parallel: bool = False):
     """serve_step(params, cache, tokens (B, 1), lens (B,)) -> (logits (B,
     1, V), cache): one new token per lane against the cache
-    (Model.decode_step)."""
+    (Model.decode_step; seq_parallel=True decodes the attention through
+    ops.decode_attention_naive)."""
 
     def serve_step(params, cache, tokens, lens):
-        return model.decode_step(params, tokens, lens, cache)
+        return model.decode_step(params, tokens, lens, cache,
+                                 seq_parallel=seq_parallel)
 
     return serve_step
 

@@ -40,11 +40,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("module", ["repro_torch.core.energy",
                                     "repro_torch.serve.telemetry",
-                                    "repro_torch.serve.router"])
+                                    "repro_torch.serve.router",
+                                    "repro_torch.configs.whisper_base",
+                                    "repro_torch.kernels.ops",
+                                    "repro_torch.models.transformer"])
 def test_module_alone_imports_no_jax(module):
     """The modules that keep copies of the JAX package's framework-free
-    code (the energy model, the tracer, the fleet router) import, each on
-    its own, no jax and nothing of the JAX package."""
+    code (the energy model, the tracer, the fleet router, whisper's
+    config) and those that hold the sequence-parallel decode and the
+    encoder-decoder stacks import, each on its own, no jax and nothing of
+    the JAX package."""
     res = _run(f"import sys, {module}\n"
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib', 'repro.')) "
@@ -76,6 +81,22 @@ def test_build_model_without_a_device_raises_on_a_cpu_only_machine():
         build_model(get_smoke_config("granite-3-2b"))
     assert build_model(get_smoke_config("granite-3-2b"),
                        device="cpu").device.type == "cpu"
+
+
+def test_whisper_builds_on_the_card_unless_the_cpu_is_asked_for():
+    """whisper-base at full width defaults to the card: on a machine
+    without one build_model raises before allocating anything."""
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import build_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_config("whisper-base"))
+    model = build_model(get_smoke_config("whisper-base"), device="cpu")
+    assert model.device.type == "cpu"
+    assert sorted(model.params["blocks"]) == ["decoder", "enc_norm",
+                                              "encoder"]
 
 
 def _smoke_tree():

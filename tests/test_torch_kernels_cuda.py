@@ -33,8 +33,10 @@ a large dt * A, the decay w = 1 and w at the model's clamp over whole
 chunks, w = 1e-3 far below it, u = 0, every state and key size the
 kernels take, ragged state rows and columns, K7 over 16 chunks with a
 ragged tail and 100 value columns, the full-width shapes of zamba2 and
-rwkv6, and the refusal of a call autograd would have to differentiate),
-in float32 and bfloat16.
+rwkv6, and the refusal of a call autograd would have to differentiate);
+and K3, K4 and K5 at whisper-base's shapes (8 heads of 64: K4's full mask
+over 4 x 1500 and 1500 x 1500, K3 over a 1500-position strip, K5's full
+mask over 64 x 1500), in float32 and bfloat16.
 
 Needs an NVIDIA GPU and nvcc: every test skips with a reason elsewhere.
 Run on the card with
@@ -982,3 +984,74 @@ def test_scan_kernels_refuse_what_they_do_not_take(dev):
     with torch.no_grad():
         ops.mamba2_scan(**dict(m, x=x))
     assert (mamba2_scan.launches, rwkv6_scan.launches) == (n6 + 1, n7)
+
+
+# whisper-base (8 heads of 64, G 1): the encoder's full attention over its
+# 1500 audio frames, the prefill's cross-attention (4 decoder queries over
+# the 1500 frames), the cross decode over a 1500-position strip (no
+# multiple of K3's split), and the cross-attention backward in training
+WHISPER_HEADS = 8
+WHISPER_FWD = [(4, 1500), (1500, 1500)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("lens", WHISPER_FWD, ids=lambda x: f"{x[0]}x{x[1]}")
+def test_flash_attention_kernel_at_whisper_shapes(dev, lens, dtype):
+    """K4, full mask, at the bars of
+    test_flash_attention_kernel_matches_plain."""
+    dt = DTYPES[dtype]
+    sq, skv = lens
+    rng = np.random.default_rng(21)
+    q = _randn(rng, dev, dt, 2, sq, WHISPER_HEADS, 64)
+    k = _randn(rng, dev, dt, 2, skv, WHISPER_HEADS, 64)
+    v = _randn(rng, dev, dt, 2, skv, WHISPER_HEADS, 64)
+    n0 = flash_attention.launches
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, causal=False)
+    o_ref, lse_ref = flash_attention.reference(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    if dt == torch.bfloat16:
+        _close_terms(o, o_ref, flash_attention.reference(
+            q, k, v.abs(), causal=False)[0])
+    else:
+        _close(o, o_ref, dt)
+    _close(lse, lse_ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_dense_decode_kernel_over_a_whisper_cross_strip(dev, dtype):
+    """K3 over strips of 1500 positions at the bars of
+    test_dense_decode_kernel_matches_plain: lengths 0, 1, 1000, 1499 and
+    the whole strip; the lane of length 0 exactly 0."""
+    dt = DTYPES[dtype]
+    q, k, v, lens = _k3_case(dev, dt, 64, 1, [0, 1, 1000, 1499, 1500], 1500,
+                             WHISPER_HEADS, seed=22)
+    n0 = flash_decode.dense_launches
+    got = flash_decode.flash_decode(q, k, v, lens)
+    want = flash_decode.dense_reference(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert flash_decode.dense_launches == n0 + 1
+    _close(got, want, dt)
+    assert not got[0].any(), "lane of length 0 not zero"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_backward_kernel_at_a_whisper_cross_shape(dev, dtype):
+    """K5, full mask, 64 queries over 1500 keys, at the bars of bwd_close;
+    o and lse from K4."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(23)
+    q = _randn(rng, dev, dt, 2, 64, WHISPER_HEADS, 64)
+    k = _randn(rng, dev, dt, 2, 1500, WHISPER_HEADS, 64)
+    v = _randn(rng, dev, dt, 2, 1500, WHISPER_HEADS, 64)
+    do = _randn(rng, dev, dt, 2, 64, WHISPER_HEADS, 64)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, causal=False)
+    n0 = flash_backward.launches
+    got = flash_backward.flash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=False)
+    want = flash_backward.reference(q, k, v, o, lse, do, causal=False)
+    terms = flash_backward.reference(q, k, v, o, lse, do, causal=False,
+                                     terms=True)
+    torch.cuda.synchronize()
+    assert flash_backward.launches == n0 + 1
+    bwd_close(got, want, terms, dt)
