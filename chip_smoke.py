@@ -173,13 +173,42 @@ Phases (each raises on failure, so the run exits non-zero):
                         with remat "full": K4 30 and K5 18 a step, finite
                         losses from near ln(vocab), step time, MFU, peak
                         memory, the largest K5 call kept for phase 4.
+                        the MoE family (M13): olmoe-1b-7b at full width
+                        and depth (16 layers, 64 experts, top 8, 16 heads
+                        of 128) and qwen3-moe-235b-a22b at its published
+                        widths with MOE_LAYERS of its 94 layers (128
+                        experts, top 8, 64 / 4 heads of 128: K1-K4 at G
+                        16), bf16, seeded weights, one at a time.  Each
+                        serves the chunked traffic: a warm-up run that
+                        records every MoE call's routing and every
+                        sampling call's logits (Routing), the counted run
+                        (K1 / K2 n_layers x the engine's chunk batches /
+                        decodes, every other kernel 0, 0 implicit syncs,
+                        its tokens the warm-up's), then the same engine
+                        and traffic through impl="ref" (no kernel launch)
+                        with the warm-up's routing, held to the warm-up
+                        event by event over the live rows until the runs
+                        part (moe_events_check: MOE_PROB_BARS,
+                        MOE_LOGIT_BARS; routing flips and the parting
+                        token reported with their gaps) - the teacher-
+                        forced forward is no oracle here, as the capacity
+                        follows each call's length; model_check with the
+                        ref pass on the kernel pass's routing; the traffic
+                        under the profiler.  olmoe also: the MoE layer
+                        alone at the largest chunk-batch call and an
+                        8-lane decode call (ms, bound, error against
+                        float32 operands), moe_ffn_a2a_local in a one-rank
+                        NCCL group against moe_ffn, and its float32 copy
+                        serving through the kernels and through impl="ref",
+                        each on its own routing, held the same way.
   4. times              per kernel, at the largest call its run gave it
                         (K1/K2 the chunked run, K3/K4 the dense run, K5 the
                         training run, K6/K7 the recurrent forwards; K3/K4
                         also at zamba2's head dim 80, K4 also at the
                         training step's shape, K1 also at the speculative
                         run's largest verify launch, K3 / K4 / K5 also at
-                        whisper-base's): kernel, plain version and
+                        whisper-base's, K1-K4 at olmoe-1b-7b's and
+                        qwen3-moe's): kernel, plain version and
                         library times (CUDA events, L2 flushed, median of
                         25) beside the bound the card's data sheet allows
                         and the achieved rate (tflops: the FLOPs the call's
@@ -205,8 +234,9 @@ one {"e2e_dense": ...}, one {"e2e_paged_monolithic": ...}, one
 line for each of those four runs (its reference run inside), one
 {"e2e_dense_family": ...}, one {"e2e_telemetry": ...} and one
 {"e2e_deadline": ...} line (each with its reference run inside) and one
-{"e2e_fleet": ...} line, one {"e2e_m11": ...} and one {"e2e_whisper":
-...} line, the card line again, and as the last line {"ok": true,
+{"e2e_fleet": ...} line, one {"e2e_m11": ...}, one {"e2e_whisper":
+...}, one {"trace_moe": ...} and one {"e2e_moe": ...} line, the card
+line again, and as the last line {"ok": true,
 "device": {...}}.  Without a GPU it exits
 non-zero and prints no result.
 """
@@ -215,6 +245,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import functools
 import gc
 import json
 import math
@@ -239,13 +270,14 @@ from repro_torch.kernels import build, flash_attention  # noqa: E402
 from repro_torch.kernels import flash_backward, flash_decode  # noqa: E402
 from repro_torch.kernels import mamba2_scan, rwkv6_scan  # noqa: E402
 from repro_torch.kernels import ops, paged_prefill  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, moe  # noqa: E402
+from repro_torch.models.moe_a2a import moe_ffn_a2a_local  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layers import embed  # noqa: E402
 from repro_torch.models.transformer import n_shared_applications  # noqa
 from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.serve import (FleetConfig, FleetRouter,  # noqa: E402
-                               ServeEngine)
+                               ServeEngine, engine, serve_step)
 from repro_torch.train import init_train_state, make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_paths, map_tree  # noqa
@@ -930,13 +962,14 @@ def phase_slice():
     return runs, args, (model, params)
 
 
-def model_check(model, params):
+def model_check(model, params, on_pass=None):
     """The model's entry points at full width through the kernels and
     through impl="ref" (separate caches, same inputs): a chunk batch and a
     paged decode step (K1, K2), forward over 2 x 256 tokens (K4), a dense
     prefill of two prompts (256 and 200 real tokens) and a decode step
     (K4, K3), a paged prefill of the 200-token prompt and a decode step
-    (K4, K2)."""
+    (K4, K2).  on_pass(impl) is called before each pass.  Returns {entry
+    point: max |kernels - ref|}."""
     dev = model.device
     rng = np.random.default_rng(1)
     i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
@@ -949,6 +982,8 @@ def model_check(model, params):
                                      keepdim=True).to(torch.int32)
     out = {}
     for impl in (None, "ref"):
+        if on_pass is not None:
+            on_pass(impl)
         got = {}
         batch = {"tokens": i32(toks), "offset": i32([0, 0]),
                  "true_lens": i32([256, 200])}
@@ -977,16 +1012,18 @@ def model_check(model, params):
         got["paged decode after paged prefill"] = model.decode_step(
             params, argmax(lp), lens, cache, impl=impl)[0]
         out[impl] = got
+    errs = {}
     for name in out[None]:
         bar = MODEL_BARS[name]
         a, b = out[None][name], out["ref"][name]
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{name}: non-finite logits")
-        err = float((a - b).abs().max())
+        err = errs[name] = float((a - b).abs().max())
         log(f"# full-width {name}: logits max |kernels - ref| {err:.3e} "
             f"(bf16 bar {bar}, logit scale {float(b.abs().max()):.2f})")
         if err > bar:
             raise AssertionError(f"{name}: kernels and ref disagree")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1812,8 +1849,12 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _seeded_model(arch):
+def _seeded_model(arch, n_layers=None):
+    """The published config (with n_layers of its layers when given),
+    seeded.  Returns (model, params, parameter count)."""
     cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
     t0 = time.perf_counter()
     model = build_model(cfg)
     params = model.init(seed=0)
@@ -2517,6 +2558,402 @@ def phase_whisper():
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the MoE family (M13)
+# ---------------------------------------------------------------------------
+
+# olmoe-1b-7b at full width and depth; qwen3-moe-235b-a22b at its published
+# widths with MOE_LAYERS of its 94 layers (one layer is 4.98 GB of bf16
+# weights: the whole model, ~470 GB, does not fit one card; 8 layers are
+# 42.3 GB).  Each serves the chunked run's traffic (RUNS["chunked"])
+MOE_ARCHS = ("olmoe-1b-7b", "qwen3-moe-235b-a22b")
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 8}
+# the one-rank NCCL a2a against moe_ffn: a capacity factor at which
+# nothing drops in either (both capacities then exceed every count)
+MOE_A2A_FACTOR = 8.0
+# a served MoE run against the same engine and traffic through
+# impl="ref", event by event up to the first event where the two part
+# (moe_events_check): the router probabilities of each moe_ffn call and
+# the logits of each sampling call.  bf16: the ref run takes the kernel
+# run's routing (see Routing), so the two part only through rounding;
+# float32 (olmoe's float32 copy): each run routes on its own.  Bars:
+# max |probability difference| and max |logit difference| over the live
+# rows; the logits in bf16 at the chunk batch's and decode step's
+# MODEL_BARS.  Measured on an H100 80GB HBM3 (700 W), deterministic for
+# the seeded weights but for the float32 logits: bf16 probabilities
+# 0.0050 (olmoe) and 0.0022 (qwen3-moe), logits 0.039 and 0.049; float32
+# probabilities 9.8e-7, logits 5.1e-6 and 8.0e-6 in two calls; each bar
+# ~2-2.5x the larger measurement
+MOE_PROB_BARS = {"bfloat16": 0.01, "float32": 2e-6}
+MOE_LOGIT_BARS = {"bfloat16": MODEL_BARS["chunk batch"], "float32": 2e-5}
+# the MoE layer alone in bf16 against the same function on float32 copies
+# of its operands (the same routing: the router reads x in float32 either
+# way): within four bf16 rounding steps of the output's largest |entry|
+MOE_LAYER_RTOL = 2.0 ** -5
+
+
+def _gap(p: torch.Tensor, K: int) -> float:
+    """The least gap between neighbours of the top K + 1 of p (E,)."""
+    top = torch.sort(p.float(), descending=True).values[:K + 1]
+    return float((top[:-1] - top[1:]).min())
+
+
+class Routing:
+    """Wraps repro_torch.models.moe.moe_ffn, the serving steps' sampler
+    and the engine's chunk-batch and decode steps for one run, recording
+    in call order, on the card (no host sync), ("moe", router
+    probabilities, top_idx, live) per MoE call and ("sample", logits,
+    live) per sampling call.  live marks what the engine keeps: in a
+    decode step its live lanes, in a chunk batch each row's real
+    positions (a sampling call: the rows with any); None outside the
+    engine.  A lane that is not live may read pages its slot does not own
+    yet (the null page, which every idle lane writes), so its values
+    differ from run to run; capacity is per row and a row's pad positions
+    follow its real ones, so neither reaches what is kept.  With
+    `forced` (the top_idx of another run's MoE calls, or after replay()
+    this run's so far) each MoE call takes the top_idx of the call of the
+    same index, its gates renormalised from its own probabilities at
+    those experts: teacher-forced routing; its own top_idx is still what
+    it records."""
+
+    def __init__(self, forced=None):
+        self.events, self.forced, self._i = [], forced, 0
+        self._live = None
+
+    def replay(self):
+        self.forced = [e[2] for e in self.events if e[0] == "moe"]
+        self.events, self._i = [], 0
+
+    def __enter__(self):
+        self._saved = [(moe, "moe_ffn", moe.moe_ffn),
+                       (serve_step, "sample_token", serve_step.sample_token),
+                       (engine, "sample_token", engine.sample_token),
+                       (engine, "make_chunk_batch_step",
+                        engine.make_chunk_batch_step),
+                       (engine, "make_fused_decode_step",
+                        engine.make_fused_decode_step)]
+        orig_moe, orig_sample = moe.moe_ffn, serve_step.sample_token
+        make_chunks = engine.make_chunk_batch_step
+        make_decode = engine.make_fused_decode_step
+
+        def chunk_batch_step(*a, **kw):
+            step = make_chunks(*a, **kw)
+
+            def run(params, batch, *rest):
+                n = batch["true_lens"] - batch["offset"]
+                S = batch["tokens"].shape[1]
+                self._live = torch.arange(S, device=n.device)[None] \
+                    < n[:, None]
+                return step(params, batch, *rest)
+            return run
+
+        def fused_decode_step(*a, **kw):
+            step = make_decode(*a, **kw)
+
+            def run(params, cache, tokens, lens, live, generator):
+                self._live = live[:, None]
+                return step(params, cache, tokens, lens, live, generator)
+            return run
+
+        def moe_ffn(params, x, cfg):
+            probs, gates, top = moe.route(params, x, cfg)
+            self.events.append(("moe", probs, top, self._live))
+            if self.forced is None:
+                return orig_moe(params, x, cfg)
+            top = self.forced[self._i]
+            self._i += 1
+            gates = torch.gather(probs, -1, top)
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                            1e-9)
+            return moe.dispatch(params, x, gates, top, cfg), \
+                moe.aux_loss(probs, top, cfg)
+
+        def sample_token(logits, **kw):
+            self.events.append(("sample", logits[:, -1].float(), None
+                                if self._live is None else
+                                self._live.any(1)))
+            return orig_sample(logits, **kw)
+
+        moe.moe_ffn = moe_ffn
+        serve_step.sample_token = engine.sample_token = sample_token
+        engine.make_chunk_batch_step = chunk_batch_step
+        engine.make_fused_decode_step = fused_decode_step
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def through_ref(model):
+    """The model's serving entry points with impl="ref" (instance
+    attributes over the methods), so an engine runs the plain versions."""
+    names = ("prefill", "prefill_paged", "prefill_chunks", "prefill_chunk",
+             "prefill_suffix", "verify_chunks", "decode_step", "forward")
+    for name in names:
+        setattr(model, name, functools.partial(getattr(type(model), name),
+                                               model, impl="ref"))
+    try:
+        yield model
+    finally:
+        for name in names:
+            delattr(model, name)
+
+
+def moe_events_check(k: Routing, r: Routing, K: int, dtype: str) -> dict:
+    """The kernel run's events against the ref run's, one by one and over
+    what the engine keeps (Routing's live), up to and including the first
+    where they part: a sampling call whose tokens differ, or an MoE call
+    whose (own) routing differs.  Up to there every MoE call's
+    probabilities must lie within MOE_PROB_BARS and every sampling call's
+    logits within MOE_LOGIT_BARS.  Reports every routing flip with its
+    probability gap (the least gap between neighbours of the token's top
+    K + 1 probabilities, kernel run) - in bf16 they do not part the runs,
+    whose routing is the kernel run's - and the first sampled token that
+    differs with its logit gap in the kernel run."""
+    if [e[0] for e in k.events] != [e[0] for e in r.events]:
+        raise AssertionError("MoE: the two runs made different calls")
+    prob_err = logit_err = 0.0
+    flips, parted, n_checked = [], None, 0
+    for i, (a, b) in enumerate(zip(k.events, r.events)):
+        n_checked = i + 1
+        live = a[-1]
+        diff = (a[1] - b[1]).abs().amax(-1)
+        if live is not None:
+            diff = torch.where(live, diff, 0.0)
+        if a[0] == "moe":
+            prob_err = max(prob_err, float(diff.max()))
+            differ = (a[2] != b[2]).any(-1)
+            if live is not None:
+                differ = differ & live
+            for idx in differ.nonzero().tolist():
+                flips.append({"event": i, "row": idx, "gap": _gap(
+                    a[1][tuple(idx)], K)})
+            if differ.any() and dtype == "float32":
+                parted = {"event": i, "kind": "routing"}
+        else:
+            logit_err = max(logit_err, float(diff.max()))
+            ta, tb = a[1].argmax(-1), b[1].argmax(-1)
+            parts = ta != tb
+            if live is not None:
+                parts = parts & live
+            if parts.any():
+                row = int(parts.nonzero()[0, 0])
+                parted = {"event": i, "kind": "token", "row": row,
+                          "gap": float(a[1][row, ta[row]]
+                                       - a[1][row, tb[row]])}
+        if parted is not None:
+            break
+    report = {"events": len(k.events), "events_checked": n_checked,
+              "max_prob_diff": prob_err, "max_logit_diff": logit_err,
+              "routing_flips": len(flips),
+              "flip_gaps": sorted(f["gap"] for f in flips)[:16],
+              "flip_gap_max": max((f["gap"] for f in flips), default=None),
+              "parted_at": parted}
+    if prob_err > MOE_PROB_BARS[dtype] or logit_err > MOE_LOGIT_BARS[dtype]:
+        raise AssertionError(f"MoE {dtype}: kernels and ref disagree before "
+                             f"their runs part: {report}")
+    return report
+
+
+def _moe_served(model, params, route: Routing, ref: bool):
+    """The chunked traffic under `route` (through impl="ref" when ref),
+    uncounted; returns {uid: tokens} and, for ref, the launch counts."""
+    reset_counts()
+    ctx = through_ref(model) if ref else contextlib.nullcontext()
+    with ctx, route:
+        eng, *_ = run_traffic(model, params, "chunked", count_syncs=False)
+    return ({r.uid: list(r.out_tokens) for r in eng.sched.finished},
+            read_counts())
+
+
+def _moe_weight(params, x, cfg):
+    return x.shape[0] * x.shape[1]
+
+
+def _moe_decode_weight(params, x, cfg):
+    return x.shape[0] if x.shape[1] == 1 else -1
+
+
+def moe_serving(model, params, arch):
+    """The chunked traffic on the paged + chunked + batched engine: a
+    warm-up run recording the routing and the sampled logits (the largest
+    K1 / K2 and MoE calls captured), the counted run (counted_run: K1 /
+    K2 n_layers x the engine's chunk batches / decodes, 0 implicit syncs;
+    its tokens equal to the warm-up's), the ref run of the same traffic
+    with the warm-up's routing (no kernel launch) held to it by
+    moe_events_check, then model_check with the ref pass taking the
+    kernel pass's routing, and the traffic under the profiler.  Returns
+    (runs, captured, e2e, trace, the captured MoE calls)."""
+    K = model.cfg.moe_top_k
+    caps = [Capture(mod, attr, w) for _, mod, attr, w in DF_CAPTURE["chunked"]]
+    c_moe = Capture(moe, "moe_ffn", _moe_weight)
+    rk = Routing()
+    with caps[0], caps[1], c_moe:
+        # a Capture wraps the function it finds when it is made
+        c_dec = Capture(moe, "moe_ffn", _moe_decode_weight)
+        with c_dec:
+            warm, _ = _moe_served(model, params, rk, ref=False)
+    captured = {f"{key}@{arch}": cap.best for (key, *_), cap in
+                zip(DF_CAPTURE["chunked"], caps)}
+    got = counted_run(model, params, "chunked")
+    counted = {uid: out for uid, _, out in got["finished"]}
+    if counted != warm:
+        raise AssertionError(f"{arch}: the counted run's tokens differ from "
+                             f"the warm-up run's")
+    rr = Routing(forced=[e[2] for e in rk.events if e[0] == "moe"])
+    ref_out, ref_counts = _moe_served(model, params, rr, ref=True)
+    if any(ref_counts.values()):
+        raise AssertionError(f"{arch}: the ref run launched {ref_counts}")
+    vs_ref = moe_events_check(rk, rr, K, "bfloat16")
+    vs_ref["requests_equal"] = sum(ref_out[u] == t for u, t in warm.items())
+    log(f"# {arch} chunked against the same engine through impl=\"ref\" "
+        f"(its routing the kernel run's): {vs_ref['requests_equal']} of "
+        f"{len(warm)} requests equal; {vs_ref}")
+    del rk, rr
+    # model_check: the ref pass takes the kernel pass's routing
+    route = Routing()
+    c4 = Capture(flash_attention, "flash_attention_fwd", _k4_weight)
+    c3 = Capture(flash_decode, "flash_decode", _lens_weight)
+    with route, c4, c3:
+        errs = model_check(model, params, on_pass=lambda impl: (
+            route.replay() if impl == "ref" else None))
+    captured[f"K4@{arch}"], captured[f"K3@{arch}"] = c4.best, c3.best
+    own = [e[2] for e in route.events if e[0] == "moe"]
+    if len(own) != len(route.forced):
+        raise AssertionError("model_check: the passes made different calls")
+    mc = {"logits_max_abs_diff": errs, "routing_flips_vs_kernel_pass": sum(
+        int((a != f).any(-1).sum()) for a, f in zip(own, route.forced))}
+    log(f"# {arch} model_check (ref pass on the kernel pass's routing): "
+        f"{mc}")
+    got["e2e"]["vs_ref"], got["e2e"]["model_check"] = vs_ref, mc
+    trace = phase_trace(model, params, "chunked", got["e2e"]["wall_s"])
+    return ({f"{arch} chunked": got}, captured, got["e2e"], trace,
+            {"chunk": c_moe.best, "decode": c_dec.best})
+
+
+def moe_layer(cfg, calls):
+    """The MoE layer alone at the warm-up run's largest chunk-batch call
+    and at an 8-lane decode call: median CUDA-event ms, the bound (the
+    expert weights, router, input and output bytes over the HBM rate
+    against every slot's products, empty slots included, over the bf16
+    rate), and the error against the same function on float32 copies of
+    its operands."""
+    out = {}
+    for name, (args, _) in calls.items():
+        p, x, _ = args
+        flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
+                            device=x.device)
+        B, S = x.shape[:2]
+        C = moe.capacity(S, cfg)
+        y = moe.moe_ffn(p, x, cfg)[0]
+        y32 = moe.moe_ffn({k: v.float() for k, v in p.items()}, x.float(),
+                          cfg)[0]
+        err = float((y.float() - y32).abs().max())
+        scale = float(y32.abs().max())
+        n_mats = 3 if cfg.act == "silu" else 2
+        nbytes = sum(v.numel() * v.element_size() for v in p.values()) \
+            + 2 * x.numel() * x.element_size()
+        flops = 2 * n_mats * cfg.moe_experts * B * C * cfg.d_model \
+            * cfg.d_ff + 2 * B * S * cfg.d_model * cfg.moe_experts
+        t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
+        ms = time_ms(lambda: moe.moe_ffn(p, x, cfg), flush)
+        out[name] = {"x": list(x.shape), "capacity": C, "ms": ms,
+                     "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "bytes": nbytes, "flops": flops,
+                     "max_abs_err_vs_f32": err, "f32_scale": scale}
+        log(f"# {cfg.name} MoE layer at {name} x {tuple(x.shape)} (C "
+            f"{C}): {ms:.3f} ms, bound {max(t_b, t_o) * 1e3:.3f} ms "
+            f"({out[name]['bound_by']}: {nbytes / 1e6:.0f} MB, "
+            f"{flops / 1e9:.1f} GFLOP); bf16 vs float32 operands max abs "
+            f"err {err:.3e} (bar {MOE_LAYER_RTOL} x {scale:.3f})")
+        if not np.isfinite(err) or err > MOE_LAYER_RTOL * scale:
+            raise AssertionError(f"{cfg.name} MoE layer: bf16 and float32 "
+                                 f"disagree")
+    return out
+
+
+def moe_a2a_check(cfg, call):
+    """moe_ffn_a2a_local in a one-rank NCCL group (its all_to_all_single
+    and all_reduce on the card) against moe_ffn at capacity factor
+    MOE_A2A_FACTOR on the first row of the captured chunk-batch call, in
+    bf16 (within
+    MOE_LAYER_RTOL of the output's scale: the a2a computes its expert
+    products in float32, moe_ffn rounds the hidden layer and the outputs
+    to bf16) and on float32 copies (1e-5 absolute); the aux losses within
+    1e-6."""
+    (p, x, _), _ = call
+    x = x[:1]
+    cfg8 = cfg.replace(moe_capacity_factor=MOE_A2A_FACTOR)
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        pp = p if dt == "bfloat16" else {k: v.float() for k, v in p.items()}
+        xx = x if dt == "bfloat16" else x.float()
+        want, aux = moe.moe_ffn(pp, xx, cfg8)
+        got, aux_a = _one_rank_nccl(lambda: moe_ffn_a2a_local(pp, xx, cfg8))
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        bar = MOE_LAYER_RTOL * scale if dt == "bfloat16" else F32_TOL
+        out[dt] = {"max_abs_err": err, "scale": scale,
+                   "aux_diff": abs(float(aux) - float(aux_a))}
+        if err > bar or out[dt]["aux_diff"] > 1e-6:
+            raise AssertionError(f"a2a {dt}: {out[dt]} (bar {bar})")
+        del pp, xx
+    log(f"# {cfg.name} moe_ffn_a2a_local in a one-rank NCCL group against "
+        f"moe_ffn at capacity factor {MOE_A2A_FACTOR}: {out}")
+    return out
+
+
+def moe_fp32(model, params):
+    """olmoe's float32 copy: the chunked traffic through the kernels and
+    through impl="ref", each routing on its own, held by
+    moe_events_check with the float32 bars."""
+    m32, p32 = fp32_copy(model, params)
+    rk, rr = Routing(), Routing()
+    got, _ = _moe_served(m32, p32, rk, ref=False)
+    want, counts = _moe_served(m32, p32, rr, ref=True)
+    if any(counts.values()):
+        raise AssertionError(f"float32 ref run launched {counts}")
+    rep = moe_events_check(rk, rr, model.cfg.moe_top_k, "float32")
+    rep["requests_equal"] = sum(want[u] == t for u, t in got.items())
+    log(f"# {model.cfg.name} float32 chunked, kernels against impl=\"ref\" "
+        f"(each its own routing): {rep['requests_equal']} of {len(got)} "
+        f"requests equal; {rep}")
+    del m32, p32, rk, rr
+    _free()
+    return rep
+
+
+def phase_moe():
+    """olmoe-1b-7b (full width and depth) and qwen3-moe-235b-a22b (its
+    published widths, MOE_LAYERS[arch] of 94 layers), one at a time: the
+    serving checks (moe_serving), then for olmoe the MoE layer alone, the
+    one-rank NCCL a2a and the float32 copy's serving.  Returns (runs,
+    captured, e2e, traces)."""
+    runs, captured, e2e, traces = {}, {}, {}, {}
+    for arch in MOE_ARCHS:
+        model, params, n_params = _seeded_model(arch, MOE_LAYERS.get(arch))
+        r, c, e, traces[f"{arch} chunked"], calls = moe_serving(
+            model, params, arch)
+        runs.update(r)
+        captured.update(c)
+        e2e[arch] = {"params": n_params, "layers": model.cfg.n_layers,
+                     "chunked": e}
+        if arch == "olmoe-1b-7b":
+            e2e[arch]["layer"] = moe_layer(model.cfg, calls)
+            e2e[arch]["a2a_one_rank_nccl"] = moe_a2a_check(model.cfg,
+                                                           calls["chunk"])
+        # the captured MoE calls hold views of the stacked weights
+        del calls
+        if arch == "olmoe-1b-7b":
+            e2e[arch]["float32"] = moe_fp32(model, params)
+        del model, params
+        _free()
+    return runs, captured, e2e, traces
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -3023,6 +3460,10 @@ def main() -> int:
     runs.update(w_runs)
     captured.update(w_captured)
     at("whisper")
+    moe_runs, moe_captured, e2e_moe, trace_moe = phase_moe()
+    runs.update(moe_runs)
+    captured.update(moe_captured)
+    at("moe")
     rows = phase_times(runs, captured)
     at("times")
     print(json.dumps({"kernels": rows}), flush=True)
@@ -3034,6 +3475,7 @@ def main() -> int:
     for run, tr in m6_traces.items():
         print(json.dumps({f"trace_{run}": tr}), flush=True)
     print(json.dumps({"trace_dense_family": trace_df}), flush=True)
+    print(json.dumps({"trace_moe": trace_moe}), flush=True)
     print(json.dumps({"e2e": runs["chunked"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_dense": runs["dense"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_paged_monolithic":
@@ -3052,6 +3494,7 @@ def main() -> int:
         print(json.dumps({f"e2e_{run}": e2e}), flush=True)
     print(json.dumps({"e2e_m11": e2e_m11}), flush=True)
     print(json.dumps({"e2e_whisper": e2e_whisper}), flush=True)
+    print(json.dumps({"e2e_moe": e2e_moe}), flush=True)
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,8 @@ from .base import (ModelConfig, ServeConfig, TrainConfig,
                    dense_equivalent_pages, pages_for_tokens)
 
 # the architectures the port runs so far: the dense decoders (the paper's
-# own OPT and QWEN among them), the hybrid Mamba2 zamba2, the RWKV6 rwkv6
-# and the whisper encoder-decoder
+# own OPT and QWEN among them), the hybrid Mamba2 zamba2, the RWKV6 rwkv6,
+# the whisper encoder-decoder and the MoE decoders olmoe and qwen3-moe
 ARCH_MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "gemma3-4b": "gemma3_4b",
@@ -20,6 +20,8 @@ ARCH_MODULES: Dict[str, str] = {
     "opt-6.7b": "opt_6_7b",
     "qwen-7b": "qwen_7b",
     "whisper-base": "whisper_base",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
 }
 
 

@@ -2,10 +2,11 @@
 
 The port keeps its own copy of the configuration schema: the field names,
 defaults and validation rules are those of the JAX package.  ModelConfig
-carries the fields of the families the port runs - dense, hybrid (Mamba2
-with a shared attention block), ssm (RWKV6) and audio (the whisper
-encoder-decoder, its frontend a stub as in the JAX package); the MoE and
-vision fields come with those families (ROADMAP M13).  ServeConfig
+carries the fields of the families the port runs - dense, moe (top-k
+routed experts with capacity dispatch), hybrid (Mamba2 with a shared
+attention block), ssm (RWKV6) and audio (the whisper encoder-decoder, its
+frontend a stub as in the JAX package); the vision fields come with the
+vlm family (ROADMAP M13).  ServeConfig
 carries every field, so one set of keyword arguments builds either
 package's serve config, and the engine refuses the settings it does not
 serve yet.  TrainConfig is a copy of the
@@ -46,6 +47,11 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     use_rope: bool = True
 
+    # --- MoE ----------------------------------------------------------------
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_capacity_factor: float = 1.25
+
     # --- SSM (Mamba2) --------------------------------------------------------
     ssm_state: int = 0
     ssm_heads: int = 0          # 0 -> derived
@@ -78,12 +84,15 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks), the JAX
-        package's formula for the families the port carries (its MoE term
-        comes with that family)."""
+        package's formula."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.head_dim
         attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
         n_ffn_mats = 3 if self.act == "silu" else 2
+        if self.moe_experts:
+            ffn = n_ffn_mats * d * f * self.moe_experts + d * self.moe_experts
+        else:
+            ffn = n_ffn_mats * d * f
         if self.rwkv:
             per_layer = d * d * 4 + d * f * 2 + 10 * d
         elif self.family in ("ssm", "hybrid"):
@@ -93,20 +102,26 @@ class ModelConfig:
             d_in = self.ssm_expand * d
             per_layer = d * (2 * d_in + 2 * self.ssm_state) + d_in * d
         else:
-            per_layer = attn + n_ffn_mats * d * f
+            per_layer = attn + ffn
         total = self.n_layers * per_layer \
             + v * d * (1 if self.tie_embeddings else 2)
         if self.shared_attn_every:
             total += attn + n_ffn_mats * d * f
         if self.encoder_layers:
-            total += self.encoder_layers * (attn + n_ffn_mats * d * f) \
+            total += self.encoder_layers * (attn + ffn) \
                 + attn * self.n_layers
         return int(total)
 
     def active_param_count(self) -> int:
-        """Parameters touched per token: all of them for every family the
-        port carries (MoE, where it differs, is not ported)."""
-        return self.param_count()
+        """Parameters touched per token (MoE: top_k of the experts)."""
+        if not self.moe_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        n_ffn_mats = 3 if self.act == "silu" else 2
+        dense_ffn_all = self.n_layers * n_ffn_mats * d * f * self.moe_experts
+        dense_ffn_active = self.n_layers * n_ffn_mats * d * f \
+            * self.moe_top_k
+        return int(self.param_count() - dense_ffn_all + dense_ffn_active)
 
 
 @dataclass(frozen=True)

@@ -6,11 +6,13 @@ the host (`jax.device_get`) every leaf is a numpy array.  params_from_numpy
 turns that tree into the port's tree of torch tensors with the same keys
 and the same stacked (L, ...) layout - a dense weight stays (d_in, d_out)
 and the port computes x @ w - so the two packages run the very same
-weights (every family's tree: whisper's encoder, decoder with its cross-
-attention, and enc_norm as well).  Each leaf must already have the dtype
+weights (every family's tree: the MoE blocks' router and experts,
+whisper's encoder, decoder with its cross-attention, and enc_norm as
+well).  Each leaf must already have the dtype
 of the port's own parameter at its path (the config's dtype, but float32
-for the leaves the JAX init keeps in float32: Mamba2's A_log and
-dt_bias, RWKV6's w_base and u); a mismatch raises instead of casting.  bfloat16 leaves arrive as
+for the leaves the JAX init keeps in float32: the MoE router, Mamba2's
+A_log and dt_bias, RWKV6's w_base and u); a mismatch raises instead of
+casting.  bfloat16 leaves arrive as
 numpy arrays of the ml_dtypes bfloat16 type, which torch.from_numpy
 refuses; their bits travel as int16 and are viewed back as
 torch.bfloat16.  Like every entry point of the port, both

@@ -1,19 +1,20 @@
 """The language model as an nn.Module, with its forward and serving entry
-points: the dense decoder over the dense and the paged KV cache, the
-hybrid zamba2 (family "hybrid") and RWKV6 (family "ssm") models over their
+points: the dense and MoE decoders over the dense and the paged KV cache,
+the hybrid zamba2 (family "hybrid") and RWKV6 (family "ssm") models over their
 recurrent-state caches, and whisper's encoder-decoder (family "audio")
 over its self-attention and cross-attention strips.
 
 `Model` holds the JAX package's parameter tree as nn.Parameters in the same
 stacked layout - {"tok": {"embed"}, "final_norm": {"scale"}, "blocks":
 ...} with a leading layer axis on every per-layer leaf; the dense blocks
-are {"n1", "attn", "n2", "mlp"}, the hybrid ones {"mamba": Mamba2 leaves,
+are {"n1", "attn", "n2", "mlp"}, the MoE ones {"n1", "attn", "n2",
+"moe"} (models/moe.py), the hybrid ones {"mamba": Mamba2 leaves,
 "shared": one unstacked attention block}, the RWKV6 ones {"n1", "n2",
 "mix"}, the audio ones {"encoder": stacked dense blocks, "decoder":
 stacked dense blocks with "n_cross" and "cross_attn", "enc_norm"} - and
 exposes it as a plain nested dict (`Model.params`).  Every
 leaf is in the config's dtype but those the JAX init keeps in float32
-(Mamba2's A_log and dt_bias, RWKV6's w_base and u).  Like the
+(the MoE router, Mamba2's A_log and dt_bias, RWKV6's w_base and u).  Like the
 JAX package's Model, the entry points take the parameter tree as their
 first argument, so the same module runs its own seeded weights or weights
 carried over from the JAX package (models/convert.py).  The serving entry
@@ -35,13 +36,13 @@ from torch import nn
 
 from ..configs.base import (ModelConfig, dense_equivalent_pages,
                             pages_for_tokens)
-from . import mamba2, rwkv6
+from . import mamba2, moe, rwkv6
 from . import transformer as T
 from .layers import (MAX_POSITION, apply_norm, embed, pdtype,
                      sinusoidal_positions, unembed)
 
-ATTENTION_FAMILIES = ("dense",)
-PORTED_FAMILIES = ("dense", "hybrid", "ssm", "audio")
+ATTENTION_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
 # per family served stepwise, the cache leaves that carry a recurrent state
 # (the batch on axis 1): a lane that starts a new sequence starts them from
 # zero.  whisper's strips carry none: a new sequence overwrites its self-
@@ -95,7 +96,8 @@ def _norm_shapes(cfg: ModelConfig, lead: tuple = ()) -> Dict[str, tuple]:
 
 def _block_params(cfg: ModelConfig, lead: tuple, dt, dev,
                   cross: bool = False) -> nn.ModuleDict:
-    """An attention + MLP block {"n1", "attn", "n2", "mlp"}, with `lead`
+    """An attention + MLP block {"n1", "attn", "n2", "mlp"} - "moe" in
+    place of "mlp" for an MoE config, its router float32 - with `lead`
     (the layer axis, or nothing for the hybrid stack's shared block) in
     front of every leaf; cross=True adds whisper's decoder cross-attention
     {"n_cross", "cross_attn"}."""
@@ -105,14 +107,19 @@ def _block_params(cfg: ModelConfig, lead: tuple, dt, dev,
             "wv": (*lead, d, nkv), "wo": (*lead, nq, d)}
     if cfg.qk_norm:
         attn.update(q_norm=(*lead, hd), k_norm=(*lead, hd))
-    ffn = {"w_in": (*lead, d, f), "w_out": (*lead, f, d)}
-    if cfg.act == "silu":
-        ffn["w_gate"] = (*lead, d, f)
     block = nn.ModuleDict({
         "n1": _params(_norm_shapes(cfg, lead), dt, dev),
         "attn": _params(attn, dt, dev),
-        "n2": _params(_norm_shapes(cfg, lead), dt, dev),
-        "mlp": _params(ffn, dt, dev)})
+        "n2": _params(_norm_shapes(cfg, lead), dt, dev)})
+    if cfg.moe_experts:
+        block["moe"] = _params({k: (*lead, *s) for k, s in
+                                moe.moe_shapes(cfg).items()}, dt, dev,
+                               moe.FP32_LEAVES)
+    else:
+        ffn = {"w_in": (*lead, d, f), "w_out": (*lead, f, d)}
+        if cfg.act == "silu":
+            ffn["w_gate"] = (*lead, d, f)
+        block["mlp"] = _params(ffn, dt, dev)
     if cross:
         block["n_cross"] = _params(_norm_shapes(cfg, lead), dt, dev)
         block["cross_attn"] = _params(attn, dt, dev)
@@ -120,9 +127,8 @@ def _block_params(cfg: ModelConfig, lead: tuple, dt, dev,
 
 
 class Model(nn.Module):
-    """The dense decoder, the hybrid zamba2 model, the RWKV6 model or the
-    whisper encoder-decoder (the MoE and VLM families are not ported
-    yet)."""
+    """The dense or MoE decoder, the hybrid zamba2 model, the RWKV6 model
+    or the whisper encoder-decoder (the VLM family is not ported yet)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -138,7 +144,7 @@ class Model(nn.Module):
             tok["lm_head"] = (cfg.vocab_size, d)
         self.tok = _params(tok, dt, dev)
         self.final_norm = _params(_norm_shapes(cfg), dt, dev)
-        if cfg.family == "dense":
+        if cfg.family in ATTENTION_FAMILIES:
             self.blocks = _block_params(cfg, (L,), dt, dev)
         elif cfg.family == "audio":
             self.blocks = nn.ModuleDict({
@@ -172,7 +178,9 @@ class Model(nn.Module):
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Fill the parameters with the JAX package's distributions - every
         projection N(0, 1/d_in), the embedding N(0, 0.02^2), norm scales 1,
-        and the constants and scales of mamba2_init / rwkv6_init - drawn in
+        the MoE router and expert input projections N(0, 1/d) and expert
+        output projections N(0, 1/d_ff) (moe_init), and the constants and
+        scales of mamba2_init / rwkv6_init - drawn in
         fp32 from a torch.Generator on the model's device (the numbers
         differ from jax.random's), layer by layer.  Returns
         `self.params`."""
@@ -203,11 +211,15 @@ class Model(nn.Module):
                 "A_log": 0.0, "dt_bias": math.log(math.e - 1),
                 "gate_norm": 1.0})
             block = self.blocks["shared"]
+        stacked = fam in ATTENTION_FAMILIES
         for group in ("n1", "n2"):
-            _fill(block[group], fam == "dense", gen, consts=norms)
-        for group in ("attn", "mlp"):
-            _fill(block[group], fam == "dense", gen,
-                  consts={"q_norm": 1.0, "k_norm": 1.0})
+            _fill(block[group], stacked, gen, consts=norms)
+        _fill(block["attn"], stacked, gen,
+              consts={"q_norm": 1.0, "k_norm": 1.0})
+        if "moe" in block:
+            _fill(block["moe"], stacked, gen, stds=moe.moe_stds(self.cfg))
+        else:
+            _fill(block["mlp"], stacked, gen)
         return self.params
 
     def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0,
@@ -283,14 +295,14 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         if cfg.family == "audio":
-            x = T.encdec_forward(params["blocks"], self._audio(batch), x,
-                                 cfg, impl=impl, remat=remat)
+            x, aux = T.encdec_forward(params["blocks"], self._audio(batch),
+                                      x, cfg, impl=impl, remat=remat)
         else:
-            stack = {"dense": T.stack_forward, "hybrid": T.hybrid_forward,
+            stack = {"dense": T.stack_forward, "moe": T.stack_forward,
+                     "hybrid": T.hybrid_forward,
                      "ssm": T.rwkv_forward}[cfg.family]
-            x = stack(params["blocks"], x, cfg, impl=impl, remat=remat)
+            x, aux = stack(params["blocks"], x, cfg, impl=impl, remat=remat)
         x = apply_norm(params["final_norm"], x, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return unembed(params["tok"], x, cfg), aux
 
     @torch.no_grad()
@@ -298,8 +310,8 @@ class Model(nn.Module):
         """Teacher-forced pass over batch["tokens"] (B, S) int32 (the audio
         family's decoder tokens, with its frames in batch["audio_embeds"]
         (B, S_enc, d_model)).  Returns
-        (logits (B, S, V) float32, aux loss (a float32 zero: no ported
-        family has an auxiliary loss))."""
+        (logits (B, S, V) float32, aux loss: the MoE load-balancing losses
+        summed over the layers, a float32 zero for the other families)."""
         return self._forward(params, batch, impl, remat=False)
 
     def loss(self, params, batch, *, impl: Optional[str] = None,
@@ -356,7 +368,8 @@ class Model(nn.Module):
             x = T.encdec_prefill(params["blocks"], self._audio(batch), x,
                                  self.cfg, cache, impl=impl)
         else:
-            prefill = {"dense": T.stack_prefill, "hybrid": T.hybrid_prefill,
+            prefill = {"dense": T.stack_prefill, "moe": T.stack_prefill,
+                       "hybrid": T.hybrid_prefill,
                        "ssm": T.rwkv_prefill}[self.cfg.family]
             x = prefill(params["blocks"], x, self.cfg, cache, impl=impl)
         logits, lens = self._prompt_tail(params, x, batch)

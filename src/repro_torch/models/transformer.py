@@ -1,5 +1,6 @@
-"""Layer loops of every ported family: the dense decoder (full-sequence
-forward, and prefill and decode over the dense or the paged KV cache), the
+"""Layer loops of every ported family: the dense and MoE decoders (full-
+sequence forward, and prefill and decode over the dense or the paged KV
+cache; an MoE block's FFN is models/moe.py's moe_ffn), the
 hybrid zamba2 stack (Mamba2 layers with one shared-weight attention block
 after every shared_attn_every-th layer), the RWKV6 stack, and whisper's
 encoder-decoder (a non-causal encoder stack, then decoder blocks of causal
@@ -12,8 +13,12 @@ of the cache in place.  The gemma3 local:global pattern and the hybrid
 stack's shared block are a Python `if` per layer instead of lax.cond.  The
 forwards are also the training forwards: with remat each layer runs under
 torch.utils.checkpoint, the counterpart of jax.checkpoint on the scanned
-body.  The JAX stacks' grad_cast, optimization_barrier and constrain are
-XLA and sharding hints with no counterpart here.
+body.  Each forward returns (x, aux): the MoE load-balancing losses summed
+over the layers in float32 (carried out of the checkpointed layers), a
+float32 zero for a stack without MoE; the cache-walking stacks drop the
+aux, as the JAX ones do.  The JAX stacks' grad_cast,
+optimization_barrier and constrain are XLA and sharding hints with no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from . import moe
 from .attention import (attn_decode, attn_decode_paged, attn_forward,
                         attn_prefill, attn_prefill_chunks_paged,
                         attn_prefill_cross, attn_prefill_paged)
@@ -55,9 +61,22 @@ def _layer(blocks, l: int):
             for name, group in blocks.items()}
 
 
+def _ffn_aux(p, x: torch.Tensor, cfg: ModelConfig):
+    """Post-attention half of a block: norm -> (moe | mlp) -> residual.
+    Returns (x, the MoE aux loss, or None without MoE)."""
+    y_in = apply_norm(p["n2"], x, cfg)
+    if cfg.moe_experts:
+        y, aux = moe.moe_ffn(p["moe"], y_in, cfg)
+        return x + y, aux
+    return x + mlp(p["mlp"], y_in, cfg), None
+
+
 def _ffn_tail(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Post-attention half of a block: norm -> mlp -> residual."""
-    return x + mlp(p["mlp"], apply_norm(p["n2"], x, cfg), cfg)
+    return _ffn_aux(p, x, cfg)[0]
+
+
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _layers(blocks, n_layers: int):
@@ -78,24 +97,34 @@ def _run(fn, remat: bool, *args):
     return fn(*args)
 
 
-def _block(p, x: torch.Tensor, cfg: ModelConfig, window: int,
-           impl: Optional[str], causal: bool = True) -> torch.Tensor:
+def _block_aux(p, x: torch.Tensor, cfg: ModelConfig, window: int,
+               impl: Optional[str], causal: bool = True):
+    """An attention block over x; returns (x, MoE aux or None)."""
     h = attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
                      causal=causal, window=window, impl=impl)
-    return _ffn_tail(p, x + h, cfg)
+    return _ffn_aux(p, x + h, cfg)
+
+
+def _block(p, x: torch.Tensor, cfg: ModelConfig, window: int,
+           impl: Optional[str], causal: bool = True) -> torch.Tensor:
+    return _block_aux(p, x, cfg, window, impl, causal)[0]
 
 
 def stack_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
-                  impl: Optional[str] = None,
-                  remat: bool = False) -> torch.Tensor:
+                  impl: Optional[str] = None, remat: bool = False):
     """Causal self-attention blocks over the whole sequence x (B, S, D).
     remat=True keeps only each layer's input for the backward and runs the
-    layer again there (the attention forward included)."""
+    layer again there (the attention forward included).  Returns (x, the
+    layers' MoE aux losses summed in layer order, a float32 zero without
+    MoE)."""
+    aux = _zero_aux(x)
     for p, is_global in zip(_layers(blocks, cfg.n_layers),
                             _layer_windows(cfg)):
-        x = _run(_block, remat, p, x, cfg, _windowed(cfg, is_global),
-                 impl)
-    return x
+        x, a = _run(_block_aux, remat, p, x, cfg,
+                    _windowed(cfg, is_global), impl)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def stack_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
@@ -233,12 +262,12 @@ def hybrid_layers(blocks, cfg: ModelConfig) -> List[Callable]:
 
 
 def hybrid_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
-                   impl: Optional[str] = None,
-                   remat: bool = False) -> torch.Tensor:
-    """The hybrid stack over the whole sequence x (B, S, D)."""
+                   impl: Optional[str] = None, remat: bool = False):
+    """The hybrid stack over the whole sequence x (B, S, D).  Returns (x,
+    a float32 zero aux)."""
     for layer in hybrid_layers(blocks, cfg):
         x = _run(layer, remat, x, impl)
-    return x
+    return x, _zero_aux(x)
 
 
 def hybrid_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -324,12 +353,12 @@ def rwkv_layers(blocks, cfg: ModelConfig) -> List[Callable]:
 
 
 def rwkv_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
-                 impl: Optional[str] = None,
-                 remat: bool = False) -> torch.Tensor:
-    """The RWKV6 stack over the whole sequence x (B, S, D)."""
+                 impl: Optional[str] = None, remat: bool = False):
+    """The RWKV6 stack over the whole sequence x (B, S, D).  Returns (x, a
+    float32 zero aux)."""
     for layer in rwkv_layers(blocks, cfg):
         x = _run(layer, remat, x, impl)
-    return x
+    return x, _zero_aux(x)
 
 
 def rwkv_init_cache(cfg: ModelConfig, batch: int, dtype, device):
@@ -406,15 +435,16 @@ def _decoder_block(p, x: torch.Tensor, enc_out: torch.Tensor,
 
 def encdec_forward(blocks, x_enc: torch.Tensor, x_dec: torch.Tensor,
                    cfg: ModelConfig, *, impl: Optional[str] = None,
-                   remat: bool = False) -> torch.Tensor:
+                   remat: bool = False):
     """Encoder, then the decoder stack over x_dec (B, S, D).  remat=True
     recomputes each decoder layer in the backward (the JAX package
-    checkpoints the decoder's scan body only, not the encoder's)."""
+    checkpoints the decoder's scan body only, not the encoder's).  Returns
+    (x_dec, a float32 zero aux)."""
     enc_out = encode(blocks, x_enc, cfg, impl=impl)
     for p in _layers(blocks["decoder"], cfg.n_layers):
         x_dec = _run(partial(_decoder_block, cfg=cfg), remat, p, x_dec,
                      enc_out, impl)
-    return x_dec
+    return x_dec, _zero_aux(x_dec)
 
 
 def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int,

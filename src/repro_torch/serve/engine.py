@@ -132,11 +132,13 @@ def _refuse_unported(scfg: ServeConfig):
     if scfg.tp_degree > 1:
         raise NotImplementedError(
             f"tp_degree={scfg.tp_degree} is not ported to the PyTorch "
-            f"engine yet (ROADMAP M10); it serves chunked=True (batched or "
-            f"the sequential oracle) on the paged cache and chunked=False "
-            f"on the dense or paged cache, with speculative decoding, the "
-            f"prefix cache, preemption, request deadlines and the span "
-            f"tracer")
+            f"engine yet (ROADMAP M10); it serves the dense and MoE "
+            f"decoders chunked=True (batched or the sequential oracle) on "
+            f"the paged cache and chunked=False on the dense or paged "
+            f"cache, with speculative decoding, the prefix cache, "
+            f"preemption, request deadlines and the span tracer, and the "
+            f"recurrent and audio families on the dense cache with "
+            f"stepwise admission")
 
 
 def _registry_counter(name: str):

@@ -8,7 +8,8 @@ that is no tile multiple, fewer queries than keys; dense decode lengths 0,
 over causal, full, window and softcap attention at S = 200 and 256, and
 through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
 80, zamba2's shared attention block; K1-K5 also 256, gemma3-4b's, and
-K1 and K2 GQA groups of 7, qwen-7b's 28 / 4 heads); K4 and K5 at the
+K1 and K2 GQA groups of 7, qwen-7b's 28 / 4 heads; K1-K4 also groups of
+16 at head dim 128, qwen3-moe-235b-a22b's 64 / 4 heads); K4 and K5 at the
 edges of their tensor-core tiles (lengths 1, 15, 17 and 200, fewer
 queries than keys,
 GQA groups of 1 to 8, a window shorter than one tile, softcap, no key at
@@ -80,6 +81,9 @@ from repro_torch.kernels import paged_prefill
 pytestmark = pytest.mark.cuda
 
 S, HKV, PS, N_PAGES, N_MAX = 8, 2, 4, 40, 8
+# (head dim, GQA group) of qwen3-moe-235b-a22b: 64 query heads over 4 KV
+# heads of 128, MAX_GROUP of the decode kernels
+QWEN3_MOE = (128, 16)
 VARIANTS = {"plain": (0, 0.0), "window": (5, 0.0), "softcap": (0, 2.0),
             "qlens": (0, 0.0)}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -156,6 +160,12 @@ def test_prefill_kernel_matches_plain(dev, D, G, variant, dtype):
     assert not got[3].any(), "dead row not zero"
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_prefill_kernel_matches_plain_at_group_16(dev, variant, dtype):
+    test_prefill_kernel_matches_plain(dev, *QWEN3_MOE, variant, dtype)
+
+
 def _decode_case(G, D, dev, dtype, seed=1):
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(
@@ -187,6 +197,12 @@ def test_decode_kernel_matches_plain(dev, D, G, variant, dtype):
     assert flash_decode.launches == n0 + 1
     _close(got, want, dt)
     assert not got[4].any(), "idle lane (length 0) not zero"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", ["plain", "window", "softcap"])
+def test_decode_kernel_matches_plain_at_group_16(dev, variant, dtype):
+    test_decode_kernel_matches_plain(dev, *QWEN3_MOE, variant, dtype)
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])
@@ -265,6 +281,14 @@ def test_flash_attention_kernel_matches_plain(dev, D, G, variant, dtype):
     assert flash_attention.launches == n0 + 2 and torch.equal(got, o)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(FA_VARIANTS))
+def test_flash_attention_kernel_matches_plain_at_group_16(dev, variant,
+                                                          dtype):
+    test_flash_attention_kernel_matches_plain(dev, *QWEN3_MOE, variant,
+                                              dtype)
+
+
 DECODE_LENS = [0, 1, 40, 23]
 # (window, softcap, one length for every lane) per variant
 FD_VARIANTS = {"plain": (0, 0.0, None), "window": (8, 0.0, None),
@@ -294,6 +318,12 @@ def test_dense_decode_kernel_matches_plain(dev, D, G, variant, dtype):
     _close(got, want, dt)
     if scalar is None:
         assert not got[0].any(), "empty lane (length 0) not zero"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(FD_VARIANTS))
+def test_dense_decode_kernel_matches_plain_at_group_16(dev, variant, dtype):
+    test_dense_decode_kernel_matches_plain(dev, *QWEN3_MOE, variant, dtype)
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(dev):
