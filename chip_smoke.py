@@ -17,9 +17,10 @@ Phases (each raises on failure, so the run exits non-zero):
                         (1, 1904) and (2, 256), K3 8 strips of 2048 with
                         lengths spread over [0, 2048]) and K5 at the
                         training shape (4 x 2048 tokens, 32 / 8 heads,
-                        causal, o and lse from K4) and at gemma3-4b's (8 /
+                        causal, o and lse from K4), at gemma3-4b's (8 /
                         4 heads of 256, causal, and with its window of
-                        1024), in float32 and
+                        1024) and at llava-next-34b's (2 x 2048, 56 / 8
+                        heads of 128, causal), in float32 and
                         bfloat16; the test file also holds K3 and K4 at
                         head dim 80 and the edge cases of the scans K6 and
                         K7 (their full-width shapes among them).
@@ -133,7 +134,8 @@ Phases (each raises on failure, so the run exits non-zero):
                         2048-token rows: one step against impl="ref"
                         within TRAIN_BARS, K4 2 x n_layers and K5 n_layers
                         launches a step and nothing else, finite losses
-                        from near ln(vocab), step time, MFU and peak
+                        from near initial_loss (ln(vocab) + the seeded
+                        logits' variance / 2), step time, MFU and peak
                         memory; granite-8b runs one forward against
                         impl="ref".
                         sequence-parallel decode (M11): the serving
@@ -201,6 +203,27 @@ Phases (each raises on failure, so the run exits non-zero):
                         NCCL group against moe_ffn, and its float32 copy
                         serving through the kernels and through impl="ref",
                         each on its own routing, held the same way.
+                        the vision-language family (M13): llava-next-34b
+                        at full width and depth (60 layers, 56 / 8 heads
+                        of 128, 34.39 B parameters, 68.8 GB of bf16
+                        weights, seeded), text only through the engine as
+                        in the JAX package: the chunked traffic (warm-up,
+                        counted: K1 / K2 60 x the engine's, 0 implicit
+                        syncs; teacher-forced check; traced), model_check
+                        (its bars raised to REC_NOISE_MARGIN x the model's
+                        own bf16 noise against a float32 forward streamed
+                        layer by layer, where that is larger); the image
+                        path (vlm_image_path: 4 rows of 576 seeded patch
+                        embeddings and 256 text tokens, make_prefill_step
+                        counted K4 60, 32 greedy make_serve_step steps
+                        counted K3 60 a step, 0 implicit syncs; every
+                        token teacher-forced with its image; the rows with
+                        two padded against each row alone; the image moves
+                        the logits); a float32 copy of 8 layers through
+                        the image path (the near-tie rule) and model_check
+                        (VLM_F32_MODEL_BAR); 4 of the 60 layers training
+                        2 x 2048 (576 image + 1472 text positions), as
+                        the dense family trains.
   4. times              per kernel, at the largest call its run gave it
                         (K1/K2 the chunked run, K3/K4 the dense run, K5 the
                         training run, K6/K7 the recurrent forwards; K3/K4
@@ -208,7 +231,8 @@ Phases (each raises on failure, so the run exits non-zero):
                         training step's shape, K1 also at the speculative
                         run's largest verify launch, K3 / K4 / K5 also at
                         whisper-base's, K1-K4 at olmoe-1b-7b's and
-                        qwen3-moe's): kernel, plain version and
+                        qwen3-moe's, K1-K5 at llava-next-34b's): kernel,
+                        plain version and
                         library times (CUDA events, L2 flushed, median of
                         25) beside the bound the card's data sheet allows
                         and the achieved rate (tflops: the FLOPs the call's
@@ -235,8 +259,9 @@ line for each of those four runs (its reference run inside), one
 {"e2e_dense_family": ...}, one {"e2e_telemetry": ...} and one
 {"e2e_deadline": ...} line (each with its reference run inside) and one
 {"e2e_fleet": ...} line, one {"e2e_m11": ...}, one {"e2e_whisper":
-...}, one {"trace_moe": ...} and one {"e2e_moe": ...} line, the card
-line again, and as the last line {"ok": true,
+...}, one {"trace_moe": ...}, one {"e2e_moe": ...}, one {"trace_vlm":
+...} and one {"e2e_vlm": ...} line, the card line again, and as the last
+line {"ok": true,
 "device": {...}}.  Without a GPU it exits
 non-zero and prints no result.
 """
@@ -269,11 +294,11 @@ from repro_torch.data import DataPipeline  # noqa: E402
 from repro_torch.kernels import build, flash_attention  # noqa: E402
 from repro_torch.kernels import flash_backward, flash_decode  # noqa: E402
 from repro_torch.kernels import mamba2_scan, rwkv6_scan  # noqa: E402
-from repro_torch.kernels import ops, paged_prefill  # noqa: E402
+from repro_torch.kernels import ops, paged_prefill, ref  # noqa: E402
 from repro_torch.models import build_model, moe  # noqa: E402
 from repro_torch.models.moe_a2a import moe_ffn_a2a_local  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.layers import embed  # noqa: E402
+from repro_torch.models.layers import apply_norm, embed, unembed  # noqa
 from repro_torch.models.transformer import n_shared_applications  # noqa
 from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.serve import (FleetConfig, FleetRouter,  # noqa: E402
@@ -611,15 +636,57 @@ def k5_call(a, impl=None, terms=False):
     return flash_backward.flash_attention_bwd(*args, **_k5_kw(a))
 
 
+def k5_cancel(a, block: int = 512):
+    """The magnitude of the float32 sums behind each ds = p (dp - delta)
+    of K5's plain version, carried into dq and dk as ds is: scale x sum
+    over the masked pairs of p (|do| . |v| + |do| . |o|) x |k| (dq) or
+    |q| (dk); dv takes no ds (None).  Where dp and delta cancel - a query
+    that attends one key has o = v, so ds = 0 exactly - the plain
+    version's ds is fp32 rounding of that magnitude, which the kernel,
+    taking delta from the same products as dp, does not have."""
+    q, k, v, o, do, lse = (a[n] for n in ("q", "k", "v", "o", "do", "lse"))
+    kw = _k5_kw(a)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G, sc = Hq // Hkv, 1.0 / math.sqrt(D)
+    qb = q.reshape(B, Sq, Hkv, G, D).float()
+    dob = do.reshape(B, Sq, Hkv, G, D).float().abs()
+    dmag = (dob * o.reshape(B, Sq, Hkv, G, D).float().abs()).sum(-1)
+    lsef = lse.reshape(B, Sq, Hkv, G)
+    q_pos = torch.arange(Sq, device=q.device)
+    dq, dk = torch.zeros_like(qb), []
+    for j0 in range(0, Skv, block):
+        kb, vb = k[:, j0:j0 + block].float(), v[:, j0:j0 + block].float()
+        k_pos = j0 + torch.arange(kb.shape[1], device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qb, kb) * sc
+        if kw["logit_softcap"] > 0.0:
+            s = kw["logit_softcap"] * torch.tanh(s / kw["logit_softcap"])
+        keep = torch.ones((Sq, kb.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if kw["causal"] or kw["window"] > 0:
+            keep &= k_pos[None, :] <= q_pos[:, None]
+        if kw["window"] > 0:
+            keep &= k_pos[None, :] > q_pos[:, None] - kw["window"]
+        p = torch.where(keep[None, :, None, None, :],
+                        torch.exp2((s - lsef[..., None]) * ref.LOG2E), 0.0)
+        c = p * (torch.einsum("bqhgd,bkhd->bqhgk", dob, vb.abs())
+                 + dmag[..., None])
+        dq += torch.einsum("bqhgk,bkhd->bqhgd", c, kb.abs()) * sc
+        dk.append(torch.einsum("bqhgk,bqhgd->bkhd", c, qb.abs()) * sc)
+    return dq.reshape(B, Sq, Hq, D), torch.cat(dk, 1), None
+
+
 def k5_compare(a, dtype) -> float:
     """dq, dk, dv against the plain version: bf16 one step of the terms'
-    magnitude, fp32 1e-5 of the largest |gradient|.  Returns the max abs
-    error over the three."""
+    magnitude plus, for dq and dk, the float32 bar of the sums behind
+    their ds (k5_cancel, as K1's bar adds that of its PV sum); fp32 1e-5
+    of the largest |gradient|.  Returns the max abs error over the
+    three."""
     got, want = k5_call(a), k5_call(a, "ref")
-    terms = k5_call(a, "ref", terms=True) if dtype == torch.bfloat16 \
-        else (None,) * 3
-    return max(compare(g, w, dtype, t, f32_rel=True)
-               for g, w, t in zip(got, want, terms))
+    terms, cancel = (k5_call(a, "ref", terms=True), k5_cancel(a)) \
+        if dtype == torch.bfloat16 else ((None,) * 3, (None,) * 3)
+    return max(compare(g, w, dtype, t, f32_rel=True, cancel=c)
+               for g, w, t, c in zip(got, want, terms, cancel))
 
 
 def k5_training_args(dtype, seed=0, shape=(4, 2048, 32, 8, 64), window=0):
@@ -644,6 +711,14 @@ def k5_gemma_shape():
     cfg = get_config("gemma3-4b")
     return (TRAIN["global_batch"], TRAIN["seq_len"], cfg.n_heads,
             cfg.n_kv_heads, cfg.head_dim), cfg.sliding_window
+
+
+def k5_llava_shape():
+    """llava-next-34b's training backward at its training run's batch,
+    (2, 2048, 56, 8, 128): 7 query heads a KV head."""
+    cfg = get_config("llava-next-34b")
+    return (VLM_TRAIN["global_batch"], VLM_TRAIN["seq_len"], cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim)
 
 
 def phase_kernel_parity():
@@ -680,7 +755,7 @@ def phase_kernel_parity():
             f"(2, 256) {e4[1]:.3e} (bar {bar}; K4 bf16 of the terms)")
         e5 = k5_compare(k5_training_args(dtype), dtype)
         bar = "1e-5 of max |grad|" if dtype == torch.float32 \
-            else "2^-7 of the terms"
+            else "2^-7 of the terms, dq / dk + 1e-5 of k5_cancel"
         log(f"# training shape {str(dtype)[6:]}: K5 (4, 2048, 32/8, 64) "
             f"causal max abs err {e5:.3e} (bar {bar})")
         shape, window = k5_gemma_shape()
@@ -689,6 +764,10 @@ def phase_kernel_parity():
                             dtype)
             log(f"# gemma3-4b training shape {str(dtype)[6:]}: K5 {shape} "
                 f"causal, window {w}: max abs err {e5:.3e} (bar {bar})")
+        shape = k5_llava_shape()
+        e5 = k5_compare(k5_training_args(dtype, shape=shape), dtype)
+        log(f"# llava-next-34b training shape {str(dtype)[6:]}: K5 {shape} "
+            f"causal: max abs err {e5:.3e} (bar {bar})")
     torch.cuda.synchronize()
 
 
@@ -962,20 +1041,25 @@ def phase_slice():
     return runs, args, (model, params)
 
 
-def model_check(model, params, on_pass=None):
+def check_tokens(vocab: int) -> np.ndarray:
+    """model_check's two prompts (2, 256): 256 and 200 real tokens."""
+    toks = np.random.default_rng(1).integers(1, vocab, (2, 256))
+    toks[1, 200:] = 0
+    return toks
+
+
+def model_check(model, params, on_pass=None, bars=MODEL_BARS):
     """The model's entry points at full width through the kernels and
     through impl="ref" (separate caches, same inputs): a chunk batch and a
     paged decode step (K1, K2), forward over 2 x 256 tokens (K4), a dense
     prefill of two prompts (256 and 200 real tokens) and a decode step
     (K4, K3), a paged prefill of the 200-token prompt and a decode step
-    (K4, K2).  on_pass(impl) is called before each pass.  Returns {entry
-    point: max |kernels - ref|}."""
+    (K4, K2), each within its entry of `bars`.  on_pass(impl) is called
+    before each pass.  Returns {entry point: max |kernels - ref|}."""
     dev = model.device
-    rng = np.random.default_rng(1)
     i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
                                  device=dev)
-    toks = rng.integers(1, model.cfg.vocab_size, (2, 256))
-    toks[1, 200:] = 0
+    toks = check_tokens(model.cfg.vocab_size)
     table = np.zeros((2, 32), np.int32)
     table[0, :17], table[1, :17] = np.arange(1, 18), np.arange(18, 35)
     argmax = lambda lg: torch.argmax(lg[:, -1], -1,
@@ -1014,13 +1098,14 @@ def model_check(model, params, on_pass=None):
         out[impl] = got
     errs = {}
     for name in out[None]:
-        bar = MODEL_BARS[name]
+        bar = bars[name]
         a, b = out[None][name], out["ref"][name]
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{name}: non-finite logits")
         err = errs[name] = float((a - b).abs().max())
         log(f"# full-width {name}: logits max |kernels - ref| {err:.3e} "
-            f"(bf16 bar {bar}, logit scale {float(b.abs().max()):.2f})")
+            f"({model.cfg.dtype} bar {bar:.3g}, logit scale "
+            f"{float(b.abs().max()):.2f})")
         if err > bar:
             raise AssertionError(f"{name}: kernels and ref disagree")
     return errs
@@ -1626,19 +1711,24 @@ def recurrent_fp32(m32, p32, arch, ref16):
     return err, noise
 
 
-def teacher_forced_check(model, params, finished, bar):
+def teacher_forced_check(model, params, finished, bar, images=None):
     """Every generated token of `finished` ((uid, prompt, generated
     tokens) each) must be the argmax of a teacher-forced kernel forward
     over the request's prompt and generated tokens at its position, or
-    within `bar` of that argmax (a near tie).  Returns the near ties."""
+    within `bar` of that argmax (a near tie).  images (n, P, d_model): the
+    vlm family's image of each request, ahead of its prompt.  Returns the
+    near ties."""
     ties = []
-    for uid, prompt, out in finished:
+    for n, (uid, prompt, out) in enumerate(finished):
         seq = list(prompt) + list(out)
-        toks = torch.tensor([seq[:-1]], dtype=torch.int32,
-                            device=model.device)
-        logits = model.forward(params, {"tokens": toks})[0][0]
+        batch = {"tokens": torch.tensor([seq[:-1]], dtype=torch.int32,
+                                        device=model.device)}
+        if images is not None:
+            batch["vision_embeds"] = images[n:n + 1]
+        logits = model.forward(params, batch)[0][0]
+        start = logits.shape[0] - len(seq) + 1 + len(prompt) - 1
         for i, tok in enumerate(out):
-            row = logits[len(prompt) - 1 + i]
+            row = logits[start + i]
             top = int(torch.argmax(row))
             if top == tok:
                 continue
@@ -1870,15 +1960,26 @@ def _seeded_model(arch, n_layers=None):
 
 
 def dense_family_serving(arch):
+    """The seeded model at full width serves (serve_runs(DF_SERVE[arch])).
+    Returns (runs, captured, e2e, traces)."""
+    model, params, n_params = _seeded_model(arch)
+    runs, captured, e2e, traces = serve_runs(model, params, arch,
+                                             DF_SERVE[arch])
+    e2e["params"] = n_params
+    del model, params
+    _free()
+    return runs, captured, e2e, traces
+
+
+def serve_runs(model, params, arch, names):
     """The model serves the chunked run's traffic on each engine of
-    DF_SERVE[arch]: a warm-up run (the largest kernel calls captured),
-    then a counted run (counted_run: launches n_layers x the engine's, 0
+    `names`: a warm-up run (the largest kernel calls captured), then a
+    counted run (counted_run: launches n_layers x the engine's, 0
     implicit syncs), every generated token checked against a teacher-
     forced kernel forward at SERVED_TOKEN_BAR, and the traffic once more
     under the profiler.  Returns (runs, captured, e2e, traces)."""
-    model, params, n_params = _seeded_model(arch)
-    runs, captured, e2e, traces = {}, {}, {"params": n_params}, {}
-    for run in DF_SERVE[arch]:
+    runs, captured, e2e, traces = {}, {}, {}, {}
+    for run in names:
         caps = [Capture(mod, attr, w) for _, mod, attr, w in DF_CAPTURE[run]]
         with caps[0], caps[1]:
             run_traffic(model, params, run, count_syncs=False)
@@ -1894,8 +1995,6 @@ def dense_family_serving(arch):
         name = f"{arch} {run}"
         runs[name], e2e[run] = got, got["e2e"]
         traces[name] = phase_trace(model, params, run, got["e2e"]["wall_s"])
-    del model, params
-    _free()
     return runs, captured, e2e, traces
 
 
@@ -1908,15 +2007,45 @@ def train_flops(cfg, n_params, B, S):
     return 6 * n_params * B * S + 12 * B * cfg.n_heads * cfg.head_dim * pairs
 
 
-def dense_family_training(arch):
-    """`arch` at full width: one step's loss and gradient norm through the
-    kernels against impl="ref" (train_check, TRAIN_BARS), then
-    DF_TRAIN_STEPS counted steps on the pipeline's batches: K4 2 x
+def initial_loss(cfg) -> float:
+    """The loss a seeded model starts from: ln(vocab) + sigma^2 / 2, the
+    mean log-sum-exp over vocab Gaussian logits of variance sigma^2 (their
+    mean is the target's expected logit, 0).  The final norm gives rows
+    of unit RMS and the unembedding's entries are N(0, 0.02^2), so
+    sigma^2 = 0.02^2 x d_model: 0.41 at d_model 2048, 1.43 at 7168."""
+    return math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+
+
+def numpy_batch(cfg, B, S, device, seed=0):
+    """A training batch of B rows of S positions seeded by numpy (the same
+    in every process, unlike the pipeline's: ROADMAP §3): tokens, and for
+    the vlm family frontend_tokens image embeddings (N(0, 0.02^2), in
+    bfloat16 as the pipeline hands them over) ahead of S - frontend_tokens
+    tokens."""
+    rng = np.random.default_rng(seed)
+    P = cfg.frontend_tokens
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S - P), dtype=np.int32)).to(device)}
+    if P:
+        batch["vision_embeds"] = torch.from_numpy((rng.standard_normal(
+            (B, P, cfg.d_model)) * 0.02).astype(np.float32)).to(
+                device, torch.bfloat16)
+    return batch
+
+
+def dense_family_training(arch, n_layers=None, train=TRAIN):
+    """`arch` at its published widths (n_layers of its layers when given),
+    TrainConfig(**train): one step's loss and gradient norm through the
+    kernels against impl="ref" (train_check, TRAIN_BARS, on numpy_batch),
+    then DF_TRAIN_STEPS counted steps on the pipeline's batches: K4 2 x
     n_layers and K5 n_layers launches a step, nothing else, finite losses
-    from near ln(vocab); one more step under the profiler.  Returns
-    (run, captured, e2e, trace)."""
+    from within 1 of initial_loss(cfg); one more step under the profiler.
+    The largest K5 and K4 calls are kept as K5@<arch> and K4@<arch>_train.
+    Returns (run, captured, e2e, trace)."""
     cfg = get_config(arch)
-    tcfg = TrainConfig(**TRAIN)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    tcfg = TrainConfig(**train)
     B, S = tcfg.global_batch, tcfg.seq_len
     model = build_model(cfg)
     state = init_train_state(model, 0, tcfg)
@@ -1926,10 +2055,8 @@ def dense_family_training(arch):
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
         f"{cfg.norm}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
         f"params, batch {B} x {S}, remat {tcfg.remat}")
-    rng = np.random.default_rng(0)
-    check = train_check(model, state.params, {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)).to(
-            model.device)})
+    check = train_check(model, state.params,
+                        numpy_batch(cfg, B, S, model.device))
     step = make_train_step(model, tcfg)
     batches = [pipe.device_batch(s) for s in range(DF_TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
@@ -1951,23 +2078,26 @@ def dense_family_training(arch):
     want.update(K4=2 * L * N, K5=L * N)
     losses = [float(m["loss"]) for m in outs]
     gnorms = [float(m["grad_norm"]) for m in outs]
-    ln_v = math.log(cfg.vocab_size)
+    lr = [float(m["lr"]) for m in outs]
+    start = initial_loss(cfg)
     log(f"# {arch} training: {N} steps, kernel launches {launches} "
-        f"(want {want}), losses {[round(x, 4) for x in losses]}, ln(vocab) "
-        f"{ln_v:.4f}, step ms {[round(t * 1e3, 1) for t in times]}, peak "
-        f"memory {peak / 1e9:.2f} GB")
+        f"(want {want}), losses {[round(x, 4) for x in losses]} at lr "
+        f"{lr}, initial_loss {start:.4f} (ln(vocab) "
+        f"{math.log(cfg.vocab_size):.4f}), step ms "
+        f"{[round(t * 1e3, 1) for t in times]}, peak memory "
+        f"{peak / 1e9:.2f} GB (1e9 bytes)")
     if launches != want:
         raise AssertionError(f"{arch} training launches {launches} != "
                              f"{want}")
-    if not all(np.isfinite(losses + gnorms)) or abs(losses[0] - ln_v) > 1.0:
+    if not all(np.isfinite(losses + gnorms)) or abs(losses[0] - start) > 1.0:
         raise AssertionError(f"{arch} training: losses {losses} not finite "
-                             f"from near ln(vocab)")
+                             f"from near initial_loss {start:.3f}")
     trace = device_trace(lambda: step(state, batches[-1]))
     trace.update(run=f"{arch} train", steps=1)
     med = float(np.median(times[1:]))
     flops = train_flops(cfg, n_params, B, S)
-    e2e = {"config": cfg.name, "params": n_params, "global_batch": B,
-           "seq_len": S, "remat": tcfg.remat, "steps": N,
+    e2e = {"config": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "global_batch": B, "seq_len": S, "remat": tcfg.remat, "steps": N,
            "step_ms": [t * 1e3 for t in times],
            "step_ms_median_after_first": med * 1e3,
            "tokens_per_s": B * S / med, "peak_mem_gb": peak / 1e9,
@@ -1976,7 +2106,7 @@ def dense_family_training(arch):
            "mfu_formula": "(6 * params * tokens + 12 * batch * heads * "
                           "head_dim * attended pairs of every layer under "
                           "its window) / (median step s * 989e12)",
-           "losses": losses, "grad_norms": gnorms,
+           "losses": losses, "grad_norms": gnorms, "lr": lr,
            "kernel_launches": launches,
            "kernels_vs_ref": {"loss": [check[None][0], check["ref"][0]],
                               "grad_norm": [check[None][1],
@@ -1987,10 +2117,8 @@ def dense_family_training(arch):
         f"{trace['profiled_wall_s']:.3f} s")
     del state, model, step, batches
     _free()
-    # the K4 forward of a served model was captured from its serving run
-    k4 = f"K4@{arch}" + ("_train" if arch in DF_SERVE else "")
-    return {"launches": launches}, {f"K5@{arch}": c5.best, k4: c4.best}, \
-        e2e, trace
+    return {"launches": launches}, {f"K5@{arch}": c5.best,
+                                    f"K4@{arch}_train": c4.best}, e2e, trace
 
 
 def dense_family_forward():
@@ -2155,10 +2283,12 @@ def _greedy_decode(model, params, cache, lens, first, n, seq_parallel,
                    forced=None):
     """n decode steps from `first` (B, 1): each step's input the argmax
     of the step before, or forced[i - 1] (teacher forcing: forced[i] is
-    the input after step i).  Counted: the kernel launches, the implicit
-    host syncs (sync debug mode), the wall time.  Returns (logits (n B,
-    V) and tokens [n B], step-major; launches, syncs, wall s)."""
+    the input after step i), each through serve_step.make_serve_step.
+    Counted: the kernel launches, the implicit host syncs (sync debug
+    mode), the wall time.  Returns (logits (n B, V) and tokens [n B],
+    step-major; launches, syncs, wall s)."""
     tok, logits, toks = first, [], []
+    step = serve_step.make_serve_step(model, seq_parallel=seq_parallel)
     # the first switch into the sync debug mode in a process warns, once,
     # that the mode is a prototype: switched here, that notice is not
     # counted as a sync
@@ -2172,8 +2302,7 @@ def _greedy_decode(model, params, cache, lens, first, n, seq_parallel,
         t0 = time.perf_counter()
         try:
             for i in range(n):
-                lg, _ = model.decode_step(params, tok, lens + i, cache,
-                                          seq_parallel=seq_parallel)
+                lg, _ = step(params, cache, tok, lens + i)
                 logits.append(lg[:, -1])
                 nxt = torch.argmax(lg[:, -1], -1, keepdim=True).to(
                     torch.int32)
@@ -2954,6 +3083,245 @@ def phase_moe():
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the vision-language family (M13)
+# ---------------------------------------------------------------------------
+
+# llava-next-34b at full width and depth (60 layers, 56 / 8 heads of 128,
+# 34.39 B parameters: 68.8 GB of bf16 weights).  Its vision frontend is a
+# stub, as in the JAX package: the batch carries 576 patch embeddings a
+# row.  The engine serves it as a text model, as the JAX engine does
+# (ROADMAP §3): RUNS["chunked"].  The image path runs through the model's
+# entry points: VLM_ROWS rows of an image and a VLM_TEXT-token prompt,
+# make_prefill_step into a dense cache of 576 + VLM_TEXT + VLM_NEW
+# positions, then VLM_NEW greedy steps through make_serve_step; the same
+# rows again with the real lengths VLM_TRUE_LENS (two rows padded)
+VLM = "llava-next-34b"
+VLM_ROWS, VLM_TEXT, VLM_NEW = 4, 256, 32
+VLM_TRUE_LENS = (256, 200, 256, 131)
+# training at the published widths with VLM_TRAIN_LAYERS of the 60 layers
+# (the whole model's ~447 GB of training state does not fit one card; 4
+# layers are 3.15 B parameters, ~41 GB): 2 rows of 2048 positions, 576
+# image and 1472 text, remat full
+VLM_TRAIN_LAYERS = 4
+VLM_TRAIN = dict(TRAIN, global_batch=2)
+# the float32 copy: VLM_F32_LAYERS of the 60 layers (5.38 B parameters,
+# 21.5 GB), the image path with the float32 bars
+VLM_F32_LAYERS = 8
+# per dtype: a served token against the teacher-forced forward with the
+# same image (bf16: SERVED_TOKEN_BAR, the bar of a served bf16 token;
+# float32: the near-tie rule, NEAR_TIE), and a row's first logits in the
+# padded batch against the row prefilled alone (bf16: the bar of a dense
+# prefill; float32: 1e-4 - the two prefills run GEMMs and K4 calls of
+# other shapes, which sum in other orders).  The image must move the first
+# logits by more than VLM_IMAGE_EFFECT x the latter: a dropped or
+# misplaced image would move them by nothing or land the tail on another
+# position
+VLM_BARS = {"bfloat16": {"token": SERVED_TOKEN_BAR,
+                         "alone": MODEL_BARS["dense prefill"]},
+            "float32": {"token": NEAR_TIE, "alone": 1e-4}}
+VLM_IMAGE_EFFECT = 10
+# model_check of the bf16 model: llava's logits are ~1.8x granite-3-2b's
+# (a logit scale of 7-9: the init's logit sigma is 0.02 sqrt(d_model), 1.7
+# at 7168), and over 60 layers its bf16 forward through impl="ref" lies
+# 0.198 from the float32 forward on the same weights (its own bf16 noise,
+# measured on an H100 80GB HBM3, 700 W), past MODEL_BARS["forward"], which
+# were measured at granite's logit scale of ~4.  So, as phase_recurrent
+# holds its deep seeded models, an entry point is held within
+# REC_NOISE_MARGIN x that noise, measured in the run
+# (fp32_streamed_forward), where that is above its MODEL_BARS entry.  The
+# tight check is the float32 copy's: kernels vs ref within
+# VLM_F32_MODEL_BAR (5.0e-5 at most, the forward, on the same card)
+VLM_F32_MODEL_BAR = 1e-4
+
+
+def fp32_streamed_forward(model, params, batch):
+    """Model.forward's logits in float32 on the model's own weights
+    through impl="ref", one layer's weights widened to float32 at a time
+    (the whole of llava in float32 would take 137 GB)."""
+    cfg = model.cfg.replace(dtype="float32")
+    with torch.no_grad():
+        x = model._assemble_input(params, batch)[0].float()
+        for l, is_global in enumerate(T._layer_windows(cfg)):
+            p = {name: {k: v[l].float() for k, v in group.items()}
+                 for name, group in params["blocks"].items()}
+            x = T._block(p, x, cfg, T._windowed(cfg, is_global), "ref")
+        x = apply_norm({k: v.float() for k, v in
+                        params["final_norm"].items()}, x, cfg)
+        return unembed(params["tok"], x, cfg)
+
+
+def noise_bars(model, params):
+    """MODEL_BARS, each raised to REC_NOISE_MARGIN x the bf16 model's own
+    noise where that is larger: max |forward through impl="ref" -
+    fp32_streamed_forward| over model_check's prompts.  Returns (bars,
+    noise)."""
+    batch = {"tokens": torch.from_numpy(check_tokens(
+        model.cfg.vocab_size)).to(model.device, torch.int32)}
+    ref16 = model.forward(params, batch, impl="ref")[0]
+    noise = float((ref16 - fp32_streamed_forward(model, params, batch))
+                  .abs().max())
+    log(f"# {model.cfg.name}: bf16 forward (impl=\"ref\") against the "
+        f"float32 forward on the same weights {noise:.4f} (the model's own "
+        f"bf16 noise), logit scale {float(ref16.abs().max()):.2f}")
+    return {k: max(v, REC_NOISE_MARGIN * noise)
+            for k, v in MODEL_BARS.items()}, noise
+
+
+def vlm_image_path(model, params, tag):
+    """VLM_ROWS rows, each numpy-seeded image embeddings (N(0, 0.02^2),
+    bfloat16) and a VLM_TEXT-token prompt: a warm-up pass (the largest K4
+    and K3 calls kept), then make_prefill_step (counted: K4 n_layers,
+    nothing else; lens 576 + VLM_TEXT) and VLM_NEW greedy steps through
+    make_serve_step (counted: K3 n_layers a step, nothing else, 0
+    implicit syncs); every generated token (the prefill's and each
+    step's) against a teacher-forced
+    forward over the image, the prompt and the tokens before it; the rows
+    with VLM_TRUE_LENS, each row's first logits and lens against the row
+    prefilled alone; the first logits without the image.  Returns (runs,
+    captured, e2e)."""
+    cfg, dev = model.cfg, model.device
+    bars = VLM_BARS[cfg.dtype]
+    P = cfg.frontend_tokens
+    rng = np.random.default_rng(14)
+    images = torch.from_numpy((rng.standard_normal(
+        (VLM_ROWS, P, cfg.d_model)) * 0.02).astype(np.float32)).to(
+            dev, torch.bfloat16)
+    text = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        VLM_ROWS, VLM_TEXT), dtype=np.int32)).to(dev)
+    batch = {"tokens": text, "vision_embeds": images}
+    max_len = P + VLM_TEXT + VLM_NEW
+    prefill = serve_step.make_prefill_step(model)
+    step = serve_step.make_serve_step(model)
+    argmax = lambda lg: torch.argmax(lg[:, -1], -1, keepdim=True).to(
+        torch.int32)
+    # a Capture weighs a K3 call by its lengths, on the host: the warm-up
+    # pass, not the counted one
+    with Capture(flash_attention, "flash_attention_fwd", _k4_weight) as c4, \
+            Capture(flash_decode, "flash_decode", _lens_weight) as c3:
+        lp, cache, lens = prefill(params, batch, model.init_cache(
+            VLM_ROWS, max_len))
+        tok = argmax(lp)
+        for i in range(VLM_NEW):
+            tok = argmax(step(params, cache, tok, lens + i)[0])
+    del cache
+    cache = model.init_cache(VLM_ROWS, max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    lp, cache, lens = prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = read_counts()
+    first = argmax(lp)
+    _, toks, dec, syncs, wall = _greedy_decode(model, params, cache, lens,
+                                               first, VLM_NEW, False)
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    L = cfg.n_layers
+    want_pre = dict({k: 0 for k in COUNTERS}, K4=L)
+    want_dec = dict({k: 0 for k in COUNTERS}, K3=L * VLM_NEW)
+    if pre != want_pre or dec != want_dec or syncs \
+            or lens.tolist() != [P + VLM_TEXT] * VLM_ROWS:
+        raise AssertionError(f"{tag} image path: launches {pre} / {dec} "
+                             f"(want {want_pre} / {want_dec}), {syncs} "
+                             f"implicit syncs, lens {lens.tolist()}")
+    out = torch.tensor(toks, device=dev).view(VLM_NEW, VLM_ROWS).t()
+    gen = torch.cat([first, out.to(torch.int32)], 1).tolist()
+    ties = teacher_forced_check(
+        model, params, [(b, text[b].tolist(), gen[b])
+                        for b in range(VLM_ROWS)], bars["token"], images)
+    # the same rows with VLM_TRUE_LENS real tokens, against each row alone
+    tl = torch.tensor(VLM_TRUE_LENS, dtype=torch.int32, device=dev)
+    padded = text * (torch.arange(VLM_TEXT, device=dev) < tl[:, None])
+    lp_pad, _, lens_pad = prefill(
+        params, {"tokens": padded, "vision_embeds": images, "true_lens": tl},
+        model.init_cache(VLM_ROWS, max_len))
+    err_alone = 0.0
+    for b, n in enumerate(VLM_TRUE_LENS):
+        lp_b, _, lens_b = prefill(
+            params, {"tokens": text[b:b + 1, :n],
+                     "vision_embeds": images[b:b + 1]},
+            model.init_cache(1, max_len))
+        if not int(lens_pad[b]) == int(lens_b[0]) == P + n:
+            raise AssertionError(f"{tag} padded row {b}: lens "
+                                 f"{int(lens_pad[b])}, alone "
+                                 f"{int(lens_b[0])}, want {P + n}")
+        err_alone = max(err_alone, float((lp_pad[b] - lp_b[0]).abs().max()))
+    lp_text = prefill(params, {"tokens": text},
+                      model.init_cache(VLM_ROWS, max_len))[0]
+    effect = float((lp - lp_text).abs().max())
+    scale = float(lp.abs().max())
+    n_tok = VLM_ROWS * VLM_NEW
+    log(f"# {tag} image path: {VLM_ROWS} rows x ({P} image + {VLM_TEXT} "
+        f"text) positions, {VLM_NEW} greedy tokens each: prefill "
+        f"{prefill_s * 1e3:.1f} ms, kernel launches {pre}; decode "
+        f"{wall / VLM_NEW * 1e3:.2f} ms a step, {n_tok / wall:.0f} "
+        f"tokens/s, kernel launches {dec}, implicit syncs {syncs}; peak "
+        f"{peak / 1e9:.2f} GB (1e9 bytes); every token the teacher-forced "
+        f"forward's argmax or within {bars['token']:.3g} of it, near ties "
+        f"{ties}; padded rows {list(VLM_TRUE_LENS)}: lens "
+        f"{lens_pad.tolist()}, first logits max |batch - alone| "
+        f"{err_alone:.3e} (bar {bars['alone']}); the image moves the first "
+        f"logits by {effect:.3f} (at least {VLM_IMAGE_EFFECT} x "
+        f"{bars['alone']}); logit scale {scale:.2f}")
+    if err_alone > bars["alone"] \
+            or effect <= VLM_IMAGE_EFFECT * bars["alone"] \
+            or not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"{tag} image path: padded rows or the image's "
+                             f"effect")
+    e2e = {"rows": VLM_ROWS, "image_positions": P, "text": VLM_TEXT,
+           "new_tokens": VLM_NEW, "prefill_ms": prefill_s * 1e3,
+           "decode_step_ms": wall / VLM_NEW * 1e3,
+           "decode_tokens_per_s": n_tok / wall, "peak_mem_gb": peak / 1e9,
+           "prefill_launches": pre, "decode_launches": dec,
+           "implicit_syncs": syncs, "near_ties": ties,
+           "true_lens": list(VLM_TRUE_LENS), "padded_vs_alone": err_alone,
+           "image_effect": effect, "logit_scale": scale}
+    runs = {f"{tag} image prefill": {"launches": pre},
+            f"{tag} image decode": {"launches": dec}}
+    return runs, {"K4": c4.best, "K3": c3.best}, e2e
+
+
+def phase_vlm():
+    """llava-next-34b at full width and depth: the chunked traffic through
+    the paged engine (serve_runs, text only), model_check, the image path;
+    then the float32 copy of VLM_F32_LAYERS layers through the image
+    path, and VLM_TRAIN_LAYERS layers training on image batches.  Returns
+    (runs, captured, e2e, traces)."""
+    model, params, n_params = _seeded_model(VLM)
+    after_init = torch.cuda.memory_allocated()
+    log(f"# {VLM}: {after_init / 1e9:.2f} GB (1e9 bytes) allocated after "
+        f"the init")
+    runs, captured, e2e, traces = serve_runs(model, params, VLM,
+                                             ("chunked",))
+    e2e.update(params=n_params, layers=model.cfg.n_layers,
+               allocated_after_init_gb=after_init / 1e9)
+    bars, e2e["bf16_noise"] = noise_bars(model, params)
+    e2e["model_check"] = model_check(model, params, bars=bars)
+    r, c, e2e["image"] = vlm_image_path(model, params, VLM)
+    runs.update(r)
+    captured.update({f"{k}@{VLM}_image": v for k, v in c.items()})
+    del model, params
+    _free()
+    model, params, _ = _seeded_model(VLM, VLM_F32_LAYERS)
+    m32, p32 = fp32_copy(model, params)
+    del model, params
+    _free()
+    r, _, e2e["float32"] = vlm_image_path(m32, p32, f"{VLM} float32")
+    e2e["float32"].update(layers=VLM_F32_LAYERS, model_check=model_check(
+        m32, p32, bars=dict.fromkeys(MODEL_BARS, VLM_F32_MODEL_BAR)))
+    runs.update(r)
+    del m32, p32
+    _free()
+    r, c, e2e["train"], traces[f"{VLM} train"] = dense_family_training(
+        VLM, VLM_TRAIN_LAYERS, VLM_TRAIN)
+    runs[f"{VLM} train"] = r
+    captured.update(c)
+    return runs, captured, e2e, traces
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -3464,6 +3832,10 @@ def main() -> int:
     runs.update(moe_runs)
     captured.update(moe_captured)
     at("moe")
+    vlm_runs, vlm_captured, e2e_vlm, trace_vlm = phase_vlm()
+    runs.update(vlm_runs)
+    captured.update(vlm_captured)
+    at("vlm")
     rows = phase_times(runs, captured)
     at("times")
     print(json.dumps({"kernels": rows}), flush=True)
@@ -3476,6 +3848,7 @@ def main() -> int:
         print(json.dumps({f"trace_{run}": tr}), flush=True)
     print(json.dumps({"trace_dense_family": trace_df}), flush=True)
     print(json.dumps({"trace_moe": trace_moe}), flush=True)
+    print(json.dumps({"trace_vlm": trace_vlm}), flush=True)
     print(json.dumps({"e2e": runs["chunked"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_dense": runs["dense"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_paged_monolithic":
@@ -3495,6 +3868,7 @@ def main() -> int:
     print(json.dumps({"e2e_m11": e2e_m11}), flush=True)
     print(json.dumps({"e2e_whisper": e2e_whisper}), flush=True)
     print(json.dumps({"e2e_moe": e2e_moe}), flush=True)
+    print(json.dumps({"e2e_vlm": e2e_vlm}), flush=True)
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

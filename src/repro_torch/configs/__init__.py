@@ -7,10 +7,12 @@ from typing import Dict
 from .base import (ModelConfig, ServeConfig, TrainConfig,
                    dense_equivalent_pages, pages_for_tokens)
 
-# the architectures the port runs so far: the dense decoders (the paper's
+# every architecture of the JAX package: the dense decoders (the paper's
 # own OPT and QWEN among them), the hybrid Mamba2 zamba2, the RWKV6 rwkv6,
-# the whisper encoder-decoder and the MoE decoders olmoe and qwen3-moe
+# the whisper encoder-decoder, the MoE decoders olmoe and qwen3-moe and the
+# vision-language llava
 ARCH_MODULES: Dict[str, str] = {
+    "llava-next-34b": "llava_next_34b",
     "granite-3-2b": "granite_3_2b",
     "gemma3-4b": "gemma3_4b",
     "granite-8b": "granite_8b",

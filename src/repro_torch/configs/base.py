@@ -4,9 +4,10 @@ The port keeps its own copy of the configuration schema: the field names,
 defaults and validation rules are those of the JAX package.  ModelConfig
 carries the fields of the families the port runs - dense, moe (top-k
 routed experts with capacity dispatch), hybrid (Mamba2 with a shared
-attention block), ssm (RWKV6) and audio (the whisper encoder-decoder, its
-frontend a stub as in the JAX package); the vision fields come with the
-vlm family (ROADMAP M13).  ServeConfig
+attention block), ssm (RWKV6), audio (the whisper encoder-decoder) and
+vlm (a dense decoder behind frontend_tokens image embeddings); both
+frontends are stubs, as in the JAX package: the batch carries their
+embeddings.  ServeConfig
 carries every field, so one set of keyword arguments builds either
 package's serve config, and the engine refuses the settings it does not
 serve yet.  TrainConfig is a copy of the
@@ -68,7 +69,8 @@ class ModelConfig:
     encoder_layers: int = 0     # > 0 => enc-dec
 
     # --- modality frontend stubs -------------------------------------------
-    frontend: str = ""          # "" | "audio" (the vision stub is not ported)
+    frontend: str = ""          # "" | "vision" | "audio"
+    frontend_tokens: int = 0    # vision: patch embeddings prepended
 
     max_seq: int = 524_288
 

@@ -6,11 +6,13 @@ Batches are made on the host with numpy from (seed, step), exactly as the
 JAX package makes them (SyntheticCorpus is a copy, down to its per-step
 seed hash(("batch", step)), so a port batch equals the JAX batch of the
 same step in the same process), then moved to the device; tokens stay
-int32, and the audio family's frame embeddings (audio_embeds, the
-frontend stub's input: numpy-seeded N(0, 0.02^2) from default_rng(step +
-11), one frame per token) go over in bfloat16, whatever the model's
-dtype, as the JAX package's device_batch casts them.  The vlm inputs come
-with that family (ROADMAP M13).
+int32, and the frontend stubs' inputs go over in bfloat16, whatever the
+model's dtype, as the JAX package's device_batch casts them: the audio
+family's frame embeddings (audio_embeds: numpy-seeded N(0, 0.02^2) from
+default_rng(step + 11), one frame per token) and the vlm family's patch
+embeddings (vision_embeds: frontend_tokens of them, N(0, 0.02^2) from
+default_rng(step + 7), ahead of seq_len - frontend_tokens text tokens, so
+a row is seq_len positions).
 """
 from __future__ import annotations
 
@@ -69,10 +71,14 @@ class DataPipeline:
     # ---- raw host batches --------------------------------------------------
     def host_batch(self, step: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
-        if cfg.family == "vlm":
-            raise NotImplementedError(
-                "the vlm frontend inputs are not ported yet (ROADMAP M13)")
         B, S = self.tcfg.global_batch, self.tcfg.seq_len
+        if cfg.family == "vlm":
+            rng = np.random.default_rng(step + 7)
+            return {"tokens": self.corpus.batch(step, B,
+                                                S - cfg.frontend_tokens),
+                    "vision_embeds": rng.standard_normal(
+                        (B, cfg.frontend_tokens, cfg.d_model)).astype(
+                            np.float32) * 0.02}
         batch = {"tokens": self.corpus.batch(step, B, S)}
         if cfg.family == "audio":
             rng = np.random.default_rng(step + 11)

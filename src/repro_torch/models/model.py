@@ -1,16 +1,18 @@
 """The language model as an nn.Module, with its forward and serving entry
 points: the dense and MoE decoders over the dense and the paged KV cache,
-the hybrid zamba2 (family "hybrid") and RWKV6 (family "ssm") models over their
-recurrent-state caches, and whisper's encoder-decoder (family "audio")
-over its self-attention and cross-attention strips.
+the vision-language decoder (family "vlm": the dense decoder, its prompt
+led by batch["vision_embeds"], the vision frontend stub's patch
+embeddings), the hybrid zamba2 (family "hybrid") and RWKV6 (family "ssm")
+models over their recurrent-state caches, and whisper's encoder-decoder
+(family "audio") over its self-attention and cross-attention strips.
 
 `Model` holds the JAX package's parameter tree as nn.Parameters in the same
 stacked layout - {"tok": {"embed"}, "final_norm": {"scale"}, "blocks":
 ...} with a leading layer axis on every per-layer leaf; the dense blocks
-are {"n1", "attn", "n2", "mlp"}, the MoE ones {"n1", "attn", "n2",
-"moe"} (models/moe.py), the hybrid ones {"mamba": Mamba2 leaves,
-"shared": one unstacked attention block}, the RWKV6 ones {"n1", "n2",
-"mix"}, the audio ones {"encoder": stacked dense blocks, "decoder":
+(the vlm family's too) are {"n1", "attn", "n2", "mlp"}, the MoE ones
+{"n1", "attn", "n2", "moe"} (models/moe.py), the hybrid ones {"mamba":
+Mamba2 leaves, "shared": one unstacked attention block}, the RWKV6 ones
+{"n1", "n2", "mix"}, the audio ones {"encoder": stacked dense blocks, "decoder":
 stacked dense blocks with "n_cross" and "cross_attn", "enc_norm"} - and
 exposes it as a plain nested dict (`Model.params`).  Every
 leaf is in the config's dtype but those the JAX init keeps in float32
@@ -24,7 +26,10 @@ returned.  The paged and chunked entry points need an attention family
 and raise for the others, whose JAX Model has no such entry.  `loss` is the
 training entry point: it runs with autograd on, and its gradients reach
 every parameter leaf that requires one (the train state switches
-requires_grad on; the parameters are created without it).
+requires_grad on; the parameters are created without it).  As in the JAX
+package, only forward, loss and the dense prefill take the vlm family's
+image embeddings; decode and the paged, chunked and verify entry points
+take tokens only.
 """
 from __future__ import annotations
 
@@ -41,8 +46,8 @@ from . import transformer as T
 from .layers import (MAX_POSITION, apply_norm, embed, pdtype,
                      sinusoidal_positions, unembed)
 
-ATTENTION_FAMILIES = ("dense", "moe")
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 # per family served stepwise, the cache leaves that carry a recurrent state
 # (the batch on axis 1): a lane that starts a new sequence starts them from
 # zero.  whisper's strips carry none: a new sequence overwrites its self-
@@ -127,15 +132,14 @@ def _block_params(cfg: ModelConfig, lead: tuple, dt, dev,
 
 
 class Model(nn.Module):
-    """The dense or MoE decoder, the hybrid zamba2 model, the RWKV6 model
-    or the whisper encoder-decoder (the VLM family is not ported yet)."""
+    """The dense, MoE or vision-language decoder, the hybrid zamba2 model,
+    the RWKV6 model or the whisper encoder-decoder."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP M13); "
-                f"the port runs the families {PORTED_FAMILIES}")
+            raise ValueError(f"unknown family {cfg.family!r}; the port runs "
+                             f"the families {PORTED_FAMILIES}")
         self.cfg = cfg
         dt, dev = pdtype(cfg), torch.device(device)
         L, d = cfg.n_layers, cfg.d_model
@@ -291,16 +295,28 @@ class Model(nn.Module):
         return enc + sinusoidal_positions(pos, self.cfg.d_model).to(
             enc.dtype)
 
+    def _assemble_input(self, params, batch):
+        """(x, prefix): the token embeddings of batch["tokens"], led, for
+        the vlm family, by batch["vision_embeds"] (B, P, d_model) cast to
+        their dtype - the decoder then runs causally over P + S positions,
+        the image at positions 0..P-1 - and prefix = P (0 without
+        images)."""
+        x = self._embed(params, batch["tokens"])
+        v = batch.get("vision_embeds") if self.cfg.family == "vlm" else None
+        if v is None:
+            return x, 0
+        return torch.cat([v.to(x.dtype), x], 1), v.shape[1]
+
     def _forward(self, params, batch, impl: Optional[str], remat: bool):
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
         if cfg.family == "audio":
+            x = self._embed(params, batch["tokens"])
             x, aux = T.encdec_forward(params["blocks"], self._audio(batch),
                                       x, cfg, impl=impl, remat=remat)
         else:
-            stack = {"dense": T.stack_forward, "moe": T.stack_forward,
-                     "hybrid": T.hybrid_forward,
-                     "ssm": T.rwkv_forward}[cfg.family]
+            x, _ = self._assemble_input(params, batch)
+            stack = {"hybrid": T.hybrid_forward,
+                     "ssm": T.rwkv_forward}.get(cfg.family, T.stack_forward)
             x, aux = stack(params["blocks"], x, cfg, impl=impl, remat=remat)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["tok"], x, cfg), aux
@@ -309,21 +325,26 @@ class Model(nn.Module):
     def forward(self, params, batch, *, impl: Optional[str] = None):
         """Teacher-forced pass over batch["tokens"] (B, S) int32 (the audio
         family's decoder tokens, with its frames in batch["audio_embeds"]
-        (B, S_enc, d_model)).  Returns
-        (logits (B, S, V) float32, aux loss: the MoE load-balancing losses
-        summed over the layers, a float32 zero for the other families)."""
+        (B, S_enc, d_model); the vlm family's text, led by the image in
+        batch["vision_embeds"] (B, P, d_model) when given).  Returns
+        (logits (B, P + S, V) float32 - P = 0 but for a vlm batch with
+        images - and the aux loss: the MoE load-balancing losses summed
+        over the layers, a float32 zero for the other families)."""
         return self._forward(params, batch, impl, remat=False)
 
     def loss(self, params, batch, *, impl: Optional[str] = None,
              remat: bool = False, aux_weight: float = 0.01):
         """Next-token cross-entropy of batch["tokens"] (B, S), with autograd
         on: the training loss.  batch may carry "labels" (B, S) in place of
-        the tokens and a "loss_mask" (B, S) weighting each position.
+        the tokens and a "loss_mask" (B, S) weighting each position; a vlm
+        batch's image positions carry no loss (their logits are dropped).
         remat=True recomputes each layer in the backward.  Returns (total
         = ce + aux_weight * aux, {"ce", "aux"}), 0-d float32 tensors."""
         logits, aux = self._forward(params, batch, impl, remat)
         tokens = batch["tokens"]
         labels = batch.get("labels", tokens)
+        # a vlm batch's image positions lead the logits and carry no loss
+        logits = logits[:, logits.shape[1] - tokens.shape[1]:]
         # next-token prediction
         lp = torch.log_softmax(logits[:, :-1].float(), -1)
         tgt = labels[:, 1:].long()
@@ -339,16 +360,17 @@ class Model(nn.Module):
 
     def _prompt_tail(self, params, x: torch.Tensor, batch):
         """(logits (B, 1, V) float32 of each row's last real token, lens
-        (B,) int32) after a prefill of x (B, S, D): the last position, or
-        position true_lens - 1 for prompts padded past their real length
-        (batch["true_lens"])."""
+        (B,) int32) after a prefill of x (B, S, D) - the prompt's P + S_text
+        positions, P the image prefix ahead of batch["tokens"] (B, S_text):
+        the last position, or, for prompts padded past their real length
+        (batch["true_lens"], text tokens), position P + true_lens - 1."""
         B, S = x.shape[:2]
         x = apply_norm(params["final_norm"], x, self.cfg)
         tl = batch.get("true_lens")
         if tl is None:
             lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
             return unembed(params["tok"], x[:, -1:], self.cfg), lens
-        lens = tl.to(torch.int32)
+        lens = tl.to(torch.int32) + (S - batch["tokens"].shape[1])
         idx = (lens - 1).long()[:, None, None].expand(-1, 1, x.shape[-1])
         return unembed(params["tok"], torch.gather(x, 1, idx), self.cfg), \
             lens
@@ -361,16 +383,19 @@ class Model(nn.Module):
         pad K/V is masked by the lengths downstream (a recurrent state, as
         in the JAX package, runs over the pad).  The audio family runs its
         encoder over batch["audio_embeds"] and fills the cross strips with
-        its K/V.  Returns (logits of each row's last real token (B, 1, V)
-        float32, cache, lens (B,))."""
-        x = self._embed(params, batch["tokens"])
+        its K/V.  The vlm family's image, batch["vision_embeds"] (B, P,
+        d_model), fills positions 0..P-1 and the text follows it, so lens
+        counts both: P + S, or P + true_lens.  Returns (logits of each
+        row's last real token (B, 1, V) float32, cache, lens (B,))."""
         if self.cfg.family == "audio":
+            x = self._embed(params, batch["tokens"])
             x = T.encdec_prefill(params["blocks"], self._audio(batch), x,
                                  self.cfg, cache, impl=impl)
         else:
-            prefill = {"dense": T.stack_prefill, "moe": T.stack_prefill,
-                       "hybrid": T.hybrid_prefill,
-                       "ssm": T.rwkv_prefill}[self.cfg.family]
+            x, _ = self._assemble_input(params, batch)
+            prefill = {"hybrid": T.hybrid_prefill,
+                       "ssm": T.rwkv_prefill}.get(self.cfg.family,
+                                                  T.stack_prefill)
             x = prefill(params["blocks"], x, self.cfg, cache, impl=impl)
         logits, lens = self._prompt_tail(params, x, batch)
         return logits, cache, lens

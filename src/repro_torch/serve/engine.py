@@ -1,8 +1,10 @@
 """Continuous-batching serve engine: dense or paged KV cache, monolithic or
 chunked prefill, batched one-launch ticks, speculative decoding, the radix
-prefix cache and preemption; the recurrent families (hybrid, ssm) on their
-state caches and whisper's encoder-decoder (audio) on its strips, with
-stepwise admission.
+prefix cache and preemption, for the attention families (dense, moe and
+vlm - the last as a text model: as in the JAX engine, a request carries no
+image, ROADMAP §3); the recurrent families (hybrid, ssm) on their state
+caches and whisper's encoder-decoder (audio) on its strips, with stepwise
+admission.
 
 Slot-based: up to `max_batch` sequences share one batched KV cache -
 dense strips (one (L, max_batch, max_seq, Hkv, D) K and V), or a global

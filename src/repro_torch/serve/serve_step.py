@@ -59,7 +59,10 @@ def make_serve_step(model, *, seq_parallel: bool = False):
 
 def make_prefill_step(model):
     """prefill_step(params, batch, cache) -> (last_logits, cache, lens):
-    monolithic prefill into the dense cache (Model.prefill)."""
+    monolithic prefill into the dense cache (Model.prefill), the whole
+    batch passed through - the audio family's audio_embeds and the vlm
+    family's vision_embeds with the tokens (lens then counts the image
+    positions too)."""
 
     def prefill_step(params, batch, cache):
         return model.prefill(params, batch, cache)

@@ -9,7 +9,9 @@ over causal, full, window and softcap attention at S = 200 and 256, and
 through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
 80, zamba2's shared attention block; K1-K5 also 256, gemma3-4b's, and
 K1 and K2 GQA groups of 7, qwen-7b's 28 / 4 heads; K1-K4 also groups of
-16 at head dim 128, qwen3-moe-235b-a22b's 64 / 4 heads); K4 and K5 at the
+16 at head dim 128, qwen3-moe-235b-a22b's 64 / 4 heads; K4 and K5 also
+llava-next-34b's 56 / 8 heads of 128, groups of 7, K4 also causal over a
+576-position image prefix and its text); K4 and K5 at the
 edges of their tensor-core tiles (lengths 1, 15, 17 and 200, fewer
 queries than keys,
 GQA groups of 1 to 8, a window shorter than one tile, softcap, no key at
@@ -84,6 +86,8 @@ S, HKV, PS, N_PAGES, N_MAX = 8, 2, 4, 40, 8
 # (head dim, GQA group) of qwen3-moe-235b-a22b: 64 query heads over 4 KV
 # heads of 128, MAX_GROUP of the decode kernels
 QWEN3_MOE = (128, 16)
+# llava-next-34b's attention: 56 query heads over 8 KV heads of 128 (G 7)
+LLAVA = dict(D=128, G=7, hkv=8)
 VARIANTS = {"plain": (0, 0.0), "window": (5, 0.0), "softcap": (0, 2.0),
             "qlens": (0, 0.0)}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -256,13 +260,14 @@ def _randn(rng, dev, dtype, *shape):
 @pytest.mark.parametrize("variant", list(FA_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
 @pytest.mark.parametrize("D", [64, 80, 128, 256])
-def test_flash_attention_kernel_matches_plain(dev, D, G, variant, dtype):
+def test_flash_attention_kernel_matches_plain(dev, D, G, variant, dtype,
+                                             hkv=HKV):
     dt = DTYPES[dtype]
     causal, window, softcap, sq, skv = FA_VARIANTS[variant]
     rng = np.random.default_rng(2)
-    q = _randn(rng, dev, dt, 2, sq, HKV * G, D)
-    k, v = _randn(rng, dev, dt, 2, skv, HKV, D), _randn(rng, dev, dt, 2, skv,
-                                                        HKV, D)
+    q = _randn(rng, dev, dt, 2, sq, hkv * G, D)
+    k, v = _randn(rng, dev, dt, 2, skv, hkv, D), _randn(rng, dev, dt, 2, skv,
+                                                        hkv, D)
     kw = dict(causal=causal, window=window, logit_softcap=softcap)
     n0 = flash_attention.launches
     o, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
@@ -270,7 +275,7 @@ def test_flash_attention_kernel_matches_plain(dev, D, G, variant, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
     assert o.dtype == dt and lse.dtype == torch.float32
-    assert lse.shape == (2, sq, HKV * G)
+    assert lse.shape == (2, sq, hkv * G)
     if dt == torch.bfloat16:
         _close_terms(o, o_ref, flash_attention.reference(q, k, v.abs(),
                                                          **kw)[0])
@@ -287,6 +292,34 @@ def test_flash_attention_kernel_matches_plain_at_group_16(dev, variant,
                                                           dtype):
     test_flash_attention_kernel_matches_plain(dev, *QWEN3_MOE, variant,
                                               dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(FA_VARIANTS))
+def test_flash_attention_kernel_matches_plain_at_llava_heads(dev, variant,
+                                                             dtype):
+    test_flash_attention_kernel_matches_plain(dev, variant=variant,
+                                              dtype=dtype, **LLAVA)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_kernel_over_an_image_prefix(dev, dtype):
+    """llava's prefill: causal over 576 image positions and 40 text
+    tokens, one row cut short of a tile."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(9)
+    D, G, hkv = LLAVA["D"], LLAVA["G"], LLAVA["hkv"]
+    q = _randn(rng, dev, dt, 2, 616, hkv * G, D)
+    k, v = _randn(rng, dev, dt, 2, 616, hkv, D), _randn(rng, dev, dt, 2,
+                                                        616, hkv, D)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = flash_attention.reference(q, k, v, causal=True)
+    if dt == torch.bfloat16:
+        _close_terms(o, o_ref, flash_attention.reference(q, k, v.abs(),
+                                                         causal=True)[0])
+    else:
+        _close(o, o_ref, dt)
+    _close(lse, lse_ref, torch.float32)
 
 
 DECODE_LENS = [0, 1, 40, 23]
@@ -387,14 +420,15 @@ def bwd_close(got, want, terms, dtype, names=("dq", "dk", "dv")):
 @pytest.mark.parametrize("variant", list(BWD_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
 @pytest.mark.parametrize("D", [64, 128, 256])
-def test_flash_backward_kernel_matches_plain(dev, D, G, variant, dtype, S):
+def test_flash_backward_kernel_matches_plain(dev, D, G, variant, dtype, S,
+                                             hkv=HKV):
     dt = DTYPES[dtype]
     causal, window, softcap = BWD_VARIANTS[variant]
     rng = np.random.default_rng(5)
-    q = _randn(rng, dev, dt, 2, S, HKV * G, D)
-    k, v = _randn(rng, dev, dt, 2, S, HKV, D), _randn(rng, dev, dt, 2, S,
-                                                      HKV, D)
-    do = _randn(rng, dev, dt, 2, S, HKV * G, D)
+    q = _randn(rng, dev, dt, 2, S, hkv * G, D)
+    k, v = _randn(rng, dev, dt, 2, S, hkv, D), _randn(rng, dev, dt, 2, S,
+                                                      hkv, D)
+    do = _randn(rng, dev, dt, 2, S, hkv * G, D)
     kw = dict(causal=causal, window=window, logit_softcap=softcap)
     o, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
     n0 = flash_backward.launches
@@ -408,6 +442,15 @@ def test_flash_backward_kernel_matches_plain(dev, D, G, variant, dtype, S):
     # the same bits again: no atomics, one summation order
     again = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("S", [200, 256])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(BWD_VARIANTS))
+def test_flash_backward_kernel_matches_plain_at_llava_heads(dev, variant,
+                                                            dtype, S):
+    test_flash_backward_kernel_matches_plain(dev, variant=variant,
+                                             dtype=dtype, S=S, **LLAVA)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -146,9 +146,17 @@ def test_host_batches_match_jax():
     tp.start(3)
     assert [tp.next()[0] for _ in range(3)] == [3, 4, 5]
     tp.stop()
-    with pytest.raises(NotImplementedError, match="M13"):
-        DataPipeline(cfg.replace(family="vlm"), TrainConfig(),
-                     device="cpu").host_batch(0)
+    # the vlm batch: seq_len - frontend_tokens text tokens and the seeded
+    # image embeddings, the same arrays in both packages
+    jv = JaxDataPipeline(jax_smoke_config("llava-next-34b"),
+                         JaxTrainConfig(global_batch=2, seq_len=32))
+    tv = DataPipeline(get_smoke_config("llava-next-34b"),
+                      TrainConfig(global_batch=2, seq_len=32), device="cpu")
+    want, got = jv.host_batch(4), tv.host_batch(4)
+    assert sorted(got) == sorted(want) == ["tokens", "vision_embeds"]
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _models(dtype):
