@@ -138,6 +138,23 @@ Phases (each raises on failure, so the run exits non-zero):
                         logits' variance / 2), step time, MFU and peak
                         memory; granite-8b runs one forward against
                         impl="ref".
+                        tensor-parallel serving (M10, run right after the
+                        serving phase, phase_m10): two ranks on cuda:0,
+                        each a spawned process, in a gloo world (NCCL
+                        refuses two ranks on one device).  K1's chunk and
+                        verify lanes and K2 at granite-3-2b's shapes, each
+                        rank on its half of the heads (16 / 4, G 4) through
+                        the sharded wrappers, gathered: bit-equal to the
+                        unsharded kernels in the parent.  Then each rank
+                        seeds granite-3-2b at full width (checked against
+                        the parent's weights) and serves the chunked
+                        traffic at tp 2 under the device profiler, then
+                        the chunked and speculative traffic counted: every
+                        rank's tokens equal to the tp 1 runs', its K1 / K2
+                        launches the tp 1 runs', 0 implicit syncs of the
+                        engine (gloo's own synchronising calls counted
+                        apart), shard bytes x 2 = pages read x page bytes,
+                        and half of tp 1's pool bytes on each rank.
                         sequence-parallel decode (M11): the serving
                         granite-3-2b, batch 1, prefills a 32768-token
                         prompt into a dense cache (2.7 GB of K/V); on
@@ -567,20 +584,21 @@ def serving_shape_args(dtype, seed=0):
     return k1, k2, k3, k4
 
 
-def k1_call(a, impl=None):
+def k1_call(a, impl=None, tp_mesh=None):
     return ops.batched_paged_prefill_attention(
         a["q"], a["k_pages"], a["v_pages"], a["page_tables"],
         a["q_offsets"], a["true_lens"], a.get("q_lens"),
         window=a.get("window", 0),
-        logit_softcap=a.get("logit_softcap", 0.0), impl=impl)
+        logit_softcap=a.get("logit_softcap", 0.0), impl=impl,
+        tp_mesh=tp_mesh)
 
 
-def k2_call(a, impl=None):
+def k2_call(a, impl=None, tp_mesh=None):
     return ops.paged_flash_decode(a["q"], a["k_pages"], a["v_pages"],
                                   a["block_table"], a["cache_len"],
                                   window=a.get("window", 0),
                                   logit_softcap=a.get("logit_softcap", 0.0),
-                                  impl=impl)
+                                  impl=impl, tp_mesh=tp_mesh)
 
 
 def k3_call(a, impl=None):
@@ -1413,6 +1431,298 @@ def phase_m6d_m7(model, params, chunked):
                                   for k, v in launches.items()}}
     del router, one
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 3, tensor-parallel serving (M10)
+# ---------------------------------------------------------------------------
+
+# two ranks of one gloo world on the one card (NCCL refuses two ranks on
+# one device): each a process of its own on cuda:0 (spawned: the parent
+# holds the card already), joined through a FileStore under build/
+M10_TP = 2
+M10_DIR = ROOT / "build" / "m10"
+M10_JOIN_S = 600
+# the runs served at tp 2, each against phase 3's tp 1 run of its traffic
+M10_RUNS = ("chunked", "speculative")
+
+
+def m10_lanes(dtype):
+    """The kernel calls of phase_m10 at granite-3-2b's shapes (32 / 8 heads
+    of 64, pages of 16): K1 on a chunk batch of (4, 256) queries
+    (serving_shape_args' rows), K1's verify lane on (8, 5) draft rows with
+    ragged q_lens over K2's tables, K2 on (8, 1).  The same seeded values
+    in every process on the card.  Returns {lane: (call, args)}."""
+    k1, k2, _, _ = serving_shape_args(dtype, seed=7)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    q_lens = i32([5, 1, 3, 5, 2, 1, 4, 5])
+    verify = dict(k1, q=torch.randn((8, 5, 32, 64), generator=g, device=dev,
+                                    dtype=torch.float32).to(dtype),
+                  page_tables=k2["block_table"], q_offsets=k2["cache_len"],
+                  true_lens=k2["cache_len"] + q_lens, q_lens=q_lens)
+    return {"K1 chunk": (k1_call, k1), "K1 verify": (k1_call, verify),
+            "K2 decode": (k2_call, k2)}
+
+
+def param_checksum(params) -> list:
+    """Per parameter leaf, its float64 sum and sum of squares (on the card,
+    in the leaves' order): equal weights give equal lists."""
+    return [[float(t.double().sum()), float(t.double().square().sum())]
+            for t in leaves(params)]
+
+
+class GatherMeter:
+    """Wraps torch.distributed.all_gather_into_tensor (the transport of
+    ops._tp_head_sharded): counts the calls, sums their host wall time
+    (gloo finishes the gather before the call returns) and keeps the
+    synchronising calls torch.cuda's sync debug mode reports on this
+    thread inside them out of the tick's count."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.orig = dist, dist.all_gather_into_tensor
+        self.calls, self.wall_s, self.syncs = 0, 0.0, 0
+
+    def __enter__(self):
+        def gather(*args, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                out = self.orig(*args, **kw)
+                self.wall_s += time.perf_counter() - t0
+            self.calls += 1
+            self.syncs += sum("synchroniz" in str(w.message)
+                              for w in caught)
+            return out
+        self.dist.all_gather_into_tensor = gather
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_gather_into_tensor = self.orig
+
+
+@contextlib.contextmanager
+def stderr_lines(path: Path):
+    """The process's file descriptor 2 sent to `path` while the block runs
+    (the C++ warnings of other threads - gloo's - go there); yields a
+    list that holds the captured lines afterwards."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    lines = []
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            yield lines
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+    lines.extend(path.read_text().splitlines())
+
+
+def m10_serve(model, params, run: str, rank: int) -> dict:
+    """The run's traffic at tp M10_TP on this rank, counted: launches, the
+    engine's implicit syncs (0 expected) apart from gloo's (inside the
+    gathers on this thread, and on gloo's threads, read from stderr),
+    tick times, peak memory, tokens and the TP accounting."""
+    scfg = dict(RUNS[run], tp_degree=M10_TP)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with GatherMeter() as gm, \
+            stderr_lines(M10_DIR / f"stderr{rank}_{run}.txt") as err:
+        eng, tick_s, syncs, wall, _ = run_traffic(model, params, run,
+                                                  count_syncs=True,
+                                                  scfg=scfg)
+    launches = read_counts()
+    st, tp = eng.stats(), eng.tp_stats()
+    eng.check_invariants()
+    return {
+        "finished": [(r.uid, list(r.out_tokens))
+                     for r in sorted(eng.sched.finished,
+                                     key=lambda r: r.uid)],
+        "launches": launches, "engine_syncs": syncs,
+        "gloo_syncs_this_thread": gm.syncs,
+        "gloo_syncs_other_threads": sum("synchronizing CUDA operation" in x
+                                        for x in err),
+        "gathers": gm.calls, "gather_wall_s": gm.wall_s,
+        "tp_stats": tp, "kv_cache_bytes": eng.kv_cache_bytes(),
+        "gen_tokens": st["gen_tokens"], "wall_s": wall,
+        "gen_tok_s": st["gen_tokens"] / wall,
+        "tick_ms_median": float(np.median(tick_s)) * 1e3,
+        "tick_ms_p95": float(np.percentile(tick_s, 95)) * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "ticks": len(tick_s), "host_syncs": st["host_syncs"]}
+
+
+def m10_rank(rank: int, world: int, checksum: list):
+    """One rank of phase_m10 (a spawned process of its own on cuda:0):
+    K1 / K2 on its head shard of m10_lanes' inputs through the sharded
+    wrappers, gathered over the gloo group (outputs saved for the parent
+    to compare); then granite-3-2b at full width, seeded as the parent's
+    (checked against the parent's checksum before serving), serves the
+    chunked traffic at tp M10_TP under the device profiler (the warm-up),
+    then each of M10_RUNS, counted.  Results to M10_DIR/rank<r>.json."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serve_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(M10_DIR / "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_serve_mesh(world)
+        outs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for lane, (call, a) in m10_lanes(dtype).items():
+                n = a["k_pages"].shape[2] // world
+                shard = {k: a[k].narrow(2, rank * n, n).contiguous()
+                         for k in ("k_pages", "v_pages")}
+                outs[f"{lane} {str(dtype)[6:]}"] = call(
+                    dict(a, **shard), tp_mesh=mesh).cpu()
+        torch.save(outs, M10_DIR / f"kernels{rank}.pt")
+        del outs
+        model = build_model(get_config("granite-3-2b"))
+        params = model.init(seed=0)
+        if param_checksum(params) != checksum:
+            raise AssertionError(f"rank {rank}: its seeded weights differ "
+                                 f"from the parent's")
+        # the traced run first: it is also the counted runs' warm-up
+        with GatherMeter() as gm:
+            tr = device_trace(lambda: run_traffic(
+                model, params, "chunked", count_syncs=False,
+                scfg=dict(RUNS["chunked"], tp_degree=M10_TP)))
+        tr["gathers"], tr["gather_wall_s"] = gm.calls, gm.wall_s
+        res = {"rank": rank, "trace": tr}
+        for run in M10_RUNS:
+            res[run] = m10_serve(model, params, run, rank)
+        (M10_DIR / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_m10(model, params, runs):
+    """Tensor-parallel serving on the card: two ranks on cuda:0 in a gloo
+    world.  The kernel shards - K1's chunk and verify lanes and K2 at
+    granite-3-2b's shapes, each rank on its half of the heads (16 / 4, G
+    4), gathered - must equal the unsharded kernels' outputs here bit for
+    bit.  Then each rank serves M10_RUNS at tp 2 on granite-3-2b at full
+    width: every rank's tokens must equal phase 3's tp 1 run of the same
+    traffic, its K1 / K2 launches that run's, its engine's implicit syncs
+    0, its pools half of tp 1's, and shard bytes x 2 = pages read x page
+    bytes.  Two ranks on one card share its SMs and HBM, and gloo moves
+    the gathers through host memory: the times are not a TP speed."""
+    import torch.multiprocessing as mp
+    shutil.rmtree(M10_DIR, ignore_errors=True)
+    M10_DIR.mkdir(parents=True)
+    full = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for lane, (call, a) in m10_lanes(dtype).items():
+            full[f"{lane} {str(dtype)[6:]}"] = call(a).cpu()
+    checksum = param_checksum(params)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(m10_rank, args=(M10_TP, checksum),
+                             nprocs=M10_TP, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > M10_JOIN_S:
+                raise AssertionError(f"M10: the ranks did not finish in "
+                                     f"{M10_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    errs = {}
+    for r in range(M10_TP):
+        got = torch.load(M10_DIR / f"kernels{r}.pt")
+        for key, want in full.items():
+            errs[key] = max(errs.get(key, 0.0), float(
+                (got[key].float() - want.float()).abs().max()))
+            if not torch.equal(got[key], want):
+                raise AssertionError(f"M10: rank {r}'s gathered {key} "
+                                     f"differs from the unsharded kernel")
+    log(f"# M10 kernel shards ({M10_TP} ranks, 16 / 4 heads of 64 each, G "
+        f"4), gathered against the unsharded kernels, max |difference|: "
+        + ", ".join(f"{k} {e:.1e}" for k, e in errs.items()))
+    res = [json.loads((M10_DIR / f"rank{r}.json").read_text())
+           for r in range(M10_TP)]
+    out = {"ranks_wall_s": wall, "kernel_max_abs_diff": errs}
+    table_bytes = RUNS["chunked"]["max_batch"] * (
+        RUNS["chunked"]["max_seq"] // RUNS["chunked"]["page_size"]) * 4
+    for run in M10_RUNS:
+        ref_run = runs[run]
+        want_toks = [(uid, toks) for uid, _, toks in ref_run["finished"]]
+        want_launches = dict(ref_run["launches"])
+        tp1_kv = round(ref_run["e2e"]["kv_cache_gb"] * 1e9)
+        for r, rr in enumerate(res):
+            got = rr[run]
+            toks = [tuple(x) for x in got["finished"]]
+            n_eq = sum(a == b for a, b in zip(toks, want_toks))
+            t = got["tp_stats"]
+            pool = t["rank_kv_cache_bytes"] - table_bytes
+            log(f"# M10 {run} rank {r}: {n_eq} of {len(want_toks)} requests "
+                f"equal to tp 1's; kernel launches {got['launches']}; "
+                f"implicit syncs of the engine {got['engine_syncs']}, of "
+                f"gloo {got['gloo_syncs_this_thread']} on this thread and "
+                f"{got['gloo_syncs_other_threads']} on its own in "
+                f"{got['gathers']} gathers ({got['gather_wall_s']:.3f} s of "
+                f"host wall); ticks {got['tick_ms_median']:.1f} / "
+                f"{got['tick_ms_p95']:.1f} ms (median / p95), "
+                f"{got['gen_tok_s']:.1f} generated tokens/s, peak "
+                f"{got['peak_mem_gb']:.2f} GB, pools {pool / 1e9:.3f} GB "
+                f"(tp 1 {(tp1_kv - table_bytes) / 1e9:.3f})")
+            if n_eq != len(want_toks) or len(toks) != len(want_toks):
+                raise AssertionError(f"M10 {run}: rank {r}'s tokens differ "
+                                     f"from tp 1's")
+            if got["launches"] != want_launches:
+                raise AssertionError(f"M10 {run}: rank {r} launched "
+                                     f"{got['launches']}, tp 1 "
+                                     f"{want_launches}")
+            if got["engine_syncs"]:
+                raise AssertionError(f"M10 {run}: {got['engine_syncs']} "
+                                     f"implicit syncs in the ticks")
+            if t["shard_kv_bytes_read"] * M10_TP \
+                    != t["kv_pages_read"] * t["page_bytes"] \
+                    or t["tp_degree"] != M10_TP:
+                raise AssertionError(f"M10 {run}: shard accounting {t}")
+            if pool * M10_TP != tp1_kv - table_bytes \
+                    or got["kv_cache_bytes"] != tp1_kv:
+                raise AssertionError(f"M10 {run}: rank {r} holds {pool} "
+                                     f"bytes of pools, tp 1 "
+                                     f"{tp1_kv - table_bytes}")
+        if res[1][run]["finished"] != res[0][run]["finished"]:
+            raise AssertionError(f"M10 {run}: the ranks' tokens differ")
+        out[run] = [rr[run] for rr in res]
+    for r, rr in enumerate(res):
+        tr = rr["trace"]
+        log(f"# M10 trace (chunked) rank {r}: device busy "
+            f"{tr['device_busy_s']:.3f} s of {tr['profiled_wall_s']:.3f} s, "
+            f"{tr['gathers']} gathers {tr['gather_wall_s']:.3f} s of host "
+            f"wall, memcpy {tr['memcpy_ms']:.1f} ms of device time; port "
+            f"kernels "
+            + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in
+                        tr["port_kernels"].items()))
+    out["trace"] = [rr["trace"] for rr in res]
+    log(f"# M10: {M10_TP} ranks served in {wall:.1f} s (spawn, build, "
+        f"seeding and every run)")
+    # rank 0's calls, bf16, for the timing phase: K1 and K2 at the shard's
+    # 16 / 4 heads
+    lanes = m10_lanes(torch.bfloat16)
+    captured = {}
+    for key, lane in (("K1", "K1 chunk"), ("K2", "K2 decode")):
+        a = dict(lanes[lane][1])
+        for k, h in (("q", 32 // M10_TP), ("k_pages", 8 // M10_TP),
+                     ("v_pages", 8 // M10_TP)):
+            a[k] = a[k][:, :, :h].contiguous()
+        captured[f"{key}@tp{M10_TP}_shard"] = ([], a)
+    m10_launches = {f"m10_{run}_rank{r}": {"launches": rr[run]["launches"]}
+                    for run in M10_RUNS for r, rr in enumerate(res)}
+    return out, captured, m10_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3762,6 +4072,8 @@ def device_trace(fn) -> dict:
                          "share_of_busy": us / 1e6 / busy if busy else None}
     return {"profiled_wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall,
+            "memcpy_ms": sum(us for k, (us, _) in by_name.items()
+                             if "Memcpy" in k) / 1e3,
             "top_kernels_ms": [[k[:80], us / 1e3, n]
                                for k, (us, n) in top[:10]],
             "port_kernels": port}
@@ -3807,6 +4119,10 @@ def main() -> int:
     m6_traces = {run: phase_trace(*mp, run, runs[run]["e2e"]["wall_s"])
                  for run in M6_RUNS}
     at("granite-3-2b serving")
+    e2e_m10, m10_captured, m10_launches = phase_m10(*mp, runs)
+    captured.update(m10_captured)
+    runs.update(m10_launches)
+    at("M10")
     m11_runs, e2e_m11 = phase_m11(*mp)
     runs.update(m11_runs)
     at("M11")
@@ -3865,6 +4181,9 @@ def main() -> int:
         if ref is not None:
             e2e["reference"] = dict(runs[ref]["e2e"], name=ref)
         print(json.dumps({f"e2e_{run}": e2e}), flush=True)
+    print(json.dumps({"e2e_m10": {k: v if k not in M10_RUNS else [
+        {f: x for f, x in rr.items() if f != "finished"} for rr in v]
+        for k, v in e2e_m10.items()}}), flush=True)
     print(json.dumps({"e2e_m11": e2e_m11}), flush=True)
     print(json.dumps({"e2e_whisper": e2e_whisper}), flush=True)
     print(json.dumps({"e2e_moe": e2e_moe}), flush=True)

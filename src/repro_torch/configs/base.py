@@ -9,8 +9,7 @@ vlm (a dense decoder behind frontend_tokens image embeddings); both
 frontends are stubs, as in the JAX package: the batch carries their
 embeddings.  ServeConfig
 carries every field, so one set of keyword arguments builds either
-package's serve config, and the engine refuses the settings it does not
-serve yet.  TrainConfig is a copy of the
+package's serve config.  TrainConfig is a copy of the
 JAX package's, field for field.  Mesh and shape configs arrive with the
 slices that need them.
 """
@@ -161,10 +160,9 @@ def dense_equivalent_pages(batch: int, max_len: int, page_size: int) -> int:
 @dataclass(frozen=True)
 class ServeConfig:
     """Serving knobs, field for field those of the JAX package (see its
-    configs/base.py for the meaning of each).  The port's engine serves
-    every path but request deadlines (default_deadline_tokens), the span
-    tracer (telemetry) and tensor parallelism (tp_degree > 1), which it
-    refuses at construction (serve/engine.py)."""
+    configs/base.py for the meaning of each).  tp_degree > 1 serves one
+    process per rank of a torch.distributed world (serve/engine.py,
+    launch/mesh.py)."""
     max_batch: int = 8
     max_seq: int = 4096
     prefill_chunk: int = 512
@@ -289,7 +287,8 @@ class ServeConfig:
                                        and self.batched):
             raise ValueError(
                 f"tp_degree={self.tp_degree} requires paged=True, "
-                f"chunked=True and batched=True (got paged={self.paged}, "
+                f"chunked=True and batched=True (tensor parallelism shards "
+                f"the paged one-launch tick paths; got paged={self.paged}, "
                 f"chunked={self.chunked}, batched={self.batched})")
         if self.usable_pages:
             if not self.paged:

@@ -13,6 +13,11 @@ states (mamba2_step, rwkv6_step) and the sequence-parallel decode
 (decode_attention_naive, _decode_partials, seq_parallel_decode) are plain
 PyTorch on any device, as they are plain jnp in the JAX package: no TPU
 kernel stands behind them.
+
+Tensor-parallel serving (tp_mesh=, a launch/mesh.py ServeMesh of size >
+1): paged_flash_decode and batched_paged_prefill_attention run their
+kernel on this rank's head shard and all-gather the output over the
+mesh's group (_tp_head_sharded), as the JAX package's shard_map does.
 """
 from __future__ import annotations
 
@@ -96,16 +101,64 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, window: int = 0,
               logit_softcap=logit_softcap, scale=scale)
 
 
+def _tp_active(tp_mesh) -> bool:
+    """True when a serve mesh actually shards the head axis."""
+    return tp_mesh is not None and tp_mesh.size > 1
+
+
+def shard_heads(t: torch.Tensor, tp_mesh) -> torch.Tensor:
+    """This rank's contiguous block of the head axis (axis 2) of a (B, S,
+    H, D) activation or a (P, page_size, H, D) pool: heads [rank H / N,
+    (rank + 1) H / N), a view."""
+    n = t.shape[2] // tp_mesh.size
+    return t.narrow(2, tp_mesh.rank * n, n)
+
+
+def _tp_head_sharded(fn, tp_mesh, q, k_pages, v_pages, *rest):
+    """Run a paged attention function on this rank's head shard and gather
+    the full head axis back, the JAX package's _tp_head_sharded (shard_map
+    over the "model" axis).  q (B, S, Hq, D) is the replicated query of
+    every head; k_pages / v_pages are this rank's pools, (P, page_size,
+    Hkv / N, D); `rest` (block tables, offsets, lengths) is replicated.
+    The rank takes query heads [rank Hq / N, (rank + 1) Hq / N), the
+    groups of its KV heads [rank Hkv / N, (rank + 1) Hkv / N), as a
+    contiguous tensor, and fn computes their exact per-head result: per-
+    head attention never mixes heads.  The (B, S, Hq / N, D) outputs are
+    all-gathered over the mesh's group into (N B, S, Hq / N, D) and put
+    back in rank order on the head axis (the JAX all_gather's
+    tiled=True), so the result is the unsharded function's, bit for bit,
+    on every rank."""
+    import torch.distributed as dist
+    n = tp_mesh.size
+    B, S, Hq, D = q.shape
+    hkv = k_pages.shape[2]
+    if Hq % n or (Hq // n) % hkv:
+        raise ValueError(f"{Hq} query heads over {n} ranks do not group "
+                         f"over this rank's {hkv} KV heads")
+    o = fn(shard_heads(q, tp_mesh).contiguous(), k_pages, v_pages, *rest)
+    out = o.new_empty((n * B,) + tuple(o.shape[1:]))
+    dist.all_gather_into_tensor(out, o.contiguous(), group=tp_mesh.group)
+    return out.view((n,) + tuple(o.shape)).permute(1, 2, 0, 3, 4) \
+        .reshape(B, S, Hq, D)
+
+
 def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
                        window: int = 0, logit_softcap: float = 0.0,
                        scale: Optional[float] = None,
-                       impl: Optional[str] = None) -> torch.Tensor:
+                       impl: Optional[str] = None,
+                       tp_mesh=None) -> torch.Tensor:
     """Decode against a paged KV cache.  q: (B, 1, Hq, D); pools (P,
-    page_size, Hkv, D); block_table (B, n_max) int32; cache_len (B,)."""
+    page_size, Hkv, D); block_table (B, n_max) int32; cache_len (B,).
+    tp_mesh (a serve mesh of size N > 1): the pools are this rank's head
+    shard (P, page_size, Hkv / N, D) and the call runs on it, the output
+    gathered back to every head (_tp_head_sharded)."""
     _check_impl(impl)
     fn = ref.paged_flash_decode if impl == "ref" else fd.paged_flash_decode
-    return fn(q, k_pages, v_pages, block_table, cache_len, window=window,
-              logit_softcap=logit_softcap, scale=scale)
+    kw = dict(window=window, logit_softcap=logit_softcap, scale=scale)
+    if _tp_active(tp_mesh):
+        return _tp_head_sharded(lambda *a: fn(*a, **kw), tp_mesh, q,
+                                k_pages, v_pages, block_table, cache_len)
+    return fn(q, k_pages, v_pages, block_table, cache_len, **kw)
 
 
 def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
@@ -113,16 +166,22 @@ def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
                                     window: int = 0,
                                     logit_softcap: float = 0.0,
                                     scale: Optional[float] = None,
-                                    impl: Optional[str] = None
-                                    ) -> torch.Tensor:
+                                    impl: Optional[str] = None,
+                                    tp_mesh=None) -> torch.Tensor:
     """Ragged batch of K mid-prompt chunks through per-row block tables
-    (see kernels/ref.py for the contract)."""
+    (see kernels/ref.py for the contract); q_lens is the verify lane.
+    tp_mesh: the pools are this rank's head shard, as in
+    paged_flash_decode."""
     _check_impl(impl)
     fn = ref.batched_paged_prefill_attention if impl == "ref" \
         else pp.batched_paged_prefill_attention
+    kw = dict(window=window, logit_softcap=logit_softcap, scale=scale)
+    if _tp_active(tp_mesh):
+        return _tp_head_sharded(lambda *a: fn(*a, **kw), tp_mesh, q,
+                                k_pages, v_pages, page_tables, q_offsets,
+                                true_lens, q_lens)
     return fn(q, k_pages, v_pages, page_tables, q_offsets, true_lens,
-              q_lens, window=window, logit_softcap=logit_softcap,
-              scale=scale)
+              q_lens, **kw)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_row, q_offset, *,

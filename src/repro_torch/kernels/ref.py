@@ -33,6 +33,31 @@ def _group(h_q: int, h_kv: int) -> int:
     return h_q // h_kv
 
 
+# a flat CPU tensor padded to a multiple of this many elements (see _lanes)
+_LANE_PAD = 64
+
+
+def _lanes(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for an elementwise transcendental fn (exp2, tanh), each
+    element's result independent of where it sits in x.  On the CPU ATen
+    computes float32 exp2 and tanh in vector lanes over a contiguous run
+    and the run's last n mod (2 x lanes) elements in scalar code, whose
+    results differ from the lanes' in the last bit; a head shard of a
+    tensor (tensor-parallel serving) puts other elements in that tail than
+    the whole tensor does, so the paged attentions' per-head results
+    would depend on the head count.  Padding the flat tensor to a multiple
+    of _LANE_PAD elements keeps every element in the lanes (when ATen runs
+    the op as one run: one thread, or fewer elements than its parallel
+    grain of 32768).  On the GPU fn runs as it is."""
+    if x.device.type != "cpu":
+        return fn(x)
+    flat = x.reshape(-1)
+    pad = -flat.numel() % _LANE_PAD
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return fn(flat)[:x.numel()].view(x.shape)
+
+
 def _as_lens(x, n: int, device) -> torch.Tensor:
     x = torch.as_tensor(x, device=device)
     return x.expand(n) if x.dim() == 0 else x
@@ -183,7 +208,7 @@ def flash_decode(q, k_cache, v_cache, cache_len, *,
         pos = j0 + torch.arange(kblk.shape[1], device=q.device)
         s = torch.einsum("bhgd,bkhd->bhgk", qf, kblk)
         if logit_softcap > 0.0:
-            s = logit_softcap * torch.tanh(s / logit_softcap)
+            s = logit_softcap * _lanes(torch.tanh, s / logit_softcap)
         mask = pos[None, :] < lens[:, None]
         if window > 0:
             mask = mask & (pos[None, :] >= lens[:, None] - window)
@@ -191,10 +216,10 @@ def flash_decode(q, k_cache, v_cache, cache_len, *,
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
-        p = torch.where(mask, torch.exp2((s - m_safe[..., None]) * LOG2E),
-                        0.0)
+        p = torch.where(mask, _lanes(torch.exp2, (s - m_safe[..., None])
+                                     * LOG2E), 0.0)
         alpha = torch.where(m <= NEG_INF / 2, 0.0,
-                            torch.exp2((m - m_new) * LOG2E))
+                            _lanes(torch.exp2, (m - m_new) * LOG2E))
         l = l * alpha + p.sum(-1)
         o = o * alpha[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vblk)
         m = m_new
@@ -326,7 +351,7 @@ def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
     qf = (q.float() * sc).reshape(K, S, Hkv, G, D)
     s = torch.einsum("bshgd,bkhd->bshgk", qf, k)
     if logit_softcap > 0.0:
-        s = logit_softcap * torch.tanh(s / logit_softcap)
+        s = logit_softcap * _lanes(torch.tanh, s / logit_softcap)
     off = torch.as_tensor(q_offsets, device=dev).to(torch.int32)
     tl = torch.as_tensor(true_lens, device=dev).to(torch.int32)
     row = off[:, None] + torch.arange(S, device=dev, dtype=torch.int32)
@@ -339,7 +364,7 @@ def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
-    p = torch.where(mask, torch.exp2((s - m_safe) * LOG2E), 0.0)
+    p = torch.where(mask, _lanes(torch.exp2, (s - m_safe) * LOG2E), 0.0)
     l = torch.clamp_min(p.sum(-1, keepdim=True), 1e-20)
     o = torch.einsum("bshgk,bkhd->bshgd", p / l, v)
     ql = torch.clamp(tl - off, 0, S) if q_lens is None \

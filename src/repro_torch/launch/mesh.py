@@ -1,0 +1,69 @@
+"""The serving mesh of tensor-parallel paged serving, on torch.distributed:
+the JAX package's launch/mesh.py make_serve_mesh.
+
+One process per rank (PyTorch's idiom): every rank of a tp_degree group
+runs the same ServeEngine, and the mesh is the process group its head-
+sharded attention gathers over.  The group spans ranks [0, tp_degree) of
+the default group - the JAX "first tp_degree devices" - and is built once
+per degree, so the replicas of one degree in a fleet share it, as the JAX
+replicas share the first N devices.  make_production_mesh and
+make_debug_mesh (training meshes) are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch.distributed as dist
+
+
+@dataclass(frozen=True)
+class ServeMesh:
+    """A serving mesh: the process group of the tp ranks (None at size 1),
+    this process's rank in it and the group's size (the tp degree)."""
+    group: Any
+    rank: int
+    size: int
+
+
+# the default group the groups below belong to, and one group per degree
+_WORLD: Dict[str, Any] = {"pg": None}
+_GROUPS: Dict[int, Any] = {}
+
+
+def make_serve_mesh(tp_degree: int) -> ServeMesh:
+    """The serve mesh of `tp_degree` ranks.  tp_degree 1 needs no process
+    group.  Otherwise torch.distributed must be initialised with a world of
+    at least tp_degree ranks: every rank of the world calls this (building
+    a group is collective), in the same order, and a rank outside [0,
+    tp_degree) gets a ValueError after the group exists."""
+    if tp_degree < 1:
+        raise ValueError(f"tp_degree must be >= 1, got {tp_degree}")
+    if tp_degree == 1:
+        return ServeMesh(None, 0, 1)
+    how = (f"run one process per rank, e.g. torchrun "
+           f"--nproc-per-node={tp_degree}, or call "
+           f"torch.distributed.init_process_group with world_size="
+           f"{tp_degree} first")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"tp_degree={tp_degree} needs a torch.distributed process group "
+            f"with a world size of at least {tp_degree}, and none is "
+            f"initialised ({how})")
+    world = dist.get_world_size()
+    if world < tp_degree:
+        raise ValueError(
+            f"tp_degree={tp_degree} needs a world size of at least "
+            f"{tp_degree}, the process group has {world} ({how})")
+    pg = dist.distributed_c10d._get_default_group()
+    if _WORLD["pg"] is not pg:          # a new world: forget the old groups
+        _WORLD["pg"] = pg
+        _GROUPS.clear()
+    if tp_degree not in _GROUPS:
+        _GROUPS[tp_degree] = dist.new_group(ranks=list(range(tp_degree)))
+    rank = dist.get_rank()
+    if rank >= tp_degree:
+        raise ValueError(
+            f"rank {rank} is outside the tp_degree={tp_degree} serve group "
+            f"(ranks 0-{tp_degree - 1} of a world of {world})")
+    return ServeMesh(_GROUPS[tp_degree], rank, tp_degree)

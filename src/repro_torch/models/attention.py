@@ -163,21 +163,38 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
     return dense(params["wo"], o.reshape(B, 1, cfg.n_heads * cfg.head_dim))
 
 
+def _local_kv(k: torch.Tensor, v: torch.Tensor, tp_mesh):
+    """The K/V heads this rank's pools hold: all of them without a mesh,
+    its contiguous head block under tensor parallelism.  The counterpart
+    of the JAX package's _tp_pool_constrain: k and v come from replicated
+    activations, so writing a rank's slice into its own pools is pure
+    data movement and changes no attention result."""
+    if not ops._tp_active(tp_mesh):
+        return k, v
+    return ops.shard_heads(k, tp_mesh), ops.shard_heads(v, tp_mesh)
+
+
 def attn_decode_paged(params, x: torch.Tensor, cfg: ModelConfig,
                       k_pages: torch.Tensor, v_pages: torch.Tensor,
                       block_table: torch.Tensor, lens: torch.Tensor, *,
-                      window: int = 0, impl: Optional[str] = None
-                      ) -> torch.Tensor:
+                      window: int = 0, impl: Optional[str] = None,
+                      tp_mesh=None) -> torch.Tensor:
     """Single-token decode through the block table.  x: (B, 1, D);
     block_table: (B, n_max) int32; lens: (B,) int32 current lengths - the
     new token's K/V goes to page lens // page_size at offset
     lens % page_size.  Idle slots (lens 0, zeroed table row) write into the
-    null page 0.  Returns the attention block's output (B, 1, D)."""
+    null page 0.  tp_mesh (a serve mesh of size N > 1): the pools are this
+    rank's (P, page_size, Hkv / N, D) head shard; q, k and v are computed
+    for every head from the replicated x, the rank writes its KV heads
+    and runs the decode on its head shard (ops.paged_flash_decode), and
+    the gathered output goes through wo replicated.  Returns the
+    attention block's output (B, 1, D)."""
     B = x.shape[0]
     q, k, v = _qkv(params, x, cfg)
     if cfg.use_rope:
         q = rope(q, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
+    k, v = _local_kv(k, v, tp_mesh)
     ps, n_max = k_pages.shape[1], block_table.shape[1]
     # an out-of-range page index clamps, as the JAX gather does
     pidx = torch.clamp(lens // ps, max=n_max - 1).long()
@@ -188,7 +205,7 @@ def attn_decode_paged(params, x: torch.Tensor, cfg: ModelConfig,
     o = ops.paged_flash_decode(q, k_pages, v_pages, block_table, lens + 1,
                                window=window,
                                logit_softcap=cfg.attn_logit_softcap,
-                               impl=impl)
+                               impl=impl, tp_mesh=tp_mesh)
     return dense(params["wo"], o.reshape(B, 1, cfg.n_heads * cfg.head_dim))
 
 
@@ -197,15 +214,16 @@ def attn_prefill_chunks_paged(params, x: torch.Tensor, cfg: ModelConfig,
                               page_tables: torch.Tensor,
                               offsets: torch.Tensor, true_lens: torch.Tensor,
                               *, q_lens: Optional[torch.Tensor] = None,
-                              window: int = 0, impl: Optional[str] = None
-                              ) -> torch.Tensor:
+                              window: int = 0, impl: Optional[str] = None,
+                              tp_mesh=None) -> torch.Tensor:
     """A ragged batch of K mid-prompt chunks in one pass.  x: (K, S, D), row
     k at absolute positions offsets[k] + arange(S), zero-padded past
     true_lens[k].  Each row's K/V scatters token by token through its table
     row, PAD positions redirected to the null page 0 (two chunks of one
     sequence in one batch never collide); then every row's queries attend
     through the offset-causal batched kernel.  Dead rows (true_len 0,
-    all-null table row) write only to the null page.  Returns (K, S, D)."""
+    all-null table row) write only to the null page.  tp_mesh: as in
+    attn_decode_paged.  Returns (K, S, D)."""
     q, k, v = _qkv(params, x, cfg)
     K, S = x.shape[:2]
     ps, n_max = k_pages.shape[1], page_tables.shape[1]
@@ -214,6 +232,7 @@ def attn_prefill_chunks_paged(params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.use_rope:
         q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
+    k, v = _local_kv(k, v, tp_mesh)
     valid = pos < true_lens[:, None]
     pidx = torch.clamp(pos // ps, max=n_max - 1).long()
     pages = torch.where(valid, torch.gather(page_tables, 1, pidx), 0).long()
@@ -222,22 +241,23 @@ def attn_prefill_chunks_paged(params, x: torch.Tensor, cfg: ModelConfig,
     v_pages[pages, offs] = v.to(v_pages.dtype)
     o = ops.batched_paged_prefill_attention(
         q, k_pages, v_pages, page_tables, offsets, true_lens, q_lens,
-        window=window, logit_softcap=cfg.attn_logit_softcap, impl=impl)
+        window=window, logit_softcap=cfg.attn_logit_softcap, impl=impl,
+        tp_mesh=tp_mesh)
     return dense(params["wo"], o.reshape(K, S, cfg.n_heads * cfg.head_dim))
 
 
 def attn_prefill_chunk_paged(params, x: torch.Tensor, cfg: ModelConfig,
                              k_pages: torch.Tensor, v_pages: torch.Tensor,
                              page_row: torch.Tensor, offset: int, *,
-                             window: int = 0, impl: Optional[str] = None
-                             ) -> torch.Tensor:
+                             window: int = 0, impl: Optional[str] = None,
+                             tp_mesh=None) -> torch.Tensor:
     """One mid-prompt chunk of one sequence, the K=1 case: x (1, S, D) at
     positions offset + arange(S), every position real."""
     off = torch.full((1,), int(offset), dtype=torch.int32, device=x.device)
     return attn_prefill_chunks_paged(
         params, x, cfg, k_pages, v_pages,
         page_row.reshape(1, -1).to(torch.int32), off, off + x.shape[1],
-        window=window, impl=impl)
+        window=window, impl=impl, tp_mesh=tp_mesh)
 
 
 # the prefix-cache suffix is the final-chunk special case

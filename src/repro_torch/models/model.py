@@ -227,12 +227,15 @@ class Model(nn.Module):
         return self.params
 
     def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0,
-                   *, page_size: int = 0, num_pages: int = 0):
+                   *, page_size: int = 0, num_pages: int = 0,
+                   kv_heads: int = 0):
         """The dense layout by default: one (L, batch, max_len, Hkv, D)
         strip per K and V.  page_size > 0 selects the paged layout: a
         global (L, num_pages, page_size, Hkv, D) K and V pool shared by all
         sequences, plus a (batch, ceil(max_len / page_size)) int32 block
-        table.  Page 0 is the reserved null page.  The hybrid family keeps
+        table.  Page 0 is the reserved null page.  kv_heads (paged only; 0
+        = n_kv_heads): the pools' head count - a tensor-parallel rank's
+        shard, Hkv / tp_degree, allocated at that size.  The hybrid family keeps
         per-layer conv windows and float32 SSM states plus dense K / V
         strips for each application of its shared block; the ssm family
         per-layer float32 WKV states and token-shift carries (their
@@ -260,8 +263,8 @@ class Model(nn.Module):
         if num_pages <= 0:
             num_pages = dense_equivalent_pages(batch_size, max_len,
                                                page_size)
-        shp = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
-               cfg.head_dim)
+        shp = (cfg.n_layers, num_pages, page_size,
+               kv_heads or cfg.n_kv_heads, cfg.head_dim)
         return {"k_pages": torch.zeros(shp, dtype=dt, device=dev),
                 "v_pages": torch.zeros(shp, dtype=dt, device=dev),
                 "block_table": torch.zeros((batch_size, n_max),
@@ -422,7 +425,7 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill_chunks(self, params, batch, cache, page_tables, *,
-                       impl: Optional[str] = None):
+                       impl: Optional[str] = None, tp_mesh=None):
         """Prefill a ragged batch of K mid-prompt chunks in one pass.
 
         batch: {"tokens": (K, S) int32 chunk tokens (rows zero-padded),
@@ -430,15 +433,18 @@ class Model(nn.Module):
         "true_lens": (K,) int32 cursor after each row's last real token};
         page_tables: (K, n_max) int32.  Dead padding rows carry true_lens 0
         and an all-null table row; their logits are garbage the caller
-        drops.  Returns (logits of each row's last real token (K, 1, V)
-        float32, cache, cursors (K,))."""
+        drops.  tp_mesh (a launch/mesh.py serve mesh): the cache's pools
+        are this rank's head shard and the attention runs head-sharded;
+        everything else is replicated.  Returns (logits of each row's last
+        real token (K, 1, V) float32, cache, cursors (K,))."""
         self._need_attention("chunked prefill")
         cfg = self.cfg
         tokens = batch["tokens"]
         offs, lens = batch["offset"], batch["true_lens"]
         x = self._embed(params, tokens, offs)
         x = T.stack_prefill_chunks_paged(params["blocks"], x, cfg, cache,
-                                         page_tables, offs, lens, impl=impl)
+                                         page_tables, offs, lens, impl=impl,
+                                         tp_mesh=tp_mesh)
         x = apply_norm(params["final_norm"], x, cfg)
         idx = torch.clamp(lens - offs - 1, min=0).long()
         x_last = torch.gather(
@@ -447,7 +453,7 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def verify_chunks(self, params, batch, cache, page_tables, *,
-                      impl: Optional[str] = None):
+                      impl: Optional[str] = None, tp_mesh=None):
         """Score a ragged batch of speculative draft chains: row k holds
         [pending token, draft_1 .. draft_m] at positions batch["offset"]
         [k] + arange(S), the prefill_chunks contract (each row's K/V
@@ -458,23 +464,26 @@ class Model(nn.Module):
         to K1's q_lens lane so pad positions come back as exact zeros.
         K/V written past the accepted frontier stays behind the row's
         lens, masked wherever KV is read and overwritten by the next
-        write.  Returns (logits (K, S, V) float32, cache)."""
+        write.  tp_mesh: as in prefill_chunks.  Returns (logits (K, S, V)
+        float32, cache)."""
         self._need_attention("speculative verification")
         cfg = self.cfg
         x = self._embed(params, batch["tokens"], batch["offset"])
         x = T.stack_prefill_chunks_paged(
             params["blocks"], x, cfg, cache, page_tables, batch["offset"],
-            batch["true_lens"], q_lens=batch["q_lens"], impl=impl)
+            batch["true_lens"], q_lens=batch["q_lens"], impl=impl,
+            tp_mesh=tp_mesh)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["tok"], x, cfg), cache
 
     def prefill_chunk(self, params, batch, cache, page_row, *,
-                      impl: Optional[str] = None):
+                      impl: Optional[str] = None, tp_mesh=None):
         """One mid-prompt chunk of one sequence: the K=1 case of
         prefill_chunks (batch holds one row; page_row is (n_max,)).  A
         final chunk's logits seed decoding."""
         return self.prefill_chunks(params, batch, cache,
-                                   page_row.reshape(1, -1), impl=impl)
+                                   page_row.reshape(1, -1), impl=impl,
+                                   tp_mesh=tp_mesh)
 
     # the prefix-cached suffix is a final chunk whose cursor is the full
     # prompt length (the JAX Model's name for it)
@@ -483,14 +492,15 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, params, tokens, lens, cache, *,
                     impl: Optional[str] = None, seq_parallel: bool = False,
-                    enc_lens: Optional[torch.Tensor] = None):
+                    enc_lens: Optional[torch.Tensor] = None, tp_mesh=None):
         """tokens: (B, 1) int32; lens: (B,) int32 positions to write; cache
         dense or paged (init_cache), the recurrent states, or the audio
         family's strips.  seq_parallel=True decodes the attention through
         ops.decode_attention_naive in place of K3 (a paged cache raises, as
         in the JAX package).  enc_lens (B,) int32: the cross strips'
         positions each lane attends (the audio family; default the strips'
-        whole length, as in the JAX package).  Returns (logits (B, 1, V)
+        whole length, as in the JAX package).  tp_mesh head-shards the
+        paged decode (as in prefill_chunks).  Returns (logits (B, 1, V)
         float32, cache)."""
         cfg = self.cfg
         blocks = params["blocks"]
@@ -510,7 +520,8 @@ class Model(nn.Module):
             if seq_parallel:
                 raise ValueError("paged decode does not compose with the "
                                  "sequence-parallel cache layout")
-            x = T.stack_decode_paged(blocks, x, cfg, cache, lens, impl=impl)
+            x = T.stack_decode_paged(blocks, x, cfg, cache, lens, impl=impl,
+                                     tp_mesh=tp_mesh)
         else:
             x = T.stack_decode(blocks, x, cfg, cache, lens, impl=impl,
                                seq_parallel=seq_parallel)

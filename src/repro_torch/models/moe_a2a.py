@@ -26,9 +26,9 @@ moe.py, so at moderate imbalance the two agree.
 
 The JAX package's make_sharded_moe places the shards with shard_map over
 a mesh axis, and its moe_ffn takes this path behind an environment switch
-when a mesh with a model axis is active; the port has no mesh yet, so a
-caller slices the tokens and experts and passes its group (ROADMAP M10 /
-M14).  Every shape is fixed by the inputs and the config; the group's
+when a mesh with a model axis is active; the port's only mesh so far is
+the serve mesh of tensor-parallel serving (launch/mesh.py), so a caller
+slices the tokens and experts and passes its group (ROADMAP §1 item 3).  Every shape is fixed by the inputs and the config; the group's
 collectives are the only synchronisation.
 """
 from __future__ import annotations

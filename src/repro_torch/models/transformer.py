@@ -177,33 +177,36 @@ def stack_prefill_chunks_paged(blocks, x: torch.Tensor, cfg: ModelConfig,
                                offsets: torch.Tensor,
                                true_lens: torch.Tensor, *,
                                q_lens: Optional[torch.Tensor] = None,
-                               impl: Optional[str] = None) -> torch.Tensor:
+                               impl: Optional[str] = None,
+                               tp_mesh=None) -> torch.Tensor:
     """A ragged batch of mid-prompt chunks through every layer.  x: (K, S,
     D); cache: {"k_pages"/"v_pages": (L, P, page_size, Hkv, D)}, updated in
     place.  Two chunks of one sequence may share the batch (ordered
     offsets): each layer scatters every row's K/V before its attention
-    reads the pool."""
+    reads the pool.  tp_mesh: the pools hold this rank's Hkv / N heads and
+    each layer's attention runs head-sharded (attention.py)."""
     for l, is_global in enumerate(_layer_windows(cfg)):
         p = _layer(blocks, l)
         h = attn_prefill_chunks_paged(
             p["attn"], apply_norm(p["n1"], x, cfg), cfg,
             cache["k_pages"][l], cache["v_pages"][l], page_tables, offsets,
             true_lens, q_lens=q_lens, window=_windowed(cfg, is_global),
-            impl=impl)
+            impl=impl, tp_mesh=tp_mesh)
         x = _ffn_tail(p, x + h, cfg)
     return x
 
 
 def stack_prefill_chunk_paged(blocks, x: torch.Tensor, cfg: ModelConfig,
                               cache, page_row: torch.Tensor, offset: int, *,
-                              impl: Optional[str] = None) -> torch.Tensor:
+                              impl: Optional[str] = None,
+                              tp_mesh=None) -> torch.Tensor:
     """ONE mid-prompt chunk of ONE sequence, the K=1 case of
     stack_prefill_chunks_paged: x (1, S, D) at positions offset +
     arange(S), every position real; page_row (n_max,)."""
     off = torch.full((1,), int(offset), dtype=torch.int32, device=x.device)
     return stack_prefill_chunks_paged(
         blocks, x, cfg, cache, page_row.reshape(1, -1).to(torch.int32),
-        off, off + x.shape[1], impl=impl)
+        off, off + x.shape[1], impl=impl, tp_mesh=tp_mesh)
 
 
 # the prefix-cache suffix is the final-chunk special case
@@ -212,16 +215,18 @@ stack_prefill_suffix_paged = stack_prefill_chunk_paged
 
 def stack_decode_paged(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                        lens: torch.Tensor, *,
-                       impl: Optional[str] = None) -> torch.Tensor:
+                       impl: Optional[str] = None,
+                       tp_mesh=None) -> torch.Tensor:
     """Batched single-token decode through the block table (all layers
-    share one table; each layer owns its own pool slab)."""
+    share one table; each layer owns its own pool slab).  tp_mesh: as in
+    stack_prefill_chunks_paged."""
     bt = cache["block_table"]
     for l, is_global in enumerate(_layer_windows(cfg)):
         p = _layer(blocks, l)
         h = attn_decode_paged(
             p["attn"], apply_norm(p["n1"], x, cfg), cfg,
             cache["k_pages"][l], cache["v_pages"][l], bt, lens,
-            window=_windowed(cfg, is_global), impl=impl)
+            window=_windowed(cfg, is_global), impl=impl, tp_mesh=tp_mesh)
         x = _ffn_tail(p, x + h, cfg)
     return x
 

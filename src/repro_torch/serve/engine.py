@@ -96,8 +96,20 @@ through fresh pinned buffers copied asynchronously; the host block table
 is always copied first, because torch.from_numpy aliases the array and
 the allocator mutates it in place.
 
-Tensor parallelism (tp_degree > 1) raises NotImplementedError naming its
-ROADMAP item (M10).
+Tensor parallelism (tp_degree > 1: paged, chunked and batched; the JAX
+engine's head-sharded serving on torch.distributed): one process per rank
+of a launch/mesh.py serve mesh, every rank running this engine on the same
+model, parameters and traffic.  The host logic - scheduler, allocator,
+prefix tree, drafter, sampler - is deterministic, so the ranks stay in
+lockstep and their collectives pair up.  A rank's pools hold its
+contiguous block of Hkv / tp_degree KV heads of every page, allocated at
+that size; the parameters, the block table and every per-tick upload are
+replicated.  K1 and K2 run on the rank's head shard and their outputs are
+all-gathered in rank order (kernels/ops.py _tp_head_sharded), so
+everything after the attention runs with the tp_degree 1 summation order
+and every rank emits the tokens a tp_degree 1 engine does.  The
+accounting (tp_stats, the serve_tp_* metrics, movement_stats' per_device
+section) is the JAX engine's.
 """
 from __future__ import annotations
 
@@ -110,7 +122,8 @@ import torch
 
 from ..configs.base import ServeConfig
 from ..models.model import ATTENTION_FAMILIES, RECURRENT_LEAVES
-from .paged_cache import PageAllocator, page_kv_bytes, pages_needed
+from .paged_cache import (PageAllocator, page_kv_bytes, pages_needed,
+                          shard_page_kv_bytes)
 from .prefix_cache import RadixPrefixCache
 from .scheduler import (ChunkTask, DraftTask, Request, RequestState,
                         TokenBudgetScheduler)
@@ -126,21 +139,6 @@ from .telemetry import (TRACK_ENGINE, TRACK_QUEUE, LaunchRecord,
 # monolithic prefill (the JAX engine's jit bucket; kept so that both
 # engines prefill the same shapes and write the same strip positions)
 PREFILL_BUCKET = 16
-
-
-def _refuse_unported(scfg: ServeConfig):
-    """NotImplementedError for the ServeConfig setting this slice of the
-    port does not serve (tensor parallelism), naming its ROADMAP item."""
-    if scfg.tp_degree > 1:
-        raise NotImplementedError(
-            f"tp_degree={scfg.tp_degree} is not ported to the PyTorch "
-            f"engine yet (ROADMAP M10); it serves the dense and MoE "
-            f"decoders chunked=True (batched or the sequential oracle) on "
-            f"the paged cache and chunked=False on the dense or paged "
-            f"cache, with speculative decoding, the prefix cache, "
-            f"preemption, request deadlines and the span tracer, and the "
-            f"recurrent and audio families on the dense cache with "
-            f"stepwise admission")
 
 
 def _registry_counter(name: str):
@@ -173,7 +171,6 @@ class ServeEngine:
         self.model = model
         self.params = params
         self.scfg = scfg.validate()
-        _refuse_unported(scfg)
         self.device = model.device
         B = scfg.max_batch
         # one metrics registry per engine (the scheduler, allocator and
@@ -226,8 +223,13 @@ class ServeEngine:
                   "replication overhead of keeping the table as scalar-"
                   "prefetch state on every shard")
         m.get("serve_tp_degree").set(scfg.tp_degree)
-        # bytes of one page on one device: the whole page (tp_degree 1)
-        self._shard_page_bytes = page_kv_bytes(model.cfg, scfg.page_size)
+        # bytes of one page on one rank; an indivisible head count fails
+        # with the engine's own error below, so count at tp 1 here
+        tp = scfg.tp_degree
+        self._shard_page_bytes = shard_page_kv_bytes(
+            model.cfg, scfg.page_size,
+            tp if model.cfg.n_kv_heads % tp == 0 else 1)
+        self.tp_mesh = None
         self.paged = scfg.paged
         self._attention_family = model.cfg.family in ATTENTION_FAMILIES
         if scfg.speculative and not self._attention_family:
@@ -245,6 +247,18 @@ class ServeEngine:
                 raise ValueError(
                     f"max_seq ({scfg.max_seq}) must be a multiple of "
                     f"page_size ({scfg.page_size})")
+            kv_heads = model.cfg.n_kv_heads
+            if tp > 1:
+                if kv_heads % tp:
+                    raise ValueError(
+                        f"ServeConfig.tp_degree ({tp}) must divide "
+                        f"n_kv_heads ({kv_heads}): the KV page pool shards "
+                        f"on the head axis, so every device needs a whole "
+                        f"number of KV heads (GQA query heads follow their "
+                        f"KV head's shard)")
+                from ..launch.mesh import make_serve_mesh
+                self.tp_mesh = make_serve_mesh(tp)
+                kv_heads //= tp
             num_pages = scfg.pool_pages()
             self.allocator = PageAllocator(num_pages, scfg.page_size, B,
                                            scfg.max_seq,
@@ -252,7 +266,8 @@ class ServeEngine:
                                            metrics=m)
             self.cache = model.init_cache(B, scfg.max_seq,
                                           page_size=scfg.page_size,
-                                          num_pages=num_pages)
+                                          num_pages=num_pages,
+                                          kv_heads=kv_heads)
             if scfg.prefix_cache:
                 self.prefix = RadixPrefixCache(self.allocator,
                                                scfg.page_size, metrics=m)
@@ -285,10 +300,14 @@ class ServeEngine:
         self._prefill_paged = make_paged_prefill_step(model)
         # one step serves the prefix-cached suffix and the sequential
         # oracle's chunks: a suffix is a final chunk
-        self._prefill_chunk = make_chunk_prefill_step(model)
-        self._prefill_chunks = make_chunk_batch_step(model, **self._knobs)
-        self._decode_fused = make_fused_decode_step(model, **self._knobs)
-        self._spec_verify = make_spec_verify_step(model, **self._knobs)
+        tpm = self.tp_mesh
+        self._prefill_chunk = make_chunk_prefill_step(model, tp_mesh=tpm)
+        self._prefill_chunks = make_chunk_batch_step(model, **self._knobs,
+                                                     tp_mesh=tpm)
+        self._decode_fused = make_fused_decode_step(model, **self._knobs,
+                                                    tp_mesh=tpm)
+        self._spec_verify = make_spec_verify_step(model, **self._knobs,
+                                                  tp_mesh=tpm)
 
     # registry-backed views (one source of truth: the metrics registry)
     jit_calls = _registry_counter("serve_jit_calls_total")
@@ -342,7 +361,32 @@ class ServeEngine:
         paper's 16 nm table gives those bytes (telemetry.
         movement_breakdown) - neither is a measurement of the GPU."""
         return movement_breakdown(self.tm.launches, self.model.cfg,
-                                  self.scfg)
+                                  self.scfg, tp_degree=self.scfg.tp_degree)
+
+    def tp_stats(self) -> Dict[str, int]:
+        """Tensor-parallel accounting, the JAX engine's keys: the per-device
+        KV bytes the token-emitting launches read, the block-table bytes
+        paid to replication, the per-shard and whole page bytes and the
+        pages read (shard_kv_bytes_read x tp_degree == kv_pages_read x
+        page_bytes).  Two keys are the port's own: `rank`, this process's
+        rank in the serve mesh (0 at tp_degree 1), and
+        `rank_kv_cache_bytes`, the cache bytes this rank allocated (its
+        pool shard and the block table; kv_cache_bytes() reports the whole
+        logical cache, as the JAX engine does)."""
+        g = self.tm.registry.get
+        return {
+            "tp_degree": int(self.scfg.tp_degree),
+            "shard_kv_bytes_read":
+                int(g("serve_tp_shard_kv_bytes_read_total").value),
+            "table_bytes_replicated":
+                int(g("serve_tp_table_bytes_replicated_total").value),
+            "shard_page_bytes": int(self._shard_page_bytes),
+            "page_bytes": int(page_kv_bytes(self.model.cfg,
+                                            self.scfg.page_size)),
+            "kv_pages_read": int(self.kv_pages_read),
+            "rank": self.tp_mesh.rank if self.tp_mesh is not None else 0,
+            "rank_kv_cache_bytes": self._cache_bytes(1),
+        }
 
     def _prefix_event(self, name: str, **args):
         """Prefix-cache hit / publish / evict instants onto the engine
@@ -432,9 +476,10 @@ class ServeEngine:
             n * self._shard_page_bytes)
 
     def _note_table_upload(self, nbytes: int):
-        """Count one block-table upload (the bytes times tp_degree, 1)."""
+        """Count one block-table upload's replication cost: every rank
+        holds the table, so the bytes multiply by tp_degree."""
         self.tm.registry.get("serve_tp_table_bytes_replicated_total").inc(
-            int(nbytes))
+            int(nbytes) * int(self.scfg.tp_degree))
 
     def _row_pages(self, slot: int, true_len: int) -> int:
         """KV pages slot's attention reads at KV length `true_len`, counted
@@ -607,6 +652,11 @@ class ServeEngine:
                 (f"per-shard KV byte accounting drifted: {shard_bytes} != "
                  f"{self.kv_pages_read} pages x {self._shard_page_bytes} "
                  f"bytes/shard-page")
+            page_bytes = page_kv_bytes(self.model.cfg, self.scfg.page_size)
+            assert shard_bytes * self.scfg.tp_degree \
+                == self.kv_pages_read * page_bytes, \
+                (f"per-shard KV bytes x tp_degree {self.scfg.tp_degree} != "
+                 f"{self.kv_pages_read} pages x {page_bytes} bytes/page")
         for i, r in enumerate(self.slots):
             if r is None:
                 if self.paged:
@@ -629,8 +679,17 @@ class ServeEngine:
         """Allocated cache bytes, every leaf: K and V strips or pools, the
         block table when paged, the recurrent states of the hybrid and ssm
         families, the audio family's self-attention and cross strips.
-        Caches are preallocated, so allocated == peak."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        Caches are preallocated, so allocated == peak.  Under tensor
+        parallelism this is the whole logical cache, every rank's pool
+        shard counted (the JAX engine counts global shapes); a rank's own
+        bytes are tp_stats()["rank_kv_cache_bytes"]."""
+        return self._cache_bytes(self.scfg.tp_degree)
+
+    def _cache_bytes(self, pool_copies: int) -> int:
+        """Cache bytes with the KV pools counted pool_copies times."""
+        return sum(t.numel() * t.element_size()
+                   * (pool_copies if k in ("k_pages", "v_pages") else 1)
+                   for k, t in self.cache.items())
 
     # ------------------------------------------------------------------
     # emission / completion

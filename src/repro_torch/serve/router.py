@@ -61,6 +61,14 @@ own, so only the projections' matrix products (whose algorithm may
 depend on the batch's row count) can move a request's last bits between
 fleet sizes.
 
+A fleet of tensor-parallel replicas (ServeConfig.tp_degree > 1) runs in
+every rank of the serve mesh: each rank runs the whole router, and the
+replicas of one degree share the mesh's one process group
+(launch/mesh.py), as the JAX replicas share the first tp_degree devices.
+The router's decisions are host logic, the same on every rank, so each
+replica's ticks - and their collectives - come in the same order
+everywhere.
+
 Everything here is host-side: scores, placements, the watchdog and the
 fault-recovery path read host bookkeeping (load_stats, the prefix tree's
 peek, the work clock) and never a device tensor, and each replica's tick

@@ -96,35 +96,41 @@ def make_suffix_prefill_step(model):
     return suffix_prefill_step
 
 
-def make_chunk_prefill_step(model):
+def make_chunk_prefill_step(model, *, tp_mesh=None):
     """chunk_prefill_step(params, batch, cache, page_row) ->
     (chunk_last_logits, cache, cursor).  One chunk of one sequence's
     prompt: batch["tokens"] (1, S_pad) the chunk zero-padded to a page
     multiple, its absolute start in batch["offset"], the cursor after its
     last real token in batch["true_lens"] (the full prompt length only
     for the final chunk, whose logits seed decoding); page_row (n_max,)
-    (Model.prefill_chunk)."""
+    (Model.prefill_chunk).  tp_mesh head-shards the attention, as in
+    make_chunk_batch_step."""
 
     def chunk_prefill_step(params, batch, cache, page_row):
-        return model.prefill_chunk(params, batch, cache, page_row)
+        return model.prefill_chunk(params, batch, cache, page_row,
+                                   tp_mesh=tp_mesh)
 
     return chunk_prefill_step
 
 
 def make_chunk_batch_step(model, *, temperature: float, top_k: int = 0,
-                          top_p: float = 1.0):
+                          top_p: float = 1.0, tp_mesh=None):
     """chunk_batch_step(params, batch, cache, page_tables, tokens, lens,
     generator) -> (cache, tokens, lens).  One call for a whole tick's
     prefill plan: runs every packed chunk row (Model.prefill_chunks),
     samples the first token of every row that completed its prompt, and
     writes those tokens and cursors into tokens / lens at batch
     ["final_slot"] (the sentinel max_batch for non-final and dead rows,
-    which is dropped)."""
+    which is dropped).  tp_mesh (a launch/mesh.py serve mesh): the cache's
+    pools are this rank's head shard, the attention runs on it and gathers
+    back, and the sampling is replicated - every rank samples the same
+    tokens from the same logits and the same generator state."""
 
     def chunk_batch_step(params, batch, cache, page_tables, tokens, lens,
                          generator):
         logits, cache, cursors = model.prefill_chunks(params, batch, cache,
-                                                      page_tables)
+                                                      page_tables,
+                                                      tp_mesh=tp_mesh)
         toks = sample_token(logits, temperature=temperature, top_k=top_k,
                             top_p=top_p, generator=generator)
         slots = batch["final_slot"]
@@ -136,14 +142,16 @@ def make_chunk_batch_step(model, *, temperature: float, top_k: int = 0,
 
 
 def make_fused_decode_step(model, *, temperature: float, top_k: int = 0,
-                           top_p: float = 1.0):
+                           top_p: float = 1.0, tp_mesh=None):
     """fused_decode_step(params, cache, tokens, lens, live, generator) ->
     (cache, tokens, lens).  One batched decode step with sampling fused
     in: lanes where `live` (B,) is True take their sampled token and
-    lens + 1, dead lanes pass through untouched."""
+    lens + 1, dead lanes pass through untouched.  tp_mesh: as in
+    make_chunk_batch_step."""
 
     def fused_decode_step(params, cache, tokens, lens, live, generator):
-        logits, cache = model.decode_step(params, tokens, lens, cache)
+        logits, cache = model.decode_step(params, tokens, lens, cache,
+                                          tp_mesh=tp_mesh)
         toks = sample_token(logits, temperature=temperature, top_k=top_k,
                             top_p=top_p, generator=generator)
         tokens = torch.where(live[:, None], toks, tokens)
@@ -154,7 +162,7 @@ def make_fused_decode_step(model, *, temperature: float, top_k: int = 0,
 
 
 def make_spec_verify_step(model, *, temperature: float, top_k: int = 0,
-                          top_p: float = 1.0):
+                          top_p: float = 1.0, tp_mesh=None):
     """spec_verify_step(params, batch, cache, page_tables, tokens, lens,
     generator) -> (cache, tokens, lens, n_acc).  One call verifies every
     draft chain planned this tick (the scheduler's SpecBatch): row r
@@ -167,12 +175,13 @@ def make_spec_verify_step(model, *, temperature: float, top_k: int = 0,
     tokens[slot] becomes the bonus and lens[slot] offset + n_acc + 1;
     K/V past it is dead (masked, later overwritten).  Rows whose
     batch["row_slot"] is the sentinel max_batch are dropped.  The host
-    reads n_acc in the tick's one fetch."""
+    reads n_acc in the tick's one fetch.  tp_mesh: as in
+    make_chunk_batch_step (K1's verify lane on the head shard)."""
 
     def spec_verify_step(params, batch, cache, page_tables, tokens, lens,
                          generator):
         logits, cache = model.verify_chunks(params, batch, cache,
-                                            page_tables)
+                                            page_tables, tp_mesh=tp_mesh)
         tgt = sampling.sample_chain(logits, generator,
                                     temperature=temperature, top_k=top_k,
                                     top_p=top_p)

@@ -511,8 +511,8 @@ def movement_breakdown(launches: Iterable[LaunchRecord], cfg, scfg,
     ONE device of a head-sharded tensor-parallel engine: KV bytes divide
     by tp_degree (each shard streams only its Hkv/tp head slice of every
     page), while weights, activations, and the block table are replicated
-    - every device streams them in full.  (Host arithmetic only: the
-    port's engine does not shard yet, ROADMAP M10.)
+    - every device streams them in full.  (Host arithmetic only, from the
+    launch records, which are the same on every rank.)
 
     The byte model is a first-order serving roofline, not a device
     counter:

@@ -12,7 +12,7 @@ process only - ROADMAP §3.)
 Straggler mitigation (single-host analogue): a step-time watchdog tracks a
 robust moving estimate; steps slower than `straggler_factor` x median are
 counted.  A mesh and state shardings (data / tensor parallel training)
-come with ROADMAP M10 and M14.
+come with ROADMAP M14 (M10 shards serving only).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ class Trainer:
         if mesh is not None or state_shardings is not None:
             raise NotImplementedError(
                 "sharded training over a mesh is not ported yet (ROADMAP "
-                "M10 / M14): the port trains on one device")
+                "M14): the port trains on one device")
         check_backward(cfg, device)
         self.cfg = cfg
         self.tcfg = tcfg

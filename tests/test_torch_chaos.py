@@ -1,5 +1,5 @@
 """Chaos against the port's fleet router: the fault scenarios of
-tests/test_chaos.py (all but the tensor-parallel kill, ROADMAP M10)
+tests/test_chaos.py (the tensor-parallel kill is in tests/test_torch_tp.py)
 through the JAX FleetRouter and the port's under the same FaultPlan.
 
 Each scenario replays with the full invariant sweep every tick

@@ -25,7 +25,8 @@ print(len(names), bad)
 
 
 def _run(code: str, **extra_env):
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), **extra_env)
+    env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}:{REPO / 'tests'}",
+               **extra_env)
     return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
 
@@ -43,13 +44,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                     "repro_torch.serve.router",
                                     "repro_torch.configs.whisper_base",
                                     "repro_torch.kernels.ops",
-                                    "repro_torch.models.transformer"])
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.launch.mesh",
+                                    "torch_tp_worker"])
 def test_module_alone_imports_no_jax(module):
     """The modules that keep copies of the JAX package's framework-free
     code (the energy model, the tracer, the fleet router, whisper's
-    config) and those that hold the sequence-parallel decode and the
-    encoder-decoder stacks import, each on its own, no jax and nothing of
-    the JAX package."""
+    config), those that hold the sequence-parallel decode, the encoder-
+    decoder stacks and the serve mesh, and the tensor-parallel tests'
+    worker (tests/torch_tp_worker.py, the module each spawned rank runs)
+    import, each on its own, no jax and nothing of the JAX package."""
     res = _run(f"import sys, {module}\n"
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib', 'repro.')) "

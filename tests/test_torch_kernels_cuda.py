@@ -24,7 +24,10 @@ to 8, a window shorter than one tile, softcap) and K2 at the edges of its
 splits (lengths 0, 1, one split - 1, + 0, + 1, two splits +- 1 and the
 whole table, a window that starts inside a split, every group size from 1
 to 16), K2's bits alone against inside a batch and from call to call, and
-the refusal of misaligned bf16 operands by K1 and K2; K3 at the edges of
+the refusal of misaligned bf16 operands by K1 and K2; K1 (chunk and
+verify lanes) and K2 on a head shard of granite-3-2b's 32 / 8 heads of 64
+at tp 2 and 4, bit-equal to the same heads of the full call (tensor-
+parallel serving); K3 at the edges of
 its splits (lengths 0, 1, around one and two splits, the whole strip and
 past it, a strip that is no split multiple, a window that starts inside a
 split, groups of 1 to 16 at head dims 64, 80 and 128), its bits alone
@@ -207,6 +210,66 @@ def test_decode_kernel_matches_plain(dev, D, G, variant, dtype):
 @pytest.mark.parametrize("variant", ["plain", "window", "softcap"])
 def test_decode_kernel_matches_plain_at_group_16(dev, variant, dtype):
     test_decode_kernel_matches_plain(dev, *QWEN3_MOE, variant, dtype)
+
+
+# granite-3-2b's attention at its serving shapes: 32 query heads over 8 KV
+# heads of 64 in a pool of 1025 pages of 16, table rows of 128 pages
+GRANITE_POOL = dict(hq=32, hkv=8, D=64, pages=1025, ps=16, n_max=128)
+
+
+def _granite_lanes(dev, dtype, seed=3):
+    """(pools, {lane: kernel call on (q, k_pages, v_pages)}): K1's chunk
+    lane on (4, 256) queries (a first chunk, a ragged final one, a mid-
+    prompt one and a dead row), its verify lane on (8, 5) draft rows with
+    ragged q_lens, and K2 on (8, 1), lengths spread over the table."""
+    g = GRANITE_POOL
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev,
+                                 dtype=torch.float32).to(dtype)
+    k, v = (rnd(g["pages"], g["ps"], g["hkv"], g["D"]) for _ in range(2))
+    perm = torch.randperm(g["pages"] - 1, generator=gen, device=dev) + 1
+    tables = perm[:8 * g["n_max"]].to(torch.int32).reshape(8, -1)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    chunk_tables = tables[:4].clone()
+    chunk_tables[3] = 0
+    lens = i32([38, 129, 301, 512, 701, 0, 1501, 1932])
+    q_lens = i32([5, 1, 3, 5, 2, 1, 4, 5])
+    q1 = rnd(4, 256, g["hq"], g["D"])
+    qv = rnd(8, 5, g["hq"], g["D"])
+    q2 = rnd(8, 1, g["hq"], g["D"])
+    lanes = {
+        "chunk": (q1, lambda q, kp, vp: ops.batched_paged_prefill_attention(
+            q, kp, vp, chunk_tables, i32([0, 256, 1536, 0]),
+            i32([256, 300, 1792, 0]))),
+        "verify": (qv, lambda q, kp, vp: ops.batched_paged_prefill_attention(
+            q, kp, vp, tables, lens, lens + q_lens, q_lens)),
+        "decode": (q2, lambda q, kp, vp: ops.paged_flash_decode(
+            q, kp, vp, tables, lens)),
+    }
+    return k, v, lanes
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("lane", ["chunk", "verify", "decode"])
+def test_head_shard_is_bit_equal_to_the_full_heads(dev, lane, dtype, tp):
+    """Tensor-parallel serving runs K1 (both lanes) and K2 on a rank's
+    contiguous block of heads - query heads [r Hq / tp, (r + 1) Hq / tp)
+    over KV heads [r Hkv / tp, (r + 1) Hkv / tp), G unchanged - made
+    contiguous.  No per-head result may depend on how many heads the call
+    has: each shard's output equals the same heads of the full call, bit
+    for bit (the single-process half of chip_smoke.py's phase_m10)."""
+    k, v, lanes = _granite_lanes(dev, DTYPES[dtype])
+    q, call = lanes[lane]
+    full = call(q, k, v)
+    hq, hkv = q.shape[2] // tp, k.shape[2] // tp
+    for r in range(tp):
+        got = call(q[:, :, r * hq:(r + 1) * hq].contiguous(),
+                   k[:, :, r * hkv:(r + 1) * hkv].contiguous(),
+                   v[:, :, r * hkv:(r + 1) * hkv].contiguous())
+        want = full[:, :, r * hq:(r + 1) * hq]
+        assert torch.equal(got, want), \
+            (r, float((got.float() - want.float()).abs().max()))
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])

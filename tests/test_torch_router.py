@@ -333,5 +333,5 @@ def test_load_stats_and_fleet_config(models):
     assert [m for m in ReplicaState] == [ReplicaState.HEALTHY,
                                          ReplicaState.DRAINING,
                                          ReplicaState.DEAD]
-    with pytest.raises(NotImplementedError, match="M10"):
+    with pytest.raises(ValueError, match="world size of at least 2"):
         FleetRouter(tm, tp, ServeConfig(**dict(AFFINITY, tp_degree=2)))

@@ -276,8 +276,11 @@ def test_finish_at_admission_matches_jax(models, served):
 
 @pytest.mark.parametrize("knob", [dict(tp_degree=2)])
 def test_unported_settings_raise(models, knob):
+    """tp_degree 2 without a process group raises, naming the world size
+    it needs (tensor parallelism runs one process per rank: tests/
+    test_torch_tp.py); it never serves at tp 1."""
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
+    with pytest.raises(ValueError, match="world size of at least 2"):
         ServeEngine(tm, tp, ServeConfig(**dict(SCFG, **knob)))
 
 
