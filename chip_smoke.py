@@ -19,9 +19,10 @@ Phases (each raises on failure, so the run exits non-zero):
                         training shape (4 x 2048 tokens, 32 / 8 heads,
                         causal, o and lse from K4), at gemma3-4b's (8 /
                         4 heads of 256, causal, and with its window of
-                        1024) and at llava-next-34b's (2 x 2048, 56 / 8
-                        heads of 128, causal), in float32 and
-                        bfloat16; the test file also holds K3 and K4 at
+                        1024), at llava-next-34b's (2 x 2048, 56 / 8
+                        heads of 128, causal) and K4 / K5 at the M14
+                        shard's (2 x 2048, 16 / 4 heads of 64), in
+                        float32 and bfloat16; the test file also holds K3 and K4 at
                         head dim 80 and the edge cases of the scans K6 and
                         K7 (their full-width shapes among them).
   3. the slices         serving: granite-3-2b at full width (40 layers,
@@ -155,6 +156,24 @@ Phases (each raises on failure, so the run exits non-zero):
                         engine (gloo's own synchronising calls counted
                         apart), shard bytes x 2 = pages read x page bytes,
                         and half of tp 1's pool bytes on each rank.
+                        sharded training (M14a, phase_m14, right after
+                        the training phase): four ranks on cuda:0, each a
+                        spawned process, in a gloo world on
+                        make_debug_mesh(2, 2); granite-3-2b at full width
+                        with 8 of its 40 layers trains 2 steps of 4 x 2048
+                        numpy-seeded tokens (2 x 2048 a rank) through
+                        Trainer(mesh=, state_shardings=train_cell(...)):
+                        every rank's losses equal rank 0's and the single-
+                        device Trainer's steps from the same seeded
+                        weights within M14_BARS (the JAX package's bars),
+                        K4 2 x 8 and K5 8 launches a step on each rank's
+                        16 / 4 head shard and nothing else; the step wall,
+                        collective calls and bytes a step and peak memory
+                        a rank printed; the checkpoint the mesh wrote
+                        restored without a mesh, every rank's shard of
+                        every leaf bit-equal (digests); the serve CLI and
+                        the three examples (examples/torch_*.py) once each
+                        on the card.
                         sequence-parallel decode (M11): the serving
                         granite-3-2b, batch 1, prefills a 32768-token
                         prompt into a dense cache (2.7 GB of K/V); on
@@ -273,6 +292,7 @@ prefix_monolithic and preempt, one {"e2e": ...} line (the chunked run),
 one {"e2e_dense": ...}, one {"e2e_paged_monolithic": ...}, one
 {"e2e_train": ...}, one {"e2e_recurrent": ...} and one {"e2e_<run>": ...}
 line for each of those four runs (its reference run inside), one
+{"e2e_m14": ...} line, one
 {"e2e_dense_family": ...}, one {"e2e_telemetry": ...} and one
 {"e2e_deadline": ...} line (each with its reference run inside) and one
 {"e2e_fleet": ...} line, one {"e2e_m11": ...}, one {"e2e_whisper":
@@ -786,6 +806,12 @@ def phase_kernel_parity():
         e5 = k5_compare(k5_training_args(dtype, shape=shape), dtype)
         log(f"# llava-next-34b training shape {str(dtype)[6:]}: K5 {shape} "
             f"causal: max abs err {e5:.3e} (bar {bar})")
+        a5 = k5_training_args(dtype, seed=3, shape=M14_SHARD)
+        e4 = k4_compare({k: a5[k] for k in ("q", "k", "v", "causal",
+                                             "window")}, dtype)
+        e5 = k5_compare(a5, dtype)
+        log(f"# M14 shard shape {str(dtype)[6:]}: K4 {M14_SHARD} causal max "
+            f"abs err {e4:.3e}, K5 {e5:.3e} (bars as above)")
     torch.cuda.synchronize()
 
 
@@ -1888,6 +1914,282 @@ def phase_train():
     run = {"launches": launches, "per_step": {k: v / N for k, v in
                                               launches.items()}}
     return run, {"K5": c5.best, "K4_train": c4.best}, e2e, trace
+
+
+# ---------------------------------------------------------------------------
+# phase 3, sharded training (M14a)
+# ---------------------------------------------------------------------------
+
+# four ranks of one gloo world on the one card (NCCL refuses two ranks on
+# one device), each a spawned process on cuda:0, on make_debug_mesh(2, 2);
+# granite-3-2b at full width, 8 of its 40 layers (each rank gathers the
+# whole tree every step: ~1.2 GB of bf16 weights at 8 layers, ~105 GB for
+# four ranks at 40), 4 x 2048 tokens a step (2 x 2048 a rank), remat full
+M14_MESH = (2, 2)
+M14_WORLD = M14_MESH[0] * M14_MESH[1]
+M14_LAYERS = 8
+M14_DIR = ROOT / "build" / "m14"
+M14_JOIN_S = 600
+M14_TRAIN = dict(TRAIN, checkpoint_every=0, log_every=1)
+# each rank's K4 / K5 call: its 2 x 2048 rows, 16 of the 32 query heads
+# and 4 of the 8 KV heads, of 64
+M14_SHARD = (2, 2048, 16, 4, 64)
+M14_STEPS = 2
+# the sharded step against the single-device step in bf16: the JAX
+# package's bars for the same comparison (tests/test_distributed.py:95-97),
+# |loss difference| and |grad norm difference| / grad norm
+M14_BARS = {"loss": 2e-2, "grad_norm": 0.05}
+
+
+def m14_setup():
+    """The config, its TrainConfig (checkpoints under M14_DIR/<name>) and
+    the numpy-seeded global batches of the M14_STEPS steps (the same in
+    every process, unlike the pipeline's: ROADMAP §3)."""
+    cfg = get_config("granite-3-2b").replace(n_layers=M14_LAYERS)
+    tc = lambda name: TrainConfig(checkpoint_dir=str(M14_DIR / name),
+                                  **M14_TRAIN)
+    B, S = M14_TRAIN["global_batch"], M14_TRAIN["seq_len"]
+    batches = {s: {"tokens": np.random.default_rng(100 + s).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)} for s in range(M14_STEPS)}
+    return cfg, tc, batches
+
+
+def bit_digest(t: torch.Tensor) -> list:
+    """Two int64 sums over a tensor's raw bits (the plain sum and one
+    weighted by position), on the card: equal tensors give equal digests,
+    and a changed element changes them."""
+    x = t.detach().contiguous().view(-1)
+    bits = x.view({2: torch.int16, 4: torch.int32}[x.element_size()]).long()
+    w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return [int(bits.sum()), int((bits * w).sum())]
+
+
+def m14_rank(rank: int, world: int):
+    """One rank of phase_m14 (a spawned process of its own on cuda:0): the
+    mesh Trainer takes M14_STEPS steps on rank 0's numpy-seeded batches,
+    each step's collectives and the kernel launches counted, then saves
+    its checkpoint (Trainer.run's last save: the full tensors, rank 0
+    writing); each leaf's local shard digested for the elastic check.
+    Results to M14_DIR/rank<r>.json."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import train_cell
+    from repro_torch.sharding import shards
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(M14_DIR / "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg, tc, batches = m14_setup()
+        tcfg = tc("mesh")
+        mesh = make_debug_mesh(*M14_MESH)
+        shape = ShapeSpec("train", tcfg.seq_len, tcfg.global_batch, "train")
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tcfg, mesh=mesh,
+                     state_shardings=train_cell(cfg, shape, mesh, tcfg)[2][0])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        tr.pipeline.host_batch = lambda s: batches[s]
+        comm = []
+        batch_of, step_of = tr.pipeline.device_batch, tr.train_step
+
+        def device_batch(s):
+            shards.reset_comm()
+            return batch_of(s)
+
+        def train_step(state, batch):
+            out = step_of(state, batch)
+            torch.cuda.synchronize()
+            comm.append(json.loads(json.dumps(shards.COMM)))
+            return out
+        tr.pipeline.device_batch, tr.train_step = device_batch, train_step
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = tr.run(M14_STEPS)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        digests = {}
+        for path, leaf in leaves_with_paths(tr.state):
+            digests[path] = {
+                "bounds": shards.slice_bounds(leaf.shape, leaf.placements,
+                                              mesh),
+                "digest": bit_digest(leaf.to_local())}
+        res = {"rank": rank, "coord": mesh.get_coordinate(),
+               "metrics": out["metrics"], "final_step": out["final_step"],
+               "launches": launches, "comm_per_step": comm,
+               "peak_mem_gb": peak / 1e9, "build_s": build_s,
+               "digests": digests}
+        (M14_DIR / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def m14_reference(cfg, tc, batches) -> list:
+    """The same steps by the single-device Trainer in this process, from
+    the same seeded weights, through its own step (Trainer.run would also
+    save the ~6 GB state): [(loss, grad norm)] a step."""
+    tr = Trainer(cfg, tc("single"))
+    tr.pipeline.host_batch = lambda s: batches[s]
+    out = []
+    for s in range(M14_STEPS):
+        tr.state, m = tr.train_step(tr.state, tr.pipeline.device_batch(s))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    del tr
+    _free()
+    return out
+
+
+def m14_elastic(cfg, tc, res):
+    """The checkpoint the 2x2 mesh saved, restored without a mesh (the
+    single-device Trainer restores the newest in its directory): every
+    rank's shard of every leaf has the bits the rank held."""
+    tr = Trainer(cfg, tc("mesh"))
+    if tr.start_step != M14_STEPS:
+        raise AssertionError(f"M14: restored at step {tr.start_step}")
+    leaves_ = dict(leaves_with_paths(tr.state))
+    n = 0
+    for rr in res:
+        for path, d in rr["digests"].items():
+            t = leaves_[path]
+            for dim, start, size in d["bounds"]:
+                t = t.narrow(dim, start, size)
+            if bit_digest(t) != d["digest"]:
+                raise AssertionError(f"M14 elastic: rank {rr['rank']}'s "
+                                     f"{path} differs after the restore")
+            n += 1
+    del tr, leaves_
+    _free()
+    return n
+
+
+def m14_clis():
+    """(name, argv) of the serve CLI (granite-3-2b smoke, head dim 64,
+    paged) and the three examples on the card, a few steps each."""
+    d = str(M14_DIR / "examples")
+    return [("serve CLI", ["-m", "repro_torch.launch.serve", "--arch",
+                           "granite-3-2b", "--paged"]),
+            ("quickstart", ["examples/torch_quickstart.py", "--steps", "4",
+                            "--ckpt-dir", d + "/quickstart"]),
+            ("train_lm", ["examples/torch_train_lm.py", "--steps", "4",
+                          "--ckpt-dir", d + "/train_lm"]),
+            ("serve_lm", ["examples/torch_serve_lm.py", "--chunked"])]
+
+
+def phase_m14():
+    """Sharded training on the card (M14a): four ranks on cuda:0 in a gloo
+    world on make_debug_mesh(2, 2), granite-3-2b at full width with
+    M14_LAYERS of its 40 layers, M14_STEPS steps of 4 x 2048 tokens
+    through Trainer(mesh=, state_shardings=train_cell(...)).  Every
+    rank's losses must equal rank 0's and the single-device Trainer's
+    steps from the same seeded weights within M14_BARS; every rank
+    launches K4 2 x layers and K5 layers times a step, on its 16 / 4 head
+    shard, and nothing else; the checkpoint saved on the mesh restores
+    without one with the same bits; the serve CLI and the three examples
+    run once each (m14_clis), beside that restore.  Four
+    ranks on one card share its SMs and HBM, and gloo moves the
+    collectives through host memory: the step times are not a speed of
+    four cards.  Returns (e2e, captured)."""
+    import torch.multiprocessing as mp
+    shutil.rmtree(M14_DIR, ignore_errors=True)
+    M14_DIR.mkdir(parents=True)
+    cfg, tc, batches = m14_setup()
+    t0 = time.perf_counter()
+    ref = m14_reference(cfg, tc, batches)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(m14_rank, args=(M14_WORLD,), nprocs=M14_WORLD,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > M14_JOIN_S:
+                raise AssertionError(f"M14: the ranks did not finish in "
+                                     f"{M14_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    res = [json.loads((M14_DIR / f"rank{r}.json").read_text())
+           for r in range(M14_WORLD)]
+    L = cfg.n_layers
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 2 * L * M14_STEPS,
+            "K5": L * M14_STEPS, "K6": 0, "K7": 0}
+    losses0 = [(m["loss"], m["grad_norm"]) for m in res[0]["metrics"]]
+    for rr in res:
+        got = [(m["loss"], m["grad_norm"]) for m in rr["metrics"]]
+        comm = rr["comm_per_step"][-1]
+        log(f"# M14 rank {rr['rank']} {tuple(rr['coord'])}: losses / grad "
+            f"norms {[(round(a, 5), round(b, 5)) for a, b in got]}; step "
+            f"wall {[round(m['step_time_s'], 3) for m in rr['metrics']]} s; "
+            f"kernel launches {rr['launches']}; collectives a step "
+            + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e9:.3f} GB"
+                        for k, v in sorted(comm.items()))
+            + f"; peak {rr['peak_mem_gb']:.2f} GB; built in "
+            f"{rr['build_s']:.1f} s")
+        if got != losses0:
+            raise AssertionError(f"M14: rank {rr['rank']}'s losses differ "
+                                 f"from rank 0's")
+        if rr["launches"] != want:
+            raise AssertionError(f"M14: rank {rr['rank']} launched "
+                                 f"{rr['launches']}, want {want}")
+    for s, ((l_m, g_m), (l_r, g_r)) in enumerate(zip(losses0, ref)):
+        dl, dg = abs(l_m - l_r), abs(g_m - g_r) / g_r
+        log(f"# M14 step {s}: 2x2 mesh loss {l_m:.5f} / grad norm "
+            f"{g_m:.5f}, single device {l_r:.5f} / {g_r:.5f}: |loss diff| "
+            f"{dl:.2e} (bar {M14_BARS['loss']}), grad norm rel diff "
+            f"{dg:.2e} (bar {M14_BARS['grad_norm']})")
+        if not (np.isfinite(l_m) and dl <= M14_BARS["loss"]
+                and dg <= M14_BARS["grad_norm"]):
+            raise AssertionError(f"M14 step {s}: the mesh step and the "
+                                 f"single-device step disagree")
+    # the serve CLI and the three examples, on the card, each a process of
+    # its own, started together and run beside the elastic check
+    t1 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    clis = {name: subprocess.Popen(
+        [sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, args in m14_clis()}
+    n_leaves = m14_elastic(cfg, tc, res)
+    log(f"# M14 elastic: the 2x2 checkpoint restored without a mesh, "
+        f"{n_leaves} rank shards bit-equal (digests)")
+    shutil.rmtree(M14_DIR / "mesh", ignore_errors=True)
+    lines = {}
+    for name, p in clis.items():
+        out, err = p.communicate(timeout=300)
+        lines[name] = out.strip().splitlines()
+        log(f"# M14 {name}: " + " | ".join(lines[name][-3:]))
+        if p.returncode != 0 or not lines[name]:
+            raise AssertionError(f"M14 {name} failed:\n{out[-2000:]}\n"
+                                 f"{err[-2000:]}")
+    cli_s = time.perf_counter() - t1
+    line = lines["serve CLI"][-1]
+    if not line.startswith("served 8 requests"):
+        raise AssertionError(f"the serve CLI printed {line!r}")
+    if not lines["train_lm"][-1].startswith("done at step 3"):
+        raise AssertionError(f"torch_train_lm ended {lines['train_lm'][-1]!r}")
+    log(f"# M14 the CLI and the examples ran in {cli_s:.1f} s beside the "
+        f"elastic check")
+    log(f"# M14: {M14_WORLD} ranks trained in {wall:.1f} s (spawn, build, "
+        f"seeding, {M14_STEPS} steps and the checkpoint); the single-device "
+        f"reference took {ref_s:.1f} s; on {card()}")
+    e2e = {"config": cfg.name, "layers": L, "mesh": list(M14_MESH),
+           "global_batch": M14_TRAIN["global_batch"],
+           "seq_len": M14_TRAIN["seq_len"], "steps": M14_STEPS,
+           "ranks_wall_s": wall, "reference_s": ref_s,
+           "single_device": ref, "elastic_shards": n_leaves,
+           "serve_cli": line, "cli_and_examples_s": cli_s, "card": card(),
+           "ranks": [{k: v for k, v in rr.items() if k != "digests"}
+                     for rr in res]}
+    # the kernels at the shard's shape, bf16, for the timing phase: K4 and
+    # K5 on (2, 2048, 16 / 4, 64)
+    a5 = k5_training_args(torch.bfloat16, seed=3, shape=M14_SHARD)
+    a4 = {k: a5[k] for k in ("q", "k", "v", "causal", "window")}
+    captured = {"K4@m14_shard": ([], a4), "K5@m14_shard": ([], a5)}
+    return e2e, captured, {"m14_rank0": {"launches": res[0]["launches"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -4132,6 +4434,11 @@ def main() -> int:
     captured.update(train_captured)
     at("training")
     _free()
+    e2e_m14, m14_captured, m14_launches = phase_m14()
+    captured.update(m14_captured)
+    runs.update(m14_launches)
+    at("M14")
+    _free()
     runs["recurrent"], rec_captured, e2e_rec, trace_rec = phase_recurrent()
     captured.update(rec_captured)
     _free()
@@ -4185,6 +4492,7 @@ def main() -> int:
         {f: x for f, x in rr.items() if f != "finished"} for rr in v]
         for k, v in e2e_m10.items()}}), flush=True)
     print(json.dumps({"e2e_m11": e2e_m11}), flush=True)
+    print(json.dumps({"e2e_m14": e2e_m14}), flush=True)
     print(json.dumps({"e2e_whisper": e2e_whisper}), flush=True)
     print(json.dumps({"e2e_moe": e2e_moe}), flush=True)
     print(json.dumps({"e2e_vlm": e2e_vlm}), flush=True)

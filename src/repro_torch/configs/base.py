@@ -10,8 +10,8 @@ frontends are stubs, as in the JAX package: the batch carries their
 embeddings.  ServeConfig
 carries every field, so one set of keyword arguments builds either
 package's serve config.  TrainConfig is a copy of the
-JAX package's, field for field.  Mesh and shape configs arrive with the
-slices that need them.
+JAX package's, field for field, and ShapeSpec / SHAPES (the input-shape
+cells of launch/specs.py) copies of its own.
 """
 from __future__ import annotations
 
@@ -307,3 +307,24 @@ class ServeConfig:
         """Actual pool size: configured, or dense-equivalent + null page."""
         return self.num_pages or dense_equivalent_pages(
             self.max_batch, self.max_seq, self.page_size)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}

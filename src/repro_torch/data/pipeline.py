@@ -13,6 +13,18 @@ default_rng(step + 11), one frame per token) and the vlm family's patch
 embeddings (vision_embeds: frontend_tokens of them, N(0, 0.02^2) from
 default_rng(step + 7), ahead of seq_len - frontend_tokens text tokens, so
 a row is seq_len positions).
+
+On a mesh (mesh=, a launch/mesh.py DeviceMesh), device_batch gives each
+rank its rows of the global batch, split over the data-parallel axes
+("pod", "data", pod outermost) in mesh order and whole on the model
+axis, as the JAX package's device_batch places it.  The global batch is
+rank 0's, broadcast over the world from the device:
+SyntheticCorpus seeds each step with hash(("batch", step)), which Python
+salts per process, so each rank draws a different "global" batch; rank
+0's overwrites the others' before any is used, and every rank slices
+the same one.  The
+single-process batch is made as before, so that it equals the JAX
+package's in one process.
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ import torch
 
 from ..configs.base import ModelConfig, TrainConfig
 from ..models.model import resolve_device
+from ..sharding.rules import axis_names, dp_axes
 
 
 class SyntheticCorpus:
@@ -56,12 +69,14 @@ class SyntheticCorpus:
 
 class DataPipeline:
     """step -> device batch dict, with prefetch.  Runs on `device` (the GPU
-    unless device="cpu" is asked for)."""
+    unless device="cpu" is asked for); mesh: this rank's rows of each
+    global batch."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, device="cuda",
-                 prefetch: int = 2):
+                 prefetch: int = 2, mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg
+        self.mesh = mesh
         self.device = resolve_device(device, "DataPipeline")
         self.corpus = SyntheticCorpus(cfg.vocab_size, seed=tcfg.seed)
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
@@ -88,9 +103,36 @@ class DataPipeline:
 
     # ---- device placement ---------------------------------------------------
     def device_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:
+            return self._mesh_batch(step)
         return {k: torch.from_numpy(v).to(self.device, None if k == "tokens"
                                           else torch.bfloat16)
                 for k, v in self.host_batch(step).items()}
+
+    def _mesh_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """Rank 0's global batch, broadcast over the world (every rank
+        draws one, and rank 0's overwrites the others'); this rank's rows
+        of it."""
+        from ..sharding.shards import broadcast_world
+        mesh = self.mesh
+        full = {k: torch.from_numpy(v).to(
+            self.device, None if k == "tokens" else torch.bfloat16)
+            for k, v in self.host_batch(step).items()}
+        dp = dp_axes(axis_names(mesh)) or ()
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        n, c = 1, 0
+        for a in dp:
+            c, n = c * sizes[a] + coord[a], n * sizes[a]
+        B = self.tcfg.global_batch
+        if B % n:
+            raise ValueError(f"global batch {B} does not split over the "
+                             f"{n} data-parallel ranks of the mesh")
+        out = {}
+        for k in sorted(full):
+            broadcast_world(full[k])
+            out[k] = full[k][c * (B // n):(c + 1) * (B // n)].contiguous()
+        return out
 
     # ---- prefetch -------------------------------------------------------------
     def start(self, first_step: int):

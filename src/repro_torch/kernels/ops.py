@@ -18,6 +18,9 @@ Tensor-parallel serving (tp_mesh=, a launch/mesh.py ServeMesh of size >
 1): paged_flash_decode and batched_paged_prefill_attention run their
 kernel on this rank's head shard and all-gather the output over the
 mesh's group (_tp_head_sharded), as the JAX package's shard_map does.
+The sharded train step's attention (flash_attention(tp_mesh=),
+head_sharded_attention) runs K4 / K5 on the model axis's head shard the
+same way, with the gradients carried across the group.
 """
 from __future__ import annotations
 
@@ -74,13 +77,19 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     logit_softcap: float = 0.0,
                     scale: Optional[float] = None,
-                    impl: Optional[str] = None) -> torch.Tensor:
+                    impl: Optional[str] = None,
+                    tp_mesh=None) -> torch.Tensor:
     """Fused attention.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) (GQA
     allowed).  Returns o.  Where autograd needs a gradient of q, k or v,
     the call goes through _FlashAttention (K4 forward, K5 backward);
     otherwise - every serving caller, under torch.no_grad() - it is one
-    forward call and the kernel's lse is dropped."""
+    forward call and the kernel's lse is dropped.  tp_mesh (a ServeMesh
+    of size > 1 over the model axis): head_sharded_attention."""
     _check_impl(impl)
+    if _tp_active(tp_mesh):
+        return head_sharded_attention(
+            q, k, v, tp_mesh, causal=causal, window=window,
+            logit_softcap=logit_softcap, scale=scale, impl=impl)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, logit_softcap,
@@ -114,6 +123,19 @@ def shard_heads(t: torch.Tensor, tp_mesh) -> torch.Tensor:
     return t.narrow(2, tp_mesh.rank * n, n)
 
 
+def _gather_heads(o: torch.Tensor, tp_mesh) -> torch.Tensor:
+    """Every rank's (B, S, h, D) head block, all-gathered over the mesh's
+    group into (N B, S, h, D) and put back in rank order on the head axis
+    (the JAX all_gather's tiled=True): (B, S, N h, D)."""
+    import torch.distributed as dist
+    n = tp_mesh.size
+    B, S, h, D = o.shape
+    out = o.new_empty((n * B, S, h, D))
+    dist.all_gather_into_tensor(out, o.contiguous(), group=tp_mesh.group)
+    return out.view(n, B, S, h, D).permute(1, 2, 0, 3, 4) \
+        .reshape(B, S, n * h, D)
+
+
 def _tp_head_sharded(fn, tp_mesh, q, k_pages, v_pages, *rest):
     """Run a paged attention function on this rank's head shard and gather
     the full head axis back, the JAX package's _tp_head_sharded (shard_map
@@ -123,23 +145,109 @@ def _tp_head_sharded(fn, tp_mesh, q, k_pages, v_pages, *rest):
     The rank takes query heads [rank Hq / N, (rank + 1) Hq / N), the
     groups of its KV heads [rank Hkv / N, (rank + 1) Hkv / N), as a
     contiguous tensor, and fn computes their exact per-head result: per-
-    head attention never mixes heads.  The (B, S, Hq / N, D) outputs are
-    all-gathered over the mesh's group into (N B, S, Hq / N, D) and put
-    back in rank order on the head axis (the JAX all_gather's
-    tiled=True), so the result is the unsharded function's, bit for bit,
-    on every rank."""
-    import torch.distributed as dist
+    head attention never mixes heads.  The outputs are gathered in rank
+    order (_gather_heads), so the result is the unsharded function's, bit
+    for bit, on every rank."""
     n = tp_mesh.size
-    B, S, Hq, D = q.shape
+    Hq = q.shape[2]
     hkv = k_pages.shape[2]
     if Hq % n or (Hq // n) % hkv:
         raise ValueError(f"{Hq} query heads over {n} ranks do not group "
                          f"over this rank's {hkv} KV heads")
     o = fn(shard_heads(q, tp_mesh).contiguous(), k_pages, v_pages, *rest)
-    out = o.new_empty((n * B,) + tuple(o.shape[1:]))
-    dist.all_gather_into_tensor(out, o.contiguous(), group=tp_mesh.group)
-    return out.view((n,) + tuple(o.shape)).permute(1, 2, 0, 3, 4) \
-        .reshape(B, S, Hq, D)
+    return _gather_heads(o, tp_mesh)
+
+
+def _head_blocks(hq: int, hkv: int, n: int):
+    """Per rank r of n, (query heads, KV heads) it attends with, each a
+    (start, stop) range: query heads [r hq / n, (r + 1) hq / n) and the KV
+    heads of their groups - hkv / n of them when n divides hkv, else the
+    one KV head all its queries share (n a multiple of hkv).  Other splits
+    raise."""
+    if hq % n or not (hkv % n == 0 or n % hkv == 0):
+        raise ValueError(f"{hq} query / {hkv} KV heads do not split over "
+                         f"{n} ranks: the query heads must divide by the "
+                         f"rank count, and the KV heads divide it or be "
+                         f"divided by it")
+    hq_r, g = hq // n, hq // hkv
+    out = []
+    for r in range(n):
+        q0 = r * hq_r
+        k0, k1 = q0 // g, (q0 + hq_r - 1) // g + 1
+        out.append(((q0, q0 + hq_r), (k0, k1)))
+    return out
+
+
+class _HeadSplit(torch.autograd.Function):
+    """Forward: this rank's block [lo, hi) of the head axis (axis 2) of a
+    (B, S, H, D) tensor every rank of the group holds whole and equal.
+    Backward: every rank's gradient of its block, all-gathered over the
+    group and added at each rank's heads, in rank order - so every rank
+    ends with the same whole gradient.  Blocks that do not overlap (query
+    heads; KV heads when the ranks divide them) are the gathered values,
+    bit for bit; a KV head shared by several ranks gets the sum of their
+    parts, in rank order."""
+
+    @staticmethod
+    def forward(ctx, t, tp_mesh, blocks):
+        ctx.tp_mesh, ctx.blocks, ctx.heads = tp_mesh, blocks, t.shape[2]
+        lo, hi = blocks[tp_mesh.rank]
+        return t[:, :, lo:hi].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        n, (B, S, h, D) = ctx.tp_mesh.size, g.shape
+        parts = g.new_empty((n * B, S, h, D))
+        dist.all_gather_into_tensor(parts, g.contiguous(),
+                                    group=ctx.tp_mesh.group)
+        parts = parts.view(n, B, S, h, D)
+        full = g.new_zeros((B, S, ctx.heads, D))
+        shared = len(set(ctx.blocks)) < n
+        for r, (lo, hi) in enumerate(ctx.blocks):
+            if shared:
+                full[:, :, lo:hi] += parts[r]
+            else:
+                full[:, :, lo:hi] = parts[r]
+        return full, None, None
+
+
+class _HeadGather(torch.autograd.Function):
+    """Forward: every rank's (B, S, h, D) block gathered into the whole
+    head axis (_gather_heads).  Backward: this rank's block of the
+    gradient, which every rank holds whole and equal."""
+
+    @staticmethod
+    def forward(ctx, o, tp_mesh):
+        ctx.tp_mesh, ctx.h = tp_mesh, o.shape[2]
+        return _gather_heads(o, tp_mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.tp_mesh.rank * ctx.h
+        return g[:, :, lo:lo + ctx.h].contiguous(), None
+
+
+def head_sharded_attention(q, k, v, tp_mesh, **kw) -> torch.Tensor:
+    """flash_attention over this rank's head shard, the output gathered
+    back to every head: the attention of the sharded train step on the
+    model axis (tp_mesh: a launch/mesh.py ServeMesh over the model axis's
+    group).  q (B, S, Hq, D), k / v (B, S, Hkv, D) are whole and equal on
+    every rank (the projections stay replicated over the model axis).
+    The rank attends with query heads [r Hq / N, (r + 1) Hq / N) and
+    their KV heads (_head_blocks) through K4 forward and K5 backward
+    (_FlashAttention); _HeadSplit and _HeadGather carry the gradients
+    across the group, so q, k and v get the whole gradient on every rank.
+    Per-head attention never mixes heads, so the forward is the unsharded
+    call's per head.  The JAX package's constrain("bshd") prefers to
+    split the sequence over the model axis; the port splits heads because
+    K4 and K5 take no query offset, and a head shard's results are exact."""
+    n = tp_mesh.size
+    blocks = _head_blocks(q.shape[2], k.shape[2], n)
+    qs = _HeadSplit.apply(q, tp_mesh, [b[0] for b in blocks])
+    ks = _HeadSplit.apply(k, tp_mesh, [b[1] for b in blocks])
+    vs = _HeadSplit.apply(v, tp_mesh, [b[1] for b in blocks])
+    return _HeadGather.apply(flash_attention(qs, ks, vs, **kw), tp_mesh)
 
 
 def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,

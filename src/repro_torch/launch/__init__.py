@@ -1,2 +1,4 @@
-"""Launch layer of the port: the training entry point (train.py) and the
-serving mesh of tensor-parallel serving (mesh.py)."""
+"""Launch layer of the port: the training and serving entry points
+(train.py, serve.py), the meshes (mesh.py: training's production and
+debug meshes, tensor-parallel serving's serve mesh) and the cells' specs
+and shardings (specs.py)."""

@@ -1,19 +1,30 @@
-"""The serving mesh of tensor-parallel paged serving, on torch.distributed:
-the JAX package's launch/mesh.py make_serve_mesh.
+"""The meshes of the port on torch.distributed: the JAX package's
+launch/mesh.py.
 
-One process per rank (PyTorch's idiom): every rank of a tp_degree group
+make_production_mesh and make_debug_mesh (training) return a
+torch.distributed.device_mesh.DeviceMesh over the initialised world with
+the JAX axis names and shapes: (16, 16) ("data", "model") for one pod,
+(2, 16, 16) ("pod", "data", "model") across two, (n_data, n_model)
+("data", "model") for the debug mesh.  Rank r sits at the row-major
+coordinate of r, so each mesh dim's group lists its ranks in coordinate
+order.  One process per rank (PyTorch's idiom, torchrun): the world's
+size must be the mesh's, or they raise ValueError saying how to launch
+it - they never build a smaller mesh.  The device type is the caller's,
+"cuda" by default; DTensors on the mesh hold tensors of that type.
+
+make_serve_mesh (tensor-parallel serving, M10): every rank of a tp_degree group
 runs the same ServeEngine, and the mesh is the process group its head-
 sharded attention gathers over.  The group spans ranks [0, tp_degree) of
 the default group - the JAX "first tp_degree devices" - and is built once
 per degree, so the replicas of one degree in a fleet share it, as the JAX
-replicas share the first N devices.  make_production_mesh and
-make_debug_mesh (training meshes) are not ported yet.
+replicas share the first N devices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
+import torch
 import torch.distributed as dist
 
 
@@ -67,3 +78,39 @@ def make_serve_mesh(tp_degree: int) -> ServeMesh:
             f"rank {rank} is outside the tp_degree={tp_degree} serve group "
             f"(ranks 0-{tp_degree - 1} of a world of {world})")
     return ServeMesh(_GROUPS[tp_degree], rank, tp_degree)
+
+
+def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device_type: str):
+    from torch.distributed.device_mesh import DeviceMesh
+    n = 1
+    for s in shape:
+        n *= s
+    how = (f"run one process per rank, e.g. torchrun --nproc-per-node={n}, "
+           f"or call torch.distributed.init_process_group with world_size="
+           f"{n} first")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"a {shape} {names} mesh needs a torch.distributed "
+                         f"process group of {n} ranks, and none is "
+                         f"initialised ({how})")
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"a {shape} {names} mesh needs a world of {n} "
+                         f"ranks, the process group has {world} ({how})")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """16x16 = 256 chips per pod (data, model); 2x16x16 = 512 chips across
+    two pods (pod, data, model)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, device_type)
+
+
+def make_debug_mesh(n_data: int = 1, n_model: int = 1, *,
+                    device_type: str = "cuda"):
+    """An (n_data, n_model) (data, model) mesh over a world of n_data x
+    n_model ranks."""
+    return _mesh((n_data, n_model), ("data", "model"), device_type)

@@ -42,11 +42,15 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                  causal: bool = True, window: int = 0,
                  positions: Optional[torch.Tensor] = None,
                  kv_x: Optional[torch.Tensor] = None,
-                 impl: Optional[str] = None) -> torch.Tensor:
+                 impl: Optional[str] = None, tp_mesh=None) -> torch.Tensor:
     """Full-sequence attention (training / teacher forcing).  x: (B, S,
     D); positions (S,) default arange(S).  kv_x (B, S_kv, D): cross-
     attention, K and V from kv_x and no RoPE (whisper's decoder over its
-    encoder output, with causal=False).  Returns (B, S, D)."""
+    encoder output, with causal=False).  tp_mesh (the sharded train
+    step's model axis, a ServeMesh of size N > 1): the projections stay
+    replicated, and the attention runs on this rank's head shard
+    (ops.head_sharded_attention: K4 / K5), gathered back to every head.
+    Returns (B, S, D)."""
     q, k, v = _qkv(params, x, cfg, kv_x)
     B, S = x.shape[:2]
     if cfg.use_rope and kv_x is None:
@@ -55,7 +59,8 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
         q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
-                            logit_softcap=cfg.attn_logit_softcap, impl=impl)
+                            logit_softcap=cfg.attn_logit_softcap, impl=impl,
+                            tp_mesh=tp_mesh)
     return dense(params["wo"], o.reshape(B, S, cfg.n_heads * cfg.head_dim))
 
 

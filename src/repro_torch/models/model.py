@@ -310,7 +310,8 @@ class Model(nn.Module):
             return x, 0
         return torch.cat([v.to(x.dtype), x], 1), v.shape[1]
 
-    def _forward(self, params, batch, impl: Optional[str], remat: bool):
+    def _forward(self, params, batch, impl: Optional[str], remat: bool,
+                 tp_mesh=None):
         cfg = self.cfg
         if cfg.family == "audio":
             x = self._embed(params, batch["tokens"])
@@ -320,7 +321,9 @@ class Model(nn.Module):
             x, _ = self._assemble_input(params, batch)
             stack = {"hybrid": T.hybrid_forward,
                      "ssm": T.rwkv_forward}.get(cfg.family, T.stack_forward)
-            x, aux = stack(params["blocks"], x, cfg, impl=impl, remat=remat)
+            kw = {} if tp_mesh is None else {"tp_mesh": tp_mesh}
+            x, aux = stack(params["blocks"], x, cfg, impl=impl, remat=remat,
+                           **kw)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["tok"], x, cfg), aux
 
@@ -336,14 +339,22 @@ class Model(nn.Module):
         return self._forward(params, batch, impl, remat=False)
 
     def loss(self, params, batch, *, impl: Optional[str] = None,
-             remat: bool = False, aux_weight: float = 0.01):
+             remat: bool = False, aux_weight: float = 0.01, tp_mesh=None,
+             dp_sum=None):
         """Next-token cross-entropy of batch["tokens"] (B, S), with autograd
         on: the training loss.  batch may carry "labels" (B, S) in place of
         the tokens and a "loss_mask" (B, S) weighting each position; a vlm
         batch's image positions carry no loss (their logits are dropped).
-        remat=True recomputes each layer in the backward.  Returns (total
-        = ce + aux_weight * aux, {"ce", "aux"}), 0-d float32 tensors."""
-        logits, aux = self._forward(params, batch, impl, remat)
+        remat=True recomputes each layer in the backward.  The sharded
+        train step's (dense family): tp_mesh runs each attention on this
+        rank's head shard (attn_forward); dp_sum says the batch is this
+        rank's rows of a global batch split over data-parallel ranks, and
+        dp_sum(t) sums t over them in place - ce is then this rank's
+        share of the global mean, its nll sum over the global count of
+        positions (or mask weight), so the ranks' shares sum to the
+        global ce and their gradients to its gradient.  Returns (total =
+        ce + aux_weight * aux, {"ce", "aux"}), 0-d float32 tensors."""
+        logits, aux = self._forward(params, batch, impl, remat, tp_mesh)
         tokens = batch["tokens"]
         labels = batch.get("labels", tokens)
         # a vlm batch's image positions lead the logits and carry no loss
@@ -353,7 +364,15 @@ class Model(nn.Module):
         tgt = labels[:, 1:].long()
         nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
         mask = batch.get("loss_mask")
-        if mask is not None:
+        if dp_sum is not None:
+            if mask is not None:
+                mask = mask[:, 1:].float()
+                num, count = torch.sum(nll * mask), torch.sum(mask.detach())
+            else:
+                num = torch.sum(nll)
+                count = torch.tensor(float(nll.numel()), device=nll.device)
+            ce = num / torch.clamp_min(dp_sum(count), 1.0)
+        elif mask is not None:
             mask = mask[:, 1:].float()
             ce = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
         else:

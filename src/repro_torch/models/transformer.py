@@ -98,10 +98,12 @@ def _run(fn, remat: bool, *args):
 
 
 def _block_aux(p, x: torch.Tensor, cfg: ModelConfig, window: int,
-               impl: Optional[str], causal: bool = True):
-    """An attention block over x; returns (x, MoE aux or None)."""
+               impl: Optional[str], causal: bool = True, tp_mesh=None):
+    """An attention block over x; returns (x, MoE aux or None).  tp_mesh:
+    the attention on this rank's head shard (attn_forward)."""
     h = attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
-                     causal=causal, window=window, impl=impl)
+                     causal=causal, window=window, impl=impl,
+                     tp_mesh=tp_mesh)
     return _ffn_aux(p, x + h, cfg)
 
 
@@ -111,17 +113,19 @@ def _block(p, x: torch.Tensor, cfg: ModelConfig, window: int,
 
 
 def stack_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
-                  impl: Optional[str] = None, remat: bool = False):
+                  impl: Optional[str] = None, remat: bool = False,
+                  tp_mesh=None):
     """Causal self-attention blocks over the whole sequence x (B, S, D).
     remat=True keeps only each layer's input for the backward and runs the
-    layer again there (the attention forward included).  Returns (x, the
+    layer again there (the attention forward included).  tp_mesh: each
+    attention on this rank's head shard (attn_forward).  Returns (x, the
     layers' MoE aux losses summed in layer order, a float32 zero without
     MoE)."""
     aux = _zero_aux(x)
     for p, is_global in zip(_layers(blocks, cfg.n_layers),
                             _layer_windows(cfg)):
         x, a = _run(_block_aux, remat, p, x, cfg,
-                    _windowed(cfg, is_global), impl)
+                    _windowed(cfg, is_global), impl, True, tp_mesh)
         if a is not None:
             aux = aux + a
     return x, aux

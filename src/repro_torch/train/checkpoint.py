@@ -16,6 +16,15 @@ bits travel through int16 views of torch.bfloat16 (no ml_dtypes).
   with its shape, then copy them into the template's tensors in place
   (cast to each leaf's dtype), so a full-width state is not allocated
   twice.
+
+A sharded state (the sharded train step's DTensor leaves, on a mesh) is
+saved as its full tensors, in the same format: every rank gathers each
+leaf in turn (sharding/shards.py gather_full), rank 0 alone writes, and
+the ranks meet at a barrier before the call returns.  Restoring into a
+sharded template copies each rank's shard of the full array into its
+leaf, with the template's placements on the current mesh - so a
+checkpoint moves between meshes of any shape and no mesh at all (the
+JAX package's elastic restore).
 """
 from __future__ import annotations
 
@@ -57,6 +66,11 @@ def _decode(arr: np.ndarray, dtype_tag: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def _digest(arrays: Dict[str, np.ndarray]) -> str:
     h = hashlib.sha256()
     for k in sorted(arrays):
@@ -67,6 +81,31 @@ def _digest(arrays: Dict[str, np.ndarray]) -> str:
 
 def save_checkpoint(directory: str, step: int, state: Any,
                     keep: int = 3) -> str:
+    """Write `state` as step_<step>, keep the newest `keep`.  A sharded
+    state: every rank calls this; rank 0 writes the full tensors."""
+    if any(_is_dtensor(t) for _, t in leaves_with_paths(state)):
+        return _save_sharded(directory, step, state, keep)
+    return _save(directory, step, leaves_with_paths(state), keep)
+
+
+def _save_sharded(directory: str, step: int, state: Any, keep: int) -> str:
+    import torch.distributed as dist
+
+    from ..sharding.shards import gather_full
+    rank0 = dist.get_rank() == 0
+    pairs = []
+    for path, leaf in leaves_with_paths(state):
+        full = gather_full(leaf) if _is_dtensor(leaf) else leaf
+        if rank0:
+            pairs.append((path, full.detach().cpu()))
+        del full
+    out = _save(directory, step, pairs, keep) if rank0 else \
+        str(Path(directory) / f"step_{step}")
+    dist.barrier()
+    return out
+
+
+def _save(directory: str, step: int, pairs, keep: int) -> str:
     d = Path(directory)
     d.mkdir(parents=True, exist_ok=True)
     ck = d / f"step_{step}"
@@ -76,7 +115,7 @@ def save_checkpoint(directory: str, step: int, state: Any,
     tmp.mkdir()
 
     arrays, dtypes = {}, {}
-    for path, leaf in leaves_with_paths(state):
+    for path, leaf in pairs:
         arrays[path], dtypes[path] = _encode(leaf)
     npz_tmp = tmp / "arrays.npz"
     with open(npz_tmp, "wb") as f:
@@ -128,7 +167,8 @@ def _validate(ck: Path) -> bool:
 def restore_checkpoint(directory: str, step: int, state_template: Any
                        ) -> Tuple[Any, int]:
     """Restore `step` into the tensors of `state_template` (a state of the
-    same structure, e.g. a freshly initialised one), in place.  Returns
+    same structure, e.g. a freshly initialised one), in place: a DTensor
+    leaf takes this rank's shard of the saved array.  Returns
     (state_template, step).  Raises if the checkpoint fails validation or
     lacks a leaf of the template or has it in another shape; the template
     is then left untouched."""
@@ -153,7 +193,12 @@ def restore_checkpoint(directory: str, step: int, state_template: Any
         pairs.append((leaf, arr))
     with torch.no_grad():
         for leaf, arr in pairs:
-            leaf.copy_(arr.to(leaf.dtype))
+            if _is_dtensor(leaf):
+                from ..sharding.shards import local_slice
+                leaf.to_local().copy_(local_slice(
+                    arr, leaf.placements, leaf.device_mesh).to(leaf.dtype))
+            else:
+                leaf.copy_(arr.to(leaf.dtype))
     return state_template, step
 
 

@@ -7,6 +7,29 @@ from loss.backward() into each parameter's .grad, and the clip, the
 compression and the AdamW update overwrite the gradients, the parameters,
 m, v and the error-feedback buffers in place (optim/).  The state is
 returned for symmetry with the JAX step, holding the same tensors.
+
+On a mesh (make_train_step(model, tcfg, mesh=)), the state - params,
+AdamW m and v, ef - lives as DTensors with the placements of
+launch/specs.py train_cell (init_sharded_train_state), and one step
+does, with explicit collectives over the mesh's groups
+(sharding/shards.py):
+  (a) gathers the full parameters from the shards into the model's own
+      full-size tensors (all_gather_into_tensor over each sharded mesh
+      dim: ZeRO-3 with one gather of the whole tree a step);
+  (b) runs Model.loss and its backward on the rank's rows of the batch,
+      each attention on the rank's head shard of the model axis
+      (ops.head_sharded_attention: K4 / K5), the loss the rank's share of
+      the global mean (dp_sum: the position count summed over the
+      data-parallel ranks before dividing);
+  (c) sums the gradients over the data-parallel axes (all_reduce): the
+      gradient of the global mean, whole and equal on every rank;
+  (d) clips by the global norm of those whole gradients;
+  (e) runs int8 compression on the whole gradients with the whole error-
+      feedback buffer gathered (one max-abs scale a leaf, as on one
+      device), then keeps this rank's shard of ef;
+  (f) runs AdamW on the local shards of the gradients, params, m and v.
+The metrics are the global loss (the shares summed), its ce and aux, the
+grad norm and the lr, equal on every rank.
 """
 from __future__ import annotations
 
@@ -19,6 +42,9 @@ from ..models.model import Model
 from ..optim import (AdamWState, adamw_init, adamw_update,
                      clip_by_global_norm, compress_grads, cosine_schedule,
                      ef_init)
+from ..sharding.rules import axis_names, dp_axes
+from ..sharding.shards import (all_reduce_sum, as_dtensor, gather_full,
+                               local_shape, local_slice, shard)
 from ..tree import leaves, map_tree
 
 
@@ -45,7 +71,131 @@ def init_train_state(model: Model, seed: int, tcfg: TrainConfig
                       ef=ef_init(params) if tcfg.grad_compression else {})
 
 
-def make_train_step(model: Model, tcfg: TrainConfig):
+def init_sharded_train_state(model: Model, seed: int, tcfg: TrainConfig,
+                             shardings: TrainState) -> TrainState:
+    """init_train_state on a mesh: the model's own parameters seeded with
+    Model.init(seed) on every rank (the same values: the same seed) and
+    made trainable - they stay whole, the gather target of each step -
+    and a state of DTensors with `shardings` (train_cell's state
+    shardings): this rank's shard of each parameter, copied, and m, v and
+    ef zeros made at their shard's size."""
+    params = trainable(model.init(seed))
+
+    def zeros(t, sh):
+        return as_dtensor(torch.zeros(
+            local_shape(t.shape, sh.placements, sh.mesh),
+            dtype=torch.float32, device=t.device), sh)
+    with torch.no_grad():
+        return TrainState(
+            params=map_tree(lambda t, sh: shard(t.detach(), sh), params,
+                            shardings.params),
+            opt=AdamWState(
+                step=as_dtensor(torch.zeros((), dtype=torch.int32,
+                                            device=model.device),
+                                shardings.opt.step),
+                m=map_tree(zeros, params, shardings.opt.m),
+                v=map_tree(zeros, params, shardings.opt.v)),
+            ef=map_tree(zeros, params, shardings.ef)
+            if tcfg.grad_compression else {})
+
+
+def _local(tree):
+    return map_tree(lambda t: t.to_local(), tree)
+
+
+def _head_mesh(mesh):
+    """The model axis as a ServeMesh (group, rank, size) for the head-
+    sharded attention; None without one or at size 1."""
+    from ..launch.mesh import ServeMesh
+    if "model" not in axis_names(mesh):
+        return None
+    i = mesh.mesh_dim_names.index("model")
+    if mesh.shape[i] == 1:
+        return None
+    return ServeMesh(mesh.get_group("model"), mesh.get_local_rank("model"),
+                     mesh.shape[i])
+
+
+def make_mesh_grads(model: Model, tcfg: TrainConfig, mesh):
+    """Steps (a)-(c) of the sharded step: grads(state, batch) gathers the
+    full parameters into the model's own tensors, runs the loss and its
+    backward on this rank's rows and head shard, and sums the gradients
+    over the data-parallel axes.  Returns (the model's parameter tree,
+    its .grad filled: the whole gradient of the global loss, the same on
+    every rank; {"loss", "ce", "aux"}: the global values)."""
+    remat = tcfg.remat != "none"
+    dp = dp_axes(axis_names(mesh))
+    tp_mesh = _head_mesh(mesh)
+    full = model.params
+    dp_sum = lambda t: all_reduce_sum(t, mesh, dp)
+
+    def grads(state: TrainState, batch: Dict):
+        with torch.no_grad():
+            for f, p in zip(leaves(full), leaves(state.params)):
+                gather_full(p, out=f)
+        for f in leaves(full):
+            f.grad = None
+        loss, metrics = model.loss(full, batch, remat=remat,
+                                   tp_mesh=tp_mesh, dp_sum=dp_sum)
+        loss.backward()
+        for f in leaves(full):
+            if f.grad is None:
+                f.grad = torch.zeros_like(f)
+            dp_sum(f.grad)
+        out = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+               "aux": metrics["aux"].detach()}
+        for k in ("loss", "ce"):
+            dp_sum(out[k])
+        return full, out
+
+    return grads
+
+
+def _make_mesh_step(model: Model, tcfg: TrainConfig, mesh):
+    from torch.distributed.tensor import DTensor
+    grads_of = make_mesh_grads(model, tcfg, mesh)
+
+    def train_step(state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        full, out = grads_of(state, batch)
+        grads = map_tree(lambda f: f.grad, full)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        if tcfg.grad_compression == "int8":
+            with torch.no_grad():
+                ef_full = map_tree(gather_full, state.ef)
+                grads, ef_full = compress_grads(grads, ef_full)
+                for e, ew in zip(leaves(state.ef), leaves(ef_full)):
+                    e.to_local().copy_(local_slice(ew, e.placements,
+                                                   e.device_mesh))
+                del ef_full
+        g_local = map_tree(lambda g, p: local_slice(g, p.placements,
+                                                    p.device_mesh),
+                           grads, state.params)
+        step = state.opt.step
+        lr = cosine_schedule(step.to_local(), base_lr=tcfg.learning_rate,
+                             warmup=tcfg.warmup_steps, total=tcfg.total_steps)
+        _, opt = adamw_update(
+            g_local, AdamWState(step.to_local(), _local(state.opt.m),
+                                _local(state.opt.v)),
+            _local(state.params), lr=lr, b1=tcfg.b1, b2=tcfg.b2,
+            weight_decay=tcfg.weight_decay)
+        new_step = DTensor.from_local(opt.step, step.device_mesh,
+                                      step.placements, run_check=False)
+        for f in leaves(full):
+            f.grad = None
+        out.update(grad_norm=gnorm, lr=lr)
+        return TrainState(state.params, AdamWState(new_step, state.opt.m,
+                                                   state.opt.v),
+                          state.ef), out
+
+    return train_step
+
+
+def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
+    """The train step; on `mesh` the sharded step over DTensor state (the
+    module docstring)."""
+    if mesh is not None:
+        return _make_mesh_step(model, tcfg, mesh)
     remat = tcfg.remat != "none"
 
     def train_step(state: TrainState, batch: Dict

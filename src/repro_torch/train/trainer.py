@@ -11,8 +11,18 @@ process only - ROADMAP §3.)
 
 Straggler mitigation (single-host analogue): a step-time watchdog tracks a
 robust moving estimate; steps slower than `straggler_factor` x median are
-counted.  A mesh and state shardings (data / tensor parallel training)
-come with ROADMAP M14 (M10 shards serving only).
+counted.
+
+On a mesh (mesh=, a launch/mesh.py DeviceMesh, with state_shardings=,
+launch/specs.py train_cell's state shardings), every rank of the world
+runs the same Trainer: the state lives as DTensors with those
+placements (init_sharded_train_state), each step is the sharded step of
+train/train_step.py over this rank's rows of rank 0's global batch
+(DataPipeline(mesh=)), and checkpoints hold the full tensors, written by
+rank 0 and restored onto whatever mesh the restoring Trainer has.  The
+mesh path takes the dense family only: the other families' losses
+(the MoE aux loss, a product of batch means, is no mean over shards) and
+their sharded forwards are ROADMAP §1 item 3.
 """
 from __future__ import annotations
 
@@ -27,7 +37,8 @@ from ..data.pipeline import DataPipeline
 from ..kernels._checks import BACKWARD_HEAD_DIMS
 from ..models import build_model
 from .checkpoint import restore_latest, save_checkpoint
-from .train_step import init_train_state, make_train_step
+from .train_step import (init_sharded_train_state, init_train_state,
+                         make_train_step)
 
 
 def check_backward(cfg: ModelConfig, device) -> None:
@@ -44,28 +55,48 @@ def check_backward(cfg: ModelConfig, device) -> None:
             f"{BACKWARD_HEAD_DIMS} (ROADMAP §2)")
 
 
+def check_mesh(cfg: ModelConfig, device, mesh, state_shardings) -> None:
+    """The mesh path's preconditions, before anything is built: a mesh
+    and its state shardings together, on the device type the mesh holds,
+    and the dense family."""
+    if (mesh is None) != (state_shardings is None):
+        raise ValueError("a mesh and its state_shardings (launch/specs.py "
+                         "train_cell) come together")
+    if mesh is None:
+        return
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training {cfg.name} (family {cfg.family!r}) on a mesh is "
+            f"ROADMAP §1 item 3: the mesh trainer takes the dense family")
+    if torch.device(device).type != mesh.device_type:
+        raise ValueError(f"the mesh holds {mesh.device_type} tensors, the "
+                         f"Trainer's device is {device}")
+
+
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, device="cuda",
                  fail_at_step: Optional[int] = None, mesh=None,
                  state_shardings=None):
-        if mesh is not None or state_shardings is not None:
-            raise NotImplementedError(
-                "sharded training over a mesh is not ported yet (ROADMAP "
-                "M14): the port trains on one device")
+        check_mesh(cfg, device, mesh, state_shardings)
         check_backward(cfg, device)
         self.cfg = cfg
         self.tcfg = tcfg
         self.model = build_model(cfg, device)
-        self.pipeline = DataPipeline(cfg, tcfg, device=self.model.device)
+        self.pipeline = DataPipeline(cfg, tcfg, device=self.model.device,
+                                     mesh=mesh)
         self.fail_at_step = fail_at_step          # test hook: simulated crash
         self.metrics_log = []
         self._step_times = []
         self.straggler_factor = 3.0
         self.straggler_events = 0
-        self.train_step = make_train_step(self.model, tcfg)
+        self.train_step = make_train_step(self.model, tcfg, mesh=mesh)
 
         # ---- restore-or-init: the fresh state is the restore template -----
-        self.state = init_train_state(self.model, tcfg.seed, tcfg)
+        if mesh is None:
+            self.state = init_train_state(self.model, tcfg.seed, tcfg)
+        else:
+            self.state = init_sharded_train_state(self.model, tcfg.seed,
+                                                  tcfg, state_shardings)
         restored = restore_latest(tcfg.checkpoint_dir, self.state)
         if restored is not None:
             self.state, self.start_step = restored

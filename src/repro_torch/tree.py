@@ -45,3 +45,17 @@ def map_tree(fn: Callable, tree, *rest):
                                      *(getattr(r, f) for r in rest))
                              for f in tree._fields))
     return fn(tree, *rest)
+
+
+def map_with_paths(fn: Callable, tree, prefix: str = ""):
+    """fn(path, leaf) applied leaf by leaf, the paths as leaves_with_paths
+    names them; the result has the tree's structure."""
+    if isinstance(tree, dict):
+        return {k: map_with_paths(fn, tree[k],
+                                  f"{prefix}/{k}" if prefix else str(k))
+                for k in tree}
+    if _is_namedtuple(tree):
+        return type(tree)(*(map_with_paths(
+            fn, getattr(tree, f), f"{prefix}/.{f}" if prefix else "." + f)
+            for f in tree._fields))
+    return fn(prefix, tree)

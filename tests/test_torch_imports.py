@@ -46,18 +46,45 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                     "repro_torch.kernels.ops",
                                     "repro_torch.models.transformer",
                                     "repro_torch.launch.mesh",
-                                    "torch_tp_worker"])
+                                    "torch_tp_worker",
+                                    "repro_torch.sharding.rules",
+                                    "repro_torch.sharding.shards",
+                                    "repro_torch.launch.specs",
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.launch.train",
+                                    "torch_mesh_worker"])
 def test_module_alone_imports_no_jax(module):
     """The modules that keep copies of the JAX package's framework-free
     code (the energy model, the tracer, the fleet router, whisper's
     config), those that hold the sequence-parallel decode, the encoder-
-    decoder stacks and the serve mesh, and the tensor-parallel tests'
-    worker (tests/torch_tp_worker.py, the module each spawned rank runs)
-    import, each on its own, no jax and nothing of the JAX package."""
+    decoder stacks and the serve mesh, the tensor-parallel tests' worker
+    (tests/torch_tp_worker.py, the module each spawned rank runs), the
+    sharding rules, the launchers and cell specs, and the mesh tests'
+    worker (tests/torch_mesh_worker.py) import, each on its own, no jax
+    and nothing of the JAX package."""
     res = _run(f"import sys, {module}\n"
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib', 'repro.')) "
                "or m == 'repro'))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("example", ["torch_quickstart", "torch_serve_lm",
+                                     "torch_train_lm"])
+def test_example_imports_no_jax(example):
+    """The port's examples (examples/torch_*.py), loaded as modules
+    without running main(), import no jax and nothing of the JAX
+    package."""
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('ex', "
+            f"'examples/{example}.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro'))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=""),
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"
 

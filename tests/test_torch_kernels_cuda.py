@@ -27,7 +27,11 @@ to 16), K2's bits alone against inside a batch and from call to call, and
 the refusal of misaligned bf16 operands by K1 and K2; K1 (chunk and
 verify lanes) and K2 on a head shard of granite-3-2b's 32 / 8 heads of 64
 at tp 2 and 4, bit-equal to the same heads of the full call (tensor-
-parallel serving); K3 at the edges of
+parallel serving); the head-split autograd pair of the sharded train
+step (ops.head_sharded_attention: K4 forward and K5 backward on each
+rank's 16 / 4 of granite-3-2b's 32 / 8 heads, two ranks of a gloo world
+on the card) against the unsharded call, o and the gradients of q, k and
+v bit-equal on every rank; K3 at the edges of
 its splits (lengths 0, 1, around one and two splits, the whole strip and
 past it, a strip that is no split multiple, a window that starts inside a
 split, groups of 1 to 16 at head dims 64, 80 and 128), its bits alone
@@ -75,6 +79,12 @@ inputs' absolute values, the magnitude of the summed terms - and in
 bfloat16 within one rounding step of the output, 2**-7 x |y|, plus that
 float32 bar.
 """
+import json
+import os
+import subprocess
+import sys
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -270,6 +280,85 @@ def test_head_shard_is_bit_equal_to_the_full_heads(dev, lane, dtype, tp):
         want = full[:, :, r * hq:(r + 1) * hq]
         assert torch.equal(got, want), \
             (r, float((got.float() - want.float()).abs().max()))
+
+
+HEADS_TP = 2
+HEADS_JOIN_S = 300
+
+
+@pytest.fixture(scope="module")
+def head_split_ranks(dev, tmp_path_factory):
+    """The head-split cases run by HEADS_TP ranks on the card, each a
+    process of its own (tests/torch_mesh_worker.py, a gloo world: NCCL
+    refuses two ranks on one device): the inputs, and each rank's o and
+    gradients."""
+    d = str(tmp_path_factory.mktemp("heads"))
+    rng = np.random.default_rng(5)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    cases = {f"{dt}": dict(q=f(1, 256, 32, 64), k=f(1, 256, 8, 64),
+                           v=f(1, 256, 8, 64), do=f(1, 256, 32, 64))
+             for dt in ("f32", "bf16")}
+    np.savez(os.path.join(d, "inputs.npz"),
+             **{f"{c}.{k}": v for c, a in cases.items() for k, v in a.items()})
+    with open(os.path.join(d, "jobs.json"), "w") as fh:
+        json.dump({"cuda": True, "jobs": [
+            {"name": "heads", "kind": "heads", "cases": sorted(cases),
+             "inputs": os.path.join(d, "inputs.npz")}]}, fh)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=f"{root}/src:{root}/tests")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_mesh_worker.py"),
+         str(r), str(HEADS_TP), os.path.join(d, "store"),
+         os.path.join(d, "jobs.json"), d], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(HEADS_TP)]
+    t0 = time.monotonic()
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(
+                timeout=max(t0 + HEADS_JOIN_S - time.monotonic(), 1))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail(f"the head-split ranks did not finish in "
+                        f"{HEADS_JOIN_S} s")
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    ranks = []
+    for r in range(HEADS_TP):
+        with np.load(os.path.join(d, f"rank{r}.npz")) as z:
+            ranks.append({k: z[k] for k in z.files})
+    return cases, ranks
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_head_split_autograd_pair_matches_the_unsharded_call(
+        dev, head_split_ranks, dtype):
+    """The sharded train step's attention on the model axis: each of two
+    ranks runs K4 on its 16 query / 4 KV heads of granite-3-2b's 32 / 8
+    (G 4, head dim 64, causal over 256 positions) and K5 on the same
+    shard; the gather's backward takes the rank's head slice of do, the
+    split's backward all-gathers the head slices of dq, dk and dv.  Each
+    rank's o and gradients equal the unsharded ops.flash_attention's
+    through autograd bit for bit: a shard runs the same per-head work (no
+    KV head is split between ranks) and the pair only moves data."""
+    cases, ranks = head_split_ranks
+    a = cases[dtype]
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v = (torch.from_numpy(a[x]).to(dev, dt).requires_grad_(True)
+               for x in ("q", "k", "v"))
+    n4, n5 = flash_attention.launches, flash_backward.launches
+    o = ops.flash_attention(q, k, v, causal=True)
+    o.backward(torch.from_numpy(a["do"]).to(dev, dt))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_backward.launches) == \
+        (n4 + 1, n5 + 1)
+    want = {"o": o, "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    for r, got in enumerate(ranks):
+        for name, w in want.items():
+            g = got[f"{dtype}.{name}"]
+            w = w.detach().float().cpu().numpy()
+            assert np.array_equal(g, w), \
+                (r, name, float(np.abs(g - w).max()))
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])

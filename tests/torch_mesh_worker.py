@@ -1,0 +1,192 @@
+"""One rank of a gloo world for tests/test_torch_mesh_train.py and
+tests/test_torch_sharding.py: the port's sharded training (ROADMAP M14a),
+one process per rank.
+
+    python tests/torch_mesh_worker.py RANK WORLD STORE JOBS OUT_DIR
+
+The rank joins the world through a FileStore, runs the jobs the test
+wrote to the JSON file JOBS, and writes what each gave to
+OUT_DIR/rank<r>.json (arrays to rank<r>.npz).  The tests start each rank
+as a process of its own (subprocess, so that every rank can have its own
+PYTHONHASHSEED), with torch and the port only: no jax.
+
+Jobs:
+  slices   each case's local shard of arange(numel).reshape(shape) on the
+           mesh, by sharding/shards.py local_slice and by DTensor's own
+           distribute_tensor
+  batch    DataPipeline(mesh=).device_batch(step) on the mesh, with this
+           rank's hash of ("batch", step)
+  train    Trainer(mesh=, state_shardings=train_cell(...)[2][0]) from the
+           checkpoint the test put in its directory, on the test's saved
+           batches (each rank's host_batch reads them; rank 0's reach
+           the others by broadcast): the whole gradient of the first step (the
+           mesh step's (a)-(c), before the clip), then the Trainer's
+           steps; the Trainer's last checkpoint holds the parameters
+  restore  a Trainer on this job's mesh restores the checkpoint of
+           another directory and saves it again in its own
+  refuse   what the mesh path refuses: a non-dense family, a mesh whose
+           size is not the world's
+  heads    (card) ops.head_sharded_attention on the rank's head shard of
+           the saved q, k and v, K4 forward and K5 backward: o and the
+           whole gradients of q, k, v
+"""
+import datetime
+import json
+import os
+import sys
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _mesh(job, device_type="cpu"):
+    from repro_torch.launch.mesh import make_debug_mesh
+    d, m = job["mesh"]
+    return make_debug_mesh(d, m, device_type=device_type)
+
+
+def _slices_job(job, arrays):
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding.rules import NamedSharding
+    from repro_torch.sharding.shards import local_slice
+    from repro_torch.launch.mesh import _mesh as build_mesh
+    mesh = build_mesh(tuple(job["mesh"]), tuple(job["names"]), "cpu")
+    for i, (shape, spec) in enumerate(job["cases"]):
+        spec = tuple(tuple(e) if isinstance(e, list) else e for e in spec)
+        full = torch.arange(int(np.prod(shape))).reshape(shape)
+        sh = NamedSharding(mesh, spec)
+        arrays[f"{job['name']}.{i}"] = local_slice(
+            full, sh.placements, mesh).numpy()
+        arrays[f"{job['name']}.{i}.dtensor"] = distribute_tensor(
+            full, mesh, sh.placements).to_local().numpy()
+    return {"coord": mesh.get_coordinate()}
+
+
+def _cfgs(job):
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    cfg = get_smoke_config(job["arch"]).replace(dtype=job["dtype"])
+    return cfg, TrainConfig(**job["tcfg"])
+
+
+def _batch_job(job, arrays):
+    from repro_torch.data import DataPipeline
+    cfg, tcfg = _cfgs(job)
+    pipe = DataPipeline(cfg, tcfg, device="cpu", mesh=_mesh(job))
+    got = pipe.device_batch(job["step"])
+    arrays[f"{job['name']}.tokens"] = got["tokens"].numpy()
+    if dist.get_rank() == 0:
+        arrays[f"{job['name']}.host"] = pipe.host_batch(job["step"])["tokens"]
+    return {"hash": hash(("batch", job["step"]))}
+
+
+def _trainer(job, mesh):
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import train_cell
+    from repro_torch.train.trainer import Trainer
+    cfg, tcfg = _cfgs(job)
+    shape = ShapeSpec("train", tcfg.seq_len, tcfg.global_batch, "train")
+    shardings = train_cell(cfg, shape, mesh, tcfg)[2][0]
+    return Trainer(cfg, tcfg, device="cpu", mesh=mesh,
+                   state_shardings=shardings)
+
+
+def _train_job(job, arrays):
+    from repro_torch.train.train_step import make_mesh_grads
+    from repro_torch.tree import leaves_with_paths
+    mesh = _mesh(job)
+    tr = _trainer(job, mesh)
+    with np.load(job["batches"]) as z:
+        saved = {int(k): z[k] for k in z.files}
+    tr.pipeline.host_batch = lambda step: {"tokens": saved[step]}
+    full, m = make_mesh_grads(tr.model, tr.tcfg, mesh)(
+        tr.state, tr.pipeline.device_batch(tr.start_step))
+    if dist.get_rank() == 0 or job.get("all_grads"):
+        for path, p in leaves_with_paths(full):
+            arrays[f"{job['name']}.grad.{path}"] = p.grad.float().numpy()
+    out = tr.run(job["steps"])
+    return {"start_step": tr.start_step, "first_loss": float(m["loss"]),
+            "metrics": out["metrics"], "final_step": out["final_step"]}
+
+
+def _restore_job(job, arrays):
+    mesh = _mesh(job)
+    src = job["tcfg"]["checkpoint_dir"]
+    dst = job["save_dir"]
+    tr = _trainer(job, mesh)            # restores the newest of src
+    from repro_torch.train.checkpoint import save_checkpoint
+    save_checkpoint(dst, tr.start_step - 1, tr.state)
+    return {"start_step": tr.start_step, "src": src}
+
+
+def _refuse_job(job, arrays):
+    from repro_torch.launch.mesh import make_debug_mesh
+    out = {}
+    try:
+        _trainer(dict(job, arch=job["other_arch"]), _mesh(job))
+        out["family"] = None
+    except NotImplementedError as e:
+        out["family"] = str(e)
+    try:
+        make_debug_mesh(*job["bad_mesh"], device_type="cpu")
+        out["mesh"] = None
+    except ValueError as e:
+        out["mesh"] = str(e)
+    return out
+
+
+def _heads_job(job, arrays):
+    """(card) the head-split autograd pair around K4 / K5 on cuda:0."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ServeMesh
+    r, n = dist.get_rank(), dist.get_world_size()
+    tp = ServeMesh(dist.group.WORLD, r, n)
+    with np.load(job["inputs"]) as z:
+        for case in job["cases"]:
+            a = {k: torch.from_numpy(z[f"{case}.{k}"]).cuda()
+                 for k in ("q", "k", "v", "do")}
+            dtype = torch.bfloat16 if "bf16" in case else torch.float32
+            q, k, v = (a[x].to(dtype).requires_grad_(True)
+                       for x in ("q", "k", "v"))
+            o = ops.head_sharded_attention(q, k, v, tp, causal=True)
+            o.backward(a["do"].to(dtype))
+            for name, t in (("o", o), ("dq", q.grad), ("dk", k.grad),
+                            ("dv", v.grad)):
+                arrays[f"{case}.{name}"] = t.detach().float().cpu().numpy()
+    return {"cases": job["cases"]}
+
+
+JOBS = {"slices": _slices_job, "batch": _batch_job, "train": _train_job,
+        "restore": _restore_job, "refuse": _refuse_job, "heads": _heads_job}
+
+
+def run(rank: int, world: int, store: str, job_file: str, out_dir: str):
+    torch.set_num_threads(1)
+    with open(job_file) as f:
+        spec = json.load(f)
+    if spec.get("cuda"):
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        results, arrays = {}, {}
+        for job in spec["jobs"]:
+            try:
+                results[job["name"]] = JOBS[job["kind"]](job, arrays)
+            except Exception:           # the test reports the rank's trace
+                results[job["name"]] = {"error": traceback.format_exc()}
+                raise
+            finally:
+                with open(os.path.join(out_dir, f"rank{rank}.json"),
+                          "w") as f:
+                    json.dump(results, f)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    run(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
