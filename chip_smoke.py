@@ -8,7 +8,8 @@ Phases (each raises on failure, so the run exits non-zero):
   1. device and build   the card's name and power limit (nvidia-smi), then
                         every CUDA kernel of repro_torch (K1-K7) built from
                         src/repro_torch/csrc with nvcc for sm_90a, one nvcc
-                        per source, all started together.
+                        per source, all started together (when each
+                        finished printed; no K4 bf16 tile may spill).
   2. kernel parity      the hand-written kernels against their plain
                         PyTorch versions on the card: the edge cases of
                         tests/test_torch_kernels_cuda.py (run with pytest),
@@ -23,8 +24,14 @@ Phases (each raises on failure, so the run exits non-zero):
                         heads of 128, causal) and K4 / K5 at the M14
                         shard's (2 x 2048, 16 / 4 heads of 64), in
                         float32 and bfloat16; the test file also holds K3 and K4 at
-                        head dim 80 and the edge cases of the scans K6 and
-                        K7 (their full-width shapes among them).
+                        head dim 80, K4 at every tile its source
+                        instantiates, and the edge cases of the scans K6
+                        and K7 (their full-width shapes among them).  Then
+                        K4 in bf16 at every instantiated tile at each of
+                        K4_SHAPES (PERF.md §6's K4 shapes) against its
+                        plain version and timed: one line a shape with
+                        the tile core/hopper_mapping.py's chooser picks,
+                        the (64, 64) tile and the fastest.
   3. the slices         serving: granite-3-2b at full width (40 layers,
                         bf16, seeded weights) serves 8 requests, 32 new
                         tokens each, with check_invariants() after every
@@ -173,7 +180,22 @@ Phases (each raises on failure, so the run exits non-zero):
                         restored without a mesh, every rank's shard of
                         every leaf bit-equal (digests); the serve CLI and
                         the three examples (examples/torch_*.py) once each
-                        on the card.
+                        on the card.  In the same ranks, on the trained
+                        weights: launch/specs.py prefill_cell's step (4 x
+                        2048, K4 on the rank's heads) and two serve_cell
+                        decode runs of 16 teacher-forced steps, each filled
+                        by its prefill cell - 4 lanes to 4096 positions in
+                        the default layout (K3 on the rank's heads) and 1
+                        lane to 32768 with the sequence over the data axis
+                        (ops.seq_parallel_decode) - against the single-
+                        device prefill and decode of the restored
+                        checkpoint: logits within MODEL_BARS, argmax equal
+                        or a near tie, cache shards within M14_CACHE_BAR
+                        of the slices, K3 / K4 launches a rank.  Then
+                        launch/dryrun.py's record of the train cell (rank
+                        0, meta device, fake world): its state collectives
+                        equal each rank's a step, its argument bytes
+                        printed beside torch.cuda.memory_allocated().
                         sequence-parallel decode (M11): the serving
                         granite-3-2b, batch 1, prefills a 32768-token
                         prompt into a dense cache (2.7 GB of K/V); on
@@ -332,6 +354,7 @@ from repro_torch.kernels import build, flash_attention  # noqa: E402
 from repro_torch.kernels import flash_backward, flash_decode  # noqa: E402
 from repro_torch.kernels import mamba2_scan, rwkv6_scan  # noqa: E402
 from repro_torch.kernels import ops, paged_prefill, ref  # noqa: E402
+from repro_torch.launch import cost  # noqa: E402
 from repro_torch.models import build_model, moe  # noqa: E402
 from repro_torch.models.moe_a2a import moe_ffn_a2a_local  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -460,10 +483,12 @@ TRAIN_BARS = {"loss": 5e-3, "grad_norm": 2e-3}
 # the recurrent run: zamba2-2.7b and rwkv6-1.6b at full width, bf16; each
 # model's forward over a 2 x 2048 batch, then 6 requests served on the
 # dense recurrent-state cache with stepwise admission (4 slots: the last
-# two requests reuse freed slots)
+# two requests reuse freed slots); the prompts are half the 678 tokens of
+# PRs 14-27, to keep the script near 900 s beside M14's serving cells
+# (the stepwise admission is one decode step a prompt token, four runs)
 REC_ARCHS = ("zamba2-2.7b", "rwkv6-1.6b")
 REC_BATCH = (2, 2048)
-REC_PROMPTS = (24, 57, 96, 130, 171, 200)
+REC_PROMPTS = (12, 28, 48, 65, 85, 100)
 REC_NEW = 16
 REC_SCFG = dict(max_batch=4, max_seq=512, max_new_tokens=REC_NEW,
                 paged=False, chunked=False)
@@ -518,7 +543,10 @@ def card() -> str:
 def phase_device_and_build():
     print(card(), flush=True)
     secs, logs = build.build_all()
-    log(f"# built {sorted(logs)} in {secs:.1f} s (nvcc, sm_90a, in parallel)")
+    log(f"# built {sorted(logs)} in {secs:.1f} s (nvcc, sm_90a, in parallel; "
+        f"each done at " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in sorted(build.nvcc_seconds.items(),
+                                                key=lambda kv: kv[1])) + ")")
     for name, text in logs.items():
         report = build.ptxas_report(text)
         regs = [r["registers"] for r in report.values()]
@@ -528,9 +556,16 @@ def phase_device_and_build():
             f"bytes static smem, "
             f"{sum(r['spill_bytes'] for r in report.values())} bytes of "
             f"spills")
-        # the head-dim-256 instantiations (gemma3-4b) one by one: none may
-        # spill
+        # the head-dim-256 instantiations (gemma3-4b) and every tile of
+        # K4's bf16 kernel (core/hopper_mapping.py K4_TILES) one by one:
+        # none may spill
         for fn, r in report.items():
+            if "flash_attention_bf16_kernel" in fn:
+                log(f"#     K4 bf16 tile {fn[fn.index('kernelI') + 7:][:30]}: "
+                    f"{r['registers']} registers, {r['spill_bytes']} bytes "
+                    f"of spills")
+                if r["spill_bytes"]:
+                    raise AssertionError(f"{fn} spills")
             if "Li256E" in fn:
                 log(f"#     head dim 256: {fn[:90]}: {r['registers']} "
                     f"registers, {r['spill_bytes']} bytes of spills, "
@@ -813,6 +848,73 @@ def phase_kernel_parity():
         log(f"# M14 shard shape {str(dtype)[6:]}: K4 {M14_SHARD} causal max "
             f"abs err {e4:.3e}, K5 {e5:.3e} (bars as above)")
     torch.cuda.synchronize()
+
+
+# K4's shapes in PERF.md §6's tables (B, S, Hq, Hkv, D, causal, window):
+# the training steps of granite-3-2b (32 / 8 heads of 64) and olmo-1b (16
+# of 128), granite-8b's forward, gemma3-4b's prompt and training step
+# (head dim 256, a 1024 window), the whisper encoder (full mask), llava's
+# image prefill (56 / 8 heads of 128) and the M14 rank's head shard
+K4_SHAPES = {"granite-3-2b training": (4, 2048, 32, 8, 64, True, 0),
+             "olmo-1b training": (4, 2048, 16, 16, 128, True, 0),
+             "granite-8b": (1, 2048, 32, 8, 128, True, 0),
+             "gemma3-4b": (1, 1904, 8, 4, 256, True, 1024),
+             "gemma3-4b training": (4, 2048, 8, 4, 256, True, 1024),
+             "whisper encoder": (16, 1500, 8, 8, 64, False, 0),
+             "llava image prefill": (4, 832, 56, 8, 128, True, 0),
+             "M14 shard": (2, 2048, 16, 4, 64, True, 0)}
+
+
+def phase_k4_tiles():
+    """K4 in bf16 at every tile its source instantiates
+    (core/hopper_mapping.py K4_TILES), at each K4_SHAPES shape: held
+    against the plain version (the bf16 bar of the terms, lse 1e-5) and
+    timed (time_ms); one line a shape with the chooser's pick, (64, 64)
+    and the fastest tile.  Returns {shape: {...}} for the K4 row."""
+    from repro_torch.core.hopper_mapping import K4_TILES
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device="cuda")
+    out = {}
+    for name, (B, S, Hq, Hkv, D, causal, window) in K4_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(7)
+        rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda"
+                                         ).to(torch.bfloat16)
+        q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        kw = dict(causal=causal, window=window)
+        o_r, lse_r = flash_attention.reference(q, k, v, **kw)
+        terms = flash_attention.reference(q, k, v.abs(), **kw)[0]
+        pick = flash_attention.tile(D, S, torch.bfloat16)
+        nbytes, flops = cost.k4_work(q.shape, k.shape, 2, causal, window)
+        row = {"shape": [B, S, Hq, Hkv, D], "causal": causal,
+               "window": window, "chooser": list(pick),
+               "bound_ms": max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S)
+               * 1e3, "tiles": {}}
+        for bq, bkv in K4_TILES[D]:
+            call = lambda: flash_attention.flash_attention_fwd(
+                q, k, v, block_q=bq, block_kv=bkv, **kw)
+            o, lse = call()
+            err = compare(o, o_r, torch.bfloat16, terms)
+            compare(lse, lse_r, torch.float32)
+            row["tiles"][f"{bq}x{bkv}"] = {"ms": time_ms(call, flush),
+                                           "max_abs_err": err}
+        del o_r, lse_r, terms
+        t = row["tiles"]
+        fast = min(t, key=lambda x: t[x]["ms"])
+        chosen = f"{pick[0]}x{pick[1]}"
+        row["fastest"] = fast
+        row["chooser_over_fastest"] = t[chosen]["ms"] / t[fast]["ms"]
+        log(f"# K4 tiles at {name} {tuple(row['shape'])}"
+            + ("" if causal else " full")
+            + (f" window {window}" if window else "")
+            + f": chooser {chosen} {t[chosen]['ms']:.4f} ms, 64x64 "
+            f"{t['64x64']['ms']:.4f} ms, fastest {fast} {t[fast]['ms']:.4f} "
+            f"ms (chooser / fastest {row['chooser_over_fastest']:.3f}; bound "
+            f"{row['bound_ms']:.4f} ms); errors "
+            + ", ".join(f"{k} {v['max_abs_err']:.1e}" for k, v in t.items()))
+        out[name] = row
+    del flush
+    torch.cuda.synchronize()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1758,7 +1860,8 @@ def phase_m10(model, params, runs):
 def _k5_weight(q, k, v, o, lse, do, causal=True, window=0, **_):
     """The call's attended (query, key) pairs: under gemma3-4b's windows
     a global layer's backward is the largest."""
-    return q.shape[0] * _pairs(q.shape[1], k.shape[1], causal, window)
+    return q.shape[0] * cost.attention_pairs(q.shape[1], k.shape[1], causal,
+                                             window)
 
 
 def train_check(model, params, batch):
@@ -1939,6 +2042,20 @@ M14_STEPS = 2
 # package's bars for the same comparison (tests/test_distributed.py:95-97),
 # |loss difference| and |grad norm difference| / grad norm
 M14_BARS = {"loss": 2e-2, "grad_norm": 0.05}
+# the serving cells (launch/specs.py prefill_cell, serve_cell) on the same
+# mesh and the trained weights: name -> (cache positions S, batch B,
+# prompt length P); the prefill cell at 4 x 2048 (the default layout: K4
+# on the rank's 16 / 4 heads), then two decode cells, each filled by its
+# prefill cell and decoding M14_DECODE_STEPS teacher-forced steps to S:
+# B 4 in the default layout (K3 on the rank's heads) and B 1 with the
+# sequence over the data axis (ops.seq_parallel_decode, no kernel)
+M14_SERVE = {"prefill": (2048, 4, 2048), "decode": (4096, 4, 4080),
+             "decode_seq_data": (32768, 1, 32752)}
+M14_DECODE_STEPS = 16
+# each rank's cache shard against the single-device cache's slice: bf16
+# K / V of scale ~5 from GEMMs of other shapes (a rank's 2 rows against
+# 4), the bar of the dense prefill's logits
+M14_CACHE_BAR = MODEL_BARS["dense prefill"]
 
 
 def m14_setup():
@@ -1962,6 +2079,106 @@ def bit_digest(t: torch.Tensor) -> list:
     bits = x.view({2: torch.int16, 4: torch.int32}[x.element_size()]).long()
     w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
     return [int(bits.sum()), int((bits * w).sum())]
+
+
+def m14_serve_inputs(cfg):
+    """Each M14_SERVE run's numpy-seeded prompts (B, P) and teacher-forced
+    decode tokens (steps, B, 1), the same in every process."""
+    rng = np.random.default_rng(300)
+    return {name: {"prompt": rng.integers(0, cfg.vocab_size, (B, P),
+                                          dtype=np.int32),
+                   "tokens": rng.integers(0, cfg.vocab_size,
+                                          (M14_DECODE_STEPS, B, 1),
+                                          dtype=np.int32)}
+            for name, (S, B, P) in M14_SERVE.items()}
+
+
+def m14_serve(cfg, params, mesh, rank: int) -> dict:
+    """A rank's M14_SERVE runs through the cells' steps: each run's
+    prefill cell step fills its cache shard (the first with the state's
+    parameter DTensors, gathered inside the step; the others with the
+    tree gathered once), a decode run then takes its serve cell's step
+    M14_DECODE_STEPS times.  Logits and cache shards to
+    M14_DIR/serve<rank>.pt; returns each run's layout, row and cache
+    bounds, walls and kernel launches."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import prefill_cell, serve_cell
+    from repro_torch.sharding.shards import (gather_full, local_shape,
+                                             local_slice, slice_bounds)
+    dev = torch.device("cuda")
+    local = lambda a, sh: local_slice(torch.from_numpy(a).to(dev),
+                                      sh.placements, mesh).contiguous()
+    spec = lambda sh: [list(e) if isinstance(e, tuple) else e
+                       for e in sh.spec]
+    full, out, arrays = None, {}, {}
+    for name, (S, B, P) in M14_SERVE.items():
+        inp = m14_serve_inputs(cfg)[name]
+        pstep, pargs, psh = prefill_cell(
+            cfg, ShapeSpec(name, S, B, "prefill"), mesh)
+        cache = {n: torch.zeros(local_shape(pargs[2][n].shape,
+                                            psh[2][n].placements, mesh),
+                                dtype=pargs[2][n].dtype, device=dev)
+                 for n in ("k", "v")}
+        rec = {"cache_spec": spec(psh[2]["k"]),
+               "rows": slice_bounds((B, P), psh[1]["tokens"].placements,
+                                    mesh),
+               "cache_bounds": slice_bounds(pargs[2]["k"].shape,
+                                            psh[2]["k"].placements, mesh)}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, lens = pstep(
+            params if full is None else full,
+            {"tokens": local(inp["prompt"], psh[1]["tokens"])}, cache)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        logs = [logits.float()]
+        if full is None:
+            full = map_tree(gather_full, params)
+        if name != "prefill":
+            dstep, _, dsh = serve_cell(cfg, ShapeSpec(name, S, B, "decode"),
+                                       mesh)
+            if spec(dsh[1]["k"]) != rec["cache_spec"]:
+                raise AssertionError(f"M14 {name}: the prefill and decode "
+                                     f"cells lay the cache out differently")
+            lens = local(np.full((B,), P, np.int32), dsh[3])
+            t0 = time.perf_counter()
+            for i in range(M14_DECODE_STEPS):
+                logits, cache = dstep(full, cache,
+                                      local(inp["tokens"][i], dsh[2]), lens)
+                lens = lens + 1
+                logs.append(logits.float())
+            torch.cuda.synchronize()
+            rec["decode_step_s"] = (time.perf_counter() - t0) \
+                / M14_DECODE_STEPS
+        rec["launches"] = read_counts()
+        arrays[name] = {"logits": torch.stack(logs).cpu(),
+                        "k": cache["k"].cpu(), "v": cache["v"].cpu()}
+        out[name] = rec
+        del cache, logs
+    torch.save(arrays, M14_DIR / f"serve{rank}.pt")
+    return out
+
+
+def m14_dryrun() -> dict:
+    """launch/dryrun.py's record of the M14 train cell (2x2, M14_LAYERS
+    layers, 4 x 2048, remat full) in a fake world of four, this process
+    standing for rank 0: run after the gloo world is gone."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg, _, _ = m14_setup()
+    dryrun.fake_world(M14_WORLD)
+    try:
+        mesh = make_debug_mesh(*M14_MESH, device_type="cpu")
+        B, S = M14_TRAIN["global_batch"], M14_TRAIN["seq_len"]
+        return dryrun.run_cell(cfg.name, "m14", False, cfg=cfg,
+                               shape=ShapeSpec("m14", S, B, "train"),
+                               mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def m14_rank(rank: int, world: int):
@@ -1993,6 +2210,7 @@ def m14_rank(rank: int, world: int):
                      state_shardings=train_cell(cfg, shape, mesh, tcfg)[2][0])
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        placed = torch.cuda.memory_allocated()
         tr.pipeline.host_batch = lambda s: batches[s]
         comm = []
         batch_of, step_of = tr.pipeline.device_batch, tr.train_step
@@ -2022,10 +2240,13 @@ def m14_rank(rank: int, world: int):
                "metrics": out["metrics"], "final_step": out["final_step"],
                "launches": launches, "comm_per_step": comm,
                "peak_mem_gb": peak / 1e9, "build_s": build_s,
-               "digests": digests}
-        (M14_DIR / f"rank{rank}.json").write_text(json.dumps(res))
+               "allocated_after_state": placed, "digests": digests}
+        res["serve"] = m14_serve(cfg, tr.state.params, mesh, rank)
     finally:
         dist.destroy_process_group()
+    if rank == 0:
+        res["dryrun"] = m14_dryrun()
+    (M14_DIR / f"rank{rank}.json").write_text(json.dumps(res))
 
 
 def m14_reference(cfg, tc, batches) -> list:
@@ -2046,7 +2267,9 @@ def m14_reference(cfg, tc, batches) -> list:
 def m14_elastic(cfg, tc, res):
     """The checkpoint the 2x2 mesh saved, restored without a mesh (the
     single-device Trainer restores the newest in its directory): every
-    rank's shard of every leaf has the bits the rank held."""
+    rank's shard of every leaf has the bits the rank held.  Then the
+    serving runs' single-device reference on those weights
+    (m14_serve_reference).  Returns (shards checked, the reference)."""
     tr = Trainer(cfg, tc("mesh"))
     if tr.start_step != M14_STEPS:
         raise AssertionError(f"M14: restored at step {tr.start_step}")
@@ -2061,9 +2284,101 @@ def m14_elastic(cfg, tc, res):
                 raise AssertionError(f"M14 elastic: rank {rr['rank']}'s "
                                      f"{path} differs after the restore")
             n += 1
+    ref = m14_serve_reference(tr.model, tr.state.params, cfg)
     del tr, leaves_
     _free()
-    return n
+    return n, ref
+
+
+def m14_serve_reference(model, params, cfg) -> dict:
+    """M14_SERVE's runs on one device: Model.prefill of the whole batch,
+    then the decode steps (seq_parallel=True where the mesh run shards
+    the sequence: the naive decode, as the JAX package's serve cell)."""
+    dev = model.device
+    out = {}
+    with torch.no_grad():
+        for name, (S, B, P) in M14_SERVE.items():
+            inp = m14_serve_inputs(cfg)[name]
+            cache = model.init_cache(B, S)
+            logits, cache, lens = model.prefill(
+                params, {"tokens": torch.from_numpy(inp["prompt"]).to(dev)},
+                cache)
+            logs = [logits.float()]
+            if name != "prefill":
+                for i in range(M14_DECODE_STEPS):
+                    logits, cache = model.decode_step(
+                        params, torch.from_numpy(inp["tokens"][i]).to(dev),
+                        lens, cache, seq_parallel=name == "decode_seq_data")
+                    lens = lens + 1
+                    logs.append(logits.float())
+            out[name] = {"logits": torch.stack(logs).cpu(),
+                         "k": cache["k"].cpu(), "v": cache["v"].cpu()}
+            del cache
+    return out
+
+
+def _cut(t: torch.Tensor, bounds) -> torch.Tensor:
+    for dim, start, size in bounds:
+        t = t.narrow(dim, start, size)
+    return t
+
+
+def m14_serve_check(ref: dict, res) -> dict:
+    """Every rank's serving runs against the single-device reference:
+    logits of its rows within MODEL_BARS (prefill: the dense prefill's,
+    decode: the dense or the seq-parallel decode step's), each step's
+    argmax equal or a near tie (the reference's logit of the rank's token
+    within SERVED_TOKEN_BAR of its max), its cache shard within
+    M14_CACHE_BAR of the reference cache's slice, and its kernel
+    launches: K4 a layer for each prefill, K3 a layer a step in the
+    default layout's decode, nothing else."""
+    L = M14_LAYERS
+    want_launches = {
+        "prefill": {"K4": L}, "decode": {"K4": L, "K3": L * M14_DECODE_STEPS},
+        "decode_seq_data": {"K4": L}}
+    summary = {}
+    for rr in res:
+        got = torch.load(M14_DIR / f"serve{rr['rank']}.pt")
+        for name, rec in rr["serve"].items():
+            want, mine = ref[name], got[name]
+            r0, r1 = next(((st, st + sz) for d, st, sz in rec["rows"]
+                           if d == 0), (0, want["logits"].shape[1]))
+            wl = want["logits"][:, r0:r1]
+            gl = mine["logits"]
+            errs = (gl - wl).abs().amax(dim=(1, 2, 3)).tolist()
+            bars = [MODEL_BARS["dense prefill"]] + [MODEL_BARS[
+                "seq-parallel decode step" if name == "decode_seq_data"
+                else "dense decode step"]] * (len(errs) - 1)
+            g_tok, w_tok = gl.argmax(-1), wl.argmax(-1)
+            gap = (wl.amax(-1) - wl.gather(-1, g_tok[..., None])[..., 0])
+            flips = int((g_tok != w_tok).sum())
+            cache_err = max(float((mine[n].float() - _cut(
+                want[n], rec["cache_bounds"]).float()).abs().max())
+                for n in ("k", "v"))
+            launches = {k: v for k, v in rec["launches"].items() if v}
+            log(f"# M14 {name} rank {rr['rank']} (cache spec "
+                f"{rec['cache_spec']}, rows {r0}-{r1}): logits max |diff| "
+                f"{max(errs):.4f} (bars {bars[0]} / {bars[-1]}), "
+                f"{flips} argmax flips of {g_tok.numel()} (largest gap "
+                f"{float(gap.max()):.4f}, bar {SERVED_TOKEN_BAR}), cache "
+                f"shard {cache_err:.4f} (bar {M14_CACHE_BAR}); prefill "
+                f"{rec['prefill_s']:.3f} s"
+                + (f", decode {rec['decode_step_s'] * 1e3:.1f} ms a step"
+                   if "decode_step_s" in rec else "")
+                + f"; launches {launches}")
+            if any(e > b for e, b in zip(errs, bars)) \
+                    or float(gap.max()) > SERVED_TOKEN_BAR \
+                    or cache_err > M14_CACHE_BAR:
+                raise AssertionError(f"M14 {name}: rank {rr['rank']} "
+                                     f"disagrees with one device")
+            if launches != want_launches[name]:
+                raise AssertionError(f"M14 {name}: rank {rr['rank']} "
+                                     f"launched {launches}, want "
+                                     f"{want_launches[name]}")
+            summary.setdefault(name, []).append(dict(
+                rec, rank=rr["rank"], logits_max_abs_diff=max(errs),
+                argmax_flips=flips, cache_max_abs_diff=cache_err))
+    return summary
 
 
 def m14_clis():
@@ -2089,7 +2404,11 @@ def phase_m14():
     launches K4 2 x layers and K5 layers times a step, on its 16 / 4 head
     shard, and nothing else; the checkpoint saved on the mesh restores
     without one with the same bits; the serve CLI and the three examples
-    run once each (m14_clis), beside that restore.  Four
+    run once each (m14_clis), beside that restore.  The ranks then serve
+    M14_SERVE's runs through the prefill and serve cells' steps (M14b,
+    m14_serve), held against one device on the restored weights
+    (m14_serve_check), and rank 0's dry run of the train cell counts the
+    state collectives each rank made a step (m14_dryrun).  Four
     ranks on one card share its SMs and HBM, and gloo moves the
     collectives through host memory: the step times are not a speed of
     four cards.  Returns (e2e, captured)."""
@@ -2153,9 +2472,31 @@ def phase_m14():
     clis = {name: subprocess.Popen(
         [sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for name, args in m14_clis()}
-    n_leaves = m14_elastic(cfg, tc, res)
+    n_leaves, serve_ref = m14_elastic(cfg, tc, res)
     log(f"# M14 elastic: the 2x2 checkpoint restored without a mesh, "
         f"{n_leaves} rank shards bit-equal (digests)")
+    serving = m14_serve_check(serve_ref, res)
+    del serve_ref
+    # the dry run of the same train cell (rank 0, on the meta device in a
+    # fake world) counts the collectives every rank made a step (the
+    # pipeline's broadcast of the batch lies outside the step)
+    dry = res[0]["dryrun"]
+    for rr in res:
+        step = {k: v for k, v in rr["comm_per_step"][-1].items()
+                if k != "broadcast"}
+        log(f"# M14 dry run against rank {rr['rank']}: state collectives "
+            f"{dry['collectives_state']} / the card's {step}; arguments "
+            f"{dry['memory']['argument_size_bytes'] / 1e9:.3f} GB a rank, "
+            f"torch.cuda.memory_allocated() "
+            f"{rr['allocated_after_state'] / 1e9:.3f} GB once the state "
+            f"was placed (with the model's full tensors, the gather "
+            f"target)")
+        if step != dry["collectives_state"]:
+            raise AssertionError("M14: the dry run's collectives differ "
+                                 "from the card's")
+    log(f"# M14 dry run: {dry['cost']['flops']:.4e} FLOPs, all collectives "
+        f"{dry['collectives']}, kernels {dry['kernels']}, traced in "
+        f"{dry['trace_s']} s")
     shutil.rmtree(M14_DIR / "mesh", ignore_errors=True)
     lines = {}
     for name, p in clis.items():
@@ -2182,7 +2523,9 @@ def phase_m14():
            "ranks_wall_s": wall, "reference_s": ref_s,
            "single_device": ref, "elastic_shards": n_leaves,
            "serve_cli": line, "cli_and_examples_s": cli_s, "card": card(),
-           "ranks": [{k: v for k, v in rr.items() if k != "digests"}
+           "serving": serving, "dryrun": dry,
+           "ranks": [{k: v for k, v in rr.items()
+                      if k not in ("digests", "serve", "dryrun")}
                      for rr in res]}
     # the kernels at the shard's shape, bf16, for the timing phase: K4 and
     # K5 on (2, 2048, 16 / 4, 64)
@@ -2614,7 +2957,7 @@ def train_flops(cfg, n_params, B, S):
     """Model FLOPs of one training step: 6 x params x tokens, plus 12 x
     batch x heads x head_dim x the attended (query, key) pairs of every
     layer under its window (S (S + 1) / 2 a causal layer)."""
-    pairs = sum(_pairs(S, S, True, T._windowed(cfg, g))
+    pairs = sum(cost.attention_pairs(S, S, True, T._windowed(cfg, g))
                 for g in T._layer_windows(cfg))
     return 6 * n_params * B * S + 12 * B * cfg.n_heads * cfg.head_dim * pairs
 
@@ -3954,68 +4297,39 @@ def time_ms(fn, flush: torch.Tensor, n: int = 25, warm: int = 3) -> float:
 
 
 def k1_work(a):
-    """Bytes this call must move and FLOPs its data needs: q and the output
-    once, each row's K/V positions from its first query's window to its
-    cursor once; 4*D*Hq FLOPs per (live query, attended key) pair."""
+    """launch/cost.py k1_work on this call's rows: (bytes, FLOPs)."""
     q = a["q"]
-    K, S, Hq, D = q.shape
-    Hkv = a["k_pages"].shape[2]
-    el = q.element_size()
-    window = a.get("window", 0)
-    lo = lambda p: max(p - window + 1, 0) if window > 0 else 0
     offs, tls = a["q_offsets"].cpu().numpy(), a["true_lens"].cpu().numpy()
-    pairs, kv_pos = 0, 0
-    for off, tl in zip(offs.tolist(), tls.tolist()):
-        n = max(tl - off, 0)
-        pairs += sum(min(off + s + 1, tl) - lo(off + s) for s in range(n))
-        kv_pos += tl - lo(off) if n else 0
-    nbytes = 2 * q.numel() * el + 2 * kv_pos * Hkv * D * el
-    return nbytes, 4 * D * Hq * pairs
+    pairs, kv_pos = cost.chunk_rows_work(
+        list(zip(offs.tolist(), tls.tolist())), a.get("window", 0))
+    return cost.k1_work(q.shape, a["k_pages"].shape[2], q.element_size(),
+                        pairs, kv_pos)
 
 
 def k2_work(a):
-    """q and the output once, each sequence's visible K/V positions once."""
+    """launch/cost.py decode_work on the lanes' visible positions."""
     q = a["q"]
-    B, _, Hq, D = q.shape
-    Hkv = a["k_pages"].shape[2]
-    el = q.element_size()
     lens, window = a["cache_len"].long(), a.get("window", 0)
     pos = int((lens.clamp(max=window) if window > 0 else lens).sum())
-    return 2 * q.numel() * el + 2 * pos * Hkv * D * el, 4 * D * Hq * pos
+    return cost.decode_work(q.shape, a["k_pages"].shape[2],
+                            q.element_size(), pos)
 
 
 def k3_work(a):
-    """q and the output once, each lane's visible K/V positions once."""
-    q = a["q"]
-    B, _, Hq, D = q.shape
-    S, Hkv = a["k_cache"].shape[1], a["k_cache"].shape[2]
-    el = q.element_size()
+    """launch/cost.py decode_work on the lanes' visible positions."""
+    q, kc = a["q"], a["k_cache"]
     lens = a["cache_len"]
-    lens = lens.cpu().numpy() if torch.is_tensor(lens) else [lens] * B
-    window = a.get("window", 0)
-    pos = sum(min(int(n), S) - (max(0, int(n) - window) if window > 0
-                                else 0) for n in lens)
-    return 2 * q.numel() * el + 2 * pos * Hkv * D * el, 4 * D * Hq * pos
+    lens = lens.cpu().numpy() if torch.is_tensor(lens) \
+        else [lens] * q.shape[0]
+    pos = cost.decode_positions(lens, kc.shape[1], a.get("window", 0))
+    return cost.decode_work(q.shape, kc.shape[2], q.element_size(), pos)
 
 
 def k4_work(a):
-    """q, K and V read once, o and the fp32 lse written once; 4*D*Hq FLOPs
-    per (query, attended key) pair under the call's mask."""
-    q, k = a["q"], a["k"]
-    B, Sq, Hq, D = q.shape
+    """launch/cost.py k4_work: (bytes, FLOPs) under the call's mask."""
     kw = _k4_kw(a)
-    pairs = _pairs(Sq, k.shape[1], kw["causal"], kw["window"])
-    el = q.element_size()
-    nbytes = (2 * q.numel() + 2 * k.numel()) * el + 4 * B * Sq * Hq
-    return nbytes, 4 * D * Hq * B * pairs
-
-
-def _pairs(sq, skv, causal, window):
-    """(query, attended key) pairs of one head under the mask."""
-    s = np.arange(sq)
-    hi = np.minimum(s + 1, skv) if causal or window > 0 else np.full(sq, skv)
-    lo = np.maximum(0, s - window + 1) if window > 0 else 0
-    return int(np.maximum(hi - lo, 0).sum())
+    return cost.k4_work(a["q"].shape, a["k"].shape, a["q"].element_size(),
+                        kw["causal"], kw["window"])
 
 
 def _sdpa(q, k, v, **kw):
@@ -4117,16 +4431,10 @@ def _window_mask(sq, skv, window, device):
 
 
 def k5_work(a):
-    """q, k, v, o, do and the fp32 lse read once, dq, dk, dv written once;
-    five products of 2*D FLOPs (s = q k, dp = do v, dv += p do, dq += ds
-    k, dk += ds q) per (query head, attended key) pair under the mask."""
-    q, k = a["q"], a["k"]
-    B, Sq, Hq, D = q.shape
+    """launch/cost.py k5_work: (bytes, FLOPs) under the call's mask."""
     kw = _k5_kw(a)
-    pairs = _pairs(Sq, k.shape[1], kw["causal"], kw["window"])
-    el = q.element_size()
-    nbytes = (4 * q.numel() + 4 * k.numel()) * el + 4 * B * Sq * Hq
-    return nbytes, 10 * D * Hq * B * pairs
+    return cost.k5_work(a["q"].shape, a["k"].shape, a["q"].element_size(),
+                        kw["causal"], kw["window"])
 
 
 def k5_library(a):
@@ -4176,43 +4484,16 @@ def scan_compare(call, a, dtype) -> float:
 
 
 def k6_work(a):
-    """x, dt, A, B, C read once, y written once; the chunked form's
-    products over 128-step chunks, the causal half of each chunk's pairs
-    (C B^T masked, times dt x), the carry-in C h and the state update
-    (dt x)^T B: 2 (T (T + 1) / 2 (N + P) + 2 T N P) FLOPs per chunk, head
-    and sequence."""
-    x, Bm = a["x"], a["Bm"]
-    B, S, H, P = x.shape
-    N = Bm.shape[-1]
-    el = x.element_size()
-    nbytes = 2 * x.numel() * el + 2 * Bm.numel() * el \
-        + (a["dt"].numel() + a["A"].numel()) * 4
-    T = 128
-    flops = 0
-    for c0 in range(0, S, T):
-        t = min(T, S - c0)
-        flops += 2 * (t * (t + 1) // 2 * (N + P) + 2 * t * N * P)
-    return nbytes, flops * B * H
+    """launch/cost.py k6_work over 128-step chunks (K6's CHUNK)."""
+    x = a["x"]
+    return cost.k6_work(x.shape, a["Bm"].shape[-1], x.element_size(),
+                        mamba2_scan.CHUNK)
 
 
 def k7_work(a):
-    """r, k, v, w, u read once, y written once; the chunked form's products
-    over 32-step chunks: the strictly lower pairs (r e^cw)(k e^-cw)^T times
-    v, the diagonal (r u k) v, the carry-in r S and the state update k^T v:
-    T (T - 1) (K + V) + 3 T K + 4 T K V FLOPs per chunk, head and
-    sequence."""
-    r, v = a["r"], a["v"]
-    B, S, H, K = r.shape
-    V = v.shape[-1]
-    el = r.element_size()
-    nbytes = (2 * r.numel() + 2 * v.numel()) * el \
-        + (a["w"].numel() + a["u"].numel()) * 4
-    T = 32
-    flops = 0
-    for c0 in range(0, S, T):
-        t = min(T, S - c0)
-        flops += t * (t - 1) * (K + V) + 3 * t * K + 4 * t * K * V
-    return nbytes, flops * B * H
+    """launch/cost.py k7_work (products over 32-step chunks)."""
+    r = a["r"]
+    return cost.k7_work(r.shape, a["v"].shape[-1], r.element_size())
 
 
 # key -> (name, call, work, library, source, TPU kernel, run that feeds
@@ -4408,7 +4689,8 @@ def main() -> int:
                            f"{time.perf_counter() - t0:.1f} s")
     phase_device_and_build()
     phase_kernel_parity()
-    at("build and kernel parity")
+    k4_tiles = phase_k4_tiles()
+    at("build, kernel parity and K4's tiles")
     runs, captured, mp = phase_slice()
     m6_runs, m6_captured = phase_m6(*mp)
     runs.update(m6_runs)
@@ -4460,6 +4742,8 @@ def main() -> int:
     captured.update(vlm_captured)
     at("vlm")
     rows = phase_times(runs, captured)
+    next(r for r in rows if r["name"].startswith("K4"))["tile_sweep"] = \
+        k4_tiles
     at("times")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)

@@ -27,6 +27,15 @@ ARCH_MODULES: Dict[str, str] = {
 }
 
 
+# the architectures the dry run covers (the JAX package's ASSIGNED_ARCHS):
+# every registered one but opt-6.7b and qwen-7b
+ASSIGNED_ARCHS = [
+    "llava-next-34b", "granite-3-2b", "gemma3-4b", "granite-8b", "olmo-1b",
+    "whisper-base", "zamba2-2.7b", "qwen3-moe-235b-a22b", "olmoe-1b-7b",
+    "rwkv6-1.6b",
+]
+
+
 def _module(arch: str):
     try:
         name = ARCH_MODULES[arch]
@@ -43,6 +52,7 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).get_smoke_config()
 
 
-__all__ = ["ARCH_MODULES", "ModelConfig", "ServeConfig", "TrainConfig",
+__all__ = ["ARCH_MODULES", "ASSIGNED_ARCHS", "ModelConfig", "ServeConfig",
+           "TrainConfig",
            "dense_equivalent_pages", "get_config", "get_smoke_config",
            "pages_for_tokens"]

@@ -19,17 +19,25 @@
 // one write of o, thousands of FLOPs per byte at S = 1904 - far above the
 // ~295 FLOP/byte where an H100 stops being memory bound.  So the products
 // have to run on the tensor cores, and the work the mask removes is cut:
-// a block holds 64 flattened query rows (row r = s * G + g, the G query
+// a block holds BM flattened query rows (row r = s * G + g, the G query
 // heads of one KV head side by side, as the TPU kernel's GQA index map
 // groups them, so one K/V tile serves all G heads) and walks the KV range
 // its rows can see - nothing past Skv, nothing past the tile's last query
 // position when masked (above the diagonal), nothing left of the tile's
-// first query position's window - in tiles of 64 positions.  Grid: one
+// first query position's window - in tiles of BN positions.  Grid: one
 // block per (sequence b, KV head h, tile of rows).
+//
+// The tile (BM, BN) of the bf16 kernel is a template parameter, three
+// instantiations a head dim, chosen by the caller: the TPU kernel sizes
+// its blocks with the paper's latency-balanced chooser
+// (core/tpu_mapping.py), and the port's wrapper asks the Hopper
+// counterpart (repro_torch/core/hopper_mapping.py choose_block_config,
+// whose K4_TILES lists the instantiations below) when it is given no
+// tile.  A tile that is not instantiated is refused, never replaced.
 //
 // The C entry point dispatches on the dtype:
 //  * bfloat16 runs on the tensor cores (csrc/mma_bf16.cuh), FA-2 style:
-//    4 warps, each owning 16 rows, read q's mma.sync A fragments by
+//    BM / 16 warps, each owning 16 rows, read q's mma.sync A fragments by
 //    ldmatrix from shared memory, where q stays for the whole walk, at
 //    each k-step of every tile (fewer registers than holding them; the
 //    A/B times are in PERF.md); K and V tiles stay bf16 in shared memory
@@ -54,10 +62,12 @@
 //    what the tight float32 checks run (the recurrent float32 forward at
 //    head dim 80 among them), not a fallback: a bf16 launch that fails
 //    returns its error.
-// Head dim 256 (gemma3-4b) keeps the bf16 tile's shape, (256 + 8) x (64 +
-// 4 x 64) x 2 B = 169 KB of shared memory, one block an SM: o's 128 fp32
+// Head dim 256 (gemma3-4b): the (64, 64) tile takes (256 + 8) x (64 + 4 x
+// 64) x 2 B = 169 KB of shared memory, one block an SM: o's 128 fp32
 // accumulators a thread and the scores' 32 fit in the 255 registers a
-// thread may have because q is not held in registers at any head dim.
+// thread may have because q is not held in registers at any head dim; a
+// KV tile of 128 (64 score registers) would not fit, so 256 takes 32 or
+// 64.
 // The float32 kernel takes 32 rows a block there, 4 a thread, in 172 KB
 // of shared memory (f32_rows).
 #include <cuda_runtime.h>
@@ -259,22 +269,19 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 kernel on the tensor cores: 4 warps, each owning 16 of the
-// block's 64 flattened query rows.
+// bfloat16 kernel on the tensor cores: NW warps, each owning 16 of the
+// block's BM = 16 NW flattened query rows, over KV tiles of BN positions.
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-constexpr int NW = 4;            // warps per block
-constexpr int NT_TC = 32 * NW;
-constexpr int BM = 16 * NW;      // flattened query rows per block
-constexpr int BN = 64;           // KV positions per tile
 
-template <int D>
-__global__ void __launch_bounds__(NT_TC) flash_attention_bf16_kernel(
+template <int D, int NW, int BN>
+__global__ void __launch_bounds__(32 * NW) flash_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out,
     float* __restrict__ lse, int Sq, int Skv, int Hkv, int G, int causal,
     int window, float scale, float softcap) {
   using namespace mma_bf16;
+  constexpr int NT_TC = 32 * NW, BM = 16 * NW;
   constexpr int LD = D + PAD, KS = D / 16, ND = D / 8, NC = BN / 8,
                 CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -470,20 +477,21 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int BM, int BN>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 void* lse, int B, int Sq, int Skv, int Hkv, int G, int causal,
                 int window, float scale, float softcap, cudaStream_t stream) {
+  constexpr int NW = BM / 16;
   const size_t smem = sizeof(bf16) * (D + mma_bf16::PAD) * (BM + 4 * BN);
   const long long tiles = ((long long)Sq * G + BM - 1) / BM;
   if (tiles > 65535 || Hkv > 65535) return (int)cudaErrorInvalidConfiguration;
   if (!mma_bf16::aligned16({q, k, v, out}))
     return (int)cudaErrorMisalignedAddress;
-  auto kern = flash_attention_bf16_kernel<D>;
+  auto kern = flash_attention_bf16_kernel<D, NW, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(B, Hkv, (unsigned)tiles), NT_TC, smem, stream>>>(
+  kern<<<dim3(B, Hkv, (unsigned)tiles), 32 * NW, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), Sq, Skv, Hkv, G, causal, window, scale,
@@ -497,44 +505,36 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // Element type: is_bf16 = 1 for bfloat16 (the tensor-core kernel; q, k, v
 // and out 16-byte aligned, else cudaErrorMisalignedAddress), 0 for float32
 // (the CUDA-core kernel); lse is always float32; head dim 64, 80 (zamba2's
-// shared attention block), 128 or 256 (gemma3-4b).
-// Anything else returns cudaErrorInvalidValue without launching (the Python
-// wrapper checks first).
+// shared attention block), 128 or 256 (gemma3-4b).  (block_q, block_kv):
+// the tile - for bfloat16 one of the three instantiated at the head dim
+// below (hopper_mapping.K4_TILES), for float32 the kernel's one tile
+// (f32_rows(D), 64).  Anything else returns cudaErrorInvalidValue without
+// launching (the Python wrapper checks first).
+#define K4_TILE(d, bq, bkv)                                                  \
+  if (D == d && block_q == bq && block_kv == bkv)                           \
+    return launch_bf16<d, bq, bkv>(q, k, v, out, lse, B, Sq, Skv, Hkv, G,    \
+                                   causal, window, scale, softcap, s);
+#define K4_F32(d)                                                            \
+  if (D == d && block_q == f32_rows(d) && block_kv == TILE)                 \
+    return launch<float, d>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,   \
+                            window, scale, softcap, s);
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int Sq, int Skv, int Hkv, int G,
                                       int D, int causal, int window,
-                                      float scale, float softcap,
-                                      int is_bf16, void* stream) {
+                                      int block_q, int block_kv, float scale,
+                                      float softcap, int is_bf16,
+                                      void* stream) {
   if (G < 1 || Skv < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || Hkv == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (D == 64)
-      return launch_bf16<64>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
-                             window, scale, softcap, s);
-    if (D == 80)
-      return launch_bf16<80>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
-                             window, scale, softcap, s);
-    if (D == 128)
-      return launch_bf16<128>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
-                              window, scale, softcap, s);
-    if (D == 256)
-      return launch_bf16<256>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
-                              window, scale, softcap, s);
+    K4_TILE(64, 64, 64) K4_TILE(64, 128, 32) K4_TILE(64, 128, 64)
+    K4_TILE(80, 64, 64) K4_TILE(80, 128, 32) K4_TILE(80, 128, 64)
+    K4_TILE(128, 64, 64) K4_TILE(128, 128, 128) K4_TILE(128, 128, 64)
+    K4_TILE(256, 64, 64) K4_TILE(256, 128, 64) K4_TILE(256, 64, 32)
   } else {
-    if (D == 64)
-      return launch<float, 64>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
-                               window, scale, softcap, s);
-    if (D == 80)
-      return launch<float, 80>(q, k, v, out, lse, B, Sq, Skv, Hkv, G, causal,
-                               window, scale, softcap, s);
-    if (D == 128)
-      return launch<float, 128>(q, k, v, out, lse, B, Sq, Skv, Hkv, G,
-                                causal, window, scale, softcap, s);
-    if (D == 256)
-      return launch<float, 256>(q, k, v, out, lse, B, Sq, Skv, Hkv, G,
-                                causal, window, scale, softcap, s);
+    K4_F32(64) K4_F32(80) K4_F32(128) K4_F32(256)
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,7 @@
 """Argument checks shared by the CUDA kernel wrappers: everything the
-kernels do not take is refused here, before a pointer reaches C."""
+kernels do not take is refused here, before a pointer reaches C.  Meta
+tensors pass the same checks: a wrapper's meta path (launch/cost.py)
+costs only a call its kernel would take."""
 from __future__ import annotations
 
 import torch
@@ -26,9 +28,9 @@ def check_operands(name: str, q: torch.Tensor, k: torch.Tensor,
     expected shape)}, each a contiguous int32 tensor on the same
     device."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
-                         f"q on {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors (or "
+                         f"meta tensors, to cost it), got q on {dev}")
     if q.dtype not in DTYPES:
         raise TypeError(f"{name}: q must be float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -71,9 +73,9 @@ def check_scan_operands(name: str, acts, f32s, shapes):
     backward, so a call autograd would have to differentiate raises."""
     first = next(iter(acts.values()))
     dev = first.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
-                         f"{dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors (or "
+                         f"meta tensors, to cost it), got {dev}")
     if first.dtype not in DTYPES:
         raise TypeError(f"{name}: activations must be float32 or bfloat16, "
                         f"got {first.dtype}")

@@ -46,10 +46,10 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     # D, page_size, n_max, split, window, scale, softcap, is_bf16, stream
     "paged_decode": ("paged_decode_launch",
                      (_P,) * 7 + (_I,) * 8 + (_F, _F, _I, _P)),
-    # q, k, v, o, lse, B, Sq, Skv, Hkv, G, D, causal, window, scale,
-    # softcap, is_bf16, stream
+    # q, k, v, o, lse, B, Sq, Skv, Hkv, G, D, causal, window, block_q,
+    # block_kv, scale, softcap, is_bf16, stream
     "flash_attention": ("flash_attention_launch",
-                        (_P,) * 5 + (_I,) * 8 + (_F, _F, _I, _P)),
+                        (_P,) * 5 + (_I,) * 10 + (_F, _F, _I, _P)),
     # q, k_cache, v_cache, cache_len, out, scratch, B, S, Hkv, G, D, split,
     # window, scale, softcap, is_bf16, stream
     "dense_decode": ("dense_decode_launch",
@@ -65,6 +65,8 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
+# seconds each source's nvcc took in the last build_all that compiled it
+nvcc_seconds: Dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -114,18 +116,24 @@ def _finish(name: str, out: Path, tmp: Path, proc) -> str:
 
 
 def build_all() -> Tuple[float, Dict[str, str]]:
-    """Compile every kernel source, all nvcc processes started together.
-    Returns (wall seconds, {name: compiler log}); a library that already
-    exists is not rebuilt and reports its stored log."""
+    """Compile every kernel source, all nvcc processes started together,
+    each waited for on a thread of its own (nvcc_seconds: when each
+    finished).  Returns (wall seconds, {name: compiler log}); a library
+    that already exists is not rebuilt and reports its stored log."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     started = {name: _start(name) for name in SIGNATURES}
-    logs = {}
-    for name, (out, tmp, proc) in started.items():
+
+    def wait(name):
+        out, tmp, proc = started[name]
         if proc is None:
             log_file = out.with_suffix(".log")
-            logs[name] = log_file.read_text() if log_file.exists() else ""
-        else:
-            logs[name] = _finish(name, out, tmp, proc)
+            return log_file.read_text() if log_file.exists() else ""
+        log = _finish(name, out, tmp, proc)
+        nvcc_seconds[name] = time.perf_counter() - t0
+        return log
+    with ThreadPoolExecutor(len(started)) as pool:
+        logs = dict(zip(started, pool.map(wait, started)))
     return time.perf_counter() - t0, logs
 
 

@@ -9,6 +9,9 @@ module holds their wrapper and, beside it, the plain PyTorch version
 CUDA tensors and takes the plain version only for tensors on the CPU.
 `launches` counts wrapper calls that launched: one per backward, which is
 the dq kernel and the dk/dv kernel together.
+A tensor on the meta device launches nothing: the wrapper checks it as
+it would a CUDA tensor, returns empty meta outputs and reports its
+kernel's work to launch/cost.py (the dry run, launch/dryrun.py).
 """
 from __future__ import annotations
 
@@ -17,10 +20,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..launch import cost
 from . import build, ref
 from ._checks import BACKWARD_HEAD_DIMS, check_operands
 
-# backward calls that launched the kernels (CPU calls do not count); one
+# backward calls that launched the kernels (CPU and meta calls do not count); one
 # count is the dq launch and the dk/dv launch of that call together
 launches = 0
 
@@ -59,6 +63,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"float32 ({B}, {Sq}, {Hq}) tensor on {q.device}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.device.type == "meta":
+        nbytes, flops = cost.k5_work(q.shape, k.shape, q.element_size(),
+                                     causal, window)
+        cost.record_kernel("K5", nbytes, flops, flops // (10 * D))
+        return dq, dk, dv
     delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
     err = build.kernel("flash_backward")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -10,6 +10,9 @@ versions (`reference` and `dense_reference`, from kernels/ref.py).  A
 wrapper launches its kernel for CUDA tensors and takes the plain version
 only for tensors on the CPU; `launches` (K2) and `dense_launches` (K3)
 count kernel launches and nothing else.
+A tensor on the meta device launches nothing: the wrapper checks it as
+it would a CUDA tensor, returns empty meta outputs and reports its
+kernel's work to launch/cost.py (the dry run, launch/dryrun.py).
 """
 from __future__ import annotations
 
@@ -18,10 +21,11 @@ from typing import Optional
 
 import torch
 
+from ..launch import cost
 from . import build, ref
 from ._checks import PAGED_HEAD_DIMS, check_operands
 
-# kernel launches made by the wrappers below (CPU calls do not count)
+# kernel launches made by the wrappers below (CPU and meta calls do not count)
 launches = 0            # K2, paged_flash_decode
 dense_launches = 0      # K3, flash_decode
 
@@ -79,6 +83,11 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, window: int = 0,
         raise ValueError(f"flash_decode: {G} query heads per KV head, the "
                          f"kernel holds at most {MAX_GROUP}")
     out = torch.empty_like(q)
+    if q.device.type == "meta":         # no lengths: every lane's strip
+        pos = cost.decode_positions([S] * B, S, window)
+        nbytes, flops = cost.decode_work(q.shape, Hkv, q.element_size(), pos)
+        cost.record_kernel("K3", nbytes, flops, Hq * pos)
+        return out
     # one launch count for the split and the combine kernel
     scratch = _scratch(q, B, Hkv, G, D, S)
     err = build.kernel("dense_decode")(
@@ -119,6 +128,11 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
         raise ValueError(f"paged_flash_decode: {G} query heads per KV "
                          f"head, the kernel holds at most {MAX_GROUP}")
     out = torch.empty_like(q)
+    if q.device.type == "meta":         # no lengths: every lane's table row
+        pos = cost.decode_positions([n_max * ps] * B, n_max * ps, window)
+        nbytes, flops = cost.decode_work(q.shape, Hkv, q.element_size(), pos)
+        cost.record_kernel("K2", nbytes, flops, Hq * pos)
+        return out
     # one launch count for the split and the combine kernel
     scratch = _scratch(q, B, Hkv, G, D, n_max * ps)
     err = build.kernel("paged_decode")(

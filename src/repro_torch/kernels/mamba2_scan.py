@@ -13,15 +13,19 @@ CUDA tensors and takes the plain version only for tensors on the CPU;
 backward (neither has the TPU kernel): a CUDA call that autograd would
 need to differentiate raises instead of returning a result cut off from
 the graph.
+A tensor on the meta device launches nothing: the wrapper checks it as
+it would a CUDA tensor, returns empty meta outputs and reports its
+kernel's work to launch/cost.py (the dry run, launch/dryrun.py).
 """
 from __future__ import annotations
 
 import torch
 
+from ..launch import cost
 from . import build, ref
 from ._checks import check_scan_operands
 
-# kernel launches made by the wrapper below (CPU calls do not count)
+# kernel launches made by the wrapper below (CPU and meta calls do not count)
 launches = 0
 
 reference = ref.mamba2_scan_chunked
@@ -51,6 +55,10 @@ def mamba2_scan(x, dt, A, Bm, Cm) -> torch.Tensor:
         raise ValueError(f"mamba2_scan: state size {N} not supported "
                          f"(kernel takes {STATE_SIZES})")
     y = torch.empty_like(x)
+    if x.device.type == "meta":
+        nbytes, flops = cost.k6_work(x.shape, N, x.element_size(), CHUNK)
+        cost.record_kernel("K6", nbytes, flops, Bsz * S * H)
+        return y
     # bf16: each chunk's carry-in state as two bf16 parts, between the
     # kernel's two launches (one launch count for both); float32 needs none
     bf16 = x.dtype == torch.bfloat16

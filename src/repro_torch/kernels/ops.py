@@ -123,17 +123,22 @@ def shard_heads(t: torch.Tensor, tp_mesh) -> torch.Tensor:
     return t.narrow(2, tp_mesh.rank * n, n)
 
 
-def _gather_heads(o: torch.Tensor, tp_mesh) -> torch.Tensor:
+def _gather_heads(o: torch.Tensor, tp_mesh, owners=None) -> torch.Tensor:
     """Every rank's (B, S, h, D) head block, all-gathered over the mesh's
     group into (N B, S, h, D) and put back in rank order on the head axis
-    (the JAX all_gather's tiled=True): (B, S, N h, D)."""
+    (the JAX all_gather's tiled=True): (B, S, N h, D).  owners: keep only
+    these ranks' blocks (ranks that share a query block hold the same
+    one)."""
     import torch.distributed as dist
     n = tp_mesh.size
     B, S, h, D = o.shape
     out = o.new_empty((n * B, S, h, D))
     dist.all_gather_into_tensor(out, o.contiguous(), group=tp_mesh.group)
-    return out.view(n, B, S, h, D).permute(1, 2, 0, 3, 4) \
-        .reshape(B, S, n * h, D)
+    out = out.view(n, B, S, h, D)
+    if owners is not None and len(owners) < n:
+        out = out[list(owners)]
+    m = out.shape[0]
+    return out.permute(1, 2, 0, 3, 4).reshape(B, S, m * h, D)
 
 
 def _tp_head_sharded(fn, tp_mesh, q, k_pages, v_pages, *rest):
@@ -162,13 +167,20 @@ def _head_blocks(hq: int, hkv: int, n: int):
     """Per rank r of n, (query heads, KV heads) it attends with, each a
     (start, stop) range: query heads [r hq / n, (r + 1) hq / n) and the KV
     heads of their groups - hkv / n of them when n divides hkv, else the
-    one KV head all its queries share (n a multiple of hkv).  Other splits
-    raise."""
+    one KV head all its queries share (n a multiple of hkv).  With more
+    ranks than query heads (n a multiple of hq: gemma3-4b's 8 heads on a
+    model axis of 16), each query head goes to n / hq ranks side by side,
+    which attend with it alike.  Other splits raise."""
+    if n % hq == 0:
+        per = n // hq
+        return [((r // per, r // per + 1),
+                 ((r // per) * hkv // hq, (r // per) * hkv // hq + 1))
+                for r in range(n)]
     if hq % n or not (hkv % n == 0 or n % hkv == 0):
         raise ValueError(f"{hq} query / {hkv} KV heads do not split over "
                          f"{n} ranks: the query heads must divide by the "
-                         f"rank count, and the KV heads divide it or be "
-                         f"divided by it")
+                         f"rank count or divide it, and the KV heads divide "
+                         f"it or be divided by it")
     hq_r, g = hq // n, hq // hkv
     out = []
     for r in range(n):
@@ -178,19 +190,32 @@ def _head_blocks(hq: int, hkv: int, n: int):
     return out
 
 
+def _owners(q_blocks):
+    """The ranks whose result stands for their query block: the first of
+    the ranks that share one (every rank when none is shared)."""
+    seen, out = set(), []
+    for r, b in enumerate(q_blocks):
+        if b not in seen:
+            seen.add(b)
+            out.append(r)
+    return out
+
+
 class _HeadSplit(torch.autograd.Function):
     """Forward: this rank's block [lo, hi) of the head axis (axis 2) of a
     (B, S, H, D) tensor every rank of the group holds whole and equal.
-    Backward: every rank's gradient of its block, all-gathered over the
-    group and added at each rank's heads, in rank order - so every rank
-    ends with the same whole gradient.  Blocks that do not overlap (query
-    heads; KV heads when the ranks divide them) are the gathered values,
-    bit for bit; a KV head shared by several ranks gets the sum of their
-    parts, in rank order."""
+    Backward: the gradients of the blocks of the `owners` ranks (one rank
+    a query block: ranks sharing a query head compute the same gradient),
+    all-gathered over the group and added at each rank's heads, in rank
+    order - so every rank ends with the same whole gradient.  Blocks that
+    do not overlap (query heads; KV heads when the ranks divide them) are
+    the gathered values, bit for bit; a KV head shared by several owners
+    gets the sum of their parts, in rank order."""
 
     @staticmethod
-    def forward(ctx, t, tp_mesh, blocks):
+    def forward(ctx, t, tp_mesh, blocks, owners):
         ctx.tp_mesh, ctx.blocks, ctx.heads = tp_mesh, blocks, t.shape[2]
+        ctx.owners = owners
         lo, hi = blocks[tp_mesh.rank]
         return t[:, :, lo:hi].contiguous()
 
@@ -203,39 +228,42 @@ class _HeadSplit(torch.autograd.Function):
                                     group=ctx.tp_mesh.group)
         parts = parts.view(n, B, S, h, D)
         full = g.new_zeros((B, S, ctx.heads, D))
-        shared = len(set(ctx.blocks)) < n
-        for r, (lo, hi) in enumerate(ctx.blocks):
+        mine = [ctx.blocks[r] for r in ctx.owners]
+        shared = len(set(mine)) < len(mine)
+        for r in ctx.owners:
+            lo, hi = ctx.blocks[r]
             if shared:
                 full[:, :, lo:hi] += parts[r]
             else:
                 full[:, :, lo:hi] = parts[r]
-        return full, None, None
+        return full, None, None, None
 
 
 class _HeadGather(torch.autograd.Function):
     """Forward: every rank's (B, S, h, D) block gathered into the whole
-    head axis (_gather_heads).  Backward: this rank's block of the
-    gradient, which every rank holds whole and equal."""
+    head axis (_gather_heads), the `owners` ranks' blocks in rank order.
+    Backward: this rank's block of the gradient, which every rank holds
+    whole and equal."""
 
     @staticmethod
-    def forward(ctx, o, tp_mesh):
-        ctx.tp_mesh, ctx.h = tp_mesh, o.shape[2]
-        return _gather_heads(o, tp_mesh)
+    def forward(ctx, o, tp_mesh, lo, owners):
+        ctx.lo, ctx.h = lo, o.shape[2]
+        return _gather_heads(o, tp_mesh, owners)
 
     @staticmethod
     def backward(ctx, g):
-        lo = ctx.tp_mesh.rank * ctx.h
-        return g[:, :, lo:lo + ctx.h].contiguous(), None
+        return g[:, :, ctx.lo:ctx.lo + ctx.h].contiguous(), None, None, None
 
 
 def head_sharded_attention(q, k, v, tp_mesh, **kw) -> torch.Tensor:
     """flash_attention over this rank's head shard, the output gathered
     back to every head: the attention of the sharded train step on the
     model axis (tp_mesh: a launch/mesh.py ServeMesh over the model axis's
-    group).  q (B, S, Hq, D), k / v (B, S, Hkv, D) are whole and equal on
-    every rank (the projections stay replicated over the model axis).
-    The rank attends with query heads [r Hq / N, (r + 1) Hq / N) and
-    their KV heads (_head_blocks) through K4 forward and K5 backward
+    group) and of the mesh prefill step.  q (B, S, Hq, D), k / v (B, S,
+    Hkv, D) are whole and equal on every rank (the projections stay
+    replicated over the model axis).  The rank attends with query heads
+    [r Hq / N, (r + 1) Hq / N) and their KV heads (_head_blocks; one head
+    a rank, shared, when N passes Hq) through K4 forward and K5 backward
     (_FlashAttention); _HeadSplit and _HeadGather carry the gradients
     across the group, so q, k and v get the whole gradient on every rank.
     Per-head attention never mixes heads, so the forward is the unsharded
@@ -244,10 +272,13 @@ def head_sharded_attention(q, k, v, tp_mesh, **kw) -> torch.Tensor:
     K4 and K5 take no query offset, and a head shard's results are exact."""
     n = tp_mesh.size
     blocks = _head_blocks(q.shape[2], k.shape[2], n)
-    qs = _HeadSplit.apply(q, tp_mesh, [b[0] for b in blocks])
-    ks = _HeadSplit.apply(k, tp_mesh, [b[1] for b in blocks])
-    vs = _HeadSplit.apply(v, tp_mesh, [b[1] for b in blocks])
-    return _HeadGather.apply(flash_attention(qs, ks, vs, **kw), tp_mesh)
+    qb = [b[0] for b in blocks]
+    owners = _owners(qb)
+    qs = _HeadSplit.apply(q, tp_mesh, qb, owners)
+    ks = _HeadSplit.apply(k, tp_mesh, [b[1] for b in blocks], owners)
+    vs = _HeadSplit.apply(v, tp_mesh, [b[1] for b in blocks], owners)
+    return _HeadGather.apply(flash_attention(qs, ks, vs, **kw), tp_mesh,
+                             qb[tp_mesh.rank][0], owners)
 
 
 def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,
@@ -337,13 +368,16 @@ def decode_attention_naive(q, k_cache, v_cache, cache_len, *,
 
 
 def _decode_partials(q, kc, vc, valid_len, *,
-                     scale: Optional[float] = None, block_kv: int = 1024):
+                     scale: Optional[float] = None, block_kv: int = 1024,
+                     logit_softcap: float = 0.0):
     """The unnormalised partial softmax (m, l, o) of one query token per
     lane over the first valid_len positions of its cache slice, the JAX
     package's _decode_partials: an online softmax over blocks of block_kv
-    positions (the slice zero-padded to a whole block), no window and no
-    softcap.  q: (B, 1, Hq, D); kc, vc (B, S, Hkv, D); valid_len (B,) or
-    one int.  Returns m, l (B, Hkv, G) and o (B, Hkv, G, D), float32; a
+    positions (the slice zero-padded to a whole block), no window; the
+    scores softcapped as decode_attention_naive's when logit_softcap > 0
+    (the JAX partials take none: the mesh decode's sequence-sharded
+    layouts are the JAX naive decode, which does).  q: (B, 1, Hq, D);
+    kc, vc (B, S, Hkv, D); valid_len (B,) or one int.  Returns m, l (B, Hkv, G) and o (B, Hkv, G, D), float32; a
     lane with nothing valid has m = NEG_INF, l = 0, o = 0."""
     B, _, Hq, D = q.shape
     S, Hkv = kc.shape[1], kc.shape[2]
@@ -365,6 +399,8 @@ def _decode_partials(q, kc, vc, valid_len, *,
         pos = start + torch.arange(block_kv, device=q.device)
         mask = (pos[None, :] < valid_len[:, None])[:, None, None, :]
         s = torch.einsum("bhgd,bkhd->bhgk", qf, kblk.float())
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
         s = torch.where(mask, s, ref.NEG_INF)
         m_new = torch.maximum(m, torch.amax(s, -1))
         m_safe = torch.where(m_new <= ref.NEG_INF / 2, 0.0, m_new)
@@ -380,8 +416,8 @@ def _decode_partials(q, kc, vc, valid_len, *,
 
 
 def seq_parallel_decode(q, k_cache_local, v_cache_local, cache_len, *,
-                        group=None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        group=None, scale: Optional[float] = None,
+                        logit_softcap: float = 0.0) -> torch.Tensor:
     """Sequence-parallel decode across the ranks of a torch.distributed
     process group, the JAX package's seq_parallel_decode (there inside
     shard_map): rank r holds positions [r S_local, (r + 1) S_local) of
@@ -391,7 +427,8 @@ def seq_parallel_decode(q, k_cache_local, v_cache_local, cache_len, *,
     None) and merges them with the log-sum-exp combine.  q: (B, 1, Hq, D),
     the same on every rank; caches (B, S_local, Hkv, D), this rank's
     slice; cache_len (B,) or one int, the lanes' whole lengths.  Returns
-    (B, 1, Hq, D) in q's dtype, the same on every rank."""
+    (B, 1, Hq, D) in q's dtype, the same on every rank.  logit_softcap:
+    as _decode_partials."""
     import torch.distributed as dist
     B, _, Hq, D = q.shape
     S_local = k_cache_local.shape[1]
@@ -399,7 +436,7 @@ def seq_parallel_decode(q, k_cache_local, v_cache_local, cache_len, *,
     cache_len = ref._as_lens(cache_len, B, q.device)
     local_len = torch.clamp(cache_len - rank * S_local, 0, S_local)
     parts = _decode_partials(q, k_cache_local, v_cache_local, local_len,
-                             scale=scale)
+                             scale=scale, logit_softcap=logit_softcap)
     gathered = []
     for t in parts:
         out = t.new_empty((world * t.shape[0],) + tuple(t.shape[1:]))

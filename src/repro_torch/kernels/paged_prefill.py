@@ -6,6 +6,9 @@ holds its wrapper and, beside it, its plain PyTorch version (`reference`,
 from kernels/ref.py).  The wrapper launches the kernel for CUDA tensors
 and takes the plain version only for tensors on the CPU; `launches`
 counts kernel launches and nothing else.
+A tensor on the meta device launches nothing: the wrapper checks it as
+it would a CUDA tensor, returns empty meta outputs and reports its
+kernel's work to launch/cost.py (the dry run, launch/dryrun.py).
 """
 from __future__ import annotations
 
@@ -14,10 +17,11 @@ from typing import Optional
 
 import torch
 
+from ..launch import cost
 from . import build, ref
 from ._checks import PAGED_HEAD_DIMS, check_operands
 
-# kernel launches made by the wrapper below (CPU calls do not count)
+# kernel launches made by the wrapper below (CPU and meta calls do not count)
 launches = 0
 
 reference = ref.batched_paged_prefill_attention
@@ -49,6 +53,14 @@ def batched_paged_prefill_attention(q, k_pages, v_pages, page_tables,
         "q_lens": (q_lens, (K,))}, head_dims=PAGED_HEAD_DIMS)
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        # no offsets or lengths: each row's S queries end its table row
+        end = n_max * ps
+        pairs, kv_pos = cost.chunk_rows_work([(end - S, end)] * K, window)
+        nbytes, flops = cost.k1_work(q.shape, Hkv, q.element_size(), pairs,
+                                     kv_pos)
+        cost.record_kernel("K1", nbytes, flops, Hq * pairs)
+        return out
     err = build.kernel("paged_prefill")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_tables.data_ptr(), q_offsets.data_ptr(), true_lens.data_ptr(),

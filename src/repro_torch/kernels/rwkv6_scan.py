@@ -12,15 +12,19 @@ CUDA tensors and takes the plain version only for tensors on the CPU;
 backward (neither has the TPU kernel): a CUDA call that autograd would
 need to differentiate raises instead of returning a result cut off from
 the graph.
+A tensor on the meta device launches nothing: the wrapper checks it as
+it would a CUDA tensor, returns empty meta outputs and reports its
+kernel's work to launch/cost.py (the dry run, launch/dryrun.py).
 """
 from __future__ import annotations
 
 import torch
 
+from ..launch import cost
 from . import build, ref
 from ._checks import check_scan_operands
 
-# kernel launches made by the wrapper below (CPU calls do not count)
+# kernel launches made by the wrapper below (CPU and meta calls do not count)
 launches = 0
 
 reference = ref.rwkv6_scan_chunked
@@ -51,6 +55,10 @@ def rwkv6_scan(r, k, v, w, u) -> torch.Tensor:
         raise ValueError(f"rwkv6_scan: key size {K} not supported (kernel "
                          f"takes {KEY_SIZES})")
     y = torch.empty_like(v)
+    if r.device.type == "meta":
+        nbytes, flops = cost.k7_work(r.shape, V, r.element_size())
+        cost.record_kernel("K7", nbytes, flops, Bsz * S * H * K)
+        return y
     # bf16: each chunk's carry-in state as two bf16 parts, between the
     # kernel's two launches (one launch count for both); float32 needs none
     bf16 = r.dtype == torch.bfloat16

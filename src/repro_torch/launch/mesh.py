@@ -18,6 +18,10 @@ sharded attention gathers over.  The group spans ranks [0, tp_degree) of
 the default group - the JAX "first tp_degree devices" - and is built once
 per degree, so the replicas of one degree in a fleet share it, as the JAX
 replicas share the first N devices.
+
+axis_mesh views one axis of a DeviceMesh as a ServeMesh (its group, this
+rank's coordinate on it, its size): what the head-sharded attention and
+the sequence-parallel decode of the mesh steps gather over.
 """
 from __future__ import annotations
 
@@ -35,6 +39,28 @@ class ServeMesh:
     group: Any
     rank: int
     size: int
+
+
+def axis_mesh(mesh, name: str):
+    """Axis `name` of a DeviceMesh as a ServeMesh (its process group, this
+    rank's coordinate on it, its size); None when the mesh has no such
+    axis or it has size 1."""
+    if name not in tuple(mesh.mesh_dim_names):
+        return None
+    i = mesh.mesh_dim_names.index(name)
+    if mesh.shape[i] == 1:
+        return None
+    return ServeMesh(mesh.get_group(name), mesh.get_local_rank(name),
+                     mesh.shape[i])
+
+
+def check_mesh_family(cfg, what: str) -> None:
+    """The mesh steps (training, prefill, decode) take the dense family;
+    any other raises NotImplementedError naming ROADMAP §1 item 3."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{what} {cfg.name} (family {cfg.family!r}) on a mesh is "
+            f"ROADMAP §1 item 3: the mesh steps take the dense family")
 
 
 # the default group the groups below belong to, and one group per degree

@@ -11,9 +11,13 @@ spec by spec.
 
 train_cell is what the mesh Trainer runs: its state shardings are
 Trainer(mesh=, state_shardings=)'s.  prefill_cell and serve_cell return
-their specs and shardings only, with no step (None in the step's place):
-a prefill or decode step on a mesh - the sequence-sharded serve step - is
-ROADMAP §1 item 3.
+the prefill and decode steps on the mesh (serve/serve_step.py
+make_prefill_step / make_serve_step with mesh=), over the cell's cache
+layout: the step takes the rank's shards of the cell's arguments, the
+parameters as DTensors.  Every cell's step on a mesh takes the dense
+family; another family's raises NotImplementedError when it is called
+(ROADMAP §1 item 3), so its specs stay comparable with the JAX
+package's.  launch/dryrun.py runs every cell's step on the meta device.
 """
 from __future__ import annotations
 
@@ -145,8 +149,9 @@ def train_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, tcfg: TrainConfig):
     cell's model on the meta device: the step the Trainer runs over its
     own model, here for its structure."""
     from ..optim import adamw_init, ef_init
-    from ..train.train_step import TrainState, make_train_step
+    from ..train.train_step import TrainState, make_train_step, trainable
     model = _meta_model(cfg)
+    trainable(model.params)       # the step's backward on the meta device
     step = make_train_step(model, tcfg, mesh=mesh)
     params = model.params
     opt = adamw_init(params)
@@ -167,9 +172,19 @@ def train_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, tcfg: TrainConfig):
     return step, args, shardings
 
 
+def _k_spec(cache_sharding):
+    """The spec of the dense strips' "k" leaf, None for a cache without
+    them (its family's step refuses the mesh)."""
+    sh = cache_sharding.get("k") if isinstance(cache_sharding, dict) \
+        else None
+    return None if sh is None else sh.spec
+
+
 def prefill_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
-    """(None, (params, batch, cache) shapes, their shardings): the specs of
-    a prefill cell; its step on a mesh is ROADMAP §1 item 3."""
+    """(step, (params, batch, cache) shapes, their shardings): the prefill
+    step on the mesh (make_prefill_step(mesh=) over the cell's cache
+    layout) and its arguments' specs."""
+    from ..serve.serve_step import make_prefill_step
     model = _meta_model(cfg)
     params_shape = model.params
     pshard = param_sharding_tree(params_shape, mesh)
@@ -182,7 +197,9 @@ def prefill_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
     bshard = batch_shardings(cfg, mesh)
     args = (params_shape, bspecs, cache)
     shardings = sanitize((pshard, bshard, cshard), args, mesh)
-    return None, args, shardings
+    step = make_prefill_step(model, mesh=mesh,
+                             cache_spec=_k_spec(shardings[2]))
+    return step, args, shardings
 
 
 def _kv_seq_sharded(cfg: ModelConfig, shape: ShapeSpec, mesh):
@@ -203,8 +220,11 @@ def _kv_seq_sharded(cfg: ModelConfig, shape: ShapeSpec, mesh):
 
 
 def serve_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
-    """(None, (params, cache, tokens, lens) shapes, their shardings): the
-    specs of a decode cell; its step on a mesh is ROADMAP §1 item 3."""
+    """(step, (params, cache, tokens, lens) shapes, their shardings): the
+    decode step on the mesh (make_serve_step(seq_parallel=, mesh=) over
+    the cell's cache layout: sequence-parallel where _kv_seq_sharded
+    shards the sequence) and its arguments' specs."""
+    from ..serve.serve_step import make_serve_step
     model = _meta_model(cfg)
     names = axis_names(mesh)
     data_size = axis_sizes(mesh).get("data", 1)
@@ -219,4 +239,6 @@ def serve_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
     lshard = NamedSharding(mesh, P(dp))
     args = (params_shape, cache, tokens, lens)
     shardings = sanitize((pshard, cshard, tshard, lshard), args, mesh)
-    return None, args, shardings
+    step = make_serve_step(model, seq_parallel=seq_sharded, mesh=mesh,
+                           cache_spec=_k_spec(shardings[1]))
+    return step, args, shardings

@@ -7,10 +7,16 @@ writes into its (B, S_max, Hkv, D) strips or its (P, page_size, Hkv, D)
 slab of the model's pool).  The write is issued before the attention
 kernel on the same stream, so the kernel always reads the cache with this
 step's K/V already in it.
+
+On a (data, model) mesh (serve/serve_step.py's mesh steps) the dense
+prefill and decode take a CacheShard: the rank's strips hold its block of
+the KV heads, of the sequence, or of both (sharding/rules.py cache_spec's
+three layouts), and the rank writes and reads that block only.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
 
@@ -84,23 +90,90 @@ def attn_prefill_cross(params, x: torch.Tensor, cfg: ModelConfig,
     return dense(params["wo"], o.reshape(B, S, cfg.n_heads * cfg.head_dim))
 
 
+@dataclass(frozen=True)
+class CacheShard:
+    """A rank's block of the dense (B, S_max, Hkv, D) strips on a (data,
+    model) mesh, each field a launch/mesh.py ServeMesh (group, rank, size)
+    or None:
+      model  the model axis (None at size 1): the attention runs on this
+             rank's query heads and gathers them back over it
+             (ops.head_sharded_attention, ops._tp_head_sharded);
+      heads  True when the strips hold the model rank's block of the KV
+             heads (cache_spec's default and sequence-over-data layouts),
+             False when they hold every head;
+      seq    the axis the strips' sequence is split over (None: whole):
+             the rank holds positions [seq.rank S_local, (seq.rank + 1)
+             S_local), and the decode is ops.seq_parallel_decode over it.
+    The batch rows a rank holds need nothing here: rows are independent,
+    and the step gets this rank's rows of tokens, lens and strips."""
+    model: Any = None
+    heads: bool = False
+    seq: Any = None
+
+
+def _kv_block(t: torch.Tensor, shard: Optional[CacheShard]) -> torch.Tensor:
+    """The KV heads (axis 2) of a (B, S, Hkv, D) projection that the
+    rank's strips hold."""
+    if shard is None or not shard.heads:
+        return t
+    return ops.shard_heads(t, shard.model)
+
+
+def _write_prompt(cache: torch.Tensor, new: torch.Tensor,
+                  shard: Optional[CacheShard]) -> None:
+    """new (B, S, h, D) at positions [0, S) of the strips, into the rank's
+    slice of them only when the sequence is sharded."""
+    S = new.shape[1]
+    if shard is None or shard.seq is None:
+        cache[:, :S] = new.to(cache.dtype)
+        return
+    S_loc = cache.shape[1]
+    start = shard.seq.rank * S_loc
+    n = max(0, min(S - start, S_loc))
+    if n:
+        cache[:, :n] = new[:, start:start + n].to(cache.dtype)
+
+
+def _write_token(cache: torch.Tensor, new: torch.Tensor, lens: torch.Tensor,
+                 shard: Optional[CacheShard]) -> None:
+    """new (B, h, D) at position lens[b] of lane b's strip.  With the
+    sequence sharded, only the rank whose slice holds lens[b] writes lane
+    b; every other rank leaves the lane as it is (the JAX scatter, which
+    XLA routes to the shard holding the position)."""
+    B = cache.shape[0]
+    bidx = torch.arange(B, device=cache.device)
+    if shard is None or shard.seq is None:
+        cache[bidx, lens.long()] = new.to(cache.dtype)
+        return
+    S_loc = cache.shape[1]
+    local = lens.long() - shard.seq.rank * S_loc
+    mine = ((local >= 0) & (local < S_loc))[:, None, None]
+    idx = torch.clamp(local, 0, S_loc - 1)
+    cache[bidx, idx] = torch.where(mine, new.to(cache.dtype),
+                                   cache[bidx, idx])
+
+
 def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig,
                  cache_k: torch.Tensor, cache_v: torch.Tensor, *,
-                 window: int = 0, impl: Optional[str] = None
-                 ) -> torch.Tensor:
+                 window: int = 0, impl: Optional[str] = None,
+                 shard: Optional[CacheShard] = None) -> torch.Tensor:
     """Prefill from position 0: full causal attention over x (B, S, D),
     and its K/V written into positions [0, S) of the (B, S_max, Hkv, D)
-    strips.  Returns (B, S, D)."""
+    strips.  shard (a mesh step): the strips are the rank's block, which
+    gets its KV heads and positions of the prompt, and the attention runs
+    on the model rank's head shard (K4), gathered back to every head.
+    Returns (B, S, D)."""
     q, k, v = _qkv(params, x, cfg)
     B, S = x.shape[:2]
     if cfg.use_rope:
         pos = torch.arange(S, device=x.device)
         q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
-    cache_k[:, :S] = k.to(cache_k.dtype)
-    cache_v[:, :S] = v.to(cache_v.dtype)
+    _write_prompt(cache_k, _kv_block(k, shard), shard)
+    _write_prompt(cache_v, _kv_block(v, shard), shard)
     o = ops.flash_attention(q, k, v, causal=True, window=window,
-                            logit_softcap=cfg.attn_logit_softcap, impl=impl)
+                            logit_softcap=cfg.attn_logit_softcap, impl=impl,
+                            tp_mesh=shard.model if shard else None)
     return dense(params["wo"], o.reshape(B, S, cfg.n_heads * cfg.head_dim))
 
 
@@ -134,7 +207,8 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
                 cache_k: torch.Tensor, cache_v: torch.Tensor,
                 lens: torch.Tensor, *, window: int = 0,
                 impl: Optional[str] = None, seq_parallel: bool = False,
-                cross: bool = False) -> torch.Tensor:
+                cross: bool = False,
+                shard: Optional[CacheShard] = None) -> torch.Tensor:
     """Single-token decode against the dense strips.  x: (B, 1, D);
     caches (B, S_max, Hkv, D); lens (B,) int32 current lengths - the new
     token's K/V goes to position lens of its own strip.  An idle lane
@@ -144,8 +218,12 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
     lens positions of each; nothing is written and no RoPE applied.
     seq_parallel=True: the attention is ops.decode_attention_naive over
     the whole strips, as in the JAX package - which takes no window, so a
-    sliding window is dropped there (ROADMAP §3).  Returns (B, 1, D)."""
+    sliding window is dropped there (ROADMAP §3).  shard (a mesh step):
+    _mesh_decode.  Returns (B, 1, D)."""
     B = x.shape[0]
+    if shard is not None:
+        return _mesh_decode(params, x, cfg, cache_k, cache_v, lens,
+                            window=window, impl=impl, shard=shard)
     if cross:
         q = _q(params, x, cfg)
         attend = lens
@@ -165,6 +243,43 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
         o = ops.flash_decode(q, cache_k, cache_v, attend, window=window,
                              logit_softcap=cfg.attn_logit_softcap,
                              impl=impl)
+    return dense(params["wo"], o.reshape(B, 1, cfg.n_heads * cfg.head_dim))
+
+
+def _mesh_decode(params, x: torch.Tensor, cfg: ModelConfig,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 lens: torch.Tensor, *, window: int, impl: Optional[str],
+                 shard: CacheShard) -> torch.Tensor:
+    """attn_decode on the rank's block of the strips.  The new token's
+    K/V goes into the block (_kv_block, _write_token).  A whole sequence
+    (the default layout): K3 on the model rank's head shard, the heads
+    gathered back over the model axis (ops._tp_head_sharded).  A sharded
+    sequence: ops.seq_parallel_decode over the sequence's axis, on the
+    rank's heads when the strips hold a head block (gathered back as
+    above), on every head otherwise - no window, as the JAX package's
+    sequence-sharded decode (ROADMAP §3).  Returns (B, 1, D)."""
+    B = x.shape[0]
+    q, k, v = _qkv(params, x, cfg)
+    if cfg.use_rope:
+        q = rope(q, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
+    _write_token(cache_k, _kv_block(k, shard)[:, 0], lens, shard)
+    _write_token(cache_v, _kv_block(v, shard)[:, 0], lens, shard)
+    softcap = cfg.attn_logit_softcap
+    if shard.seq is None:
+        def fn(qq, kc, vc, n):
+            return ops.flash_decode(qq, kc, vc, n, window=window,
+                                    logit_softcap=softcap, impl=impl)
+    else:
+        def fn(qq, kc, vc, n):
+            return ops.seq_parallel_decode(qq, kc, vc, n,
+                                           group=shard.seq.group,
+                                           logit_softcap=softcap)
+    if shard.heads:
+        o = ops._tp_head_sharded(fn, shard.model, q, cache_k, cache_v,
+                                 lens + 1)
+    else:
+        o = fn(q, cache_k, cache_v, lens + 1)
     return dense(params["wo"], o.reshape(B, 1, cfg.n_heads * cfg.head_dim))
 
 

@@ -398,7 +398,8 @@ class Model(nn.Module):
             lens
 
     @torch.no_grad()
-    def prefill(self, params, batch, cache, *, impl: Optional[str] = None):
+    def prefill(self, params, batch, cache, *, impl: Optional[str] = None,
+                shard=None):
         """Fill the cache (init_cache's dense layout) with the prompts
         batch["tokens"] (B, S) from position 0.  Prompts padded to a
         bucketed S carry their real lengths in batch["true_lens"] (B,); the
@@ -407,8 +408,11 @@ class Model(nn.Module):
         encoder over batch["audio_embeds"] and fills the cross strips with
         its K/V.  The vlm family's image, batch["vision_embeds"] (B, P,
         d_model), fills positions 0..P-1 and the text follows it, so lens
-        counts both: P + S, or P + true_lens.  Returns (logits of each
-        row's last real token (B, 1, V) float32, cache, lens (B,))."""
+        counts both: P + S, or P + true_lens.  shard (a mesh step of the
+        dense family, serve/serve_step.py): the cache is the rank's block
+        of the strips (models/attention.py CacheShard).  Returns (logits
+        of each row's last real token (B, 1, V) float32, cache, lens
+        (B,))."""
         if self.cfg.family == "audio":
             x = self._embed(params, batch["tokens"])
             x = T.encdec_prefill(params["blocks"], self._audio(batch), x,
@@ -418,7 +422,9 @@ class Model(nn.Module):
             prefill = {"hybrid": T.hybrid_prefill,
                        "ssm": T.rwkv_prefill}.get(self.cfg.family,
                                                   T.stack_prefill)
-            x = prefill(params["blocks"], x, self.cfg, cache, impl=impl)
+            kw = {} if shard is None else {"shard": shard}
+            x = prefill(params["blocks"], x, self.cfg, cache, impl=impl,
+                        **kw)
         logits, lens = self._prompt_tail(params, x, batch)
         return logits, cache, lens
 
@@ -511,7 +517,8 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, params, tokens, lens, cache, *,
                     impl: Optional[str] = None, seq_parallel: bool = False,
-                    enc_lens: Optional[torch.Tensor] = None, tp_mesh=None):
+                    enc_lens: Optional[torch.Tensor] = None, tp_mesh=None,
+                    shard=None):
         """tokens: (B, 1) int32; lens: (B,) int32 positions to write; cache
         dense or paged (init_cache), the recurrent states, or the audio
         family's strips.  seq_parallel=True decodes the attention through
@@ -519,8 +526,9 @@ class Model(nn.Module):
         in the JAX package).  enc_lens (B,) int32: the cross strips'
         positions each lane attends (the audio family; default the strips'
         whole length, as in the JAX package).  tp_mesh head-shards the
-        paged decode (as in prefill_chunks).  Returns (logits (B, 1, V)
-        float32, cache)."""
+        paged decode (as in prefill_chunks).  shard: the dense cache is
+        the rank's block of the strips on a mesh (as in prefill).  Returns
+        (logits (B, 1, V) float32, cache)."""
         cfg = self.cfg
         blocks = params["blocks"]
         x = self._embed(params, tokens, lens)
@@ -543,7 +551,7 @@ class Model(nn.Module):
                                      tp_mesh=tp_mesh)
         else:
             x = T.stack_decode(blocks, x, cfg, cache, lens, impl=impl,
-                               seq_parallel=seq_parallel)
+                               seq_parallel=seq_parallel, shard=shard)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["tok"], x, cfg), cache
 

@@ -132,30 +132,33 @@ def stack_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def stack_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
-                  impl: Optional[str] = None) -> torch.Tensor:
+                  impl: Optional[str] = None, shard=None) -> torch.Tensor:
     """Prefill from position 0 into the dense cache {"k"/"v": (L, B,
-    S_max, Hkv, D)}, updated in place.  x: (B, S, D)."""
+    S_max, Hkv, D)}, updated in place.  x: (B, S, D).  shard: the rank's
+    block of the strips on a mesh (attention.CacheShard)."""
     for l, is_global in enumerate(_layer_windows(cfg)):
         p = _layer(blocks, l)
         h = attn_prefill(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
                          cache["k"][l], cache["v"][l],
-                         window=_windowed(cfg, is_global), impl=impl)
+                         window=_windowed(cfg, is_global), impl=impl,
+                         shard=shard)
         x = _ffn_tail(p, x + h, cfg)
     return x
 
 
 def stack_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                  lens: torch.Tensor, *, impl: Optional[str] = None,
-                 seq_parallel: bool = False) -> torch.Tensor:
+                 seq_parallel: bool = False, shard=None) -> torch.Tensor:
     """Batched single-token decode against the dense cache; seq_parallel
     runs ops.decode_attention_naive in place of K3 (and drops the
-    windows: attn_decode)."""
+    windows: attn_decode).  shard: the rank's block of the strips on a
+    mesh (attention.CacheShard)."""
     for l, is_global in enumerate(_layer_windows(cfg)):
         p = _layer(blocks, l)
         h = attn_decode(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
                         cache["k"][l], cache["v"][l], lens,
                         window=_windowed(cfg, is_global), impl=impl,
-                        seq_parallel=seq_parallel)
+                        seq_parallel=seq_parallel, shard=shard)
         x = _ffn_tail(p, x + h, cfg)
     return x
 

@@ -4,6 +4,21 @@ single-chunk step (the sequential chunk oracle and the prefix-cached
 suffix), and the chunk-batch, fused decode and speculative verify steps
 of the one-launch tick.
 
+On a (data, model) mesh (mesh=, a launch/mesh.py DeviceMesh; the steps
+of launch/specs.py prefill_cell and serve_cell), make_prefill_step and
+make_serve_step return steps over the rank's shards, the counterparts of
+the JAX steps jitted with the cell's shardings: the parameters arrive as
+the cell's sharded DTensors and are gathered into full tensors (ZeRO-3,
+as the mesh train step; the model's own tensors are not used, so a cell's
+model may lie on the meta device), the batch, tokens and lens as this
+rank's rows, and the dense cache as this rank's block of the strips in
+the layout of the cell's cache spec (sharding/rules.py cache_spec: KV
+heads over the model axis; the sequence over the data axis; the sequence
+over the model axis).  The attention runs on the rank's heads and
+sequence block (models/attention.py CacheShard); the logits are the
+rank's rows'.  The dense family only: another raises NotImplementedError
+when its step is called.
+
 Each step is one eager call into the model; the chunk-batch and decode
 steps add device-side sampling and masked updates of the engine's (B, 1)
 tokens and (B,) lens - no per-slot host work and no transfer to the host
@@ -19,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from ..models.attention import CacheShard
 from . import sampling
 
 
@@ -44,30 +60,112 @@ def sample_token(logits: torch.Tensor, *, temperature: float = 0.0,
                            top_p=top_p)[:, None]
 
 
-def make_serve_step(model, *, seq_parallel: bool = False):
+def cache_shard(mesh, spec) -> CacheShard:
+    """The CacheShard of a dense (L, B, S, Hkv, D) cache laid out by
+    `spec` (a cache_spec, sanitized) on `mesh`: the model axis for the
+    head-sharded attention, whether the strips hold its KV-head block, and
+    the axis their sequence is split over."""
+    from ..launch.mesh import axis_mesh
+    spec = tuple(spec) + (None,) * (5 - len(spec))
+    seq_entry, head_entry = spec[2], spec[3]
+    for entry in (seq_entry, head_entry):
+        if isinstance(entry, tuple):
+            raise ValueError(f"cache spec {spec}: a sequence or head dim "
+                             f"split over several axes has no mesh step")
+    model_axis = axis_mesh(mesh, "model")
+    if head_entry not in (None, "model"):
+        raise ValueError(f"cache spec {spec}: KV heads split over "
+                         f"{head_entry!r}, not the model axis")
+    return CacheShard(model=model_axis,
+                      heads=head_entry is not None and model_axis is not None,
+                      seq=axis_mesh(mesh, seq_entry) if seq_entry else None)
+
+
+def _full_params(params):
+    """The full parameters of a mesh step: the cell's sharded DTensors
+    gathered into new full tensors on their device (sharding/shards.py
+    gather_full: one all_gather a sharded mesh dim of a leaf), or plain
+    tensors, taken as the full parameters every rank already holds.  The
+    model's own tensors are not used (a cell's model lies on the meta
+    device)."""
+    from torch.distributed.tensor import DTensor
+
+    from ..sharding.shards import gather_full
+    from ..tree import leaves, map_tree
+    is_d = [isinstance(p, DTensor) for p in leaves(params)]
+    if not any(is_d):
+        return params
+    if not all(is_d):
+        raise ValueError("a mesh step takes every parameter as a DTensor "
+                         "(the cell's shardings) or none")
+    return map_tree(gather_full, params)
+
+
+def make_serve_step(model, *, seq_parallel: bool = False, mesh=None,
+                    cache_spec=None):
     """serve_step(params, cache, tokens (B, 1), lens (B,)) -> (logits (B,
     1, V), cache): one new token per lane against the cache
     (Model.decode_step; seq_parallel=True decodes the attention through
-    ops.decode_attention_naive)."""
+    ops.decode_attention_naive).  On a mesh (the module docstring), the
+    cache laid out by cache_spec (default sharding/rules.py cache_spec with
+    seq_sharded=seq_parallel over the data axis): the default layout runs
+    K3 on the rank's KV heads and gathers the heads over the model axis; a
+    sequence-sharded one runs ops.seq_parallel_decode over its axis (no
+    window, as the JAX package's naive decode), on the rank's heads where
+    the strips hold a head block.  seq_parallel must say whether the
+    spec shards the sequence."""
+    if mesh is None:
+        def serve_step(params, cache, tokens, lens):
+            return model.decode_step(params, tokens, lens, cache,
+                                     seq_parallel=seq_parallel)
 
-    def serve_step(params, cache, tokens, lens):
-        return model.decode_step(params, tokens, lens, cache,
-                                 seq_parallel=seq_parallel)
+        return serve_step
+    from ..sharding.rules import axis_names
+    from ..sharding.rules import cache_spec as default_spec
+    spec = cache_spec if cache_spec is not None else default_spec(
+        axis_names(mesh), seq_sharded=seq_parallel)
+    shard = cache_shard(mesh, spec)
+    if (shard.seq is not None) != bool(seq_parallel):
+        raise ValueError(f"seq_parallel={seq_parallel} and cache spec "
+                         f"{tuple(spec)}: the sequence-parallel decode runs "
+                         f"exactly where the spec shards the sequence")
 
-    return serve_step
+    def mesh_serve_step(params, cache, tokens, lens):
+        from ..launch.mesh import check_mesh_family
+        check_mesh_family(model.cfg, "decoding")
+        return model.decode_step(_full_params(params), tokens, lens,
+                                 cache, shard=shard)
+
+    return mesh_serve_step
 
 
-def make_prefill_step(model):
+def make_prefill_step(model, *, mesh=None, cache_spec=None):
     """prefill_step(params, batch, cache) -> (last_logits, cache, lens):
     monolithic prefill into the dense cache (Model.prefill), the whole
     batch passed through - the audio family's audio_embeds and the vlm
     family's vision_embeds with the tokens (lens then counts the image
-    positions too)."""
+    positions too).  On a mesh (the module docstring), the cache laid out
+    by cache_spec (default: sharding/rules.py cache_spec's default
+    layout): K4 on the model rank's head shard, the rank's KV heads and
+    positions of each prompt written into its block of the strips."""
+    if mesh is None:
+        def prefill_step(params, batch, cache):
+            return model.prefill(params, batch, cache)
 
-    def prefill_step(params, batch, cache):
-        return model.prefill(params, batch, cache)
+        return prefill_step
+    from ..sharding.rules import axis_names
+    from ..sharding.rules import cache_spec as default_spec
+    shard = cache_shard(mesh, cache_spec if cache_spec is not None
+                        else default_spec(axis_names(mesh),
+                                          seq_sharded=False))
 
-    return prefill_step
+    def mesh_prefill_step(params, batch, cache):
+        from ..launch.mesh import check_mesh_family
+        check_mesh_family(model.cfg, "prefilling")
+        return model.prefill(_full_params(params), batch, cache,
+                             shard=shard)
+
+    return mesh_prefill_step
 
 
 def make_paged_prefill_step(model):

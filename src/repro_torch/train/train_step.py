@@ -103,19 +103,6 @@ def _local(tree):
     return map_tree(lambda t: t.to_local(), tree)
 
 
-def _head_mesh(mesh):
-    """The model axis as a ServeMesh (group, rank, size) for the head-
-    sharded attention; None without one or at size 1."""
-    from ..launch.mesh import ServeMesh
-    if "model" not in axis_names(mesh):
-        return None
-    i = mesh.mesh_dim_names.index("model")
-    if mesh.shape[i] == 1:
-        return None
-    return ServeMesh(mesh.get_group("model"), mesh.get_local_rank("model"),
-                     mesh.shape[i])
-
-
 def make_mesh_grads(model: Model, tcfg: TrainConfig, mesh):
     """Steps (a)-(c) of the sharded step: grads(state, batch) gathers the
     full parameters into the model's own tensors, runs the loss and its
@@ -125,7 +112,8 @@ def make_mesh_grads(model: Model, tcfg: TrainConfig, mesh):
     every rank; {"loss", "ce", "aux"}: the global values)."""
     remat = tcfg.remat != "none"
     dp = dp_axes(axis_names(mesh))
-    tp_mesh = _head_mesh(mesh)
+    from ..launch.mesh import axis_mesh
+    tp_mesh = axis_mesh(mesh, "model")
     full = model.params
     dp_sum = lambda t: all_reduce_sum(t, mesh, dp)
 
@@ -153,10 +141,13 @@ def make_mesh_grads(model: Model, tcfg: TrainConfig, mesh):
 
 def _make_mesh_step(model: Model, tcfg: TrainConfig, mesh):
     from torch.distributed.tensor import DTensor
+
+    from ..launch.mesh import check_mesh_family
     grads_of = make_mesh_grads(model, tcfg, mesh)
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        check_mesh_family(model.cfg, "training")
         full, out = grads_of(state, batch)
         grads = map_tree(lambda f: f.grad, full)
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)

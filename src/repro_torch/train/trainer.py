@@ -35,6 +35,7 @@ import torch
 from ..configs.base import ModelConfig, TrainConfig
 from ..data.pipeline import DataPipeline
 from ..kernels._checks import BACKWARD_HEAD_DIMS
+from ..launch.mesh import check_mesh_family
 from ..models import build_model
 from .checkpoint import restore_latest, save_checkpoint
 from .train_step import (init_sharded_train_state, init_train_state,
@@ -64,10 +65,7 @@ def check_mesh(cfg: ModelConfig, device, mesh, state_shardings) -> None:
                          "train_cell) come together")
     if mesh is None:
         return
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training {cfg.name} (family {cfg.family!r}) on a mesh is "
-            f"ROADMAP §1 item 3: the mesh trainer takes the dense family")
+    check_mesh_family(cfg, "training")
     if torch.device(device).type != mesh.device_type:
         raise ValueError(f"the mesh holds {mesh.device_type} tensors, the "
                          f"Trainer's device is {device}")

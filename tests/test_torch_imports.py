@@ -52,22 +52,38 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                     "repro_torch.launch.specs",
                                     "repro_torch.launch.serve",
                                     "repro_torch.launch.train",
-                                    "torch_mesh_worker"])
+                                    "torch_mesh_worker",
+                                    "repro_torch.launch.cost",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.core.schedule",
+                                    "repro_torch.core.hopper_mapping",
+                                    "repro_torch.serve.serve_step"])
 def test_module_alone_imports_no_jax(module):
     """The modules that keep copies of the JAX package's framework-free
     code (the energy model, the tracer, the fleet router, whisper's
     config), those that hold the sequence-parallel decode, the encoder-
     decoder stacks and the serve mesh, the tensor-parallel tests' worker
     (tests/torch_tp_worker.py, the module each spawned rank runs), the
-    sharding rules, the launchers and cell specs, and the mesh tests'
-    worker (tests/torch_mesh_worker.py) import, each on its own, no jax
-    and nothing of the JAX package."""
+    sharding rules, the launchers and cell specs, the mesh tests'
+    worker (tests/torch_mesh_worker.py), the cost counter and the dry run,
+    the copy of the paper's schedule and the Hopper block chooser, and the
+    mesh serving steps import, each on its own, no jax and nothing of the
+    JAX package."""
     res = _run(f"import sys, {module}\n"
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib', 'repro.')) "
                "or m == 'repro'))\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_dry_run_imports_the_fake_backend_only_when_it_runs():
+    """torch's fake process-group backend is a test utility: importing
+    any module of the port (launch/dryrun.py among them) leaves it out."""
+    res = _run(_CHECK.replace("print(len(names), bad)",
+                              "print('fake_pg' in str(sorted(sys.modules)))"))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "False"
 
 
 @pytest.mark.parametrize("example", ["torch_quickstart", "torch_serve_lm",

@@ -46,7 +46,9 @@ ragged tail and 100 value columns, the full-width shapes of zamba2 and
 rwkv6, and the refusal of a call autograd would have to differentiate);
 and K3, K4 and K5 at whisper-base's shapes (8 heads of 64: K4's full mask
 over 4 x 1500 and 1500 x 1500, K3 over a 1500-position strip, K5's full
-mask over 64 x 1500), in float32 and bfloat16.
+mask over 64 x 1500), in float32 and bfloat16; K4 at every tile its
+source instantiates (core/hopper_mapping.py: three bfloat16 tiles a head
+dim, the float32 kernel's one), and its refusal of any other tile.
 
 Needs an NVIDIA GPU and nvcc: every test skips with a reason elsewhere.
 Run on the card with
@@ -89,6 +91,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import hopper_mapping
 from repro_torch.kernels import flash_attention, flash_backward, flash_decode
 from repro_torch.kernels import mamba2_scan, ops, rwkv6_scan
 from repro_torch.kernels import paged_prefill
@@ -664,6 +667,62 @@ EDGE_VARIANTS = {"causal": (True, 0, 0.0), "full": (False, 0, 0.0),
 FWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (80, 2), (128, 2),
                (256, 2)]
 BWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 2), (256, 2)]
+
+
+# K4 at every tile the source instantiates (core/hopper_mapping.py
+# K4_TILES for bfloat16, f32_tile for float32), given explicitly: lengths
+# across several tiles of either size, fewer queries than keys
+TILE_CASES = [(dtype, D, tile) for D in sorted(hopper_mapping.K4_TILES)
+              for dtype, tiles in (
+                  ("bfloat16", hopper_mapping.K4_TILES[D]),
+                  ("float32", (hopper_mapping.f32_tile(D),)))
+              for tile in tiles]
+
+
+@pytest.mark.parametrize("lens", [(200, 200), (70, 300)],
+                         ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("variant", ["causal", "full", "window", "softcap"])
+@pytest.mark.parametrize("case", TILE_CASES,
+                         ids=lambda c: f"{c[0]}-D{c[1]}-{c[2][0]}x{c[2][1]}")
+def test_flash_attention_kernel_at_every_tile(dev, case, variant, lens):
+    """K4 launched at each instantiated (block_q, block_kv), against its
+    plain version at the bars of test_flash_attention_kernel_matches_plain
+    (window 40: shorter than every KV tile but one)."""
+    dtype, D, (bq, bkv) = case
+    dt = DTYPES[dtype]
+    causal, window, softcap = {"causal": (True, 0, 0.0),
+                               "full": (False, 0, 0.0),
+                               "window": (True, 40, 0.0),
+                               "softcap": (True, 0, 30.0)}[variant]
+    sq, skv = lens
+    _, q, k, v = _edge_case(dev, dt, D, 2, sq, skv, seed=12)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    n0 = flash_attention.launches
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, block_q=bq,
+                                                 block_kv=bkv, **kw)
+    o_ref, lse_ref = flash_attention.reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    if dt == torch.bfloat16:
+        _close_terms(o, o_ref, flash_attention.reference(q, k, v.abs(),
+                                                         **kw)[0])
+    else:
+        _close(o, o_ref, dt)
+    _close(lse, lse_ref, torch.float32)
+
+
+def test_flash_attention_refuses_a_tile_it_does_not_instantiate(dev):
+    q = torch.zeros(1, 64, 4, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.bfloat16)
+    n0 = flash_attention.launches
+    for bq, bkv in ((64, 128), (32, 32), (128, 128), (256, 64)):
+        with pytest.raises(ValueError, match="instantiates"):
+            flash_attention.flash_attention_fwd(q, k, k, block_q=bq,
+                                                block_kv=bkv)
+    with pytest.raises(ValueError, match="instantiates"):
+        flash_attention.flash_attention_fwd(q.float(), k.float(), k.float(),
+                                            block_q=128, block_kv=64)
+    assert flash_attention.launches == n0
 
 
 def _edge_case(dev, dt, D, G, sq, skv, seed):

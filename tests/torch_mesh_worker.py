@@ -29,6 +29,15 @@ Jobs:
   heads    (card) ops.head_sharded_attention on the rank's head shard of
            the saved q, k and v, K4 forward and K5 backward: o and the
            whole gradients of q, k, v
+  cell     the step of launch/specs.py prefill_cell or serve_cell on the
+           job's mesh (tests/test_torch_serve_cells.py): the parameters
+           saved by the test as this rank's DTensor shards, the batch /
+           cache / tokens / lens as this rank's slices; prefill once, or
+           decode the saved steps one after another; the logits and the
+           cache's local shard of each call, and the slice bounds (with
+           "count", the first call's collectives by launch/cost.py)
+  refuse_cells  each cell's step of a family other than dense, called:
+           the NotImplementedError
 """
 import datetime
 import json
@@ -158,7 +167,100 @@ def _heads_job(job, arrays):
     return {"cases": job["cases"]}
 
 
-JOBS = {"slices": _slices_job, "batch": _batch_job, "train": _train_job,
+def _cell_job(job, arrays):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import prefill_cell, serve_cell
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.sharding.shards import local_slice, shard, slice_bounds
+    from repro_torch.tree import map_tree
+    cfg = get_smoke_config(job["arch"]).replace(**job["replace"])
+    mesh = _mesh(job)
+    B, S = job["shape"]
+    kind = job["cell"]
+    cell = prefill_cell if kind == "prefill" else serve_cell
+    step, args, shardings = cell(cfg, ShapeSpec(kind, S, B, kind), mesh)
+    with np.load(job["params"]) as z:
+        flat = {k: z[k] for k in z.files}
+    tree = {}
+    for path, a in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = a
+    params = map_tree(shard, params_from_numpy(tree, cfg, "cpu"),
+                      shardings[0])
+    with np.load(job["inputs"]) as z:
+        inp = {k: z[k] for k in z.files}
+    cache_sh = shardings[2] if kind == "prefill" else shardings[1]
+    local = lambda a, sh: local_slice(torch.from_numpy(a), sh.placements,
+                                      mesh).clone()
+    cache = {n: local(inp[f"cache.{n}"], cache_sh[n]) for n in ("k", "v")}
+    out = {"bounds": {n: slice_bounds(inp[f"cache.{n}"].shape,
+                                      cache_sh[n].placements, mesh)
+                      for n in ("k", "v")}}
+    name = job["name"]
+    if job.get("count"):                # the first call under StepCost
+        from repro_torch.launch.cost import StepCost
+        inner = step
+
+        def step(*a):
+            if "collectives" in out:
+                return inner(*a)
+            with StepCost() as sc:
+                res = inner(*a)
+            out["collectives"] = sc.summary()["collectives"]
+            return res
+    with torch.no_grad():
+        if kind == "prefill":
+            tok = local(inp["tokens"], shardings[1]["tokens"])
+            logits, cache, lens = step(params, {"tokens": tok}, cache)
+            arrays[f"{name}.logits"] = logits.numpy()
+            arrays[f"{name}.lens"] = lens.numpy()
+            out["rows"] = slice_bounds(inp["tokens"].shape,
+                                       shardings[1]["tokens"].placements,
+                                       mesh)
+        else:
+            out["rows"] = slice_bounds(inp["tokens.0"].shape,
+                                       shardings[2].placements, mesh)
+            for i in range(job["steps"]):
+                tok = local(inp[f"tokens.{i}"], shardings[2])
+                lens = local(inp[f"lens.{i}"], shardings[3])
+                logits, cache = step(params, cache, tok, lens)
+                arrays[f"{name}.logits.{i}"] = logits.numpy()
+    for n in ("k", "v"):
+        arrays[f"{name}.cache.{n}"] = cache[n].numpy()
+    return out
+
+
+def _refuse_cells_job(job, arrays):
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import prefill_cell, serve_cell, train_cell
+    mesh = _mesh(job)
+    out = {}
+    for arch in job["archs"]:
+        cfg = get_smoke_config(arch)
+        cells = {
+            "train": (train_cell(cfg, ShapeSpec("t", 32, 4, "train"), mesh,
+                                 TrainConfig(global_batch=4, seq_len=32)),
+                      2),
+            "prefill": (prefill_cell(cfg, ShapeSpec("p", 32, 4, "prefill"),
+                                     mesh), 3),
+            "decode": (serve_cell(cfg, ShapeSpec("d", 32, 4, "decode"),
+                                  mesh), 4)}
+        for kind, ((step, _, _), n_args) in cells.items():
+            try:
+                step(*([None] * n_args))
+                out[f"{arch}.{kind}"] = None
+            except NotImplementedError as e:
+                out[f"{arch}.{kind}"] = str(e)
+    return out
+
+
+JOBS = {"cell": _cell_job, "refuse_cells": _refuse_cells_job,
+        "slices": _slices_job, "batch": _batch_job, "train": _train_job,
         "restore": _restore_job, "refuse": _refuse_job, "heads": _heads_job}
 
 

@@ -84,7 +84,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from repro_torch.kernels import build, flash_decode  # noqa: E402
+from repro_torch.kernels import build, flash_attention, flash_decode  # noqa
 from repro_torch.kernels import mamba2_scan, rwkv6_scan  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12          # H100 SXM data sheet: HBM bandwidth
@@ -94,9 +94,14 @@ SOURCES = {"K1": "paged_prefill", "K2": "paged_decode", "K3": "dense_decode",
            "K4": "flash_attention", "K5": "flash_backward",
            "K6": "mamba2_scan", "K7": "rwkv6_scan"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures before the scratch pointer: (argtypes, the indices of the
-# current call's arguments the old entry point takes)
+# C signatures before the scratch pointer (K4: before its tile
+# arguments): (argtypes, the indices of the current call's arguments the
+# old entry point takes)
 OLD_SIGNATURES = {
+    # q, k, v, o, lse, B, Sq, Skv, Hkv, G, D, causal, window, scale,
+    # softcap, is_bf16, stream
+    "flash_attention": ((_P,) * 5 + (_I,) * 8 + (_F, _F, _I, _P),
+                        [*range(13), *range(15, 19)]),
     # q, k_pages, v_pages, block_table, cache_len, out, B, Hkv, G, D,
     # page_size, n_max, window, scale, softcap, is_bf16, stream
     "paged_decode": ((_P,) * 6 + (_I,) * 7 + (_F, _F, _I, _P),
@@ -112,6 +117,8 @@ OLD_SIGNATURES = {
     "rwkv6_scan": ((_P,) * 6 + (_I,) * 6 + (_P,),
                    [*range(6), *range(7, 14)]),
 }
+# the text only a current source has (the argument an old one lacks)
+NEW_MARKER = {"flash_attention": "block_q"}
 # (label, B, S, Hq, Hkv, D) of the K4 shapes
 K4_SHAPES = [("dense prefill (1, 1904)", 1, 1904, 32, 8, 64),
              ("dense prefill (2, 256)", 2, 256, 32, 8, 64),
@@ -173,8 +180,8 @@ def build_both(old_dir: Path, names):
               f"{hmma_count(lib)} HMMA.16816.F32.BF16 in its SASS",
               flush=True)
         symbol, argtypes = build.SIGNATURES[name]
-        old = name in OLD_SIGNATURES and "scratch" not in (
-            src / f"{name}.cu").read_text()
+        old = name in OLD_SIGNATURES and NEW_MARKER.get(
+            name, "scratch") not in (src / f"{name}.cu").read_text()
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         fn.argtypes = list(OLD_SIGNATURES[name][0] if old else argtypes)
         fn.restype = ctypes.c_int
@@ -263,11 +270,13 @@ def k4_case(fns, B, S, Hq, Hkv, D, g):
             for ver in fns}
     stream = torch.cuda.current_stream().cuda_stream
 
+    bq, bkv = flash_attention.tile(D, S, torch.bfloat16)
+
     def call(ver):
         o, lse = outs[ver]
         err = fns[ver]["flash_attention"](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, S, Hkv, Hq // Hkv, D, 1, 0,
+            lse.data_ptr(), B, S, S, Hkv, Hq // Hkv, D, 1, 0, bq, bkv,
             1.0 / math.sqrt(D), 0.0, 1, stream)
         build.check("flash_attention", err)
 
@@ -286,7 +295,8 @@ def k5_case(fns, B, S, Hq, Hkv, D, g):
     o, lse = torch.empty_like(q), torch.empty((B, S, Hq), device="cuda")
     build.check("flash_attention", fns["new"]["flash_attention"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, S, S, Hkv, Hq // Hkv, D, 1, 0, 1.0 / math.sqrt(D),
+        lse.data_ptr(), B, S, S, Hkv, Hq // Hkv, D, 1, 0,
+        *flash_attention.tile(D, S, torch.bfloat16), 1.0 / math.sqrt(D),
         0.0, 1, stream))
     outs = {ver: (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v), torch.empty((B, S, Hq), device="cuda"))
