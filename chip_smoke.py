@@ -12,7 +12,9 @@ Phases (each raises on failure, so the run exits non-zero):
                         finished printed; no K4 bf16 tile may spill).
   2. kernel parity      the hand-written kernels against their plain
                         PyTorch versions on the card: the edge cases of
-                        tests/test_torch_kernels_cuda.py (run with pytest),
+                        tests/test_torch_kernels_cuda.py (run with pytest,
+                        every collected test, in EDGE_PROCS processes at
+                        once),
                         the serving shapes (head dim 64, 4 query heads per
                         KV head; K1/K2 over pages of 16, K4 prompts of
                         (1, 1904) and (2, 256), K3 8 strips of 2048 with
@@ -108,13 +110,14 @@ Phases (each raises on failure, so the run exits non-zero):
                         the smoke config (head dim 64) crashes at step 5,
                         resumes from its checkpoint, and must end with the
                         state digest and losses of a run that did not stop.
-                        recurrent: zamba2-2.7b (54 Mamba2 layers, a shared
-                        attention block of head dim 80 after every 6th)
-                        and rwkv6-1.6b (24 RWKV6 layers) at full width,
-                        seeded weights.  bf16: each model's forward over a
-                        numpy-seeded 2 x 2048 batch through the kernels
-                        (counts set to 0 before, read after: K6 54 and K4
-                        9 a zamba2 forward, K7 24 an rwkv6 forward, the
+                        recurrent: zamba2-2.7b (18 of its 54 Mamba2
+                        layers, a shared attention block of head dim 80
+                        after every 6th) and rwkv6-1.6b (8 of its 24 RWKV6
+                        layers) at full width, seeded weights.  bf16: each
+                        model's forward over a numpy-seeded 2 x 2048 batch
+                        through the kernels (counts set to 0 before, read
+                        after: K6 18 and K4 3 a zamba2 forward, K7 8 an
+                        rwkv6 forward, the
                         rest 0), its logits against impl="ref" within
                         REC_NOISE_MARGIN x the model's own bf16 noise, and
                         each layer against impl="ref" on the same input
@@ -123,7 +126,7 @@ Phases (each raises on failure, so the run exits non-zero):
                         two requests reuse a freed slot) served on the
                         dense recurrent-state cache with stepwise
                         admission: counts set to 0 before, read after
-                        (zamba2: K3 9 x the engine's decode steps, every
+                        (zamba2: K3 3 x the engine's decode steps, every
                         other kernel 0; rwkv6: all 0), no implicit host
                         sync in the ticks.  float32 on the same weights:
                         the forward's logits against impl="ref" within
@@ -134,8 +137,10 @@ Phases (each raises on failure, so the run exits non-zero):
                         it (near ties printed); a corrupted recurrent
                         state moves the logits by O(1).
                         the dense family: opt-6.7b, qwen-7b and gemma3-4b
-                        at full width serve the chunked traffic (gemma3-4b
-                        also the dense), counted and checked as above;
+                        at full width with 8, 7 and 12 of their layers
+                        (DF_SERVE_LAYERS) serve the chunked traffic
+                        (gemma3-4b also the dense), counted and checked as
+                        above;
                         olmo-1b (head dim 128) and gemma3-4b (34 layers,
                         8 / 4 heads of 256, windows of 1024 on 29 layers,
                         vocab 262144) train DF_TRAIN_STEPS steps of
@@ -196,6 +201,23 @@ Phases (each raises on failure, so the run exits non-zero):
                         0, meta device, fake world): its state collectives
                         equal each rank's a step, its argument bytes
                         printed beside torch.cuda.memory_allocated().
+                        Then the MoE family in the same ranks:
+                        olmoe-1b-7b at full width with 2 of its 16 layers
+                        trains 2 steps of 2 x 2048 numpy-seeded tokens
+                        twice through the mesh Trainer - the per-row
+                        dispatch at the published capacity factor 1.25,
+                        and the REPRO_MOE_A2A exchange at the smallest of
+                        2.0, 3.0, 4.0 at which neither path drops a pair
+                        of these batches (the drops of both paths printed
+                        by factor) - each within M14_BARS of the single-
+                        device Trainer at its factor, every rank's losses
+                        rank 0's, K4 8 and K5 4 a rank a run and nothing
+                        else, the exchange's all_to_all calls counted
+                        (sharding/shards.py COMM) and none on the per-row
+                        path; then a prefill cell of 2 x 2048 and 16
+                        decode steps of the serve cell (default layout:
+                        K4 2, K3 32 a rank) on the per-row run's weights
+                        against one device, as granite's.
                         sequence-parallel decode (M11): the serving
                         granite-3-2b, batch 1, prefills a 32768-token
                         prompt into a dense cache (2.7 GB of K/V); on
@@ -260,7 +282,15 @@ Phases (each raises on failure, so the run exits non-zero):
                         float32 operands), moe_ffn_a2a_local in a one-rank
                         NCCL group against moe_ffn, and its float32 copy
                         serving through the kernels and through impl="ref",
-                        each on its own routing, held the same way.
+                        each on its own routing, held the same way.  Then
+                        olmoe-1b-7b at full width with 8 of its 16 layers
+                        (3.56 B parameters, ~43 GB of training state)
+                        trains 3 steps of 4 x 2048 numpy-seeded tokens,
+                        remat full, capacity factor 1.25: the first step
+                        against impl="ref" within M14_BARS, K4 48 and K5
+                        24 launches and nothing else, step time, tokens/s,
+                        peak memory and an MFU over the parameters a
+                        token reaches (moe_train_flops).
                         the vision-language family (M13): llava-next-34b
                         at full width and depth (60 layers, 56 / 8 heads
                         of 128, 34.39 B parameters, 68.8 GB of bf16
@@ -485,8 +515,12 @@ TRAIN_BARS = {"loss": 5e-3, "grad_norm": 2e-3}
 # dense recurrent-state cache with stepwise admission (4 slots: the last
 # two requests reuse freed slots); the prompts are half the 678 tokens of
 # PRs 14-27, to keep the script near 900 s beside M14's serving cells
-# (the stepwise admission is one decode step a prompt token, four runs)
+# (the stepwise admission is one decode step a prompt token, four runs);
+# since PR 29, beside the MoE family's runs, a third of each model's
+# layers (REC_LAYERS: zamba2's 18 of 54 keep 3 applications of its shared
+# block, one every 6 layers; rwkv6's 8 of 24)
 REC_ARCHS = ("zamba2-2.7b", "rwkv6-1.6b")
+REC_LAYERS = {"zamba2-2.7b": 18, "rwkv6-1.6b": 8}
 REC_BATCH = (2, 2048)
 REC_PROMPTS = (12, 28, 48, 65, 85, 100)
 REC_NEW = 16
@@ -794,18 +828,54 @@ def k5_llava_shape():
             cfg.n_kv_heads, cfg.head_dim)
 
 
+# the edge-case tests run in this many pytest processes on the card at
+# once, each a round-robin share of the collected tests and one torch
+# thread: one process took 185 s of a 981.5 s script, four 91.2 s (my
+# chip calls 3-4, PR 29), most of it on the host, which has 8 cores
+EDGE_PROCS = 8
+
+
+def edge_cases() -> str:
+    """tests/test_torch_kernels_cuda.py's CUDA tests, every one collected,
+    in EDGE_PROCS pytest processes at once (the kernels are built
+    already, so each only loads them); raises unless each process passes
+    its share with nothing skipped.  Returns the summary."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+           "--noconftest", "-m", "cuda"]
+    path = str(ROOT / "tests" / "test_torch_kernels_cuda.py")
+    col = subprocess.run(cmd + ["--collect-only", path], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    ids = [line for line in col.stdout.splitlines() if "::" in line]
+    if col.returncode != 0 or not ids:
+        raise AssertionError(f"edge-case collection failed:\n"
+                             f"{col.stdout[-4000:]}\n{col.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ids[i::EDGE_PROCS], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(EDGE_PROCS)]
+    passed, lines = 0, []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=900)
+            last = out.strip().splitlines()[-1] if out.strip() else ""
+            lines.append(last)
+            n = len(ids[i::EDGE_PROCS])
+            if p.returncode != 0 or f"{n} passed" not in last \
+                    or "skipped" in last:
+                raise AssertionError(f"edge-case parity failed:\n"
+                                     f"{out[-4000:]}\n{err[-2000:]}")
+            passed += n
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return (f"{passed} of {len(ids)} passed in {EDGE_PROCS} processes at "
+            f"once, {time.perf_counter() - t0:.1f} s ({'; '.join(lines)})")
+
+
 def phase_kernel_parity():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run(
-        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-         "--noconftest", "-m", "cuda",
-         str(ROOT / "tests" / "test_torch_kernels_cuda.py")],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
-    summary = res.stdout.strip().splitlines()[-1] if res.stdout else ""
-    if res.returncode != 0 or "skipped" in summary or "passed" not in summary:
-        raise AssertionError(f"edge-case parity failed:\n{res.stdout[-4000:]}"
-                             f"\n{res.stderr[-2000:]}")
-    log(f"# edge cases (tests/test_torch_kernels_cuda.py): {summary}")
+    log(f"# edge cases (tests/test_torch_kernels_cuda.py): {edge_cases()}")
     for dtype in (torch.float32, torch.bfloat16):
         a1, a2, a3, a4s = serving_shape_args(dtype)
         o1 = k1_call(a1)
@@ -1864,10 +1934,11 @@ def _k5_weight(q, k, v, o, lse, do, causal=True, window=0, **_):
                                              window)
 
 
-def train_check(model, params, batch):
+def train_check(model, params, batch, bars=TRAIN_BARS):
     """One step's loss and gradient norm (the step's loss and backward,
     before the optimizer) through the kernels and through impl="ref",
-    from the same state.  Returns {impl: (loss, grad norm)}."""
+    from the same state, within `bars`.  Returns {impl: (loss, grad
+    norm)}."""
     out = {}
     for impl in (None, "ref"):
         for p in leaves(params):
@@ -1883,8 +1954,8 @@ def train_check(model, params, batch):
         err = abs(a - b) if key == "loss" else abs(a - b) / b
         log(f"# full-width training step, kernels vs ref: {key} {a:.6f} vs "
             f"{b:.6f}, {'abs' if key == 'loss' else 'rel'} diff {err:.3e} "
-            f"(bar {TRAIN_BARS[key]})")
-        if not (np.isfinite(a) and err <= TRAIN_BARS[key]):
+            f"(bar {bars[key]})")
+        if not (np.isfinite(a) and err <= bars[key]):
             raise AssertionError(f"training {key}: kernels and ref disagree")
     return out
 
@@ -2058,6 +2129,33 @@ M14_DECODE_STEPS = 16
 M14_CACHE_BAR = MODEL_BARS["dense prefill"]
 
 
+# the MoE family on the same mesh (ROADMAP §1 item 3), after granite's
+# work in the same four ranks: olmoe-1b-7b at full width with 2 of its 16
+# layers (1.05 B parameters), two runs of M14_STEPS steps of 2 x 2048
+# numpy-seeded tokens through the mesh Trainer - the per-row dispatch at
+# the published capacity factor, against the single-device Trainer at the
+# same factor (per-row capacity is per row: the mesh's rows drop what one
+# device's drop), and the REPRO_MOE_A2A exchange at the smallest of
+# M14_MOE_FACTORS at which it drops no pair in these batches
+# (m14_moe_factor), against the single-device Trainer at M14_MOE_NO_DROP
+# = E / K, where the per-row capacity C = S K / E x factor is the whole
+# row and nothing can drop: both then compute the MoE with no drop.  The
+# exchange's expert capacity carries the factor twice (c_loc = ceil(tp
+# c_pair / e_loc x factor)), so at 8.0 its bf16 expert buffer alone would
+# be 4.3 GB a rank a layer; at 2.0 each of its paths - per destination
+# rank, per expert - has at least twice its mean load.  The per-row
+# dispatch at the seeded weights drops at every factor of
+# M14_MOE_FACTORS (the drops of both paths are printed by factor), and a
+# shorter batch does not help: the seeded model routes most tokens of a
+# row alike, so the overflow is a share of each row.  Then one prefill
+# cell of 2 x 2048 and M14_DECODE_STEPS decode steps of the serve cell
+# (default layout) on the per-row run's weights, against one device
+M14_MOE_LAYERS = 2
+M14_MOE_TRAIN = dict(M14_TRAIN, global_batch=2)
+M14_MOE_FACTORS = (2.0, 3.0, 4.0)
+M14_MOE_SERVE = {"moe_decode": (2048 + M14_DECODE_STEPS, 2, 2048)}
+
+
 def m14_setup():
     """The config, its TrainConfig (checkpoints under M14_DIR/<name>) and
     the numpy-seeded global batches of the M14_STEPS steps (the same in
@@ -2071,6 +2169,212 @@ def m14_setup():
     return cfg, tc, batches
 
 
+def m14_moe_setup():
+    """olmoe-1b-7b at M14_MOE_LAYERS layers, its TrainConfig at a capacity
+    factor (checkpoints under M14_DIR/<name>) and the numpy-seeded global
+    batches of the M14_STEPS steps."""
+    cfg = get_config("olmoe-1b-7b").replace(n_layers=M14_MOE_LAYERS)
+    tc = lambda name: TrainConfig(checkpoint_dir=str(M14_DIR / name),
+                                  **M14_MOE_TRAIN)
+    B, S = M14_MOE_TRAIN["global_batch"], M14_MOE_TRAIN["seq_len"]
+    batches = {s: {"tokens": np.random.default_rng(200 + s).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)} for s in range(M14_STEPS)}
+    return cfg, tc, batches
+
+
+def moe_drops(x: torch.Tensor, router: torch.Tensor, cfg, factor: float,
+              tp: int) -> tuple:
+    """The pairs one MoE layer's input x (B, S, d) drops at capacity
+    factor `factor`: (the per-row dispatch's - models/moe.py dispatch, a
+    pair past C in its expert's row - and the exchange's on a model axis
+    of tp with the rows gathered - models/moe_a2a.py: a pair past c_pair
+    of its destination rank, then a received pair past c_loc of its
+    expert, in the receiver's order: by source rank, then slot)."""
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    B, S, _ = x.shape
+    f = cfg.replace(moe_capacity_factor=factor)
+    _, _, top = moe.route({"router": router}, x, f)
+    flat = top.reshape(B, S * K)
+    pos = torch.gather(torch.cumsum(moe._one_hot(flat, E, torch.int32), 1),
+                       2, flat[..., None])[..., 0] - 1
+    rows = int((pos >= moe.capacity(S, f)).sum())
+    e_loc, S_l = E // tp, S // tp
+    T = B * S_l
+    c_pair = math.ceil(T * K / tp * factor)
+    c_loc = math.ceil(tp * c_pair / e_loc * factor)
+    pair_drops, recv = 0, [[] for _ in range(tp)]
+    for m in range(tp):
+        e = top[:, m * S_l:(m + 1) * S_l].reshape(-1)      # (token, k) order
+        dst = e // e_loc
+        slot = torch.gather(torch.cumsum(moe._one_hot(dst, tp, torch.int32),
+                                         0), 1, dst[:, None])[:, 0] - 1
+        keep = slot < c_pair
+        pair_drops += int((~keep).sum())
+        for r in range(tp):
+            recv[r].append(e[keep & (dst == r)] % e_loc)
+    expert_drops = 0
+    for r in range(tp):
+        le = torch.cat(recv[r])
+        eslot = torch.gather(torch.cumsum(moe._one_hot(le, e_loc,
+                                                       torch.int32), 0),
+                             1, le[:, None])[:, 0] - 1
+        expert_drops += int((eslot >= c_loc).sum())
+    return rows, pair_drops + expert_drops
+
+
+def m14_moe_drops(model, params, batches, factors, tp: int) -> dict:
+    """{factor: [per-row drops, exchange drops]} summed over the MoE layers
+    of a no-grad forward of each batch (models/moe.py moe_ffn's inputs,
+    captured)."""
+    calls = []
+    inner = moe.moe_ffn
+
+    def capture(p, x, cfg, *rest):
+        calls.append((p["router"], x))
+        return inner(p, x, cfg, *rest)
+    moe.moe_ffn = capture
+    try:
+        with torch.no_grad():
+            for b in batches:
+                model.forward(params, {"tokens": b["tokens"]})
+    finally:
+        moe.moe_ffn = inner
+    out = {}
+    for f in factors:
+        d = [moe_drops(x, r, model.cfg, f, tp) for r, x in calls]
+        out[f] = [sum(a for a, _ in d), sum(b for _, b in d)]
+    del calls
+    return out
+
+
+def m14_moe_no_drop(cfg) -> float:
+    """The capacity factor E / K: the per-row capacity is the row."""
+    return cfg.moe_experts / cfg.moe_top_k
+
+
+def m14_moe_factor():
+    """The exchange run's capacity factor: the smallest of
+    M14_MOE_FACTORS at which the exchange drops no pair of the M14_STEPS
+    batches at the seeded weights (m14_moe_drops on one device; the
+    per-row dispatch's drops printed beside).  Returns (factor, {factor:
+    drops})."""
+    cfg, tc, batches = m14_moe_setup()
+    model = build_model(cfg)
+    params = model.init(seed=tc("drops").seed)
+    dev = model.device
+    bs = [{"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+          for b in batches.values()]
+    published = cfg.moe_capacity_factor
+    drops = m14_moe_drops(model, params, bs, (published,) + M14_MOE_FACTORS
+                          + (m14_moe_no_drop(cfg),), M14_MESH[1])
+    del model, params, bs
+    _free()
+    log(f"# M14 MoE drops (per-row dispatch, exchange on the model axis "
+        f"of {M14_MESH[1]}) in the {M14_STEPS} batches at the seeded "
+        f"weights, by capacity factor: {drops}")
+    factor = next((f for f in M14_MOE_FACTORS if drops[f][1] == 0), None)
+    if factor is None:
+        raise AssertionError(f"M14 MoE: the exchange drops pairs at every "
+                             f"factor of {M14_MOE_FACTORS}: {drops}")
+    return factor, drops
+
+
+def m14_moe_runs(factor: float):
+    """(run, capacity factor, REPRO_MOE_A2A, the single-device reference's
+    capacity factor) of the MoE family's two mesh runs."""
+    cfg = get_config("olmoe-1b-7b")
+    published = cfg.moe_capacity_factor
+    return (("rows", published, False, published),
+            ("a2a", factor, True, m14_moe_no_drop(cfg)))
+
+
+def m14_moe_reference(factor: float) -> dict:
+    """The MoE runs on one device: the single-device Trainer at each run's
+    reference factor (m14_moe_runs), from the same seeded weights,
+    M14_STEPS steps through its own step, each step's drops counted first
+    (m14_moe_drops): the per-row dispatch's at the reference's factor and
+    the exchange's at the mesh run's.  {run: {"steps": [(loss, grad
+    norm)], "drops": [[per-row, exchange]] a step}}."""
+    cfg, tc, batches = m14_moe_setup()
+    out = {}
+    for run, f, _, f_ref in m14_moe_runs(factor):
+        tr = Trainer(cfg.replace(moe_capacity_factor=f_ref),
+                     tc(f"{run}_single"))
+        tr.pipeline.host_batch = lambda s: batches[s]
+        steps, drops = [], []
+        for s in range(M14_STEPS):
+            b = tr.pipeline.device_batch(s)
+            d = m14_moe_drops(tr.model, tr.state.params, [b], (f_ref, f),
+                              M14_MESH[1])
+            drops.append([d[f_ref][0], d[f][1]])
+            tr.state, m = tr.train_step(tr.state, b)
+            steps.append((float(m["loss"]), float(m["grad_norm"])))
+        out[run] = {"steps": steps, "drops": drops}
+        del tr
+        _free()
+    return out
+
+
+def m14_moe_rank(rank: int, mesh, factor: float) -> dict:
+    """A rank's MoE runs (m14_moe_runs) through Trainer(mesh=,
+    state_shardings=train_cell(...)): M14_STEPS steps of the Trainer's
+    own step on rank 0's batches, the collectives (COMM) and kernel
+    launches of each run; then on the per-row run's weights the serving
+    run of M14_MOE_SERVE (m14_serve, records under "moe_serve"), and
+    those weights, gathered, saved by rank 0 for the reference."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import train_cell
+    from repro_torch.sharding import shards
+    from repro_torch.sharding.shards import gather_full
+    cfg, tc, batches = m14_moe_setup()
+    out = {}
+    for run, f, a2a, _ in m14_moe_runs(factor):
+        c = cfg.replace(moe_capacity_factor=f)
+        tcfg = tc(f"moe_{run}")
+        shape = ShapeSpec("train", tcfg.seq_len, tcfg.global_batch, "train")
+        if a2a:
+            os.environ["REPRO_MOE_A2A"] = "1"
+        try:
+            t0 = time.perf_counter()
+            tr = Trainer(c, tcfg, mesh=mesh,
+                         state_shardings=train_cell(c, shape, mesh,
+                                                    tcfg)[2][0])
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            tr.pipeline.host_batch = lambda s: batches[s]
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            metrics, comm, walls = [], [], []
+            for s in range(M14_STEPS):
+                t0 = time.perf_counter()
+                b = tr.pipeline.device_batch(s)
+                shards.reset_comm()
+                tr.state, m = tr.train_step(tr.state, b)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                comm.append(json.loads(json.dumps(shards.COMM)))
+                metrics.append({k: float(v) for k, v in m.items()})
+            launches = read_counts()
+        finally:
+            os.environ.pop("REPRO_MOE_A2A", None)
+        out[run] = {"factor": f, "metrics": metrics, "comm_per_step": comm,
+                    "launches": launches, "step_wall_s": walls,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "build_s": build_s}
+        if run == "rows":
+            out["moe_serve"] = m14_serve(c, tr.state.params, mesh, rank,
+                                         M14_MOE_SERVE, "moe_serve")
+            full = {p: gather_full(t) for p, t in
+                    leaves_with_paths(tr.state.params)}
+            if rank == 0:
+                torch.save({p: t.cpu() for p, t in full.items()},
+                           M14_DIR / "moe_params.pt")
+            del full
+        del tr
+        _free()
+    return out
+
+
 def bit_digest(t: torch.Tensor) -> list:
     """Two int64 sums over a tensor's raw bits (the plain sum and one
     weighted by position), on the card: equal tensors give equal digests,
@@ -2081,8 +2385,8 @@ def bit_digest(t: torch.Tensor) -> list:
     return [int(bits.sum()), int((bits * w).sum())]
 
 
-def m14_serve_inputs(cfg):
-    """Each M14_SERVE run's numpy-seeded prompts (B, P) and teacher-forced
+def m14_serve_inputs(cfg, runs=M14_SERVE):
+    """Each serving run's numpy-seeded prompts (B, P) and teacher-forced
     decode tokens (steps, B, 1), the same in every process."""
     rng = np.random.default_rng(300)
     return {name: {"prompt": rng.integers(0, cfg.vocab_size, (B, P),
@@ -2090,29 +2394,31 @@ def m14_serve_inputs(cfg):
                    "tokens": rng.integers(0, cfg.vocab_size,
                                           (M14_DECODE_STEPS, B, 1),
                                           dtype=np.int32)}
-            for name, (S, B, P) in M14_SERVE.items()}
+            for name, (S, B, P) in runs.items()}
 
 
-def m14_serve(cfg, params, mesh, rank: int) -> dict:
-    """A rank's M14_SERVE runs through the cells' steps: each run's
+def m14_serve(cfg, params, mesh, rank: int, runs=M14_SERVE,
+              tag: str = "serve") -> dict:
+    """A rank's serving runs (default M14_SERVE) through the cells' steps:
+    each run's
     prefill cell step fills its cache shard (the first with the state's
     parameter DTensors, gathered inside the step; the others with the
     tree gathered once), a decode run then takes its serve cell's step
     M14_DECODE_STEPS times.  Logits and cache shards to
-    M14_DIR/serve<rank>.pt; returns each run's layout, row and cache
+    M14_DIR/<tag><rank>.pt; returns each run's layout, row and cache
     bounds, walls and kernel launches."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.specs import prefill_cell, serve_cell
     from repro_torch.sharding.shards import (gather_full, local_shape,
                                              local_slice, slice_bounds)
-    dev = torch.device("cuda")
+    dev = leaves(params)[0].device
     local = lambda a, sh: local_slice(torch.from_numpy(a).to(dev),
                                       sh.placements, mesh).contiguous()
     spec = lambda sh: [list(e) if isinstance(e, tuple) else e
                        for e in sh.spec]
     full, out, arrays = None, {}, {}
-    for name, (S, B, P) in M14_SERVE.items():
-        inp = m14_serve_inputs(cfg)[name]
+    for name, (S, B, P) in runs.items():
+        inp = m14_serve_inputs(cfg, runs)[name]
         pstep, pargs, psh = prefill_cell(
             cfg, ShapeSpec(name, S, B, "prefill"), mesh)
         cache = {n: torch.zeros(local_shape(pargs[2][n].shape,
@@ -2156,7 +2462,7 @@ def m14_serve(cfg, params, mesh, rank: int) -> dict:
                         "k": cache["k"].cpu(), "v": cache["v"].cpu()}
         out[name] = rec
         del cache, logs
-    torch.save(arrays, M14_DIR / f"serve{rank}.pt")
+    torch.save(arrays, M14_DIR / f"{tag}{rank}.pt")
     return out
 
 
@@ -2181,13 +2487,14 @@ def m14_dryrun() -> dict:
         dist.destroy_process_group()
 
 
-def m14_rank(rank: int, world: int):
+def m14_rank(rank: int, world: int, moe_factor: float):
     """One rank of phase_m14 (a spawned process of its own on cuda:0): the
     mesh Trainer takes M14_STEPS steps on rank 0's numpy-seeded batches,
     each step's collectives and the kernel launches counted, then saves
     its checkpoint (Trainer.run's last save: the full tensors, rank 0
-    writing); each leaf's local shard digested for the elastic check.
-    Results to M14_DIR/rank<r>.json."""
+    writing); each leaf's local shard digested for the elastic check;
+    the serving cells (m14_serve); then the MoE runs (m14_moe_rank, the
+    exchange at moe_factor).  Results to M14_DIR/rank<r>.json."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeSpec
@@ -2242,6 +2549,9 @@ def m14_rank(rank: int, world: int):
                "peak_mem_gb": peak / 1e9, "build_s": build_s,
                "allocated_after_state": placed, "digests": digests}
         res["serve"] = m14_serve(cfg, tr.state.params, mesh, rank)
+        del tr
+        _free()
+        res["moe"] = m14_moe_rank(rank, mesh, moe_factor)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -2290,15 +2600,16 @@ def m14_elastic(cfg, tc, res):
     return n, ref
 
 
-def m14_serve_reference(model, params, cfg) -> dict:
-    """M14_SERVE's runs on one device: Model.prefill of the whole batch,
-    then the decode steps (seq_parallel=True where the mesh run shards
-    the sequence: the naive decode, as the JAX package's serve cell)."""
+def m14_serve_reference(model, params, cfg, runs=M14_SERVE) -> dict:
+    """The serving runs (default M14_SERVE) on one device: Model.prefill
+    of the whole batch, then the decode steps (seq_parallel=True where the
+    mesh run shards the sequence: the naive decode, as the JAX package's
+    serve cell)."""
     dev = model.device
     out = {}
     with torch.no_grad():
-        for name, (S, B, P) in M14_SERVE.items():
-            inp = m14_serve_inputs(cfg)[name]
+        for name, (S, B, P) in runs.items():
+            inp = m14_serve_inputs(cfg, runs)[name]
             cache = model.init_cache(B, S)
             logits, cache, lens = model.prefill(
                 params, {"tokens": torch.from_numpy(inp["prompt"]).to(dev)},
@@ -2323,7 +2634,8 @@ def _cut(t: torch.Tensor, bounds) -> torch.Tensor:
     return t
 
 
-def m14_serve_check(ref: dict, res) -> dict:
+def m14_serve_check(ref: dict, res, tag: str = "serve",
+                    L: int = M14_LAYERS) -> dict:
     """Every rank's serving runs against the single-device reference:
     logits of its rows within MODEL_BARS (prefill: the dense prefill's,
     decode: the dense or the seq-parallel decode step's), each step's
@@ -2331,15 +2643,16 @@ def m14_serve_check(ref: dict, res) -> dict:
     within SERVED_TOKEN_BAR of its max), its cache shard within
     M14_CACHE_BAR of the reference cache's slice, and its kernel
     launches: K4 a layer for each prefill, K3 a layer a step in the
-    default layout's decode, nothing else."""
-    L = M14_LAYERS
-    want_launches = {
-        "prefill": {"K4": L}, "decode": {"K4": L, "K3": L * M14_DECODE_STEPS},
-        "decode_seq_data": {"K4": L}}
+    default layout's decode, nothing else.  tag: the ranks' records
+    (rr[tag]) and files (M14_DIR/<tag><rank>.pt); L the model's layers."""
+    def want_launches(name):
+        if name == "prefill" or name == "decode_seq_data":
+            return {"K4": L}
+        return {"K4": L, "K3": L * M14_DECODE_STEPS}
     summary = {}
     for rr in res:
-        got = torch.load(M14_DIR / f"serve{rr['rank']}.pt")
-        for name, rec in rr["serve"].items():
+        got = torch.load(M14_DIR / f"{tag}{rr['rank']}.pt")
+        for name, rec in rr[tag].items():
             want, mine = ref[name], got[name]
             r0, r1 = next(((st, st + sz) for d, st, sz in rec["rows"]
                            if d == 0), (0, want["logits"].shape[1]))
@@ -2371,14 +2684,94 @@ def m14_serve_check(ref: dict, res) -> dict:
                     or cache_err > M14_CACHE_BAR:
                 raise AssertionError(f"M14 {name}: rank {rr['rank']} "
                                      f"disagrees with one device")
-            if launches != want_launches[name]:
+            if launches != want_launches(name):
                 raise AssertionError(f"M14 {name}: rank {rr['rank']} "
                                      f"launched {launches}, want "
-                                     f"{want_launches[name]}")
+                                     f"{want_launches(name)}")
             summary.setdefault(name, []).append(dict(
                 rec, rank=rr["rank"], logits_max_abs_diff=max(errs),
                 argmax_flips=flips, cache_max_abs_diff=cache_err))
     return summary
+
+
+def m14_moe_check(res, ref: dict, factor: float, drops0: dict) -> dict:
+    """The MoE runs of every rank: losses equal rank 0's, within M14_BARS
+    of the single-device Trainer (ref, m14_moe_reference: at the same
+    factor for the per-row run; for the exchange's at E / K, neither
+    dropping a pair in its steps), K4 2 x layers and K5 layers launches a
+    step and nothing else, all_to_all calls in the exchange run's
+    collectives and none in the per-row run's."""
+    L = M14_MOE_LAYERS
+    want = {k: 0 for k in COUNTERS}
+    want.update(K4=2 * L * M14_STEPS, K5=L * M14_STEPS)
+    out = {"layers": L, "drops_at_seed": drops0, "runs": {}}
+    for run, f, a2a, f_ref in m14_moe_runs(factor):
+        r = ref[run]
+        got0 = [(m["loss"], m["grad_norm"]) for m in
+                res[0]["moe"][run]["metrics"]]
+        for rr in res:
+            mr = rr["moe"][run]
+            got = [(m["loss"], m["grad_norm"]) for m in mr["metrics"]]
+            comm = mr["comm_per_step"][-1]
+            log(f"# M14 MoE {run} (capacity factor {f}, REPRO_MOE_A2A "
+                f"{'1' if a2a else 'unset'}) rank {rr['rank']}: losses / "
+                f"grad norms {[(round(a, 5), round(b, 5)) for a, b in got]}"
+                f", aux {[round(m['aux'], 5) for m in mr['metrics']]}; step "
+                f"wall {[round(t, 3) for t in mr['step_wall_s']]} s; kernel "
+                f"launches {mr['launches']}; collectives a step "
+                + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e9:.3f} "
+                            f"GB" for k, v in sorted(comm.items()))
+                + f"; peak {mr['peak_mem_gb']:.2f} GB; built in "
+                f"{mr['build_s']:.1f} s")
+            if got != got0:
+                raise AssertionError(f"M14 MoE {run}: rank {rr['rank']}'s "
+                                     f"losses differ from rank 0's")
+            if mr["launches"] != want:
+                raise AssertionError(f"M14 MoE {run}: rank {rr['rank']} "
+                                     f"launched {mr['launches']}, want "
+                                     f"{want}")
+            if ("all_to_all" in comm) != a2a:
+                raise AssertionError(f"M14 MoE {run}: all_to_all calls "
+                                     f"{comm.get('all_to_all')}")
+        for s, ((l_m, g_m), (l_r, g_r)) in enumerate(zip(got0, r["steps"])):
+            dl, dg = abs(l_m - l_r), abs(g_m - g_r) / g_r
+            log(f"# M14 MoE {run} step {s}: 2x2 mesh loss {l_m:.5f} / grad "
+                f"norm {g_m:.5f}, single device at factor {f_ref} "
+                f"{l_r:.5f} / {g_r:.5f}: |loss diff| {dl:.2e} (bar "
+                f"{M14_BARS['loss']}), grad norm rel diff {dg:.2e} (bar "
+                f"{M14_BARS['grad_norm']}); drops (per-row at {f_ref}, "
+                f"exchange at {f}): {r['drops'][s]}")
+            if not (np.isfinite(l_m) and dl <= M14_BARS["loss"]
+                    and dg <= M14_BARS["grad_norm"]):
+                raise AssertionError(f"M14 MoE {run} step {s}: the mesh "
+                                     f"step and one device disagree")
+            if a2a and r["drops"][s] != [0, 0]:
+                raise AssertionError(f"M14 MoE: pairs dropped: "
+                                     f"{r['drops'][s]}")
+        out["runs"][run] = {
+            "factor": f, "a2a": a2a, "reference_factor": f_ref,
+            "single_device": r,
+            "ranks": [dict(rr["moe"][run], rank=rr["rank"]) for rr in res]}
+    return out
+
+
+def m14_moe_serve_check(res) -> dict:
+    """The MoE serving run of every rank (M14_MOE_SERVE, on the per-row
+    run's weights, which rank 0 saved) against one device on those
+    weights, as m14_serve_check holds granite's."""
+    cfg, _, _ = m14_moe_setup()
+    model = build_model(cfg)
+    saved = torch.load(M14_DIR / "moe_params.pt")
+    with torch.no_grad():
+        for path, t in leaves_with_paths(model.params):
+            t.copy_(saved[path])
+    del saved
+    ref = m14_serve_reference(model, model.params, cfg, M14_MOE_SERVE)
+    del model
+    _free()
+    return m14_serve_check(ref, [{"rank": rr["rank"],
+                                  "moe_serve": rr["moe"]["moe_serve"]}
+                                 for rr in res], "moe_serve", M14_MOE_LAYERS)
 
 
 def m14_clis():
@@ -2408,10 +2801,16 @@ def phase_m14():
     M14_SERVE's runs through the prefill and serve cells' steps (M14b,
     m14_serve), held against one device on the restored weights
     (m14_serve_check), and rank 0's dry run of the train cell counts the
-    state collectives each rank made a step (m14_dryrun).  Four
-    ranks on one card share its SMs and HBM, and gloo moves the
-    collectives through host memory: the step times are not a speed of
-    four cards.  Returns (e2e, captured)."""
+    state collectives each rank made a step (m14_dryrun).  Then the MoE
+    family in the same ranks (m14_moe_rank): olmoe-1b-7b at
+    M14_MOE_LAYERS layers trains on the per-row dispatch and on the
+    REPRO_MOE_A2A exchange (its factor from m14_moe_factor), each held
+    against the single-device Trainer at its factor, run here beside the
+    ranks (m14_moe_reference, m14_moe_check), and serves M14_MOE_SERVE
+    against one device (m14_moe_serve_check).  Four ranks on one card
+    share its SMs and HBM, and gloo moves the collectives through host
+    memory: the step times are not a speed of four cards.  Returns (e2e,
+    captured, runs)."""
     import torch.multiprocessing as mp
     shutil.rmtree(M14_DIR, ignore_errors=True)
     M14_DIR.mkdir(parents=True)
@@ -2419,10 +2818,16 @@ def phase_m14():
     t0 = time.perf_counter()
     ref = m14_reference(cfg, tc, batches)
     ref_s = time.perf_counter() - t0
+    moe_factor, moe_drops0 = m14_moe_factor()
     t0 = time.perf_counter()
-    ctx = mp.start_processes(m14_rank, args=(M14_WORLD,), nprocs=M14_WORLD,
-                             join=False, start_method="spawn")
+    ctx = mp.start_processes(m14_rank, args=(M14_WORLD, moe_factor),
+                             nprocs=M14_WORLD, join=False,
+                             start_method="spawn")
     try:
+        # the MoE runs' single-device references, beside the ranks
+        t1 = time.perf_counter()
+        moe_ref = m14_moe_reference(moe_factor)
+        moe_ref_s = time.perf_counter() - t1
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > M14_JOIN_S:
                 raise AssertionError(f"M14: the ranks did not finish in "
@@ -2497,6 +2902,15 @@ def phase_m14():
     log(f"# M14 dry run: {dry['cost']['flops']:.4e} FLOPs, all collectives "
         f"{dry['collectives']}, kernels {dry['kernels']}, traced in "
         f"{dry['trace_s']} s")
+    t1 = time.perf_counter()
+    moe = m14_moe_check(res, moe_ref, moe_factor, moe_drops0)
+    moe["serving"] = m14_moe_serve_check(res)
+    moe.update(reference_s=moe_ref_s,
+               checks_s=time.perf_counter() - t1, card=card())
+    log(f"# M14 MoE: the single-device references took {moe_ref_s:.1f} s "
+        f"beside the ranks, the checks and the serving reference "
+        f"{moe['checks_s']:.1f} s; the ranks share one card, so no time "
+        f"here is a speed of four cards; on {card()}")
     shutil.rmtree(M14_DIR / "mesh", ignore_errors=True)
     lines = {}
     for name, p in clis.items():
@@ -2523,16 +2937,20 @@ def phase_m14():
            "ranks_wall_s": wall, "reference_s": ref_s,
            "single_device": ref, "elastic_shards": n_leaves,
            "serve_cli": line, "cli_and_examples_s": cli_s, "card": card(),
-           "serving": serving, "dryrun": dry,
+           "serving": serving, "dryrun": dry, "moe": moe,
            "ranks": [{k: v for k, v in rr.items()
-                      if k not in ("digests", "serve", "dryrun")}
+                      if k not in ("digests", "serve", "dryrun", "moe")}
                      for rr in res]}
     # the kernels at the shard's shape, bf16, for the timing phase: K4 and
     # K5 on (2, 2048, 16 / 4, 64)
     a5 = k5_training_args(torch.bfloat16, seed=3, shape=M14_SHARD)
     a4 = {k: a5[k] for k in ("q", "k", "v", "causal", "window")}
     captured = {"K4@m14_shard": ([], a4), "K5@m14_shard": ([], a5)}
-    return e2e, captured, {"m14_rank0": {"launches": res[0]["launches"]}}
+    return e2e, captured, {
+        "m14_rank0": {"launches": res[0]["launches"]},
+        **{f"m14_moe_{run}_rank0": {"launches": res[0]["moe"][run]
+                                    ["launches"]}
+           for run, *_ in m14_moe_runs(moe_factor)}}
 
 
 # ---------------------------------------------------------------------------
@@ -2771,7 +3189,8 @@ def _scan_weight(t, *rest, **_):
 
 
 def phase_recurrent():
-    """zamba2-2.7b and rwkv6-1.6b at full width.  bf16, the deployment
+    """zamba2-2.7b and rwkv6-1.6b at full width, REC_LAYERS of their
+    layers.  bf16, the deployment
     dtype: the forward (counted; logits against impl="ref" within
     REC_NOISE_MARGIN x the model's own bf16 noise), each layer against
     impl="ref" on the same input, and the 6 requests served (counted).
@@ -2784,7 +3203,7 @@ def phase_recurrent():
            "per_forward": {k: 0 for k in COUNTERS}}
     e2e, captured, trace = {}, {}, None
     for arch in REC_ARCHS:
-        cfg = get_config(arch)
+        cfg = get_config(arch).replace(n_layers=REC_LAYERS[arch])
         t0 = time.perf_counter()
         model = build_model(cfg)
         params = model.init(seed=0)
@@ -2877,6 +3296,10 @@ def _zamba2_decode_args(model):
 # forward of DF_FORWARD_BATCH tokens
 DF_SERVE = {"opt-6.7b": ("chunked",), "qwen-7b": ("chunked",),
             "gemma3-4b": ("chunked", "dense")}
+# the layers they serve with since PR 29, beside the MoE family's runs: a
+# quarter of opt's 32 and qwen's 28, and 12 of gemma3-4b's 34, two of them
+# global (one in every 6)
+DF_SERVE_LAYERS = {"opt-6.7b": 8, "qwen-7b": 7, "gemma3-4b": 12}
 DF_TRAIN_ARCHS, DF_TRAIN_STEPS = ("olmo-1b", "gemma3-4b"), 3
 DF_FORWARD_ARCH, DF_FORWARD_BATCH = "granite-8b", (1, 2048)
 # per engine: (kernel, module, wrapper, weight) captured in its warm-up run
@@ -2915,9 +3338,10 @@ def _seeded_model(arch, n_layers=None):
 
 
 def dense_family_serving(arch):
-    """The seeded model at full width serves (serve_runs(DF_SERVE[arch])).
-    Returns (runs, captured, e2e, traces)."""
-    model, params, n_params = _seeded_model(arch)
+    """The seeded model at full width, DF_SERVE_LAYERS[arch] of its
+    layers, serves (serve_runs(DF_SERVE[arch])).  Returns (runs,
+    captured, e2e, traces)."""
+    model, params, n_params = _seeded_model(arch, DF_SERVE_LAYERS[arch])
     runs, captured, e2e, traces = serve_runs(model, params, arch,
                                              DF_SERVE[arch])
     e2e["params"] = n_params
@@ -2988,15 +3412,25 @@ def numpy_batch(cfg, B, S, device, seed=0):
     return batch
 
 
-def dense_family_training(arch, n_layers=None, train=TRAIN):
+TRAIN_FLOPS_FORMULA = ("(6 * params * tokens + 12 * batch * heads * "
+                       "head_dim * attended pairs of every layer under its "
+                       "window) / (median step s * 989e12)")
+
+
+def dense_family_training(arch, n_layers=None, train=TRAIN, bars=TRAIN_BARS,
+                          flops_of=None, seeded_batches=False):
     """`arch` at its published widths (n_layers of its layers when given),
     TrainConfig(**train): one step's loss and gradient norm through the
-    kernels against impl="ref" (train_check, TRAIN_BARS, on numpy_batch),
-    then DF_TRAIN_STEPS counted steps on the pipeline's batches: K4 2 x
+    kernels against impl="ref" (train_check within `bars`, default
+    TRAIN_BARS, on numpy_batch), then DF_TRAIN_STEPS counted steps on
+    the pipeline's batches: K4 2 x
     n_layers and K5 n_layers launches a step, nothing else, finite losses
     from within 1 of initial_loss(cfg); one more step under the profiler.
     The largest K5 and K4 calls are kept as K5@<arch> and K4@<arch>_train.
-    Returns (run, captured, e2e, trace)."""
+    flops_of(cfg, n_params, B, S) -> (model FLOPs of a step, the MFU's
+    formula), default train_flops's.  seeded_batches: the counted steps
+    on numpy_batch's batches (seeds 1, 2, ...) in place of the
+    pipeline's.  Returns (run, captured, e2e, trace)."""
     cfg = get_config(arch)
     if n_layers:
         cfg = cfg.replace(n_layers=n_layers)
@@ -3011,9 +3445,11 @@ def dense_family_training(arch, n_layers=None, train=TRAIN):
         f"{cfg.norm}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
         f"params, batch {B} x {S}, remat {tcfg.remat}")
     check = train_check(model, state.params,
-                        numpy_batch(cfg, B, S, model.device))
+                        numpy_batch(cfg, B, S, model.device), bars)
     step = make_train_step(model, tcfg)
-    batches = [pipe.device_batch(s) for s in range(DF_TRAIN_STEPS + 1)]
+    batches = [numpy_batch(cfg, B, S, model.device, seed=1 + s)
+               if seeded_batches else pipe.device_batch(s)
+               for s in range(DF_TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3050,17 +3486,15 @@ def dense_family_training(arch, n_layers=None, train=TRAIN):
     trace = device_trace(lambda: step(state, batches[-1]))
     trace.update(run=f"{arch} train", steps=1)
     med = float(np.median(times[1:]))
-    flops = train_flops(cfg, n_params, B, S)
+    flops, formula = flops_of(cfg, n_params, B, S) if flops_of else (
+        train_flops(cfg, n_params, B, S), TRAIN_FLOPS_FORMULA)
     e2e = {"config": cfg.name, "layers": cfg.n_layers, "params": n_params,
            "global_batch": B, "seq_len": S, "remat": tcfg.remat, "steps": N,
            "step_ms": [t * 1e3 for t in times],
            "step_ms_median_after_first": med * 1e3,
            "tokens_per_s": B * S / med, "peak_mem_gb": peak / 1e9,
            "model_flops_per_step": flops,
-           "mfu": flops / (med * PEAK_FLOP_S),
-           "mfu_formula": "(6 * params * tokens + 12 * batch * heads * "
-                          "head_dim * attended pairs of every layer under "
-                          "its window) / (median step s * 989e12)",
+           "mfu": flops / (med * PEAK_FLOP_S), "mfu_formula": formula,
            "losses": losses, "grad_norms": gnorms, "lr": lr,
            "kernel_launches": launches,
            "kernels_vs_ref": {"loss": [check[None][0], check["ref"][0]],
@@ -3654,6 +4088,10 @@ MOE_LAYERS = {"qwen3-moe-235b-a22b": 8}
 # the one-rank NCCL a2a against moe_ffn: a capacity factor at which
 # nothing drops in either (both capacities then exceed every count)
 MOE_A2A_FACTOR = 8.0
+# olmoe-1b-7b's training on one card: 8 of its 16 layers, 3.56 B
+# parameters, ~43 GB of bf16 weights and gradients and float32 AdamW
+# moments (its whole state, ~90 GB, does not fit the card)
+MOE_TRAIN_LAYERS = 8
 # a served MoE run against the same engine and traffic through
 # impl="ref", event by event up to the first event where the two part
 # (moe_events_check): the router probabilities of each moe_ffn call and
@@ -4009,11 +4447,54 @@ def moe_fp32(model, params):
     return rep
 
 
+def moe_active_params(cfg) -> int:
+    """The parameters one token's forward multiplies by: every layer's
+    attention projections, its router and K of its E experts, and the
+    unembedding (the embedding is a lookup, the norms elementwise)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    mats = 3 if cfg.act == "silu" else 2
+    per_layer = attn + d * cfg.moe_experts \
+        + cfg.moe_top_k * mats * d * cfg.d_ff
+    return cfg.n_layers * per_layer + cfg.vocab_size * d
+
+
+def moe_train_flops(cfg, n_params, B, S):
+    """train_flops over the active parameters (moe_active_params) in place
+    of every parameter: what a token's forward and backward multiply,
+    never the E - K experts it skips, nor the empty capacity slots the
+    per-row dispatch computes."""
+    active = moe_active_params(cfg)
+    pairs = S * (S + 1) // 2 * cfg.n_layers
+    flops = 6 * active * B * S + 12 * B * cfg.n_heads * cfg.head_dim * pairs
+    return flops, ("(6 * active params * tokens + 12 * batch * heads * "
+                   "head_dim * causal pairs of every layer) / (median step "
+                   "s * 989e12); active params: every layer's attention "
+                   "projections, router and top-K experts, and the "
+                   f"unembedding: {active}")
+
+
+def moe_training():
+    """olmoe-1b-7b at full width with MOE_TRAIN_LAYERS of its 16 layers,
+    bf16, TrainConfig(**TRAIN) (4 x 2048 tokens, remat full), the
+    published capacity factor: dense_family_training's checks and counts
+    - the first step through the kernels against impl="ref" within
+    M14_BARS (an MoE step's routing follows its inputs' rounding), K4
+    2 x 8 and K5 8 launches a step - on numpy-seeded batches, MFU over
+    the active parameters (moe_train_flops).  Returns (run, e2e, trace)."""
+    run, _, e2e, trace = dense_family_training(
+        "olmoe-1b-7b", MOE_TRAIN_LAYERS, bars=M14_BARS,
+        flops_of=moe_train_flops, seeded_batches=True)
+    e2e["capacity_factor"] = get_config("olmoe-1b-7b").moe_capacity_factor
+    return run, e2e, trace
+
+
 def phase_moe():
     """olmoe-1b-7b (full width and depth) and qwen3-moe-235b-a22b (its
     published widths, MOE_LAYERS[arch] of 94 layers), one at a time: the
     serving checks (moe_serving), then for olmoe the MoE layer alone, the
-    one-rank NCCL a2a and the float32 copy's serving.  Returns (runs,
+    one-rank NCCL a2a and the float32 copy's serving; then olmoe's
+    training at MOE_TRAIN_LAYERS layers (moe_training).  Returns (runs,
     captured, e2e, traces)."""
     runs, captured, e2e, traces = {}, {}, {}, {}
     for arch in MOE_ARCHS:
@@ -4034,6 +4515,10 @@ def phase_moe():
             e2e[arch]["float32"] = moe_fp32(model, params)
         del model, params
         _free()
+    run, e2e["olmoe-1b-7b"]["training"], traces["olmoe-1b-7b train"] = \
+        moe_training()
+    runs["olmoe-1b-7b train"] = run
+    _free()
     return runs, captured, e2e, traces
 
 

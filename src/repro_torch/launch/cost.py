@@ -276,8 +276,11 @@ class StepCost(TorchDispatchMode):
                 c["bytes"] += sum(_nbytes(t) for t in _tensors(args[0]))
             return out
         if func.overloadpacket in self._flops_of:
+            # an out_dtype overload (bmm.dtype) has the formula's tensors
+            # ahead of its dtype
+            dt = [i for i, a in enumerate(args) if isinstance(a, torch.dtype)]
             self.flops += int(self._flops_of[func.overloadpacket](
-                *args, **kwargs, out_val=out))
+                *args[:dt[0] if dt else len(args)], **kwargs, out_val=out))
         results = [t for t, r in zip(_tensors(out), func._schema.returns)
                    if r.alias_info is None] \
             if len(func._schema.returns) == len(_tensors(out)) else []

@@ -29,13 +29,18 @@ same thing:
   collectives: every collective of the step by kind, {"calls", "bytes"},
     and total_bytes; collectives_state: those of the gathered parameters
     and the reduced gradients (sharding/shards.py COMM, which
-    chip_smoke.py reads on the card), the rest being the head-sharded
-    attention's and the sequence-parallel decode's gathers;
+    chip_smoke.py reads on the card; an MoE layer's aux share's
+    all_reduce over the data axes, and with REPRO_MOE_A2A its exchange's
+    all_to_all, gathers and all_reduce, are counted there too), the rest
+    being the head-sharded attention's and the sequence-parallel
+    decode's gathers;
   kernels: K1-K7 by name, {"calls", "flops", "bytes"};
   trace_s: the wall time of the traced call.
-The mesh steps take the dense family (ROADMAP §1 item 3): another
-family's cell raises NotImplementedError, written to <tag>.error.json as
-the JAX dry run writes its failures.
+The mesh steps take the dense and moe families (ROADMAP §1 item 3):
+another family's cell raises NotImplementedError, written to
+<tag>.error.json as the JAX dry run writes its failures.  The MoE cells
+run the per-row dispatch, as the JAX dry run runs without REPRO_MOE_A2A;
+with it set, their steps take the exchange and count its all_to_all.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k \

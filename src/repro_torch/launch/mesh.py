@@ -54,13 +54,20 @@ def axis_mesh(mesh, name: str):
                      mesh.shape[i])
 
 
+# the families the mesh steps take
+MESH_FAMILIES = ("dense", "moe")
+
+
 def check_mesh_family(cfg, what: str) -> None:
-    """The mesh steps (training, prefill, decode) take the dense family;
-    any other raises NotImplementedError naming ROADMAP §1 item 3."""
-    if cfg.family != "dense":
+    """The mesh steps (training, prefill, decode) take the dense and moe
+    families (the MoE FFN by the per-row dispatch on the rank's rows, or
+    the REPRO_MOE_A2A exchange: models/moe.py); any other (hybrid, ssm,
+    audio, vlm) raises NotImplementedError naming ROADMAP §1 item 3."""
+    if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{what} {cfg.name} (family {cfg.family!r}) on a mesh is "
-            f"ROADMAP §1 item 3: the mesh steps take the dense family")
+            f"ROADMAP §1 item 3: the mesh steps take the "
+            f"{' and '.join(MESH_FAMILIES)} families")
 
 
 # the default group the groups below belong to, and one group per degree

@@ -14,10 +14,12 @@ Trainer(mesh=, state_shardings=)'s.  prefill_cell and serve_cell return
 the prefill and decode steps on the mesh (serve/serve_step.py
 make_prefill_step / make_serve_step with mesh=), over the cell's cache
 layout: the step takes the rank's shards of the cell's arguments, the
-parameters as DTensors.  Every cell's step on a mesh takes the dense
-family; another family's raises NotImplementedError when it is called
-(ROADMAP §1 item 3), so its specs stay comparable with the JAX
-package's.  launch/dryrun.py runs every cell's step on the meta device.
+parameters as DTensors.  Every cell's step on a mesh takes the dense and
+moe families (the MoE experts over the model axis, the router
+replicated: the JAX rules; the per-row dispatch by default, the
+REPRO_MOE_A2A exchange where it is set, models/moe.py); another family's
+raises NotImplementedError when it is called (ROADMAP §1 item 3), so its
+specs stay comparable with the JAX package's.  launch/dryrun.py runs every cell's step on the meta device.
 """
 from __future__ import annotations
 

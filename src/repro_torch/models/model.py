@@ -33,6 +33,7 @@ take tokens only.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional
 
@@ -311,7 +312,7 @@ class Model(nn.Module):
         return torch.cat([v.to(x.dtype), x], 1), v.shape[1]
 
     def _forward(self, params, batch, impl: Optional[str], remat: bool,
-                 tp_mesh=None):
+                 tp_mesh=None, moe_mesh=None):
         cfg = self.cfg
         if cfg.family == "audio":
             x = self._embed(params, batch["tokens"])
@@ -322,6 +323,8 @@ class Model(nn.Module):
             stack = {"hybrid": T.hybrid_forward,
                      "ssm": T.rwkv_forward}.get(cfg.family, T.stack_forward)
             kw = {} if tp_mesh is None else {"tp_mesh": tp_mesh}
+            if moe_mesh is not None:
+                kw["moe_mesh"] = moe_mesh
             x, aux = stack(params["blocks"], x, cfg, impl=impl, remat=remat,
                            **kw)
         x = apply_norm(params["final_norm"], x, cfg)
@@ -340,21 +343,28 @@ class Model(nn.Module):
 
     def loss(self, params, batch, *, impl: Optional[str] = None,
              remat: bool = False, aux_weight: float = 0.01, tp_mesh=None,
-             dp_sum=None):
+             dp_sum=None, moe_mesh=None):
         """Next-token cross-entropy of batch["tokens"] (B, S), with autograd
         on: the training loss.  batch may carry "labels" (B, S) in place of
         the tokens and a "loss_mask" (B, S) weighting each position; a vlm
         batch's image positions carry no loss (their logits are dropped).
         remat=True recomputes each layer in the backward.  The sharded
-        train step's (dense family): tp_mesh runs each attention on this
-        rank's head shard (attn_forward); dp_sum says the batch is this
-        rank's rows of a global batch split over data-parallel ranks, and
-        dp_sum(t) sums t over them in place - ce is then this rank's
+        train step's (dense and moe families): tp_mesh runs each attention
+        on this rank's head shard (attn_forward); dp_sum says the batch is
+        this rank's rows of a global batch split over data-parallel ranks,
+        and dp_sum(t) sums t over them in place - ce is then this rank's
         share of the global mean, its nll sum over the global count of
         positions (or mask weight), so the ranks' shares sum to the
-        global ce and their gradients to its gradient.  Returns (total =
-        ce + aux_weight * aux, {"ce", "aux"}), 0-d float32 tensors."""
-        logits, aux = self._forward(params, batch, impl, remat, tp_mesh)
+        global ce and their gradients to its gradient, and so is each MoE
+        layer's aux loss (models/moe.py); moe_mesh (a moe.MoEMesh): the
+        MoE FFN's mesh, the REPRO_MOE_A2A exchange's.  Returns (total =
+        ce + aux_weight * aux, {"ce", "aux"}), 0-d float32 tensors: on a
+        mesh the rank's shares."""
+        if self.cfg.moe_experts and dp_sum is not None:
+            moe_mesh = dataclasses.replace(moe_mesh or moe.MoEMesh(),
+                                           dp_sum=dp_sum)
+        logits, aux = self._forward(params, batch, impl, remat, tp_mesh,
+                                    moe_mesh)
         tokens = batch["tokens"]
         labels = batch.get("labels", tokens)
         # a vlm batch's image positions lead the logits and carry no loss
@@ -399,7 +409,7 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, params, batch, cache, *, impl: Optional[str] = None,
-                shard=None):
+                shard=None, moe_mesh=None):
         """Fill the cache (init_cache's dense layout) with the prompts
         batch["tokens"] (B, S) from position 0.  Prompts padded to a
         bucketed S carry their real lengths in batch["true_lens"] (B,); the
@@ -409,8 +419,10 @@ class Model(nn.Module):
         its K/V.  The vlm family's image, batch["vision_embeds"] (B, P,
         d_model), fills positions 0..P-1 and the text follows it, so lens
         counts both: P + S, or P + true_lens.  shard (a mesh step of the
-        dense family, serve/serve_step.py): the cache is the rank's block
-        of the strips (models/attention.py CacheShard).  Returns (logits
+        dense or moe family, serve/serve_step.py): the cache is the rank's
+        block of the strips (models/attention.py CacheShard); moe_mesh (a
+        moe.MoEMesh): the MoE FFN's mesh, the REPRO_MOE_A2A exchange's.
+        Returns (logits
         of each row's last real token (B, 1, V) float32, cache, lens
         (B,))."""
         if self.cfg.family == "audio":
@@ -423,6 +435,8 @@ class Model(nn.Module):
                        "ssm": T.rwkv_prefill}.get(self.cfg.family,
                                                   T.stack_prefill)
             kw = {} if shard is None else {"shard": shard}
+            if moe_mesh is not None:
+                kw["moe_mesh"] = moe_mesh
             x = prefill(params["blocks"], x, self.cfg, cache, impl=impl,
                         **kw)
         logits, lens = self._prompt_tail(params, x, batch)

@@ -25,12 +25,30 @@ products accumulate in float32 on the operands' own values: on the CPU
 both operands are upcast, as the JAX package's mixed_einsum does there;
 on CUDA a bfloat16 product runs as torch.bmm(..., out_dtype=float32) on
 the bfloat16 operands (the JAX dot with preferred_element_type=float32),
-without float32 copies of the expert weights.
+without float32 copies of the expert weights, and so does its backward
+(_MixedBmm).
+
+On a mesh (moe_ffn's mesh=, an MoEMesh from the mesh steps), the FFN
+takes one of two paths, as the JAX package's moe_ffn does.  With the
+environment switch REPRO_MOE_A2A set, a model axis of tp > 1 ranks, E %
+tp == 0 and S % tp == 0 (a2a_active), the expert-parallel exchange of
+models/moe_a2a.py (sharded_moe_ffn); otherwise the per-row dispatch on
+the rank's rows, which equals one device's.  Decode (S = 1) never takes
+the switch.  A training mesh step's loss is each data-parallel rank's
+share of the global loss (models/model.py Model.loss, dp_sum): the aux
+loss, a product of batch means, becomes a share too - E / K x sum(me_share
+x ce_global), me_share the rank's probability sum over the global token
+count and ce_global the assignments summed over the data ranks with no
+gradient - so the shares sum to the global aux and their gradients to its
+gradient.  On the exchange the statistics are already the global batch's,
+and the share is the global aux over the number of data ranks.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+import os
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,15 +105,66 @@ def route(params, x: torch.Tensor, cfg: ModelConfig
     return probs, gate_vals, top_idx
 
 
+@dataclass(frozen=True)
+class MoEMesh:
+    """Where a mesh step runs the MoE FFN: the DeviceMesh (None: no
+    exchange), the mesh axes the batch rows are split over, outer first
+    (the exchange gathers them), and the training loss's dp_sum (None:
+    the aux loss of the rows alone)."""
+    mesh: Any = None
+    row_axes: Tuple[str, ...] = ()
+    dp_sum: Optional[Callable] = None
+
+
+def a2a_active(cfg: ModelConfig, mesh, S: int) -> bool:
+    """Whether moe_ffn over a sequence of S takes the expert-parallel
+    exchange on `mesh` (a DeviceMesh or None): the JAX package's three
+    conditions behind REPRO_MOE_A2A."""
+    if not os.environ.get("REPRO_MOE_A2A") or not cfg.moe_experts \
+            or mesh is None or "model" not in tuple(mesh.mesh_dim_names):
+        return False
+    tp = mesh.shape[mesh.mesh_dim_names.index("model")]
+    return tp > 1 and cfg.moe_experts % tp == 0 and S % tp == 0
+
+
 def aux_loss(probs: torch.Tensor, top_idx: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
+             cfg: ModelConfig, dp_sum=None) -> torch.Tensor:
     """The Switch load-balancing loss over probs (B, S, E) and top_idx
-    (B, S, K): E x sum(mean prob x mean assignments) / K, float32."""
+    (B, S, K): E x sum(mean prob x mean assignments) / K, float32.  With
+    dp_sum (the rows are this rank's of a batch split over data-parallel
+    ranks), this rank's share of the global loss (the module
+    docstring)."""
     E, K = cfg.moe_experts, cfg.moe_top_k
-    me = torch.mean(probs, (0, 1))
-    ce = torch.mean(torch.sum(_one_hot(top_idx, E, torch.float32), 2),
-                    (0, 1))
-    return E * torch.sum(me * ce) / K
+    counts = torch.sum(_one_hot(top_idx, E, torch.float32), 2)
+    if dp_sum is None:
+        return E * torch.sum(torch.mean(probs, (0, 1))
+                             * torch.mean(counts, (0, 1))) / K
+    tot = dp_sum(torch.cat([torch.sum(counts, (0, 1)), counts.new_full(
+        (1,), float(counts.shape[0] * counts.shape[1]))]))
+    return E * torch.sum(torch.sum(probs, (0, 1)) / tot[E]
+                         * (tot[:E] / tot[E])) / K
+
+
+class _MixedBmm(torch.autograd.Function):
+    """torch.bmm(a, w, out_dtype=float32) on bfloat16 operands, which
+    autograd has no formula for.  Backward: the float32 gradient rounded
+    to the operands' dtype - the JAX package's grad_cast puts the expert
+    products' cotangents in the primal dtype - then the two transposed
+    products, each accumulated in float32 and rounded to its operand's
+    dtype, as JAX transposes a dot with preferred_element_type."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.bmm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = torch.bmm(g, w.transpose(1, 2), out_dtype=torch.float32)
+        dw = torch.bmm(a.transpose(1, 2), g, out_dtype=torch.float32)
+        return da.to(a.dtype), dw.to(w.dtype)
 
 
 def _edot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -105,7 +174,7 @@ def _edot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.bmm(a.float(), w.float())
     if a.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.bmm(a, w)
-    return torch.bmm(a, w, out_dtype=torch.float32)
+    return _MixedBmm.apply(a, w)
 
 
 def experts(params, ein: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -149,9 +218,21 @@ def dispatch(params, x: torch.Tensor, gate_vals: torch.Tensor,
     return torch.sum(torch.index_select(out, 0, slot).view(B, S, K, D), 2)
 
 
-def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
+            mesh: Optional[MoEMesh] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> ((B, S, d) in x's dtype, the float32 aux loss)."""
+    """x (B, S, d) -> ((B, S, d) in x's dtype, the float32 aux loss).
+    mesh: the mesh step's MoEMesh (the module docstring) - the exchange
+    where a2a_active, the aux loss as this rank's share under its
+    dp_sum."""
+    mesh = mesh or MoEMesh()
+    if a2a_active(cfg, mesh.mesh, x.shape[1]):
+        from .moe_a2a import sharded_moe_ffn
+        y, aux = sharded_moe_ffn(params, x, cfg, mesh.mesh, mesh.row_axes)
+        if mesh.dp_sum is not None:
+            sizes = dict(zip(mesh.mesh.mesh_dim_names, mesh.mesh.shape))
+            aux = aux / math.prod(sizes[a] for a in mesh.row_axes)
+        return y, aux
     probs, gate_vals, top_idx = route(params, x, cfg)
     return dispatch(params, x, gate_vals, top_idx, cfg), \
-        aux_loss(probs, top_idx, cfg)
+        aux_loss(probs, top_idx, cfg, mesh.dp_sum)

@@ -61,18 +61,21 @@ def _layer(blocks, l: int):
             for name, group in blocks.items()}
 
 
-def _ffn_aux(p, x: torch.Tensor, cfg: ModelConfig):
+def _ffn_aux(p, x: torch.Tensor, cfg: ModelConfig, moe_mesh=None):
     """Post-attention half of a block: norm -> (moe | mlp) -> residual.
-    Returns (x, the MoE aux loss, or None without MoE)."""
+    moe_mesh: a mesh step's moe.MoEMesh (moe.moe_ffn).  Returns (x, the
+    MoE aux loss, or None without MoE)."""
     y_in = apply_norm(p["n2"], x, cfg)
     if cfg.moe_experts:
-        y, aux = moe.moe_ffn(p["moe"], y_in, cfg)
+        y, aux = moe.moe_ffn(p["moe"], y_in, cfg) if moe_mesh is None \
+            else moe.moe_ffn(p["moe"], y_in, cfg, moe_mesh)
         return x + y, aux
     return x + mlp(p["mlp"], y_in, cfg), None
 
 
-def _ffn_tail(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return _ffn_aux(p, x, cfg)[0]
+def _ffn_tail(p, x: torch.Tensor, cfg: ModelConfig,
+              moe_mesh=None) -> torch.Tensor:
+    return _ffn_aux(p, x, cfg, moe_mesh)[0]
 
 
 def _zero_aux(x: torch.Tensor) -> torch.Tensor:
@@ -98,13 +101,15 @@ def _run(fn, remat: bool, *args):
 
 
 def _block_aux(p, x: torch.Tensor, cfg: ModelConfig, window: int,
-               impl: Optional[str], causal: bool = True, tp_mesh=None):
+               impl: Optional[str], causal: bool = True, tp_mesh=None,
+               moe_mesh=None):
     """An attention block over x; returns (x, MoE aux or None).  tp_mesh:
-    the attention on this rank's head shard (attn_forward)."""
+    the attention on this rank's head shard (attn_forward); moe_mesh: the
+    MoE FFN's (_ffn_aux)."""
     h = attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
                      causal=causal, window=window, impl=impl,
                      tp_mesh=tp_mesh)
-    return _ffn_aux(p, x + h, cfg)
+    return _ffn_aux(p, x + h, cfg, moe_mesh)
 
 
 def _block(p, x: torch.Tensor, cfg: ModelConfig, window: int,
@@ -114,35 +119,39 @@ def _block(p, x: torch.Tensor, cfg: ModelConfig, window: int,
 
 def stack_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
                   impl: Optional[str] = None, remat: bool = False,
-                  tp_mesh=None):
+                  tp_mesh=None, moe_mesh=None):
     """Causal self-attention blocks over the whole sequence x (B, S, D).
     remat=True keeps only each layer's input for the backward and runs the
-    layer again there (the attention forward included).  tp_mesh: each
-    attention on this rank's head shard (attn_forward).  Returns (x, the
-    layers' MoE aux losses summed in layer order, a float32 zero without
-    MoE)."""
+    layer again there (the attention forward, and the MoE exchange's and
+    the aux share's collectives, included).  tp_mesh: each attention on
+    this rank's head shard (attn_forward); moe_mesh: each MoE FFN's mesh
+    (moe.moe_ffn).  Returns (x, the layers' MoE aux losses summed in layer
+    order, a float32 zero without MoE)."""
     aux = _zero_aux(x)
     for p, is_global in zip(_layers(blocks, cfg.n_layers),
                             _layer_windows(cfg)):
         x, a = _run(_block_aux, remat, p, x, cfg,
-                    _windowed(cfg, is_global), impl, True, tp_mesh)
+                    _windowed(cfg, is_global), impl, True, tp_mesh,
+                    moe_mesh)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
 def stack_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
-                  impl: Optional[str] = None, shard=None) -> torch.Tensor:
+                  impl: Optional[str] = None, shard=None,
+                  moe_mesh=None) -> torch.Tensor:
     """Prefill from position 0 into the dense cache {"k"/"v": (L, B,
     S_max, Hkv, D)}, updated in place.  x: (B, S, D).  shard: the rank's
-    block of the strips on a mesh (attention.CacheShard)."""
+    block of the strips on a mesh (attention.CacheShard); moe_mesh: the
+    MoE FFN's mesh (moe.moe_ffn)."""
     for l, is_global in enumerate(_layer_windows(cfg)):
         p = _layer(blocks, l)
         h = attn_prefill(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
                          cache["k"][l], cache["v"][l],
                          window=_windowed(cfg, is_global), impl=impl,
                          shard=shard)
-        x = _ffn_tail(p, x + h, cfg)
+        x = _ffn_tail(p, x + h, cfg, moe_mesh)
     return x
 
 

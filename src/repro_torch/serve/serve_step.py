@@ -16,8 +16,11 @@ the layout of the cell's cache spec (sharding/rules.py cache_spec: KV
 heads over the model axis; the sequence over the data axis; the sequence
 over the model axis).  The attention runs on the rank's heads and
 sequence block (models/attention.py CacheShard); the logits are the
-rank's rows'.  The dense family only: another raises NotImplementedError
-when its step is called.
+rank's rows'.  The dense and moe families: an MoE layer runs the per-row
+dispatch on the rank's rows, and with REPRO_MOE_A2A set and S a multiple
+of the model axis the prefill takes the expert-parallel exchange
+(models/moe.py; decode's S = 1 never does).  Another family raises
+NotImplementedError when its step is called.
 
 Each step is one eager call into the model; the chunk-batch and decode
 steps add device-side sampling and masked updates of the engine's (B, 1)
@@ -147,23 +150,28 @@ def make_prefill_step(model, *, mesh=None, cache_spec=None):
     positions too).  On a mesh (the module docstring), the cache laid out
     by cache_spec (default: sharding/rules.py cache_spec's default
     layout): K4 on the model rank's head shard, the rank's KV heads and
-    positions of each prompt written into its block of the strips."""
+    positions of each prompt written into its block of the strips; an
+    MoE layer's exchange (REPRO_MOE_A2A) gathers the rows over the axes
+    the cache spec splits the batch over."""
     if mesh is None:
         def prefill_step(params, batch, cache):
             return model.prefill(params, batch, cache)
 
         return prefill_step
-    from ..sharding.rules import axis_names
+    from ..models.moe import MoEMesh
+    from ..sharding.rules import axis_names, entry_axes
     from ..sharding.rules import cache_spec as default_spec
-    shard = cache_shard(mesh, cache_spec if cache_spec is not None
-                        else default_spec(axis_names(mesh),
-                                          seq_sharded=False))
+    spec = cache_spec if cache_spec is not None \
+        else default_spec(axis_names(mesh), seq_sharded=False)
+    shard = cache_shard(mesh, spec)
+    moe_mesh = MoEMesh(mesh, entry_axes(tuple(spec)[1])) \
+        if model.cfg.moe_experts else None
 
     def mesh_prefill_step(params, batch, cache):
         from ..launch.mesh import check_mesh_family
         check_mesh_family(model.cfg, "prefilling")
         return model.prefill(_full_params(params), batch, cache,
-                             shard=shard)
+                             shard=shard, moe_mesh=moe_mesh)
 
     return mesh_prefill_step
 

@@ -18,8 +18,9 @@ several mesh dims.  The specs come sanitized (launch/specs.py), so every
 split is even.
 
 COMM counts the collectives a process makes (calls and payload bytes by
-kind: for a gather the gathered output, for an all_reduce and a broadcast
-the tensor), for chip_smoke.py's per-step report; reset with
+kind: for a gather the gathered output, for an all_reduce, a broadcast
+and an all_to_all the tensor) - these helpers' and the MoE exchange's
+(models/moe_a2a.py) - for chip_smoke.py's per-step report; reset with
 reset_comm().
 """
 from __future__ import annotations

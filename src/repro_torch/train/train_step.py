@@ -20,9 +20,16 @@ does, with explicit collectives over the mesh's groups
       each attention on the rank's head shard of the model axis
       (ops.head_sharded_attention: K4 / K5), the loss the rank's share of
       the global mean (dp_sum: the position count summed over the
-      data-parallel ranks before dividing);
+      data-parallel ranks before dividing; an MoE layer's aux loss the
+      rank's share too, models/moe.py).  An MoE layer runs the per-row
+      dispatch on the rank's rows, or with REPRO_MOE_A2A the expert-
+      parallel exchange (models/moe_a2a.py: the rank's sequence block of
+      every data rank's rows, its E / tp experts);
   (c) sums the gradients over the data-parallel axes (all_reduce): the
-      gradient of the global mean, whole and equal on every rank;
+      gradient of the global mean, whole and equal on every rank - but on
+      the exchange, where the router's and the experts' gradients are
+      partial on each model rank (its experts, its block's routing), and
+      those leaves are summed over the model axis too (model_partials);
   (d) clips by the global norm of those whole gradients;
   (e) runs int8 compression on the whole gradients with the whole error-
       feedback buffer gathered (one max-abs scale a leaf, as on one
@@ -38,6 +45,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from ..configs.base import TrainConfig
+from ..models import moe
 from ..models.model import Model
 from ..optim import (AdamWState, adamw_init, adamw_update,
                      clip_by_global_norm, compress_grads, cosine_schedule,
@@ -45,7 +53,7 @@ from ..optim import (AdamWState, adamw_init, adamw_update,
 from ..sharding.rules import axis_names, dp_axes
 from ..sharding.shards import (all_reduce_sum, as_dtensor, gather_full,
                                local_shape, local_slice, shard)
-from ..tree import leaves, map_tree
+from ..tree import leaves, leaves_with_paths, map_tree
 
 
 class TrainState(NamedTuple):
@@ -103,36 +111,54 @@ def _local(tree):
     return map_tree(lambda t: t.to_local(), tree)
 
 
+def model_partials(full, mesh) -> None:
+    """Step (c)'s sum over the model axis of the leaves the MoE exchange
+    leaves partial on each model rank: every MoE leaf (the router and the
+    experts_*), their .grad summed in place."""
+    for path, f in leaves_with_paths(full):
+        if "/moe/" in f"/{path}/":
+            all_reduce_sum(f.grad, mesh, "model")
+
+
 def make_mesh_grads(model: Model, tcfg: TrainConfig, mesh):
     """Steps (a)-(c) of the sharded step: grads(state, batch) gathers the
     full parameters into the model's own tensors, runs the loss and its
     backward on this rank's rows and head shard, and sums the gradients
-    over the data-parallel axes.  Returns (the model's parameter tree,
-    its .grad filled: the whole gradient of the global loss, the same on
-    every rank; {"loss", "ce", "aux"}: the global values)."""
+    over the data-parallel axes, and where the MoE exchange ran, the MoE
+    leaves over the model axis (model_partials; model_sum=False leaves
+    them partial).  Returns (the model's parameter tree, its .grad
+    filled: the whole gradient of the global loss, the same on every
+    rank; {"loss", "ce", "aux"}: the global values)."""
     remat = tcfg.remat != "none"
     dp = dp_axes(axis_names(mesh))
     from ..launch.mesh import axis_mesh
     tp_mesh = axis_mesh(mesh, "model")
     full = model.params
     dp_sum = lambda t: all_reduce_sum(t, mesh, dp)
+    moe_mesh = moe.MoEMesh(mesh, dp or ()) if model.cfg.moe_experts \
+        else None
 
-    def grads(state: TrainState, batch: Dict):
+    def grads(state: TrainState, batch: Dict, model_sum: bool = True):
         with torch.no_grad():
             for f, p in zip(leaves(full), leaves(state.params)):
                 gather_full(p, out=f)
         for f in leaves(full):
             f.grad = None
         loss, metrics = model.loss(full, batch, remat=remat,
-                                   tp_mesh=tp_mesh, dp_sum=dp_sum)
+                                   tp_mesh=tp_mesh, dp_sum=dp_sum,
+                                   moe_mesh=moe_mesh)
         loss.backward()
         for f in leaves(full):
             if f.grad is None:
                 f.grad = torch.zeros_like(f)
             dp_sum(f.grad)
+        if model_sum and moe.a2a_active(model.cfg, mesh,
+                                        batch["tokens"].shape[1]):
+            model_partials(full, mesh)
         out = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
                "aux": metrics["aux"].detach()}
-        for k in ("loss", "ce"):
+        # the aux of a family without MoE is a zero on every rank
+        for k in ("loss", "ce") + (("aux",) if moe_mesh else ()):
             dp_sum(out[k])
         return full, out
 

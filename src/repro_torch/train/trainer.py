@@ -20,9 +20,11 @@ placements (init_sharded_train_state), each step is the sharded step of
 train/train_step.py over this rank's rows of rank 0's global batch
 (DataPipeline(mesh=)), and checkpoints hold the full tensors, written by
 rank 0 and restored onto whatever mesh the restoring Trainer has.  The
-mesh path takes the dense family only: the other families' losses
-(the MoE aux loss, a product of batch means, is no mean over shards) and
-their sharded forwards are ROADMAP §1 item 3.
+mesh path takes the dense and moe families (an MoE layer by the per-row
+dispatch on the rank's rows, or with REPRO_MOE_A2A the expert-parallel
+exchange, its aux loss a share of the global batch's: train/
+train_step.py); the hybrid, ssm, audio and vlm families' sharded
+forwards are ROADMAP §1 item 3.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def check_backward(cfg: ModelConfig, device) -> None:
 def check_mesh(cfg: ModelConfig, device, mesh, state_shardings) -> None:
     """The mesh path's preconditions, before anything is built: a mesh
     and its state shardings together, on the device type the mesh holds,
-    and the dense family."""
+    and a family the mesh steps take (launch/mesh.py
+    check_mesh_family)."""
     if (mesh is None) != (state_shardings is None):
         raise ValueError("a mesh and its state_shardings (launch/specs.py "
                          "train_cell) come together")

@@ -193,7 +193,7 @@ def run(tmp_path_factory):
         dict(name="batch", kind="batch", arch="granite-3-2b",
              dtype="float32", mesh=[2, 2], tcfg=TC, step=5),
         dict(name="refuse", kind="refuse", arch="granite-3-2b",
-             other_arch="olmoe-1b-7b", dtype="float32", mesh=[2, 2],
+             other_arch="zamba2-2.7b", dtype="float32", mesh=[2, 2],
              tcfg=TC, bad_mesh=[2, 1])]
     jobs2 = [train_job(n, d2, *spec, all_grads=True)
              for n, spec in MODEL_ONLY.items()]

@@ -62,7 +62,7 @@ LAYOUTS = {"decode_2x2": "default", "prefill_2x2": "default",
            "decode_seq_data": "seq_data", "prefill_seq_data": "seq_data",
            "decode_seq_model": "seq_model",
            "prefill_seq_model": "seq_model"}
-FAMILIES = {"zamba2-2.7b": "family 'hybrid'", "olmoe-1b-7b": "family 'moe'"}
+FAMILIES = {"zamba2-2.7b": "family 'hybrid'", "rwkv6-1.6b": "family 'ssm'"}
 REFUSED = tuple(FAMILIES)
 
 

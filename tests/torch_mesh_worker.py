@@ -1,6 +1,8 @@
-"""One rank of a gloo world for tests/test_torch_mesh_train.py and
-tests/test_torch_sharding.py: the port's sharded training (ROADMAP M14a),
-one process per rank.
+"""One rank of a gloo world for tests/test_torch_mesh_train.py,
+tests/test_torch_sharding.py, tests/test_torch_serve_cells.py and
+tests/test_torch_moe_mesh.py: the port's sharded training and serving
+cells (ROADMAP M14) and the MoE family on the mesh, one process per
+rank.
 
     python tests/torch_mesh_worker.py RANK WORLD STORE JOBS OUT_DIR
 
@@ -8,7 +10,9 @@ The rank joins the world through a FileStore, runs the jobs the test
 wrote to the JSON file JOBS, and writes what each gave to
 OUT_DIR/rank<r>.json (arrays to rank<r>.npz).  The tests start each rank
 as a process of its own (subprocess, so that every rank can have its own
-PYTHONHASHSEED), with torch and the port only: no jax.
+PYTHONHASHSEED), with torch and the port only: no jax.  A job's "env"
+holds environment variables set while it runs (REPRO_MOE_A2A), and a
+train job's "replace" config fields beside its dtype.
 
 Jobs:
   slices   each case's local shard of arange(numel).reshape(shape) on the
@@ -21,7 +25,9 @@ Jobs:
            batches (each rank's host_batch reads them; rank 0's reach
            the others by broadcast): the whole gradient of the first step (the
            mesh step's (a)-(c), before the clip), then the Trainer's
-           steps; the Trainer's last checkpoint holds the parameters
+           steps; the Trainer's last checkpoint holds the parameters.
+           With "partials", the MoE leaves' gradients are also kept
+           before train_step.model_partials sums them over the model axis
   restore  a Trainer on this job's mesh restores the checkpoint of
            another directory and saves it again in its own
   refuse   what the mesh path refuses: a non-dense family, a mesh whose
@@ -36,8 +42,14 @@ Jobs:
            decode the saved steps one after another; the logits and the
            cache's local shard of each call, and the slice bounds (with
            "count", the first call's collectives by launch/cost.py)
-  refuse_cells  each cell's step of a family other than dense, called:
-           the NotImplementedError
+  refuse_cells  each cell's step of a family the mesh steps do not
+           take, called: the NotImplementedError
+  a2a      models/moe_a2a.py make_sharded_moe on the job's mesh over the
+           rank's rows and sequence block of the saved x, with the router
+           and its E / tp experts: at each capacity factor, y, aux and the
+           gradients of sum(y w) + AUX_C aux / (data ranks) - the rank's
+           share of sum(Y W) + AUX_C aux - with respect to x, the router
+           and the rank's expert slices
 """
 import datetime
 import json
@@ -74,9 +86,13 @@ def _slices_job(job, arrays):
     return {"coord": mesh.get_coordinate()}
 
 
+AUX_C = 3.0
+
+
 def _cfgs(job):
     from repro_torch.configs import TrainConfig, get_smoke_config
-    cfg = get_smoke_config(job["arch"]).replace(dtype=job["dtype"])
+    cfg = get_smoke_config(job["arch"]).replace(dtype=job["dtype"],
+                                                **job.get("replace", {}))
     return cfg, TrainConfig(**job["tcfg"])
 
 
@@ -103,15 +119,23 @@ def _trainer(job, mesh):
 
 
 def _train_job(job, arrays):
-    from repro_torch.train.train_step import make_mesh_grads
+    from repro_torch.train.train_step import make_mesh_grads, model_partials
     from repro_torch.tree import leaves_with_paths
     mesh = _mesh(job)
     tr = _trainer(job, mesh)
     with np.load(job["batches"]) as z:
         saved = {int(k): z[k] for k in z.files}
     tr.pipeline.host_batch = lambda step: {"tokens": saved[step]}
+    partials = bool(job.get("partials"))
     full, m = make_mesh_grads(tr.model, tr.tcfg, mesh)(
-        tr.state, tr.pipeline.device_batch(tr.start_step))
+        tr.state, tr.pipeline.device_batch(tr.start_step),
+        model_sum=not partials)
+    if partials:
+        for path, p in leaves_with_paths(full):
+            if "/moe/" in f"/{path}/":
+                arrays[f"{job['name']}.partial.{path}"] = \
+                    p.grad.float().numpy().copy()
+        model_partials(full, mesh)
     if dist.get_rank() == 0 or job.get("all_grads"):
         for path, p in leaves_with_paths(full):
             arrays[f"{job['name']}.grad.{path}"] = p.grad.float().numpy()
@@ -259,7 +283,39 @@ def _refuse_cells_job(job, arrays):
     return out
 
 
-JOBS = {"cell": _cell_job, "refuse_cells": _refuse_cells_job,
+def _a2a_job(job, arrays):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe_a2a import local_experts, make_sharded_moe
+    mesh = _mesh(job)
+    (d, m), (nd, nm) = mesh.get_coordinate(), job["mesh"]
+    with np.load(job["inputs"]) as z:
+        a = {k: z[k] for k in z.files}
+    B, S = a["x"].shape[:2]
+    rows = slice(d * B // nd, (d + 1) * B // nd)
+    seq = slice(m * S // nm, (m + 1) * S // nm)
+    name = job["name"]
+    for f in job["factors"]:
+        cfg = get_smoke_config(job["arch"]).replace(
+            dtype="float32", moe_capacity_factor=f)
+        params = {k: torch.from_numpy(a[k]).requires_grad_(True)
+                  for k in ("router", "experts_in", "experts_gate",
+                            "experts_out")}
+        x = torch.from_numpy(np.ascontiguousarray(
+            a["x"][rows, seq])).requires_grad_(True)
+        w = torch.from_numpy(np.ascontiguousarray(a["w"][rows, seq]))
+        y, aux = make_sharded_moe(cfg, mesh)(local_experts(params, m, nm),
+                                             x)
+        (torch.sum(y * w) + AUX_C * aux / nd).backward()
+        arrays[f"{name}.{f}.y"] = y.detach().numpy()
+        arrays[f"{name}.{f}.aux"] = aux.detach().numpy()
+        arrays[f"{name}.{f}.dx"] = x.grad.numpy()
+        for k, p in params.items():
+            arrays[f"{name}.{f}.d{k}"] = p.grad.numpy()
+    return {"coord": [d, m], "rows": [rows.start, rows.stop],
+            "seq": [seq.start, seq.stop]}
+
+
+JOBS = {"a2a": _a2a_job, "cell": _cell_job, "refuse_cells": _refuse_cells_job,
         "slices": _slices_job, "batch": _batch_job, "train": _train_job,
         "restore": _restore_job, "refuse": _refuse_job, "heads": _heads_job}
 
@@ -276,12 +332,16 @@ def run(rank: int, world: int, store: str, job_file: str, out_dir: str):
     try:
         results, arrays = {}, {}
         for job in spec["jobs"]:
+            env = job.get("env", {})
+            os.environ.update(env)
             try:
                 results[job["name"]] = JOBS[job["kind"]](job, arrays)
             except Exception:           # the test reports the rank's trace
                 results[job["name"]] = {"error": traceback.format_exc()}
                 raise
             finally:
+                for k in env:
+                    del os.environ[k]
                 with open(os.path.join(out_dir, f"rank{rank}.json"),
                           "w") as f:
                     json.dump(results, f)
