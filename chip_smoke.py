@@ -217,7 +217,17 @@ Phases (each raises on failure, so the run exits non-zero):
                         path; then a prefill cell of 2 x 2048 and 16
                         decode steps of the serve cell (default layout:
                         K4 2, K3 32 a rank) on the per-row run's weights
-                        against one device, as granite's.
+                        against one device, as granite's.  Then the vlm
+                        and audio families in the same ranks (M14_VA),
+                        each first serving its seeded weights through
+                        the cells, then training 2 steps: llava-next-34b
+                        at full width with 1 of its 60 layers (2 x (576
+                        + 1472) positions; K4 4 / K5 2 a rank, serving K4
+                        1 / K3 16) and whisper-base whole (4 x 1500; K4
+                        60 / K5 36, serving K4 18 a prefill, K3 192 on 4
+                        lanes in the default layout, none on 1 lane with
+                        the sequence over data), against one device on
+                        the same weights, run before the ranks start.
                         sequence-parallel decode (M11): the serving
                         granite-3-2b, batch 1, prefills a 32768-token
                         prompt into a dense cache (2.7 GB of K/V); on
@@ -388,7 +398,8 @@ from repro_torch.launch import cost  # noqa: E402
 from repro_torch.models import build_model, moe  # noqa: E402
 from repro_torch.models.moe_a2a import moe_ffn_a2a_local  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.layers import apply_norm, embed, unembed  # noqa
+from repro_torch.models.layers import (apply_norm, embed,  # noqa: E402
+                                       pdtype, unembed)
 from repro_torch.models.transformer import n_shared_applications  # noqa
 from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.serve import (FleetConfig, FleetRouter,  # noqa: E402
@@ -2103,7 +2114,7 @@ M14_MESH = (2, 2)
 M14_WORLD = M14_MESH[0] * M14_MESH[1]
 M14_LAYERS = 8
 M14_DIR = ROOT / "build" / "m14"
-M14_JOIN_S = 600
+M14_JOIN_S = 750
 M14_TRAIN = dict(TRAIN, checkpoint_every=0, log_every=1)
 # each rank's K4 / K5 call: its 2 x 2048 rows, 16 of the 32 query heads
 # and 4 of the 8 KV heads, of 64
@@ -2154,6 +2165,40 @@ M14_MOE_LAYERS = 2
 M14_MOE_TRAIN = dict(M14_TRAIN, global_batch=2)
 M14_MOE_FACTORS = (2.0, 3.0, 4.0)
 M14_MOE_SERVE = {"moe_decode": (2048 + M14_DECODE_STEPS, 2, 2048)}
+# the vlm and audio families on the same mesh (ROADMAP §1 item 3), after
+# the MoE runs in the same ranks, each first serving on its seeded weights
+# (the prefill cell, then M14_DECODE_STEPS steps of the serve cell), then
+# training M14_STEPS steps through the mesh Trainer, against one device
+# on the same seeded weights and batches (run before the ranks start).
+# llava-next-34b at full width, cut to 1 of its 60 layers: 1.47 B
+# parameters, 0.92 B of them the untied 64000 x 7168 embed and lm_head;
+# a rank holds ~13 GB by reckoning (the gathered bf16 tree 2.9, its bf16
+# grads 2.9, its shard of params, m and v 3.7, the fp32 unembed's table
+# copy 1.8, a row's fp32 logits and softmax ~1.5; 14.7 GB peak on an H100
+# 80GB HBM3), four ~60 GB; 2 layers would need ~20 GB a rank, ~80 GB in
+# all.  A global 2 x (576 image + 1472 text)
+# positions a step, its 56 / 8 heads 28 / 4 a rank.  whisper-base at
+# full width and depth (6 + 6 layers, 74 M parameters): a global 4 x
+# 1500 frames and tokens a step (launch/specs.py batch_specs' shapes),
+# served on 4 lanes in the default layout (K3 on the rank's 4 KV heads
+# for the self and cross strips) and on 1 lane with the sequence over
+# the data axis (serve_cell's own layout at B 1 < 2: self and cross
+# strips split in two, ops.seq_parallel_decode over the whole 1500 cross
+# positions).  name -> (arch, layers or None for all, train fields,
+# serving runs (S, B, P text tokens))
+M14_VA = {
+    "llava": ("llava-next-34b", 1,
+              dict(M14_TRAIN, global_batch=2, seq_len=576 + 1472),
+              {"llava_decode": (576 + 1472 + M14_DECODE_STEPS, 2, 1472)}),
+    "whisper": ("whisper-base", None,
+                dict(M14_TRAIN, global_batch=4, seq_len=1500),
+                {"whisper_decode": (1500, 4, 1500 - M14_DECODE_STEPS),
+                 "whisper_decode_seq_data": (1500, 1,
+                                             1500 - M14_DECODE_STEPS)})}
+# the ranks start the vlm / audio runs once this file says the MoE
+# references beside them are done and freed
+M14_VA_GO = "moe_reference_done"
+M14_VA_WAIT_S = 300
 
 
 def m14_setup():
@@ -2180,6 +2225,175 @@ def m14_moe_setup():
     batches = {s: {"tokens": np.random.default_rng(200 + s).integers(
         0, cfg.vocab_size, (B, S), dtype=np.int32)} for s in range(M14_STEPS)}
     return cfg, tc, batches
+
+
+def m14_va_setup(name: str):
+    """A vlm / audio run's config (M14_VA), its TrainConfig (checkpoints
+    under M14_DIR/<name>), the numpy-seeded global batches of the
+    M14_STEPS steps (tokens, and llava's image or whisper's frames, N(0,
+    0.02^2) in float32: the pipeline hands them to the model in bf16) and
+    its serving runs."""
+    arch, layers, train, serve = M14_VA[name]
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    tc = lambda tag: TrainConfig(checkpoint_dir=str(M14_DIR / tag), **train)
+    B, S = train["global_batch"], train["seq_len"]
+    rng = np.random.default_rng(400 + list(M14_VA).index(name))
+    emb = lambda n: (rng.standard_normal((B, n, cfg.d_model))
+                     * 0.02).astype(np.float32)
+    batches = {}
+    for s in range(M14_STEPS):
+        if cfg.family == "vlm":
+            b = {"vision_embeds": emb(cfg.frontend_tokens)}
+            s_text = S - cfg.frontend_tokens
+        else:
+            b, s_text = {"audio_embeds": emb(S)}, S
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (B, s_text),
+                                   dtype=np.int32)
+        batches[s] = b
+    return cfg, tc, batches, serve
+
+
+def m14_va_launches(cfg) -> dict:
+    """A vlm / audio training run's kernel launches a rank: a forward
+    attention (K4) and, under remat full, its recompute, then its
+    backward (K5), per layer and step; whisper's encoder (not remat, as
+    in the JAX package) once forward, its decoder's self and cross
+    attention twice."""
+    L, E = cfg.n_layers, cfg.encoder_layers
+    dec = 2 * L if cfg.family == "audio" else L
+    want = {k: 0 for k in COUNTERS}
+    want.update(K4=(E + 2 * dec) * M14_STEPS, K5=(E + dec) * M14_STEPS)
+    return want
+
+
+def m14_va_reference() -> dict:
+    """The vlm / audio runs on one device, before the ranks start (llava's
+    ~20 GB would not fit beside them): the single-device Trainer from the
+    seeded weights serves the runs' prefill and decode steps on them
+    (m14_serve_reference), then takes M14_STEPS steps through its own
+    step on the same batches.  {name: {"steps": [(loss, grad norm)],
+    "serve": the serving reference, "peak_gb", "wall_s"}}."""
+    out = {}
+    for name in M14_VA:
+        cfg, tc, batches, serve = m14_va_setup(name)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tc(f"{name}_single"))
+        tr.pipeline.host_batch = lambda s: batches[s]
+        ref_serve = m14_serve_reference(tr.model, tr.state.params, cfg,
+                                        serve)
+        steps = []
+        for s in range(M14_STEPS):
+            tr.state, m = tr.train_step(tr.state,
+                                        tr.pipeline.device_batch(s))
+            steps.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        out[name] = {"steps": steps, "serve": ref_serve,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "wall_s": time.perf_counter() - t0}
+        del tr
+        _free()
+    return out
+
+
+def m14_va_rank(rank: int, mesh) -> dict:
+    """A rank's vlm / audio runs (M14_VA), once the MoE references beside
+    the ranks are done (M14_VA_GO): the mesh Trainer on train_cell's
+    shardings serves the runs through the cells' steps on its seeded
+    parameter shards (m14_serve, records under "serve", files
+    M14_DIR/<name>_serve<rank>.pt), then takes M14_STEPS steps of its own
+    step on rank 0's batches, its collectives (COMM), walls and kernel
+    launches counted; the peak over the whole run."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import train_cell
+    t0 = time.perf_counter()
+    while not (M14_DIR / M14_VA_GO).exists():
+        if time.perf_counter() - t0 > M14_VA_WAIT_S:
+            raise AssertionError(f"M14: the MoE references did not finish "
+                                 f"in {M14_VA_WAIT_S} s")
+        time.sleep(0.5)
+    out = {}
+    for name in M14_VA:
+        cfg, tc, batches, serve = m14_va_setup(name)
+        tcfg = tc(f"{name}_mesh")
+        shape = ShapeSpec("train", tcfg.seq_len, tcfg.global_batch, "train")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tcfg, mesh=mesh,
+                     state_shardings=train_cell(cfg, shape, mesh,
+                                                tcfg)[2][0])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        tr.pipeline.host_batch = lambda s: batches[s]
+        serving = m14_serve(cfg, tr.state.params, mesh, rank, serve,
+                            f"{name}_serve")
+        _free()
+        out[name] = dict(m14_steps(tr), serve=serving, build_s=build_s,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del tr
+        _free()
+    return out
+
+
+def m14_va_check(res, ref: dict) -> dict:
+    """The vlm / audio runs of every rank: losses equal rank 0's and
+    within M14_BARS of the single-device Trainer's, kernel launches
+    m14_va_launches' exactly, and the serving runs against the single-
+    device prefill and decode (m14_serve_check)."""
+    out = {}
+    for name in M14_VA:
+        cfg, _, _, serve = m14_va_setup(name)
+        want = m14_va_launches(cfg)
+        r = ref[name]
+        got0 = [(m["loss"], m["grad_norm"])
+                for m in res[0]["va"][name]["metrics"]]
+        for rr in res:
+            mr = rr["va"][name]
+            got = [(m["loss"], m["grad_norm"]) for m in mr["metrics"]]
+            comm = mr["comm_per_step"][-1]
+            log(f"# M14 {cfg.name} ({cfg.n_layers} L) rank {rr['rank']}: "
+                f"losses / grad norms "
+                f"{[(round(a, 5), round(b, 5)) for a, b in got]}; step wall "
+                f"{[round(t, 3) for t in mr['step_wall_s']]} s; kernel "
+                f"launches {mr['launches']}; collectives a step "
+                + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e9:.3f} "
+                            f"GB" for k, v in sorted(comm.items()))
+                + f"; peak {mr['peak_mem_gb']:.2f} GB; built in "
+                f"{mr['build_s']:.1f} s")
+            if got != got0:
+                raise AssertionError(f"M14 {name}: rank {rr['rank']}'s "
+                                     f"losses differ from rank 0's")
+            if mr["launches"] != want:
+                raise AssertionError(f"M14 {name}: rank {rr['rank']} "
+                                     f"launched {mr['launches']}, want "
+                                     f"{want}")
+        for s, ((l_m, g_m), (l_r, g_r)) in enumerate(zip(got0, r["steps"])):
+            dl, dg = abs(l_m - l_r), abs(g_m - g_r) / g_r
+            log(f"# M14 {cfg.name} step {s}: 2x2 mesh loss {l_m:.5f} / grad "
+                f"norm {g_m:.5f}, single device {l_r:.5f} / {g_r:.5f}: "
+                f"|loss diff| {dl:.2e} (bar {M14_BARS['loss']}), grad norm "
+                f"rel diff {dg:.2e} (bar {M14_BARS['grad_norm']})")
+            if not (np.isfinite(l_m) and dl <= M14_BARS["loss"]
+                    and dg <= M14_BARS["grad_norm"]):
+                raise AssertionError(f"M14 {name} step {s}: the mesh step "
+                                     f"and one device disagree")
+        tag = f"{name}_serve"
+        serving = m14_serve_check(
+            r["serve"], [{"rank": rr["rank"], tag: rr["va"][name]["serve"]}
+                         for rr in res], tag, cfg)
+        log(f"# M14 {cfg.name}: the single-device reference (serving and "
+            f"{M14_STEPS} steps) took {r['wall_s']:.1f} s, peak "
+            f"{r['peak_gb']:.2f} GB")
+        out[name] = {"config": cfg.name, "layers": cfg.n_layers,
+                     "single_device": {k: v for k, v in r.items()
+                                       if k != "serve"},
+                     "serving": serving,
+                     "ranks": [dict({k: v for k, v in rr["va"][name].items()
+                                     if k != "serve"}, rank=rr["rank"])
+                               for rr in res]}
+    return out
 
 
 def moe_drops(x: torch.Tensor, router: torch.Tensor, cfg, factor: float,
@@ -2315,6 +2529,27 @@ def m14_moe_reference(factor: float) -> dict:
     return out
 
 
+def m14_steps(tr) -> dict:
+    """M14_STEPS steps of a mesh Trainer's own step on its pipeline's
+    batches, after the launch counts are reset: each step's metrics,
+    collectives (COMM) and wall, and the kernel launches of them all."""
+    from repro_torch.sharding import shards
+    reset_counts()
+    metrics, comm, walls = [], [], []
+    for s in range(M14_STEPS):
+        t0 = time.perf_counter()
+        b = tr.pipeline.device_batch(s)
+        shards.reset_comm()
+        tr.state, m = tr.train_step(tr.state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        comm.append(json.loads(json.dumps(shards.COMM)))
+        metrics.append({k: float(v) for k, v in m.items()})
+        del b
+    return {"metrics": metrics, "comm_per_step": comm,
+            "step_wall_s": walls, "launches": read_counts()}
+
+
 def m14_moe_rank(rank: int, mesh, factor: float) -> dict:
     """A rank's MoE runs (m14_moe_runs) through Trainer(mesh=,
     state_shardings=train_cell(...)): M14_STEPS steps of the Trainer's
@@ -2324,7 +2559,6 @@ def m14_moe_rank(rank: int, mesh, factor: float) -> dict:
     those weights, gathered, saved by rank 0 for the reference."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.specs import train_cell
-    from repro_torch.sharding import shards
     from repro_torch.sharding.shards import gather_full
     cfg, tc, batches = m14_moe_setup()
     out = {}
@@ -2343,24 +2577,11 @@ def m14_moe_rank(rank: int, mesh, factor: float) -> dict:
             build_s = time.perf_counter() - t0
             tr.pipeline.host_batch = lambda s: batches[s]
             torch.cuda.reset_peak_memory_stats()
-            reset_counts()
-            metrics, comm, walls = [], [], []
-            for s in range(M14_STEPS):
-                t0 = time.perf_counter()
-                b = tr.pipeline.device_batch(s)
-                shards.reset_comm()
-                tr.state, m = tr.train_step(tr.state, b)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-                comm.append(json.loads(json.dumps(shards.COMM)))
-                metrics.append({k: float(v) for k, v in m.items()})
-            launches = read_counts()
+            steps = m14_steps(tr)
         finally:
             os.environ.pop("REPRO_MOE_A2A", None)
-        out[run] = {"factor": f, "metrics": metrics, "comm_per_step": comm,
-                    "launches": launches, "step_wall_s": walls,
-                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                    "build_s": build_s}
+        out[run] = dict(steps, factor=f, build_s=build_s,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         if run == "rows":
             out["moe_serve"] = m14_serve(c, tr.state.params, mesh, rank,
                                          M14_MOE_SERVE, "moe_serve")
@@ -2387,14 +2608,34 @@ def bit_digest(t: torch.Tensor) -> list:
 
 def m14_serve_inputs(cfg, runs=M14_SERVE):
     """Each serving run's numpy-seeded prompts (B, P) and teacher-forced
-    decode tokens (steps, B, 1), the same in every process."""
+    decode tokens (steps, B, 1), the same in every process; a vlm run's
+    image (B, frontend_tokens, d_model) ahead of the prompt, an audio
+    run's frames (B, S, d_model) for its S cross positions, both N(0,
+    0.02^2) float32 from a generator of their own."""
     rng = np.random.default_rng(300)
-    return {name: {"prompt": rng.integers(0, cfg.vocab_size, (B, P),
-                                          dtype=np.int32),
-                   "tokens": rng.integers(0, cfg.vocab_size,
-                                          (M14_DECODE_STEPS, B, 1),
-                                          dtype=np.int32)}
-            for name, (S, B, P) in runs.items()}
+    out = {name: {"prompt": rng.integers(0, cfg.vocab_size, (B, P),
+                                         dtype=np.int32),
+                  "tokens": rng.integers(0, cfg.vocab_size,
+                                         (M14_DECODE_STEPS, B, 1),
+                                         dtype=np.int32)}
+           for name, (S, B, P) in runs.items()}
+    for i, (name, (S, B, P)) in enumerate(runs.items()):
+        emb = np.random.default_rng(310 + i)
+        if cfg.family == "vlm":
+            out[name]["vision_embeds"] = (emb.standard_normal(
+                (B, cfg.frontend_tokens, cfg.d_model)) * 0.02).astype(
+                    np.float32)
+        elif cfg.family == "audio":
+            out[name]["audio_embeds"] = (emb.standard_normal(
+                (B, S, cfg.d_model)) * 0.02).astype(np.float32)
+    return out
+
+
+def m14_prompt(cfg, inp: dict) -> dict:
+    """A serving run's prompt batch in the cell's batch keys: the tokens,
+    and the frontend's embeddings where the family has them."""
+    return {"tokens" if k == "prompt" else k: v for k, v in inp.items()
+            if k != "tokens"}
 
 
 def m14_serve(cfg, params, mesh, rank: int, runs=M14_SERVE,
@@ -2408,34 +2649,38 @@ def m14_serve(cfg, params, mesh, rank: int, runs=M14_SERVE,
     M14_DIR/<tag><rank>.pt; returns each run's layout, row and cache
     bounds, walls and kernel launches."""
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.launch.specs import prefill_cell, serve_cell
+    from repro_torch.launch.specs import (prefill_cell, serve_cell,
+                                          strips_spec)
     from repro_torch.sharding.shards import (gather_full, local_shape,
                                              local_slice, slice_bounds)
     dev = leaves(params)[0].device
-    local = lambda a, sh: local_slice(torch.from_numpy(a).to(dev),
-                                      sh.placements, mesh).contiguous()
-    spec = lambda sh: [list(e) if isinstance(e, tuple) else e
-                       for e in sh.spec]
+    local = lambda a, sh, dt=None: local_slice(
+        torch.from_numpy(a).to(dev, dt), sh.placements, mesh).contiguous()
+    spec = lambda s: [list(e) if isinstance(e, tuple) else e for e in s]
     full, out, arrays = None, {}, {}
     for name, (S, B, P) in runs.items():
         inp = m14_serve_inputs(cfg, runs)[name]
         pstep, pargs, psh = prefill_cell(
             cfg, ShapeSpec(name, S, B, "prefill"), mesh)
+        names = sorted(pargs[2])
+        strip = "k" if "k" in names else "self_k"
         cache = {n: torch.zeros(local_shape(pargs[2][n].shape,
                                             psh[2][n].placements, mesh),
                                 dtype=pargs[2][n].dtype, device=dev)
-                 for n in ("k", "v")}
-        rec = {"cache_spec": spec(psh[2]["k"]),
+                 for n in names}
+        rec = {"cache_spec": spec(strips_spec(psh[2])),
                "rows": slice_bounds((B, P), psh[1]["tokens"].placements,
                                     mesh),
-               "cache_bounds": slice_bounds(pargs[2]["k"].shape,
-                                            psh[2]["k"].placements, mesh)}
+               "cache_bounds": slice_bounds(pargs[2][strip].shape,
+                                            psh[2][strip].placements, mesh)}
+        batch = {k: local(a, psh[1][k], None if k == "tokens"
+                          else pargs[1][k].dtype)
+                 for k, a in m14_prompt(cfg, inp).items()}
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache, lens = pstep(
-            params if full is None else full,
-            {"tokens": local(inp["prompt"], psh[1]["tokens"])}, cache)
+            params if full is None else full, batch, cache)
         torch.cuda.synchronize()
         rec["prefill_s"] = time.perf_counter() - t0
         logs = [logits.float()]
@@ -2444,10 +2689,12 @@ def m14_serve(cfg, params, mesh, rank: int, runs=M14_SERVE,
         if name != "prefill":
             dstep, _, dsh = serve_cell(cfg, ShapeSpec(name, S, B, "decode"),
                                        mesh)
-            if spec(dsh[1]["k"]) != rec["cache_spec"]:
+            if spec(strips_spec(dsh[1])) != rec["cache_spec"]:
                 raise AssertionError(f"M14 {name}: the prefill and decode "
                                      f"cells lay the cache out differently")
-            lens = local(np.full((B,), P, np.int32), dsh[3])
+            # a vlm's image positions lead its prompt's text
+            image = cfg.frontend_tokens if cfg.family == "vlm" else 0
+            lens = local(np.full((B,), image + P, np.int32), dsh[3])
             t0 = time.perf_counter()
             for i in range(M14_DECODE_STEPS):
                 logits, cache = dstep(full, cache,
@@ -2459,7 +2706,7 @@ def m14_serve(cfg, params, mesh, rank: int, runs=M14_SERVE,
                 / M14_DECODE_STEPS
         rec["launches"] = read_counts()
         arrays[name] = {"logits": torch.stack(logs).cpu(),
-                        "k": cache["k"].cpu(), "v": cache["v"].cpu()}
+                        **{n: cache[n].cpu() for n in names}}
         out[name] = rec
         del cache, logs
     torch.save(arrays, M14_DIR / f"{tag}{rank}.pt")
@@ -2494,7 +2741,8 @@ def m14_rank(rank: int, world: int, moe_factor: float):
     its checkpoint (Trainer.run's last save: the full tensors, rank 0
     writing); each leaf's local shard digested for the elastic check;
     the serving cells (m14_serve); then the MoE runs (m14_moe_rank, the
-    exchange at moe_factor).  Results to M14_DIR/rank<r>.json."""
+    exchange at moe_factor); then the vlm and audio runs (m14_va_rank).
+    Results to M14_DIR/rank<r>.json."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeSpec
@@ -2552,6 +2800,7 @@ def m14_rank(rank: int, world: int, moe_factor: float):
         del tr
         _free()
         res["moe"] = m14_moe_rank(rank, mesh, moe_factor)
+        res["va"] = m14_va_rank(rank, mesh)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -2605,25 +2854,27 @@ def m14_serve_reference(model, params, cfg, runs=M14_SERVE) -> dict:
     of the whole batch, then the decode steps (seq_parallel=True where the
     mesh run shards the sequence: the naive decode, as the JAX package's
     serve cell)."""
-    dev = model.device
+    dev, dt = model.device, pdtype(cfg)
     out = {}
     with torch.no_grad():
         for name, (S, B, P) in runs.items():
             inp = m14_serve_inputs(cfg, runs)[name]
-            cache = model.init_cache(B, S)
-            logits, cache, lens = model.prefill(
-                params, {"tokens": torch.from_numpy(inp["prompt"]).to(dev)},
-                cache)
+            cache = model.init_cache(B, S, enc_len=S) \
+                if cfg.family == "audio" else model.init_cache(B, S)
+            batch = {k: torch.from_numpy(a).to(dev, None if k == "tokens"
+                                               else dt)
+                     for k, a in m14_prompt(cfg, inp).items()}
+            logits, cache, lens = model.prefill(params, batch, cache)
             logs = [logits.float()]
             if name != "prefill":
                 for i in range(M14_DECODE_STEPS):
                     logits, cache = model.decode_step(
                         params, torch.from_numpy(inp["tokens"][i]).to(dev),
-                        lens, cache, seq_parallel=name == "decode_seq_data")
+                        lens, cache, seq_parallel=name.endswith("seq_data"))
                     lens = lens + 1
                     logs.append(logits.float())
             out[name] = {"logits": torch.stack(logs).cpu(),
-                         "k": cache["k"].cpu(), "v": cache["v"].cpu()}
+                         **{n: t.cpu() for n, t in cache.items()}}
             del cache
     return out
 
@@ -2634,21 +2885,33 @@ def _cut(t: torch.Tensor, bounds) -> torch.Tensor:
     return t
 
 
+def m14_serve_launches(cfg, name: str) -> dict:
+    """A serving run's kernel launches a rank: K4 for each attention of
+    the prefill (a layer's; whisper's encoder layers and its decoder's
+    self and cross attention), then in the default layout's decode K3 for
+    each decoder attention a step (whisper's self and cross); a
+    sequence-sharded decode (ops.seq_parallel_decode) launches none."""
+    L = cfg.n_layers
+    prefill = cfg.encoder_layers + 2 * L if cfg.family == "audio" else L
+    want = {"K4": prefill}
+    if name != "prefill" and not name.endswith("seq_data"):
+        want["K3"] = (2 * L if cfg.family == "audio" else L) \
+            * M14_DECODE_STEPS
+    return want
+
+
 def m14_serve_check(ref: dict, res, tag: str = "serve",
-                    L: int = M14_LAYERS) -> dict:
+                    cfg=None) -> dict:
     """Every rank's serving runs against the single-device reference:
     logits of its rows within MODEL_BARS (prefill: the dense prefill's,
     decode: the dense or the seq-parallel decode step's), each step's
     argmax equal or a near tie (the reference's logit of the rank's token
     within SERVED_TOKEN_BAR of its max), its cache shard within
-    M14_CACHE_BAR of the reference cache's slice, and its kernel
-    launches: K4 a layer for each prefill, K3 a layer a step in the
-    default layout's decode, nothing else.  tag: the ranks' records
-    (rr[tag]) and files (M14_DIR/<tag><rank>.pt); L the model's layers."""
-    def want_launches(name):
-        if name == "prefill" or name == "decode_seq_data":
-            return {"K4": L}
-        return {"K4": L, "K3": L * M14_DECODE_STEPS}
+    M14_CACHE_BAR of the reference cache's slice (every strip: whisper's
+    self and cross too), and its kernel launches (m14_serve_launches),
+    nothing else.  tag: the ranks' records (rr[tag]) and files
+    (M14_DIR/<tag><rank>.pt); cfg the model's config (default M14's)."""
+    cfg = cfg or m14_setup()[0]
     summary = {}
     for rr in res:
         got = torch.load(M14_DIR / f"{tag}{rr['rank']}.pt")
@@ -2660,14 +2923,14 @@ def m14_serve_check(ref: dict, res, tag: str = "serve",
             gl = mine["logits"]
             errs = (gl - wl).abs().amax(dim=(1, 2, 3)).tolist()
             bars = [MODEL_BARS["dense prefill"]] + [MODEL_BARS[
-                "seq-parallel decode step" if name == "decode_seq_data"
+                "seq-parallel decode step" if name.endswith("seq_data")
                 else "dense decode step"]] * (len(errs) - 1)
             g_tok, w_tok = gl.argmax(-1), wl.argmax(-1)
             gap = (wl.amax(-1) - wl.gather(-1, g_tok[..., None])[..., 0])
             flips = int((g_tok != w_tok).sum())
             cache_err = max(float((mine[n].float() - _cut(
                 want[n], rec["cache_bounds"]).float()).abs().max())
-                for n in ("k", "v"))
+                for n in mine if n != "logits")
             launches = {k: v for k, v in rec["launches"].items() if v}
             log(f"# M14 {name} rank {rr['rank']} (cache spec "
                 f"{rec['cache_spec']}, rows {r0}-{r1}): logits max |diff| "
@@ -2684,10 +2947,10 @@ def m14_serve_check(ref: dict, res, tag: str = "serve",
                     or cache_err > M14_CACHE_BAR:
                 raise AssertionError(f"M14 {name}: rank {rr['rank']} "
                                      f"disagrees with one device")
-            if launches != want_launches(name):
+            if launches != m14_serve_launches(cfg, name):
                 raise AssertionError(f"M14 {name}: rank {rr['rank']} "
                                      f"launched {launches}, want "
-                                     f"{want_launches(name)}")
+                                     f"{m14_serve_launches(cfg, name)}")
             summary.setdefault(name, []).append(dict(
                 rec, rank=rr["rank"], logits_max_abs_diff=max(errs),
                 argmax_flips=flips, cache_max_abs_diff=cache_err))
@@ -2771,7 +3034,7 @@ def m14_moe_serve_check(res) -> dict:
     _free()
     return m14_serve_check(ref, [{"rank": rr["rank"],
                                   "moe_serve": rr["moe"]["moe_serve"]}
-                                 for rr in res], "moe_serve", M14_MOE_LAYERS)
+                                 for rr in res], "moe_serve", cfg)
 
 
 def m14_clis():
@@ -2807,10 +3070,15 @@ def phase_m14():
     REPRO_MOE_A2A exchange (its factor from m14_moe_factor), each held
     against the single-device Trainer at its factor, run here beside the
     ranks (m14_moe_reference, m14_moe_check), and serves M14_MOE_SERVE
-    against one device (m14_moe_serve_check).  Four ranks on one card
-    share its SMs and HBM, and gloo moves the collectives through host
-    memory: the step times are not a speed of four cards.  Returns (e2e,
-    captured, runs)."""
+    against one device (m14_moe_serve_check).  Then the vlm and audio
+    families in the same ranks (M14_VA, m14_va_rank): llava-next-34b at
+    1 of 60 layers and whisper-base whole each serve through the cells'
+    steps on their seeded weights and train M14_STEPS steps, against
+    one device on the same weights, run before the ranks start
+    (m14_va_reference, m14_va_check).  Four ranks on one card share its
+    SMs and HBM, and gloo moves the collectives through host memory: the
+    step times are not a speed of four cards.  Returns (e2e, captured,
+    runs)."""
     import torch.multiprocessing as mp
     shutil.rmtree(M14_DIR, ignore_errors=True)
     M14_DIR.mkdir(parents=True)
@@ -2820,6 +3088,9 @@ def phase_m14():
     ref_s = time.perf_counter() - t0
     moe_factor, moe_drops0 = m14_moe_factor()
     t0 = time.perf_counter()
+    va_ref = m14_va_reference()
+    va_ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ctx = mp.start_processes(m14_rank, args=(M14_WORLD, moe_factor),
                              nprocs=M14_WORLD, join=False,
                              start_method="spawn")
@@ -2828,6 +3099,8 @@ def phase_m14():
         t1 = time.perf_counter()
         moe_ref = m14_moe_reference(moe_factor)
         moe_ref_s = time.perf_counter() - t1
+        _free()
+        (M14_DIR / M14_VA_GO).write_text("")
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > M14_JOIN_S:
                 raise AssertionError(f"M14: the ranks did not finish in "
@@ -2911,6 +3184,11 @@ def phase_m14():
         f"beside the ranks, the checks and the serving reference "
         f"{moe['checks_s']:.1f} s; the ranks share one card, so no time "
         f"here is a speed of four cards; on {card()}")
+    va = m14_va_check(res, va_ref)
+    va.update(reference_s=va_ref_s, card=card())
+    del va_ref
+    log(f"# M14 vlm / audio: the single-device references took "
+        f"{va_ref_s:.1f} s before the ranks started; on {card()}")
     shutil.rmtree(M14_DIR / "mesh", ignore_errors=True)
     lines = {}
     for name, p in clis.items():
@@ -2938,8 +3216,10 @@ def phase_m14():
            "single_device": ref, "elastic_shards": n_leaves,
            "serve_cli": line, "cli_and_examples_s": cli_s, "card": card(),
            "serving": serving, "dryrun": dry, "moe": moe,
+           "vlm_audio": va,
            "ranks": [{k: v for k, v in rr.items()
-                      if k not in ("digests", "serve", "dryrun", "moe")}
+                      if k not in ("digests", "serve", "dryrun", "moe",
+                                   "va")}
                      for rr in res]}
     # the kernels at the shard's shape, bf16, for the timing phase: K4 and
     # K5 on (2, 2048, 16 / 4, 64)
@@ -2950,7 +3230,9 @@ def phase_m14():
         "m14_rank0": {"launches": res[0]["launches"]},
         **{f"m14_moe_{run}_rank0": {"launches": res[0]["moe"][run]
                                     ["launches"]}
-           for run, *_ in m14_moe_runs(moe_factor)}}
+           for run, *_ in m14_moe_runs(moe_factor)},
+        **{f"m14_{name}_rank0": {"launches": res[0]["va"][name]["launches"]}
+           for name in M14_VA}}
 
 
 # ---------------------------------------------------------------------------

@@ -123,22 +123,26 @@ def shard_heads(t: torch.Tensor, tp_mesh) -> torch.Tensor:
     return t.narrow(2, tp_mesh.rank * n, n)
 
 
-def _gather_heads(o: torch.Tensor, tp_mesh, owners=None) -> torch.Tensor:
+def _gather_heads(o: torch.Tensor, tp_mesh, owners=None,
+                  sizes=None) -> torch.Tensor:
     """Every rank's (B, S, h, D) head block, all-gathered over the mesh's
     group into (N B, S, h, D) and put back in rank order on the head axis
     (the JAX all_gather's tiled=True): (B, S, N h, D).  owners: keep only
     these ranks' blocks (ranks that share a query block hold the same
-    one)."""
+    one).  sizes (the uneven split of _head_blocks): rank r's block holds
+    sizes[r] heads, padded with zeros to h = max(sizes) for the gather,
+    and the pad is dropped."""
     import torch.distributed as dist
     n = tp_mesh.size
     B, S, h, D = o.shape
-    out = o.new_empty((n * B, S, h, D))
-    dist.all_gather_into_tensor(out, o.contiguous(), group=tp_mesh.group)
-    out = out.view(n, B, S, h, D)
-    if owners is not None and len(owners) < n:
-        out = out[list(owners)]
-    m = out.shape[0]
-    return out.permute(1, 2, 0, 3, 4).reshape(B, S, m * h, D)
+    sizes = sizes or [h] * n
+    if max(sizes) > h:
+        o = torch.nn.functional.pad(o, (0, 0, 0, max(sizes) - h))
+    out = o.new_empty((n,) + tuple(o.shape))
+    dist.all_gather_into_tensor(out.view(n * B, *o.shape[1:]),
+                                o.contiguous(), group=tp_mesh.group)
+    keep = owners if owners is not None else range(n)
+    return torch.cat([out[r, :, :, :sizes[r]] for r in keep], 2)
 
 
 def _tp_head_sharded(fn, tp_mesh, q, k_pages, v_pages, *rest):
@@ -170,17 +174,33 @@ def _head_blocks(hq: int, hkv: int, n: int):
     one KV head all its queries share (n a multiple of hkv).  With more
     ranks than query heads (n a multiple of hq: gemma3-4b's 8 heads on a
     model axis of 16), each query head goes to n / hq ranks side by side,
-    which attend with it alike.  Other splits raise."""
+    which attend with it alike.  When n is a multiple of hkv but does not
+    divide hq (llava-next-34b's 56 / 8 heads on 16 ranks), each KV head's
+    G = hq / hkv query heads go to its n / hkv ranks as evenly as they
+    go, contiguous inside the group, the larger blocks first (G 7 over 2
+    ranks: 4 + 3), so every rank keeps one KV head.  Other splits
+    raise."""
     if n % hq == 0:
         per = n // hq
         return [((r // per, r // per + 1),
                  ((r // per) * hkv // hq, (r // per) * hkv // hq + 1))
                 for r in range(n)]
+    if hq % hkv == 0 and n % hkv == 0 and hq % n \
+            and n // hkv <= hq // hkv:
+        g, per = hq // hkv, n // hkv
+        out = []
+        for r in range(n):
+            kv, j = divmod(r, per)
+            q0 = kv * g + j * (g // per) + min(j, g % per)
+            out.append(((q0, q0 + g // per + (j < g % per)), (kv, kv + 1)))
+        return out
     if hq % n or not (hkv % n == 0 or n % hkv == 0):
         raise ValueError(f"{hq} query / {hkv} KV heads do not split over "
                          f"{n} ranks: the query heads must divide by the "
-                         f"rank count or divide it, and the KV heads divide "
-                         f"it or be divided by it")
+                         f"rank count or divide it, or the rank count be a "
+                         f"multiple of the KV heads with at most one rank "
+                         f"a query head of each group; and the KV heads "
+                         f"divide it or be divided by it")
     hq_r, g = hq // n, hq // hkv
     out = []
     for r in range(n):
@@ -206,7 +226,8 @@ class _HeadSplit(torch.autograd.Function):
     (B, S, H, D) tensor every rank of the group holds whole and equal.
     Backward: the gradients of the blocks of the `owners` ranks (one rank
     a query block: ranks sharing a query head compute the same gradient),
-    all-gathered over the group and added at each rank's heads, in rank
+    all-gathered over the group (blocks of unequal size padded to the
+    largest, the pad dropped) and added at each rank's heads, in rank
     order - so every rank ends with the same whole gradient.  Blocks that
     do not overlap (query heads; KV heads when the ranks divide them) are
     the gathered values, bit for bit; a KV head shared by several owners
@@ -223,53 +244,61 @@ class _HeadSplit(torch.autograd.Function):
     def backward(ctx, g):
         import torch.distributed as dist
         n, (B, S, h, D) = ctx.tp_mesh.size, g.shape
-        parts = g.new_empty((n * B, S, h, D))
+        h_max = max(hi - lo for lo, hi in ctx.blocks)
+        if h < h_max:
+            g = torch.nn.functional.pad(g, (0, 0, 0, h_max - h))
+        parts = g.new_empty((n * B, S, h_max, D))
         dist.all_gather_into_tensor(parts, g.contiguous(),
                                     group=ctx.tp_mesh.group)
-        parts = parts.view(n, B, S, h, D)
+        parts = parts.view(n, B, S, h_max, D)
         full = g.new_zeros((B, S, ctx.heads, D))
         mine = [ctx.blocks[r] for r in ctx.owners]
         shared = len(set(mine)) < len(mine)
         for r in ctx.owners:
             lo, hi = ctx.blocks[r]
             if shared:
-                full[:, :, lo:hi] += parts[r]
+                full[:, :, lo:hi] += parts[r, :, :, :hi - lo]
             else:
-                full[:, :, lo:hi] = parts[r]
+                full[:, :, lo:hi] = parts[r, :, :, :hi - lo]
         return full, None, None, None
 
 
 class _HeadGather(torch.autograd.Function):
     """Forward: every rank's (B, S, h, D) block gathered into the whole
-    head axis (_gather_heads), the `owners` ranks' blocks in rank order.
-    Backward: this rank's block of the gradient, which every rank holds
-    whole and equal."""
+    head axis (_gather_heads), the `owners` ranks' blocks in rank order,
+    blocks of sizes[r] heads padded for the gather.  Backward: this
+    rank's block of the gradient, which every rank holds whole and
+    equal."""
 
     @staticmethod
-    def forward(ctx, o, tp_mesh, lo, owners):
+    def forward(ctx, o, tp_mesh, lo, owners, sizes):
         ctx.lo, ctx.h = lo, o.shape[2]
-        return _gather_heads(o, tp_mesh, owners)
+        return _gather_heads(o, tp_mesh, owners, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return g[:, :, ctx.lo:ctx.lo + ctx.h].contiguous(), None, None, None
+        return (g[:, :, ctx.lo:ctx.lo + ctx.h].contiguous(), None, None,
+                None, None)
 
 
 def head_sharded_attention(q, k, v, tp_mesh, **kw) -> torch.Tensor:
     """flash_attention over this rank's head shard, the output gathered
     back to every head: the attention of the sharded train step on the
     model axis (tp_mesh: a launch/mesh.py ServeMesh over the model axis's
-    group) and of the mesh prefill step.  q (B, S, Hq, D), k / v (B, S,
+    group) and of the mesh prefill step.  q (B, Sq, Hq, D), k / v (B, Skv,
     Hkv, D) are whole and equal on every rank (the projections stay
-    replicated over the model axis).  The rank attends with query heads
-    [r Hq / N, (r + 1) Hq / N) and their KV heads (_head_blocks; one head
-    a rank, shared, when N passes Hq) through K4 forward and K5 backward
-    (_FlashAttention); _HeadSplit and _HeadGather carry the gradients
-    across the group, so q, k and v get the whole gradient on every rank.
-    Per-head attention never mixes heads, so the forward is the unsharded
-    call's per head.  The JAX package's constrain("bshd") prefers to
-    split the sequence over the model axis; the port splits heads because
-    K4 and K5 take no query offset, and a head shard's results are exact."""
+    replicated over the model axis; Skv may differ from Sq, as in
+    whisper's cross-attention).  The rank attends with its block of the
+    query heads and their KV heads (_head_blocks: N / Hq ranks a head
+    when N passes Hq; blocks of ceil and floor G / (N / Hkv) heads inside
+    each group when N is a multiple of Hkv but does not divide Hq)
+    through K4 forward and K5 backward (_FlashAttention); _HeadSplit and
+    _HeadGather carry the gradients across the group, so q, k and v get
+    the whole gradient on every rank.  Per-head attention never mixes
+    heads, so the forward is the unsharded call's per head.  The JAX
+    package's constrain("bshd") prefers to split the sequence over the
+    model axis; the port splits heads because K4 and K5 take no query
+    offset, and a head shard's results are exact."""
     n = tp_mesh.size
     blocks = _head_blocks(q.shape[2], k.shape[2], n)
     qb = [b[0] for b in blocks]
@@ -278,7 +307,8 @@ def head_sharded_attention(q, k, v, tp_mesh, **kw) -> torch.Tensor:
     ks = _HeadSplit.apply(k, tp_mesh, [b[1] for b in blocks], owners)
     vs = _HeadSplit.apply(v, tp_mesh, [b[1] for b in blocks], owners)
     return _HeadGather.apply(flash_attention(qs, ks, vs, **kw), tp_mesh,
-                             qb[tp_mesh.rank][0], owners)
+                             qb[tp_mesh.rank][0], owners,
+                             [hi - lo for lo, hi in qb])
 
 
 def paged_flash_decode(q, k_pages, v_pages, block_table, cache_len, *,

@@ -36,8 +36,8 @@ same thing:
     decode's gathers;
   kernels: K1-K7 by name, {"calls", "flops", "bytes"};
   trace_s: the wall time of the traced call.
-The mesh steps take the dense and moe families (ROADMAP §1 item 3):
-another family's cell raises NotImplementedError, written to
+The mesh steps take the dense, moe, vlm and audio families (ROADMAP §1
+item 3): a hybrid or ssm cell raises NotImplementedError, written to
 <tag>.error.json as the JAX dry run writes its failures.  The MoE cells
 run the per-row dispatch, as the JAX dry run runs without REPRO_MOE_A2A;
 with it set, their steps take the exchange and count its all_to_all.

@@ -55,19 +55,23 @@ def axis_mesh(mesh, name: str):
 
 
 # the families the mesh steps take
-MESH_FAMILIES = ("dense", "moe")
+MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def check_mesh_family(cfg, what: str) -> None:
-    """The mesh steps (training, prefill, decode) take the dense and moe
-    families (the MoE FFN by the per-row dispatch on the rank's rows, or
-    the REPRO_MOE_A2A exchange: models/moe.py); any other (hybrid, ssm,
-    audio, vlm) raises NotImplementedError naming ROADMAP §1 item 3."""
+    """The mesh steps (training, prefill, decode) take the dense, moe, vlm
+    and audio families (the MoE FFN by the per-row dispatch on the rank's
+    rows, or the REPRO_MOE_A2A exchange: models/moe.py; the vlm family's
+    image ahead of its text rows; whisper's encoder and cross-attention
+    on the rank's head shard, its cross strips in the cache's layout);
+    the others (hybrid, ssm) raise NotImplementedError naming ROADMAP §1
+    item 3."""
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{what} {cfg.name} (family {cfg.family!r}) on a mesh is "
             f"ROADMAP §1 item 3: the mesh steps take the "
-            f"{' and '.join(MESH_FAMILIES)} families")
+            f"{', '.join(MESH_FAMILIES[:-1])} and {MESH_FAMILIES[-1]} "
+            f"families")
 
 
 # the default group the groups below belong to, and one group per degree

@@ -14,12 +14,14 @@ Trainer(mesh=, state_shardings=)'s.  prefill_cell and serve_cell return
 the prefill and decode steps on the mesh (serve/serve_step.py
 make_prefill_step / make_serve_step with mesh=), over the cell's cache
 layout: the step takes the rank's shards of the cell's arguments, the
-parameters as DTensors.  Every cell's step on a mesh takes the dense and
-moe families (the MoE experts over the model axis, the router
-replicated: the JAX rules; the per-row dispatch by default, the
-REPRO_MOE_A2A exchange where it is set, models/moe.py); another family's
-raises NotImplementedError when it is called (ROADMAP §1 item 3), so its
-specs stay comparable with the JAX package's.  launch/dryrun.py runs every cell's step on the meta device.
+parameters as DTensors.  Every cell's step on a mesh takes the dense,
+moe, vlm and audio families (the MoE experts over the model axis, the
+router replicated: the JAX rules; the per-row dispatch by default, the
+REPRO_MOE_A2A exchange where it is set, models/moe.py; whisper's four
+strips in the one layout strips_spec reads); the hybrid and ssm
+families' steps raise NotImplementedError when they are called (ROADMAP
+§1 item 3), so their specs stay comparable with the JAX package's.
+launch/dryrun.py runs every cell's step on the meta device.
 """
 from __future__ import annotations
 
@@ -174,12 +176,27 @@ def train_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, tcfg: TrainConfig):
     return step, args, shardings
 
 
-def _k_spec(cache_sharding):
-    """The spec of the dense strips' "k" leaf, None for a cache without
-    them (its family's step refuses the mesh)."""
-    sh = cache_sharding.get("k") if isinstance(cache_sharding, dict) \
-        else None
-    return None if sh is None else sh.spec
+# the attention strips' leaves by family: the decoders' "k" / "v",
+# whisper's self-attention and cross-attention strips
+_STRIPS = (("k", "v"), ("self_k", "self_v", "cross_k", "cross_v"))
+
+
+def strips_spec(cache_sharding):
+    """The spec the attention strips of a cache share (sanitized): the
+    "k" leaf's, or whisper's "self_k", with every other strip of the
+    cache checked to carry the same one (the mesh steps read and write
+    them all through one CacheShard).  None for a cache without strips
+    (the recurrent families, whose steps refuse the mesh)."""
+    if not isinstance(cache_sharding, dict):
+        return None
+    for names in _STRIPS:
+        if names[0] in cache_sharding:
+            specs = {n: tuple(cache_sharding[n].spec) for n in names}
+            if len(set(specs.values())) > 1:
+                raise ValueError(f"the attention strips are laid out "
+                                 f"differently: {specs}")
+            return cache_sharding[names[0]].spec
+    return None
 
 
 def prefill_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
@@ -200,7 +217,7 @@ def prefill_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
     args = (params_shape, bspecs, cache)
     shardings = sanitize((pshard, bshard, cshard), args, mesh)
     step = make_prefill_step(model, mesh=mesh,
-                             cache_spec=_k_spec(shardings[2]))
+                             cache_spec=strips_spec(shardings[2]))
     return step, args, shardings
 
 
@@ -242,5 +259,5 @@ def serve_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
     args = (params_shape, cache, tokens, lens)
     shardings = sanitize((pshard, cshard, tshard, lshard), args, mesh)
     step = make_serve_step(model, seq_parallel=seq_sharded, mesh=mesh,
-                           cache_spec=_k_spec(shardings[1]))
+                           cache_spec=strips_spec(shardings[1]))
     return step, args, shardings

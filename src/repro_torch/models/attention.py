@@ -11,7 +11,9 @@ step's K/V already in it.
 On a (data, model) mesh (serve/serve_step.py's mesh steps) the dense
 prefill and decode take a CacheShard: the rank's strips hold its block of
 the KV heads, of the sequence, or of both (sharding/rules.py cache_spec's
-three layouts), and the rank writes and reads that block only.
+three layouts), and the rank writes and reads that block only - whisper's
+cross strips as its self-attention strips, written by the prefill and
+only read by the decode.
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
     encoder output, with causal=False).  tp_mesh (the sharded train
     step's model axis, a ServeMesh of size N > 1): the projections stay
     replicated, and the attention runs on this rank's head shard
-    (ops.head_sharded_attention: K4 / K5), gathered back to every head.
+    (ops.head_sharded_attention: K4 / K5; cross-attention's keys are the
+    encoder's S_kv positions), gathered back to every head.
     Returns (B, S, D)."""
     q, k, v = _qkv(params, x, cfg, kv_x)
     B, S = x.shape[:2]
@@ -73,20 +76,25 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
 def attn_prefill_cross(params, x: torch.Tensor, cfg: ModelConfig,
                        enc_out: torch.Tensor, cache_k: torch.Tensor,
                        cache_v: torch.Tensor, *,
-                       impl: Optional[str] = None) -> torch.Tensor:
+                       impl: Optional[str] = None,
+                       shard: Optional[CacheShard] = None) -> torch.Tensor:
     """Cross-attention of a decoder prefill: K and V of the encoder output
     enc_out (B, S_enc, D) written into positions [0, S_enc) of the (B,
     S_cross, Hkv, D) cross strips, then x (B, S, D) attends over all of
     them, non-causal.  (The JAX package projects enc_out twice, for the
-    strips and for its attn_forward(kv_x=), to the same values.)  Returns
-    (B, S, D)."""
+    strips and for its attn_forward(kv_x=), to the same values.)  shard
+    (a mesh step): the strips are the rank's block, which gets its KV
+    heads and positions of the encoder's K/V (_kv_block, _write_prompt),
+    and the attention runs on the model rank's head shard (K4 over the
+    encoder's S_enc keys), gathered back to every head.  Returns (B, S,
+    D)."""
     q, k, v = _qkv(params, x, cfg, enc_out)
     B, S = x.shape[:2]
-    Se = enc_out.shape[1]
-    cache_k[:, :Se] = k.to(cache_k.dtype)
-    cache_v[:, :Se] = v.to(cache_v.dtype)
+    _write_prompt(cache_k, _kv_block(k, shard), shard)
+    _write_prompt(cache_v, _kv_block(v, shard), shard)
     o = ops.flash_attention(q, k, v, causal=False,
-                            logit_softcap=cfg.attn_logit_softcap, impl=impl)
+                            logit_softcap=cfg.attn_logit_softcap, impl=impl,
+                            tp_mesh=shard.model if shard else None)
     return dense(params["wo"], o.reshape(B, S, cfg.n_heads * cfg.head_dim))
 
 
@@ -219,11 +227,12 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
     seq_parallel=True: the attention is ops.decode_attention_naive over
     the whole strips, as in the JAX package - which takes no window, so a
     sliding window is dropped there (ROADMAP §3).  shard (a mesh step):
-    _mesh_decode.  Returns (B, 1, D)."""
+    the strips are the rank's block; the new token's K/V goes into its
+    KV heads, by the rank whose slice holds the position (_kv_block,
+    _write_token; never for cross), and the attention is _mesh_attend's,
+    lens then counting the whole strip's positions.  Returns (B, 1,
+    D)."""
     B = x.shape[0]
-    if shard is not None:
-        return _mesh_decode(params, x, cfg, cache_k, cache_v, lens,
-                            window=window, impl=impl, shard=shard)
     if cross:
         q = _q(params, x, cfg)
         attend = lens
@@ -232,11 +241,18 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
         if cfg.use_rope:
             q = rope(q, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
             k = rope(k, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
-        bidx = torch.arange(B, device=x.device)
-        cache_k[bidx, lens.long()] = k[:, 0].to(cache_k.dtype)
-        cache_v[bidx, lens.long()] = v[:, 0].to(cache_v.dtype)
+        if shard is not None:
+            _write_token(cache_k, _kv_block(k, shard)[:, 0], lens, shard)
+            _write_token(cache_v, _kv_block(v, shard)[:, 0], lens, shard)
+        else:
+            bidx = torch.arange(B, device=x.device)
+            cache_k[bidx, lens.long()] = k[:, 0].to(cache_k.dtype)
+            cache_v[bidx, lens.long()] = v[:, 0].to(cache_v.dtype)
         attend = lens + 1
-    if seq_parallel:
+    if shard is not None:
+        o = _mesh_attend(q, cache_k, cache_v, attend, cfg, window=window,
+                         impl=impl, shard=shard)
+    elif seq_parallel:
         o = ops.decode_attention_naive(q, cache_k, cache_v, attend,
                                        logit_softcap=cfg.attn_logit_softcap)
     else:
@@ -246,25 +262,19 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig,
     return dense(params["wo"], o.reshape(B, 1, cfg.n_heads * cfg.head_dim))
 
 
-def _mesh_decode(params, x: torch.Tensor, cfg: ModelConfig,
-                 cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 lens: torch.Tensor, *, window: int, impl: Optional[str],
+def _mesh_attend(q: torch.Tensor, cache_k: torch.Tensor,
+                 cache_v: torch.Tensor, attend: torch.Tensor,
+                 cfg: ModelConfig, *, window: int, impl: Optional[str],
                  shard: CacheShard) -> torch.Tensor:
-    """attn_decode on the rank's block of the strips.  The new token's
-    K/V goes into the block (_kv_block, _write_token).  A whole sequence
-    (the default layout): K3 on the model rank's head shard, the heads
-    gathered back over the model axis (ops._tp_head_sharded).  A sharded
-    sequence: ops.seq_parallel_decode over the sequence's axis, on the
-    rank's heads when the strips hold a head block (gathered back as
-    above), on every head otherwise - no window, as the JAX package's
-    sequence-sharded decode (ROADMAP §3).  Returns (B, 1, D)."""
-    B = x.shape[0]
-    q, k, v = _qkv(params, x, cfg)
-    if cfg.use_rope:
-        q = rope(q, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
-        k = rope(k, lens[:, None], cfg.rope_theta, cfg.rope_scaling)
-    _write_token(cache_k, _kv_block(k, shard)[:, 0], lens, shard)
-    _write_token(cache_v, _kv_block(v, shard)[:, 0], lens, shard)
+    """q (B, 1, Hq, D) over the first attend[b] positions of the rank's
+    block of the strips (attend counts the whole strip's positions).  A
+    whole sequence (the default layout): K3 on the model rank's head
+    shard, the heads gathered back over the model axis
+    (ops._tp_head_sharded).  A sharded sequence: ops.seq_parallel_decode
+    over the sequence's axis, on the rank's heads when the strips hold a
+    head block (gathered back as above), on every head otherwise - no
+    window, as the JAX package's sequence-sharded decode (ROADMAP §3).
+    Returns (B, 1, Hq, D)."""
     softcap = cfg.attn_logit_softcap
     if shard.seq is None:
         def fn(qq, kc, vc, n):
@@ -276,11 +286,9 @@ def _mesh_decode(params, x: torch.Tensor, cfg: ModelConfig,
                                            group=shard.seq.group,
                                            logit_softcap=softcap)
     if shard.heads:
-        o = ops._tp_head_sharded(fn, shard.model, q, cache_k, cache_v,
-                                 lens + 1)
-    else:
-        o = fn(q, cache_k, cache_v, lens + 1)
-    return dense(params["wo"], o.reshape(B, 1, cfg.n_heads * cfg.head_dim))
+        return ops._tp_head_sharded(fn, shard.model, q, cache_k, cache_v,
+                                    attend)
+    return fn(q, cache_k, cache_v, attend)
 
 
 def _local_kv(k: torch.Tensor, v: torch.Tensor, tp_mesh):

@@ -317,7 +317,8 @@ class Model(nn.Module):
         if cfg.family == "audio":
             x = self._embed(params, batch["tokens"])
             x, aux = T.encdec_forward(params["blocks"], self._audio(batch),
-                                      x, cfg, impl=impl, remat=remat)
+                                      x, cfg, impl=impl, remat=remat,
+                                      tp_mesh=tp_mesh)
         else:
             x, _ = self._assemble_input(params, batch)
             stack = {"hybrid": T.hybrid_forward,
@@ -349,17 +350,18 @@ class Model(nn.Module):
         the tokens and a "loss_mask" (B, S) weighting each position; a vlm
         batch's image positions carry no loss (their logits are dropped).
         remat=True recomputes each layer in the backward.  The sharded
-        train step's (dense and moe families): tp_mesh runs each attention
-        on this rank's head shard (attn_forward); dp_sum says the batch is
-        this rank's rows of a global batch split over data-parallel ranks,
-        and dp_sum(t) sums t over them in place - ce is then this rank's
-        share of the global mean, its nll sum over the global count of
-        positions (or mask weight), so the ranks' shares sum to the
-        global ce and their gradients to its gradient, and so is each MoE
-        layer's aux loss (models/moe.py); moe_mesh (a moe.MoEMesh): the
-        MoE FFN's mesh, the REPRO_MOE_A2A exchange's.  Returns (total =
-        ce + aux_weight * aux, {"ce", "aux"}), 0-d float32 tensors: on a
-        mesh the rank's shares."""
+        train step's (dense, moe, vlm and audio families): tp_mesh runs
+        each attention on this rank's head shard (attn_forward: whisper's
+        encoder and its decoder's self and cross too); dp_sum says the
+        batch is this rank's rows of a global batch split over data-
+        parallel ranks, and dp_sum(t) sums t over them in place - ce is
+        then this rank's share of the global mean, its nll sum over the
+        global count of (text) positions or mask weight, so the ranks'
+        shares sum to the global ce and their gradients to its gradient,
+        and so is each MoE layer's aux loss (models/moe.py); moe_mesh (a
+        moe.MoEMesh): the MoE FFN's mesh, the REPRO_MOE_A2A exchange's.
+        Returns (total = ce + aux_weight * aux, {"ce", "aux"}), 0-d
+        float32 tensors: on a mesh the rank's shares."""
         if self.cfg.moe_experts and dp_sum is not None:
             moe_mesh = dataclasses.replace(moe_mesh or moe.MoEMesh(),
                                            dp_sum=dp_sum)
@@ -419,8 +421,9 @@ class Model(nn.Module):
         its K/V.  The vlm family's image, batch["vision_embeds"] (B, P,
         d_model), fills positions 0..P-1 and the text follows it, so lens
         counts both: P + S, or P + true_lens.  shard (a mesh step of the
-        dense or moe family, serve/serve_step.py): the cache is the rank's
-        block of the strips (models/attention.py CacheShard); moe_mesh (a
+        dense, moe, vlm or audio family, serve/serve_step.py): the cache is
+        the rank's block of the strips, the audio family's self and cross
+        strips alike (models/attention.py CacheShard); moe_mesh (a
         moe.MoEMesh): the MoE FFN's mesh, the REPRO_MOE_A2A exchange's.
         Returns (logits
         of each row's last real token (B, 1, V) float32, cache, lens
@@ -428,7 +431,7 @@ class Model(nn.Module):
         if self.cfg.family == "audio":
             x = self._embed(params, batch["tokens"])
             x = T.encdec_prefill(params["blocks"], self._audio(batch), x,
-                                 self.cfg, cache, impl=impl)
+                                 self.cfg, cache, impl=impl, shard=shard)
         else:
             x, _ = self._assemble_input(params, batch)
             prefill = {"hybrid": T.hybrid_prefill,
@@ -539,18 +542,25 @@ class Model(nn.Module):
         ops.decode_attention_naive in place of K3 (a paged cache raises, as
         in the JAX package).  enc_lens (B,) int32: the cross strips'
         positions each lane attends (the audio family; default the strips'
-        whole length, as in the JAX package).  tp_mesh head-shards the
-        paged decode (as in prefill_chunks).  shard: the dense cache is
-        the rank's block of the strips on a mesh (as in prefill).  Returns
-        (logits (B, 1, V) float32, cache)."""
+        whole length, as in the JAX package - on a mesh the whole strip's,
+        not the rank's block's).  tp_mesh head-shards the paged decode (as
+        in prefill_chunks).  shard: the dense cache is the rank's block of
+        the strips on a mesh (as in prefill; the cross strips are only
+        read).  Returns (logits (B, 1, V) float32, cache)."""
         cfg = self.cfg
         blocks = params["blocks"]
         x = self._embed(params, tokens, lens)
         if cfg.family == "audio":
             if enc_lens is None:
-                enc_lens = torch.full_like(lens, cache["cross_k"].shape[2])
+                # the whole cross strip: on a mesh whose layout splits its
+                # sequence, the rank's block times the axis's size
+                n = shard.seq.size if shard is not None and shard.seq \
+                    else 1
+                enc_lens = torch.full_like(lens,
+                                           cache["cross_k"].shape[2] * n)
             x = T.encdec_decode(blocks, x, cfg, cache, lens, enc_lens,
-                                impl=impl, seq_parallel=seq_parallel)
+                                impl=impl, seq_parallel=seq_parallel,
+                                shard=shard)
         elif cfg.family == "hybrid":
             x = T.hybrid_decode(blocks, x, cfg, cache, lens, impl=impl,
                                 seq_parallel=seq_parallel)

@@ -435,36 +435,42 @@ def rwkv_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
 # ===========================================================================
 
 def encode(blocks, x_enc: torch.Tensor, cfg: ModelConfig, *,
-           impl: Optional[str] = None) -> torch.Tensor:
+           impl: Optional[str] = None, tp_mesh=None) -> torch.Tensor:
     """The encoder stack over the audio frames x_enc (B, S_enc, D), non-
     causal self-attention blocks, then its final norm.  blocks: {"encoder":
-    stacked (L_enc, ...) blocks, "enc_norm", ...}."""
+    stacked (L_enc, ...) blocks, "enc_norm", ...}.  tp_mesh: each
+    attention on this rank's head shard (attn_forward)."""
     for p in _layers(blocks["encoder"], cfg.encoder_layers):
-        x_enc = _block(p, x_enc, cfg, 0, impl, causal=False)
+        x_enc = _block_aux(p, x_enc, cfg, 0, impl, False, tp_mesh)[0]
     return apply_norm(blocks["enc_norm"], x_enc, cfg)
 
 
 def _decoder_block(p, x: torch.Tensor, enc_out: torch.Tensor,
-                   impl: Optional[str], *, cfg: ModelConfig) -> torch.Tensor:
-    """Causal self-attention, cross-attention over enc_out, the MLP."""
+                   impl: Optional[str], *, cfg: ModelConfig,
+                   tp_mesh=None) -> torch.Tensor:
+    """Causal self-attention, cross-attention over enc_out, the MLP;
+    tp_mesh: both attentions on this rank's head shard."""
     x = x + attn_forward(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
-                         impl=impl)
+                         impl=impl, tp_mesh=tp_mesh)
     x = x + attn_forward(p["cross_attn"], apply_norm(p["n_cross"], x, cfg),
-                         cfg, causal=False, kv_x=enc_out, impl=impl)
+                         cfg, causal=False, kv_x=enc_out, impl=impl,
+                         tp_mesh=tp_mesh)
     return _ffn_tail(p, x, cfg)
 
 
 def encdec_forward(blocks, x_enc: torch.Tensor, x_dec: torch.Tensor,
                    cfg: ModelConfig, *, impl: Optional[str] = None,
-                   remat: bool = False):
+                   remat: bool = False, tp_mesh=None):
     """Encoder, then the decoder stack over x_dec (B, S, D).  remat=True
     recomputes each decoder layer in the backward (the JAX package
-    checkpoints the decoder's scan body only, not the encoder's).  Returns
-    (x_dec, a float32 zero aux)."""
-    enc_out = encode(blocks, x_enc, cfg, impl=impl)
+    checkpoints the decoder's scan body only, not the encoder's).
+    tp_mesh (the sharded train step's model axis): every attention, the
+    encoder's and the decoder's self and cross, on this rank's head shard
+    (attn_forward).  Returns (x_dec, a float32 zero aux)."""
+    enc_out = encode(blocks, x_enc, cfg, impl=impl, tp_mesh=tp_mesh)
+    layer = partial(_decoder_block, cfg=cfg, tp_mesh=tp_mesh)
     for p in _layers(blocks["decoder"], cfg.n_layers):
-        x_dec = _run(partial(_decoder_block, cfg=cfg), remat, p, x_dec,
-                     enc_out, impl)
+        x_dec = _run(layer, remat, p, x_dec, enc_out, impl)
     return x_dec, _zero_aux(x_dec)
 
 
@@ -480,20 +486,24 @@ def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def encdec_prefill(blocks, x_enc: torch.Tensor, x_dec: torch.Tensor,
                    cfg: ModelConfig, cache, *,
-                   impl: Optional[str] = None) -> torch.Tensor:
+                   impl: Optional[str] = None, shard=None) -> torch.Tensor:
     """Decoder prefill from position 0 in one pass: the encoder runs once,
     each decoder layer fills its self-attention strips with the prompt's
     K/V and its cross strips with the encoder output's; the cache is
-    updated in place.  Returns the decoder's (B, S, D)."""
-    enc_out = encode(blocks, x_enc, cfg, impl=impl)
+    updated in place.  shard: the rank's block of all four strips on a
+    mesh (attention.CacheShard), the encoder's attention on the model
+    rank's head shard too.  Returns the decoder's (B, S, D)."""
+    enc_out = encode(blocks, x_enc, cfg, impl=impl,
+                     tp_mesh=shard.model if shard else None)
     for l in range(cfg.n_layers):
         p = _layer(blocks["decoder"], l)
         x_dec = x_dec + attn_prefill(
             p["attn"], apply_norm(p["n1"], x_dec, cfg), cfg,
-            cache["self_k"][l], cache["self_v"][l], impl=impl)
+            cache["self_k"][l], cache["self_v"][l], impl=impl, shard=shard)
         x_dec = x_dec + attn_prefill_cross(
             p["cross_attn"], apply_norm(p["n_cross"], x_dec, cfg), cfg,
-            enc_out, cache["cross_k"][l], cache["cross_v"][l], impl=impl)
+            enc_out, cache["cross_k"][l], cache["cross_v"][l], impl=impl,
+            shard=shard)
         x_dec = _ffn_tail(p, x_dec, cfg)
     return x_dec
 
@@ -501,20 +511,23 @@ def encdec_prefill(blocks, x_enc: torch.Tensor, x_dec: torch.Tensor,
 def encdec_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                   lens: torch.Tensor, enc_lens: torch.Tensor, *,
                   impl: Optional[str] = None,
-                  seq_parallel: bool = False) -> torch.Tensor:
+                  seq_parallel: bool = False, shard=None) -> torch.Tensor:
     """One decoder token per lane: self-attention against the strips at
     lens (written in place), cross-attention over the first enc_lens
     positions of the cross strips (read only); seq_parallel as in
-    stack_decode, for both."""
+    stack_decode, for both.  shard: the rank's block of all four strips
+    on a mesh (attention.CacheShard); enc_lens then counts the whole
+    cross strip's positions."""
     for l in range(cfg.n_layers):
         p = _layer(blocks["decoder"], l)
         x = x + attn_decode(p["attn"], apply_norm(p["n1"], x, cfg), cfg,
                             cache["self_k"][l], cache["self_v"][l], lens,
-                            impl=impl, seq_parallel=seq_parallel)
+                            impl=impl, seq_parallel=seq_parallel,
+                            shard=shard)
         x = x + attn_decode(p["cross_attn"],
                             apply_norm(p["n_cross"], x, cfg), cfg,
                             cache["cross_k"][l], cache["cross_v"][l],
                             enc_lens, impl=impl, seq_parallel=seq_parallel,
-                            cross=True)
+                            cross=True, shard=shard)
         x = _ffn_tail(p, x, cfg)
     return x

@@ -16,10 +16,13 @@ the layout of the cell's cache spec (sharding/rules.py cache_spec: KV
 heads over the model axis; the sequence over the data axis; the sequence
 over the model axis).  The attention runs on the rank's heads and
 sequence block (models/attention.py CacheShard); the logits are the
-rank's rows'.  The dense and moe families: an MoE layer runs the per-row
-dispatch on the rank's rows, and with REPRO_MOE_A2A set and S a multiple
-of the model axis the prefill takes the expert-parallel exchange
-(models/moe.py; decode's S = 1 never does).  Another family raises
+rank's rows'.  The dense, moe, vlm and audio families: an MoE layer runs
+the per-row dispatch on the rank's rows, and with REPRO_MOE_A2A set and S
+a multiple of the model axis the prefill takes the expert-parallel
+exchange (models/moe.py; decode's S = 1 never does); whisper's self and
+cross strips share one layout (the spec of self_k), the encoder runs on
+the model rank's head shard, and the decode reads the cross strips
+without writing them.  Another family (hybrid, ssm) raises
 NotImplementedError when its step is called.
 
 Each step is one eager call into the model; the chunk-batch and decode
@@ -65,7 +68,9 @@ def sample_token(logits: torch.Tensor, *, temperature: float = 0.0,
 
 def cache_shard(mesh, spec) -> CacheShard:
     """The CacheShard of a dense (L, B, S, Hkv, D) cache laid out by
-    `spec` (a cache_spec, sanitized) on `mesh`: the model axis for the
+    `spec` (a cache_spec, sanitized: the spec of "k", or whisper's
+    "self_k", which its self_v and cross strips share) on `mesh`: the
+    model axis for the
     head-sharded attention, whether the strips hold its KV-head block, and
     the axis their sequence is split over."""
     from ..launch.mesh import axis_mesh

@@ -16,8 +16,10 @@ does, with explicit collectives over the mesh's groups
   (a) gathers the full parameters from the shards into the model's own
       full-size tensors (all_gather_into_tensor over each sharded mesh
       dim: ZeRO-3 with one gather of the whole tree a step);
-  (b) runs Model.loss and its backward on the rank's rows of the batch,
-      each attention on the rank's head shard of the model axis
+  (b) runs Model.loss and its backward on the rank's rows of the batch
+      (the dense, moe, vlm and audio families: launch/mesh.py
+      check_mesh_family), each attention - whisper's encoder and cross-
+      attention too - on the rank's head shard of the model axis
       (ops.head_sharded_attention: K4 / K5), the loss the rank's share of
       the global mean (dp_sum: the position count summed over the
       data-parallel ranks before dividing; an MoE layer's aux loss the

@@ -20,11 +20,12 @@ placements (init_sharded_train_state), each step is the sharded step of
 train/train_step.py over this rank's rows of rank 0's global batch
 (DataPipeline(mesh=)), and checkpoints hold the full tensors, written by
 rank 0 and restored onto whatever mesh the restoring Trainer has.  The
-mesh path takes the dense and moe families (an MoE layer by the per-row
-dispatch on the rank's rows, or with REPRO_MOE_A2A the expert-parallel
-exchange, its aux loss a share of the global batch's: train/
-train_step.py); the hybrid, ssm, audio and vlm families' sharded
-forwards are ROADMAP §1 item 3.
+mesh path takes the dense, moe, vlm and audio families (an MoE layer by
+the per-row dispatch on the rank's rows, or with REPRO_MOE_A2A the
+expert-parallel exchange, its aux loss a share of the global batch's:
+train/train_step.py; the vlm family's image rows and whisper's encoder
+and cross-attention on the rank's head shard); the hybrid and ssm
+families' sharded forwards are ROADMAP §1 item 3.
 """
 from __future__ import annotations
 

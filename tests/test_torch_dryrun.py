@@ -18,7 +18,18 @@ the dry run initialises a fake-backend process group.
   2048 tokens, remat full): a step's state collectives are all_gather 15
   calls 1660956672 bytes and all_reduce 14 calls 1174487052 bytes, the
   counts of chip_smoke.py phase_m14 on the card (PERF.md: 1.661 GB, 1.174
-  GB), and K4 / K5 run 2 x 8 / 8 times on the rank's head shard.
+  GB), and K4 / K5 run 2 x 8 / 8 times on the rank's head shard;
+- the vlm and audio families' train, prefill and decode cells (the
+  llava-next-34b and whisper-base smoke configs, head dim 64, float32, 4
+  x 32): on a (1, 1) mesh their FLOPs beside the JAX hlo_cost.analyze of
+  the same cell (test_vlm_audio_flops_sit_beside_the_jax_analysis), and
+  their K3 / K4 / K5 calls exactly; on the (2, 2) mesh each kernel's
+  calls again, its FLOPs a quarter of the (1, 1) cell's (half the rows,
+  half the heads); llava with 14 query / 2 KV heads on (1, 4), where
+  rank 0 attends with 4 of each group's 7 heads (kernels/ops.py
+  _head_blocks' uneven split), its K4 / K5 FLOPs 4 / 14 of the (1, 1)
+  cell's.  And _head_blocks itself: llava's 56 / 8 over 16 and the
+  splits that still raise.
 """
 import json
 import os
@@ -27,6 +38,8 @@ import sys
 import time
 
 import pytest
+
+from repro_torch.kernels import ops
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUB_S = 240
@@ -188,3 +201,227 @@ def test_the_m14_cell_counts_the_cards_collectives(runs):
     assert rec["collectives"]["all_gather"]["calls"] > 15
     assert rec["collectives"]["all_reduce"] == \
         {"calls": 14, "bytes": 1174487052}
+
+
+# ---------------------------------------------------------------------------
+# the vlm and audio families' cells
+# ---------------------------------------------------------------------------
+
+VA_ARCHS = ("llava-next-34b", "whisper-base")
+VA_KINDS = ("train", "prefill", "decode")
+VA_REPLACE = {"dtype": "float32", "head_dim": 64}
+VA_SHAPE = (4, 32)                           # (B, S)
+UNEVEN = {"n_heads": 14, "n_kv_heads": 2}
+
+_VA_PORT = r"""
+import json, sys
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh
+spec = json.loads(sys.argv[1])
+B, S = spec["shape"]
+out = {}
+for mesh in ((1, 1), (2, 2), (1, 4)):
+    dryrun.fake_world(mesh[0] * mesh[1])
+    m = make_debug_mesh(*mesh, device_type="cpu")
+    for arch in spec["archs"]:
+        cfg = get_smoke_config(arch).replace(**spec["replace"])
+        kinds = spec["kinds"]
+        if mesh == (1, 4):
+            if arch != spec["archs"][0]:
+                continue
+            cfg, kinds = cfg.replace(**spec["uneven"]), ["train"]
+        for kind in kinds:
+            name = f"{arch}.{kind}.{mesh[0]}x{mesh[1]}"
+            out[name] = dryrun.run_cell(arch, kind, False, cfg=cfg,
+                                        shape=ShapeSpec(kind, S, B, kind),
+                                        mesh=m)
+    if mesh == (1, 1):
+        cfg = get_smoke_config(spec["archs"][0]).replace(
+            **spec["replace"], **spec["uneven"])
+        out["uneven.train.1x1"] = dryrun.run_cell(
+            "uneven", "train", False, cfg=cfg,
+            shape=ShapeSpec("train", S, B, "train"), mesh=m)
+json.dump(out, open(spec["out"], "w"))
+"""
+
+_VA_JAX = r"""
+import json, sys
+import jax
+from repro.compat import make_mesh, use_mesh
+from repro.configs import get_smoke_config
+from repro.configs.base import ShapeSpec, TrainConfig
+from repro.launch.hlo_cost import analyze
+from repro.launch.specs import prefill_cell, serve_cell, train_cell
+spec = json.loads(sys.argv[1])
+B, S = spec["shape"]
+mesh = make_mesh((1, 1), ("data", "model"))
+out = {}
+with use_mesh(mesh):
+    for arch in spec["archs"]:
+        cfg = get_smoke_config(arch).replace(**spec["replace"])
+        for kind in spec["kinds"]:
+            sh = ShapeSpec(kind, S, B, kind)
+            if kind == "train":
+                cell = train_cell(cfg, sh, mesh, TrainConfig(
+                    global_batch=B, seq_len=S, remat="full"))
+            elif kind == "prefill":
+                cell = prefill_cell(cfg, sh, mesh)
+            else:
+                cell = serve_cell(cfg, sh, mesh)
+            step, args, shardings = cell
+            hlo = jax.jit(step, in_shardings=shardings).lower(
+                *args).compile().as_text()
+            out[f"{arch}.{kind}"] = analyze(hlo)["flops"]
+json.dump(out, open(spec["out"], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def va(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("dryrun_va"))
+    env = dict(os.environ, PYTHONPATH=f"{ROOT}/src")
+    spec = {"archs": list(VA_ARCHS), "kinds": list(VA_KINDS),
+            "replace": VA_REPLACE, "shape": list(VA_SHAPE),
+            "uneven": UNEVEN}
+    procs = {
+        "port": subprocess.Popen(
+            [sys.executable, "-c", _VA_PORT, json.dumps(
+                dict(spec, out=os.path.join(d, "port.json")))],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True),
+        "jax": subprocess.Popen(
+            [sys.executable, "-c", _VA_JAX, json.dumps(
+                dict(spec, out=os.path.join(d, "jax.json")))],
+            env=dict(env, JAX_PLATFORMS="cpu"), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)}
+    t0 = time.monotonic()
+    for name, p in procs.items():
+        try:
+            log = p.communicate(timeout=max(t0 + SUB_S - time.monotonic(),
+                                            1))[0]
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            pytest.fail(f"{name} did not finish in {SUB_S} s")
+        assert p.returncode == 0, f"{name}:\n{log[-4000:]}"
+    out = {}
+    for side in ("port", "jax"):
+        with open(os.path.join(d, f"{side}.json")) as f:
+            out[side] = json.load(f)
+    return out
+
+
+def _va_cfg(arch):
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config(arch).replace(**VA_REPLACE)
+
+
+def _va_calls(cfg, kind):
+    """Each kernel's calls in one step of a cell: a layer's attention K4
+    forward (twice under remat full) and K5 backward, whisper's encoder
+    once (not remat, as in the JAX package) and its decoder's self and
+    cross attention; the prefill's K4 a layer's attention; the decode's
+    K3 a decoder attention (self and cross)."""
+    E = cfg.encoder_layers
+    dec = 2 * cfg.n_layers if cfg.family == "audio" else cfg.n_layers
+    return {"train": {"K4": E + 2 * dec, "K5": E + dec},
+            "prefill": {"K4": E + dec}, "decode": {"K3": dec}}[kind]
+
+
+def _jax_attention_dots(cfg, kind):
+    """The FLOPs of the JAX reference attention's dots on the CPU
+    (repro/kernels/ops.py and ref.py: keys in blocks of 512, a decode's
+    cache in blocks of 1024, S = 32 padded to a whole block), from the
+    compiled HLO: a prefill's 2 a layer's attention (the scores and the
+    weighted values), a decode's 2 over its padded cache, a train step's
+    8 a remat layer's attention (as the dense cells: the forward's two,
+    again in the recompute, the backward's dp, dq, dk and dv) and 7 an
+    attention outside remat (whisper's encoder: the backward's
+    recomputed scores stay, where the remat layer's share the
+    recompute's), each dot 2 B Hq Sq Skv_padded D."""
+    B, S = VA_SHAPE
+    E = cfg.encoder_layers
+    dec = 2 * cfg.n_layers if cfg.family == "audio" else cfg.n_layers
+    if kind == "decode":
+        return dec * 2 * 2 * B * cfg.n_heads * 1024 * cfg.head_dim
+    dots = {"train": 7 * E + 8 * dec, "prefill": 2 * (E + dec)}[kind]
+    return dots * 2 * B * cfg.n_heads * S * 512 * cfg.head_dim
+
+
+def _calls(rec):
+    return {k: v["calls"] for k, v in rec["kernels"].items()}
+
+
+@pytest.mark.parametrize("arch", VA_ARCHS)
+@pytest.mark.parametrize("kind", VA_KINDS)
+def test_vlm_audio_flops_sit_beside_the_jax_analysis(va, arch, kind):
+    """As the dense and MoE train cells (tests/test_torch_cost.py): the
+    JAX count is the port's dots outside its kernels plus the JAX
+    reference attention's (_jax_attention_dots), exactly; the port
+    counts its kernels by their formulas over the pairs and positions
+    attended, less than the reference's padded blocks."""
+    cfg = _va_cfg(arch)
+    rec = va["port"][f"{arch}.{kind}.1x1"]
+    kernels = sum(k["flops"] for k in rec["kernels"].values())
+    outside = rec["cost"]["flops"] - kernels
+    attention = _jax_attention_dots(cfg, kind)
+    assert va["jax"][f"{arch}.{kind}"] == outside + attention, \
+        (va["jax"][f"{arch}.{kind}"], outside, attention)
+    assert 0 < kernels < attention
+
+
+@pytest.mark.parametrize("arch", VA_ARCHS)
+@pytest.mark.parametrize("kind", VA_KINDS)
+def test_vlm_audio_kernels_run_on_the_head_shard(va, arch, kind):
+    """Each kernel's calls, exactly, on (1, 1) and on the (2, 2) mesh;
+    on (2, 2) a rank's share of each kernel's FLOPs is a quarter of the
+    whole cell's: half the rows (data) and half the heads (model)."""
+    want = _va_calls(_va_cfg(arch), kind)
+    one = va["port"][f"{arch}.{kind}.1x1"]
+    four = va["port"][f"{arch}.{kind}.2x2"]
+    assert _calls(one) == _calls(four) == want
+    for k in want:
+        assert 4 * four["kernels"][k]["flops"] == one["kernels"][k]["flops"]
+
+
+def test_the_uneven_split_costs_rank_0s_heads(va):
+    """llava with 14 query / 2 KV heads on (1, 4): rank 0 attends with 4
+    of each group's 7 query heads (the larger block), so its K4 / K5
+    FLOPs are 4 / 14 of the (1, 1) cell's, with as many calls."""
+    one, four = va["port"]["uneven.train.1x1"], \
+        va["port"]["llava-next-34b.train.1x4"]
+    assert _calls(one) == _calls(four) == {"K4": 4, "K5": 2}
+    for k in ("K4", "K5"):
+        assert 14 * four["kernels"][k]["flops"] == \
+            4 * one["kernels"][k]["flops"]
+
+
+@pytest.mark.parametrize("hq,hkv,n,sizes", [(56, 8, 16, [4, 3]),
+                                             (14, 2, 4, [4, 3]),
+                                             (56, 8, 32, [2, 2, 2, 1])])
+def test_head_blocks_split_each_group_unevenly(hq, hkv, n, sizes):
+    """Query heads the ranks do not divide, over a multiple of the KV
+    heads (llava-next-34b's 56 / 8 over a model axis of 16): each KV
+    head's G query heads go to its n / Hkv ranks as evenly as they go,
+    the larger blocks first, contiguous, so every rank keeps one KV head
+    and every query head has one rank."""
+    blocks = ops._head_blocks(hq, hkv, n)
+    per = n // hkv
+    assert [hi - lo for (lo, hi), _ in blocks] == sizes * hkv
+    assert [kv for _, kv in blocks] == [(r // per, r // per + 1)
+                                        for r in range(n)]
+    assert [h for (lo, hi), _ in blocks for h in range(lo, hi)] == \
+        list(range(hq))
+
+
+@pytest.mark.parametrize("hq,hkv,n", [(12, 4, 16), (6, 4, 8), (56, 8, 6),
+                                      (14, 4, 8)])
+def test_head_blocks_refuse_what_does_not_split(hq, hkv, n):
+    """Splits that still raise: more ranks a group than its query heads
+    ((12, 4) over 16: 4 ranks for 3 heads), KV heads that neither divide
+    nor are divided by the ranks, query heads not a multiple of the KV
+    heads."""
+    with pytest.raises(ValueError, match="do not split"):
+        ops._head_blocks(hq, hkv, n)

@@ -1,8 +1,8 @@
 """One rank of a gloo world for tests/test_torch_mesh_train.py,
-tests/test_torch_sharding.py, tests/test_torch_serve_cells.py and
-tests/test_torch_moe_mesh.py: the port's sharded training and serving
-cells (ROADMAP M14) and the MoE family on the mesh, one process per
-rank.
+tests/test_torch_sharding.py, tests/test_torch_serve_cells.py,
+tests/test_torch_moe_mesh.py and tests/test_torch_vlm_audio_mesh.py: the
+port's sharded training and serving cells (ROADMAP M14) and the MoE, vlm
+and audio families on the mesh, one process per rank.
 
     python tests/torch_mesh_worker.py RANK WORLD STORE JOBS OUT_DIR
 
@@ -22,7 +22,10 @@ Jobs:
            rank's hash of ("batch", step)
   train    Trainer(mesh=, state_shardings=train_cell(...)[2][0]) from the
            checkpoint the test put in its directory, on the test's saved
-           batches (each rank's host_batch reads them; rank 0's reach
+           batches ("<step>" the tokens, "<step>.<key>" the frontend's
+           embeddings, with "float32_embeds" given to the step in float32
+           where the pipeline casts them to bfloat16; each rank's
+           host_batch reads them; rank 0's reach
            the others by broadcast): the whole gradient of the first step (the
            mesh step's (a)-(c), before the clip), then the Trainer's
            steps; the Trainer's last checkpoint holds the parameters.
@@ -32,16 +35,20 @@ Jobs:
            another directory and saves it again in its own
   refuse   what the mesh path refuses: a non-dense family, a mesh whose
            size is not the world's
-  heads    (card) ops.head_sharded_attention on the rank's head shard of
-           the saved q, k and v, K4 forward and K5 backward: o and the
-           whole gradients of q, k, v
+  heads    ops.head_sharded_attention on the rank's head shard of the
+           saved q, k and v, K4 forward and K5 backward on the card (or
+           their plain versions with "device": "cpu"): o and the whole
+           gradients of q, k, v
   cell     the step of launch/specs.py prefill_cell or serve_cell on the
            job's mesh (tests/test_torch_serve_cells.py): the parameters
            saved by the test as this rank's DTensor shards, the batch /
            cache / tokens / lens as this rank's slices; prefill once, or
            decode the saved steps one after another; the logits and the
-           cache's local shard of each call, and the slice bounds (with
-           "count", the first call's collectives by launch/cost.py)
+           cache's local shard of each call (of the leaves "after" names,
+           after every decode step), and the slice bounds (with "count",
+           the first call's collectives by launch/cost.py); the batch
+           takes every key of the cell's batch specs (whisper's frames,
+           llava's image) and the cache every "cache.<leaf>" saved
   refuse_cells  each cell's step of a family the mesh steps do not
            take, called: the NotImplementedError
   a2a      models/moe_a2a.py make_sharded_moe on the job's mesh over the
@@ -123,9 +130,25 @@ def _train_job(job, arrays):
     from repro_torch.tree import leaves_with_paths
     mesh = _mesh(job)
     tr = _trainer(job, mesh)
+    saved = {}
     with np.load(job["batches"]) as z:
-        saved = {int(k): z[k] for k in z.files}
-    tr.pipeline.host_batch = lambda step: {"tokens": saved[step]}
+        for k in z.files:               # "<step>" tokens, "<step>.<key>"
+            step, _, key = k.partition(".")
+            saved.setdefault(int(step), {})[key or "tokens"] = z[k]
+    tr.pipeline.host_batch = lambda step: dict(saved[step])
+    if job.get("float32_embeds"):       # the rank's rows, kept in float32
+        from repro_torch.launch.specs import batch_shardings
+        from repro_torch.sharding.shards import local_slice
+        bsh, inner = batch_shardings(tr.cfg, mesh), tr.pipeline.device_batch
+
+        def device_batch(step):
+            b = inner(step)
+            for k in b:
+                if k != "tokens":
+                    b[k] = local_slice(torch.from_numpy(saved[step][k]),
+                                       bsh[k].placements, mesh).contiguous()
+            return b
+        tr.pipeline.device_batch = device_batch
     partials = bool(job.get("partials"))
     full, m = make_mesh_grads(tr.model, tr.tcfg, mesh)(
         tr.state, tr.pipeline.device_batch(tr.start_step),
@@ -171,19 +194,22 @@ def _refuse_job(job, arrays):
 
 
 def _heads_job(job, arrays):
-    """(card) the head-split autograd pair around K4 / K5 on cuda:0."""
+    """The head-split autograd pair around K4 / K5 on cuda:0 (the card),
+    or around their plain versions with "device": "cpu"."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import ServeMesh
     r, n = dist.get_rank(), dist.get_world_size()
     tp = ServeMesh(dist.group.WORLD, r, n)
+    dev = job.get("device", "cuda")
     with np.load(job["inputs"]) as z:
         for case in job["cases"]:
-            a = {k: torch.from_numpy(z[f"{case}.{k}"]).cuda()
+            a = {k: torch.from_numpy(z[f"{case}.{k}"]).to(dev)
                  for k in ("q", "k", "v", "do")}
             dtype = torch.bfloat16 if "bf16" in case else torch.float32
             q, k, v = (a[x].to(dtype).requires_grad_(True)
                        for x in ("q", "k", "v"))
-            o = ops.head_sharded_attention(q, k, v, tp, causal=True)
+            o = ops.head_sharded_attention(
+                q, k, v, tp, causal=job.get("causal", {}).get(case, True))
             o.backward(a["do"].to(dtype))
             for name, t in (("o", o), ("dq", q.grad), ("dk", k.grad),
                             ("dv", v.grad)):
@@ -220,10 +246,11 @@ def _cell_job(job, arrays):
     cache_sh = shardings[2] if kind == "prefill" else shardings[1]
     local = lambda a, sh: local_slice(torch.from_numpy(a), sh.placements,
                                       mesh).clone()
-    cache = {n: local(inp[f"cache.{n}"], cache_sh[n]) for n in ("k", "v")}
+    names = sorted(k[len("cache."):] for k in inp if k.startswith("cache."))
+    cache = {n: local(inp[f"cache.{n}"], cache_sh[n]) for n in names}
     out = {"bounds": {n: slice_bounds(inp[f"cache.{n}"].shape,
                                       cache_sh[n].placements, mesh)
-                      for n in ("k", "v")}}
+                      for n in names}}
     name = job["name"]
     if job.get("count"):                # the first call under StepCost
         from repro_torch.launch.cost import StepCost
@@ -238,8 +265,9 @@ def _cell_job(job, arrays):
             return res
     with torch.no_grad():
         if kind == "prefill":
-            tok = local(inp["tokens"], shardings[1]["tokens"])
-            logits, cache, lens = step(params, {"tokens": tok}, cache)
+            batch = {k: local(inp[k], shardings[1][k])
+                     for k in shardings[1]}
+            logits, cache, lens = step(params, batch, cache)
             arrays[f"{name}.logits"] = logits.numpy()
             arrays[f"{name}.lens"] = lens.numpy()
             out["rows"] = slice_bounds(inp["tokens"].shape,
@@ -253,7 +281,9 @@ def _cell_job(job, arrays):
                 lens = local(inp[f"lens.{i}"], shardings[3])
                 logits, cache = step(params, cache, tok, lens)
                 arrays[f"{name}.logits.{i}"] = logits.numpy()
-    for n in ("k", "v"):
+                for n in job.get("after", ()):  # these leaves, each step
+                    arrays[f"{name}.after.{i}.{n}"] = cache[n].numpy()
+    for n in names:
         arrays[f"{name}.cache.{n}"] = cache[n].numpy()
     return out
 
