@@ -2199,6 +2199,37 @@ M14_VA = {
 # references beside them are done and freed
 M14_VA_GO = "moe_reference_done"
 M14_VA_WAIT_S = 300
+# the hybrid and ssm families on the same mesh, after the vlm / audio
+# runs in the same ranks: serving only (their training on the card waits
+# for a backward of K6 / K7 and K5 at head dim 80, ROADMAP §2), each
+# seeded on the card in bf16 (Model.init(M14_REC_SEED)) at full width and
+# cut in depth - zamba2-2.7b to 12 of its 54 layers, two applications of
+# its shared block, so its strips' A axis holds 2; rwkv6-1.6b to 6 of
+# its 24.  Each decode run's prefill cell takes 4 (or 1) x 2048 tokens
+# (the Mamba2 / RWKV6 layers on every head of the rank's rows, zamba2's
+# shared block through K4 on 16 of its 32 heads, head dim 80), then
+# M14_DECODE_STEPS teacher-forced decode steps: 4 lanes in the default
+# layout (K3 on the rank's 16 KV heads), 1 lane with the sequence over
+# the data axis (ops.seq_parallel_decode, no kernel).  Both runs in bf16
+# (the deployment dtype: walls, peak, launches) and in float32 on the
+# same weights (fp32_copy), each against one device on the same weights
+# (run before the ranks start).  The float32 runs carry the agreement
+# check (m14_serve_check's bars, 0 argmax flips, each state leaf within
+# M14_REC_STATE_BAR of its largest |entry|): in bf16 these seeded models
+# amplify any rounding - one device with K3 against one device with the
+# plain decode parts by as much as the mesh does - so the bf16 runs'
+# distance from one device is printed beside the model's own bf16 noise
+# (one device bf16 against float32), not held to a bar.
+# name -> (arch, layers); runs: name -> (S, B, P)
+M14_REC = {"zamba2": ("zamba2-2.7b", 12), "rwkv6": ("rwkv6-1.6b", 6)}
+M14_REC_RUNS = {"decode": (2048 + M14_DECODE_STEPS, 4, 2048),
+                "decode_seq_data": (2048 + M14_DECODE_STEPS, 1, 2048)}
+M14_REC_DTYPES = ("bfloat16", "float32")
+M14_REC_SEED = 5
+# float32 state leaves against one device, of each leaf's largest
+# |entry|: 1.5e-3 at zamba2's shared strips, 2e-5 at its SSM states
+# (16 steps, my chip call 4 of PR 31), ~7x
+M14_REC_STATE_BAR = 1e-2
 
 
 def m14_setup():
@@ -2393,6 +2424,151 @@ def m14_va_check(res, ref: dict) -> dict:
                      "ranks": [dict({k: v for k, v in rr["va"][name].items()
                                      if k != "serve"}, rank=rr["rank"])
                                for rr in res]}
+    return out
+
+
+def m14_rec_setup(name: str, dtype: str = "bfloat16"):
+    """A recurrent run's config (M14_REC, cut in depth) in `dtype`."""
+    arch, layers = M14_REC[name]
+    return get_config(arch).replace(n_layers=layers, dtype=dtype)
+
+
+def m14_rec_models(name: str):
+    """{dtype: (model, params)}: the bf16 model seeded with
+    Model.init(M14_REC_SEED) and its float32 copy (fp32_copy: the same
+    values)."""
+    model = build_model(m14_rec_setup(name))
+    params = model.init(M14_REC_SEED)
+    return {"bfloat16": (model, params),
+            "float32": fp32_copy(model, params)}
+
+
+def m14_rec_reference() -> dict:
+    """The recurrent families' serving runs on one device, before the
+    ranks start, in both dtypes (m14_serve_reference).  {name: {dtype:
+    the reference}, "peak_gb", "wall_s"}."""
+    out = {}
+    for name in M14_REC:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        models = m14_rec_models(name)
+        out[name] = {dt: m14_serve_reference(m, p, m.cfg, M14_REC_RUNS)
+                     for dt, (m, p) in models.items()}
+        torch.cuda.synchronize()
+        out[name].update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         wall_s=time.perf_counter() - t0)
+        del models
+        _free()
+    return out
+
+
+def m14_rec_rank(rank: int, mesh) -> dict:
+    """A rank's recurrent runs (M14_REC): the models seeded as the
+    reference's, their parameters handed to the cells' steps as this
+    rank's DTensor shards (the prefill cell's shardings; the full tensors
+    freed), then m14_serve in each dtype (records under the dtype, files
+    M14_DIR/<name>_<dtype>_serve<rank>.pt); the build wall and the peak
+    over both."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import prefill_cell
+    from repro_torch.sharding.shards import shard
+    out = {}
+    for name in M14_REC:
+        S, B, _ = M14_REC_RUNS["decode"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = {}
+        for dt, (m, p) in m14_rec_models(name).items():
+            cell = prefill_cell(m.cfg, ShapeSpec("p", S, B, "prefill"), mesh)
+            params[dt] = map_tree(shard, p, cell[2][0])
+            del m, p
+        _free()
+        torch.cuda.synchronize()
+        out[name] = {"build_s": time.perf_counter() - t0}
+        for dt in M14_REC_DTYPES:
+            out[name][dt] = m14_serve(m14_rec_setup(name, dt), params.pop(dt),
+                                      mesh, rank, M14_REC_RUNS,
+                                      f"{name}_{dt}_serve")
+            _free()
+        out[name]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def m14_rec_bf16(ref16: dict, ref32: dict, res, name: str) -> dict:
+    """The bf16 runs of every rank: finite logits, kernel launches
+    m14_serve_launches' exactly; their distance from one device in bf16
+    (logits, argmax flips) printed beside the model's own bf16 noise, one
+    device bf16 against float32 on the same weights."""
+    cfg, tag = m14_rec_setup(name), f"{name}_bfloat16_serve"
+    summary = {}
+    for rr in res:
+        got = torch.load(M14_DIR / f"{tag}{rr['rank']}.pt")
+        for run, rec in rr["rec"][name]["bfloat16"].items():
+            r0, r1 = next(((st, st + sz) for d, st, sz in rec["rows"]
+                           if d == 0), (0, ref16[run]["logits"].shape[1]))
+            gl = got[run]["logits"]
+            wl, w32 = ref16[run]["logits"][:, r0:r1], \
+                ref32[run]["logits"][:, r0:r1]
+            launches = {k: v for k, v in rec["launches"].items() if v}
+            err, noise = float((gl - wl).abs().max()), \
+                float((wl - w32).abs().max())
+            flips = int((gl.argmax(-1) != wl.argmax(-1)).sum())
+            noise_flips = int((wl.argmax(-1) != w32.argmax(-1)).sum())
+            log(f"# M14 {cfg.name} bf16 {run} rank {rr['rank']}: logits "
+                f"max |mesh - one device| {err:.4f}, {flips} argmax flips "
+                f"of {gl.argmax(-1).numel()}; one device bf16 against "
+                f"float32 {noise:.4f}, {noise_flips} flips; prefill "
+                f"{rec['prefill_s']:.3f} s, decode "
+                f"{rec['decode_step_s'] * 1e3:.1f} ms a step; launches "
+                f"{launches}")
+            if not bool(torch.isfinite(gl).all()):
+                raise AssertionError(f"M14 {cfg.name} bf16 {run}: rank "
+                                     f"{rr['rank']}'s logits not finite")
+            if launches != m14_serve_launches(cfg, run):
+                raise AssertionError(f"M14 {cfg.name} bf16 {run}: rank "
+                                     f"{rr['rank']} launched {launches}, "
+                                     f"want {m14_serve_launches(cfg, run)}")
+            summary.setdefault(run, []).append(dict(
+                rec, rank=rr["rank"], logits_max_abs_diff=err,
+                argmax_flips=flips, bf16_noise=noise,
+                bf16_noise_flips=noise_flips))
+    return summary
+
+
+def m14_rec_check(res, ref: dict) -> dict:
+    """The recurrent runs of every rank against one device: the float32
+    runs through m14_serve_check (logits within its bars, no argmax flip
+    allowed, every state leaf and strip within M14_REC_STATE_BAR of its
+    largest |entry|), the bf16 runs through m14_rec_bf16; in both, the
+    kernel launches - zamba2 K4 once a shared-block application a
+    prefill and K3 once an application a decode step in the default
+    layout, none over data; rwkv6 none."""
+    out = {}
+    for name in M14_REC:
+        cfg = m14_rec_setup(name, "float32")
+        tag = f"{name}_float32_serve"
+        f32 = m14_serve_check(
+            ref[name]["float32"], [{"rank": rr["rank"],
+                                    tag: rr["rec"][name]["float32"]}
+                                   for rr in res], tag, cfg,
+            allow_flips=False, cache_rel=M14_REC_STATE_BAR)
+        bf16 = m14_rec_bf16(ref[name]["bfloat16"], ref[name]["float32"],
+                            res, name)
+        for rr in res:
+            mr = rr["rec"][name]
+            log(f"# M14 {cfg.name} ({cfg.n_layers} L) rank {rr['rank']}: "
+                f"peak {mr['peak_mem_gb']:.2f} GB, built in "
+                f"{mr['build_s']:.1f} s")
+        log(f"# M14 {cfg.name}: the single-device references (bf16 and "
+            f"float32) took {ref[name]['wall_s']:.1f} s, peak "
+            f"{ref[name]['peak_gb']:.2f} GB")
+        out[name] = {"config": cfg.name, "layers": cfg.n_layers,
+                     "single_device": {k: ref[name][k]
+                                       for k in ("wall_s", "peak_gb")},
+                     "serving_float32": f32, "serving_bf16": bf16,
+                     "ranks": [dict({k: v for k, v in rr["rec"][name].items()
+                                     if k not in M14_REC_DTYPES},
+                                    rank=rr["rank"]) for rr in res]}
     return out
 
 
@@ -2656,23 +2832,25 @@ def m14_serve(cfg, params, mesh, rank: int, runs=M14_SERVE,
     dev = leaves(params)[0].device
     local = lambda a, sh, dt=None: local_slice(
         torch.from_numpy(a).to(dev, dt), sh.placements, mesh).contiguous()
-    spec = lambda s: [list(e) if isinstance(e, tuple) else e for e in s]
+    spec = lambda s: None if s is None else [
+        list(e) if isinstance(e, tuple) else e for e in s]
     full, out, arrays = None, {}, {}
     for name, (S, B, P) in runs.items():
         inp = m14_serve_inputs(cfg, runs)[name]
         pstep, pargs, psh = prefill_cell(
             cfg, ShapeSpec(name, S, B, "prefill"), mesh)
         names = sorted(pargs[2])
-        strip = "k" if "k" in names else "self_k"
         cache = {n: torch.zeros(local_shape(pargs[2][n].shape,
                                             psh[2][n].placements, mesh),
                                 dtype=pargs[2][n].dtype, device=dev)
                  for n in names}
+        # each leaf's block from its own spec (the recurrent states' too)
         rec = {"cache_spec": spec(strips_spec(psh[2])),
                "rows": slice_bounds((B, P), psh[1]["tokens"].placements,
                                     mesh),
-               "cache_bounds": slice_bounds(pargs[2][strip].shape,
-                                            psh[2][strip].placements, mesh)}
+               "cache_bounds": {n: slice_bounds(pargs[2][n].shape,
+                                                psh[2][n].placements, mesh)
+                                for n in names}}
         batch = {k: local(a, psh[1][k], None if k == "tokens"
                           else pargs[1][k].dtype)
                  for k, a in m14_prompt(cfg, inp).items()}
@@ -2801,6 +2979,7 @@ def m14_rank(rank: int, world: int, moe_factor: float):
         _free()
         res["moe"] = m14_moe_rank(rank, mesh, moe_factor)
         res["va"] = m14_va_rank(rank, mesh)
+        res["rec"] = m14_rec_rank(rank, mesh)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -2888,29 +3067,41 @@ def _cut(t: torch.Tensor, bounds) -> torch.Tensor:
 def m14_serve_launches(cfg, name: str) -> dict:
     """A serving run's kernel launches a rank: K4 for each attention of
     the prefill (a layer's; whisper's encoder layers and its decoder's
-    self and cross attention), then in the default layout's decode K3 for
-    each decoder attention a step (whisper's self and cross); a
-    sequence-sharded decode (ops.seq_parallel_decode) launches none."""
+    self and cross attention; zamba2's shared block's applications,
+    rwkv6 none - their scans are the plain state-returning ones), then in
+    the default layout's decode K3 for each decoder attention a step
+    (whisper's self and cross; zamba2's applications); a
+    sequence-sharded decode (ops.seq_parallel_decode) launches none, nor
+    do the recurrent layers' steps."""
     L = cfg.n_layers
-    prefill = cfg.encoder_layers + 2 * L if cfg.family == "audio" else L
-    want = {"K4": prefill}
-    if name != "prefill" and not name.endswith("seq_data"):
-        want["K3"] = (2 * L if cfg.family == "audio" else L) \
-            * M14_DECODE_STEPS
+    if cfg.family in ("hybrid", "ssm"):
+        prefill = step = n_shared_applications(cfg)
+    elif cfg.family == "audio":
+        prefill, step = cfg.encoder_layers + 2 * L, 2 * L
+    else:
+        prefill, step = L, L
+    want = {"K4": prefill} if prefill else {}
+    if name != "prefill" and not name.endswith("seq_data") and step:
+        want["K3"] = step * M14_DECODE_STEPS
     return want
 
 
 def m14_serve_check(ref: dict, res, tag: str = "serve",
-                    cfg=None) -> dict:
+                    cfg=None, allow_flips: bool = True,
+                    cache_rel: float = 0.0) -> dict:
     """Every rank's serving runs against the single-device reference:
     logits of its rows within MODEL_BARS (prefill: the dense prefill's,
     decode: the dense or the seq-parallel decode step's), each step's
     argmax equal or a near tie (the reference's logit of the rank's token
     within SERVED_TOKEN_BAR of its max), its cache shard within
-    M14_CACHE_BAR of the reference cache's slice (every strip: whisper's
-    self and cross too), and its kernel launches (m14_serve_launches),
-    nothing else.  tag: the ranks' records (rr[tag]) and files
-    (M14_DIR/<tag><rank>.pt); cfg the model's config (default M14's)."""
+    M14_CACHE_BAR of the reference cache's slice (every leaf at its own
+    bounds: whisper's self and cross strips, the recurrent states), and
+    its kernel launches (m14_serve_launches), nothing else.  tag: the
+    ranks' records (rr[tag]) and files (M14_DIR/<tag><rank>.pt); cfg the
+    model's config (default M14's); allow_flips=False: no argmax may differ,
+    near tie or not; cache_rel: each leaf's difference over its largest
+    |entry| (the recurrent states: float32, of any scale) against that
+    bar in place of M14_CACHE_BAR."""
     cfg = cfg or m14_setup()[0]
     summary = {}
     for rr in res:
@@ -2929,22 +3120,27 @@ def m14_serve_check(ref: dict, res, tag: str = "serve",
             gap = (wl.amax(-1) - wl.gather(-1, g_tok[..., None])[..., 0])
             flips = int((g_tok != w_tok).sum())
             cache_err = max(float((mine[n].float() - _cut(
-                want[n], rec["cache_bounds"]).float()).abs().max())
+                want[n], rec["cache_bounds"][n]).float()).abs().max())
+                / (max(float(want[n].float().abs().max()), 1e-30)
+                   if cache_rel else 1.0)
                 for n in mine if n != "logits")
+            cache_bar = cache_rel or M14_CACHE_BAR
             launches = {k: v for k, v in rec["launches"].items() if v}
             log(f"# M14 {name} rank {rr['rank']} (cache spec "
                 f"{rec['cache_spec']}, rows {r0}-{r1}): logits max |diff| "
                 f"{max(errs):.4f} (bars {bars[0]} / {bars[-1]}), "
                 f"{flips} argmax flips of {g_tok.numel()} (largest gap "
                 f"{float(gap.max()):.4f}, bar {SERVED_TOKEN_BAR}), cache "
-                f"shard {cache_err:.4f} (bar {M14_CACHE_BAR}); prefill "
+                f"shard {cache_err:.4g} (bar {cache_bar}"
+                + (" of each leaf's largest |entry|" if cache_rel else "")
+                + f"); prefill "
                 f"{rec['prefill_s']:.3f} s"
                 + (f", decode {rec['decode_step_s'] * 1e3:.1f} ms a step"
                    if "decode_step_s" in rec else "")
                 + f"; launches {launches}")
             if any(e > b for e, b in zip(errs, bars)) \
                     or float(gap.max()) > SERVED_TOKEN_BAR \
-                    or cache_err > M14_CACHE_BAR:
+                    or cache_err > cache_bar or (flips and not allow_flips):
                 raise AssertionError(f"M14 {name}: rank {rr['rank']} "
                                      f"disagrees with one device")
             if launches != m14_serve_launches(cfg, name):
@@ -3091,6 +3287,9 @@ def phase_m14():
     va_ref = m14_va_reference()
     va_ref_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    rec_ref = m14_rec_reference()
+    rec_ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ctx = mp.start_processes(m14_rank, args=(M14_WORLD, moe_factor),
                              nprocs=M14_WORLD, join=False,
                              start_method="spawn")
@@ -3189,6 +3388,11 @@ def phase_m14():
     del va_ref
     log(f"# M14 vlm / audio: the single-device references took "
         f"{va_ref_s:.1f} s before the ranks started; on {card()}")
+    rec = m14_rec_check(res, rec_ref)
+    rec.update(reference_s=rec_ref_s, card=card())
+    del rec_ref
+    log(f"# M14 hybrid / ssm: the single-device references took "
+        f"{rec_ref_s:.1f} s before the ranks started; on {card()}")
     shutil.rmtree(M14_DIR / "mesh", ignore_errors=True)
     lines = {}
     for name, p in clis.items():
@@ -3216,10 +3420,10 @@ def phase_m14():
            "single_device": ref, "elastic_shards": n_leaves,
            "serve_cli": line, "cli_and_examples_s": cli_s, "card": card(),
            "serving": serving, "dryrun": dry, "moe": moe,
-           "vlm_audio": va,
+           "vlm_audio": va, "recurrent": rec,
            "ranks": [{k: v for k, v in rr.items()
                       if k not in ("digests", "serve", "dryrun", "moe",
-                                   "va")}
+                                   "va", "rec")}
                      for rr in res]}
     # the kernels at the shard's shape, bf16, for the timing phase: K4 and
     # K5 on (2, 2048, 16 / 4, 64)
@@ -3232,7 +3436,11 @@ def phase_m14():
                                     ["launches"]}
            for run, *_ in m14_moe_runs(moe_factor)},
         **{f"m14_{name}_rank0": {"launches": res[0]["va"][name]["launches"]}
-           for name in M14_VA}}
+           for name in M14_VA},
+        **{f"m14_{name}_{dt}_rank0": {"launches": {
+            k: sum(r["launches"][k] for r in res[0]["rec"][name][dt]
+                   .values()) for k in COUNTERS}}
+           for name in M14_REC for dt in M14_REC_DTYPES}}
 
 
 # ---------------------------------------------------------------------------

@@ -36,16 +36,22 @@ same thing:
     decode's gathers;
   kernels: K1-K7 by name, {"calls", "flops", "bytes"};
   trace_s: the wall time of the traced call.
-The mesh steps take the dense, moe, vlm and audio families (ROADMAP §1
-item 3): a hybrid or ssm cell raises NotImplementedError, written to
-<tag>.error.json as the JAX dry run writes its failures.  The MoE cells
-run the per-row dispatch, as the JAX dry run runs without REPRO_MOE_A2A;
-with it set, their steps take the exchange and count its all_to_all.
+The mesh steps take every family.  The hybrid and ssm families' train
+cells raise NotImplementedError (their step on the meta device: K6 / K7
+have no backward, ROADMAP §2 - train/train_step.py check_backward),
+written to <tag>.error.json as the JAX dry run writes its failures; their
+prefill and decode cells are costed: the Mamba2 / RWKV6 layers on every
+head of the rank's rows, zamba2's shared block's K4 / K3 on the head
+shard.  The MoE cells run the per-row dispatch, as the JAX dry run runs
+without REPRO_MOE_A2A; with it set, their steps take the exchange and
+count its all_to_all.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k \
       --mesh both
   python -m repro_torch.launch.dryrun --all --mesh both --out build/dryrun
+(--all takes ~10 minutes on the CPU: zamba2's and rwkv6's prefill_32k
+cells trace their chunked scans' loop over 256 / 1024 chunks a layer.)
 """
 from __future__ import annotations
 

@@ -54,24 +54,27 @@ def axis_mesh(mesh, name: str):
                      mesh.shape[i])
 
 
-# the families the mesh steps take
-MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
+# the families the mesh steps take: every family the port registers
+MESH_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
 
 def check_mesh_family(cfg, what: str) -> None:
-    """The mesh steps (training, prefill, decode) take the dense, moe, vlm
-    and audio families (the MoE FFN by the per-row dispatch on the rank's
-    rows, or the REPRO_MOE_A2A exchange: models/moe.py; the vlm family's
-    image ahead of its text rows; whisper's encoder and cross-attention
-    on the rank's head shard, its cross strips in the cache's layout);
-    the others (hybrid, ssm) raise NotImplementedError naming ROADMAP §1
-    item 3."""
+    """The mesh steps (training, prefill, decode) take every family: the
+    dense and vlm decoders (the vlm family's image ahead of its text
+    rows), the MoE FFN by the per-row dispatch on the rank's rows or the
+    REPRO_MOE_A2A exchange (models/moe.py), whisper's encoder and cross-
+    attention on the rank's head shard (its cross strips in the cache's
+    layout), zamba2's Mamba2 layers and rwkv6's time-mix replicated over
+    the model axis with only their state leaves split (zamba2's shared
+    block on the head shard).  A family outside MESH_FAMILIES raises
+    NotImplementedError.  (Training the hybrid and ssm families on the
+    card is refused apart, by train/train_step.py check_backward: ROADMAP
+    §2.)"""
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"{what} {cfg.name} (family {cfg.family!r}) on a mesh is "
-            f"ROADMAP §1 item 3: the mesh steps take the "
-            f"{', '.join(MESH_FAMILIES[:-1])} and {MESH_FAMILIES[-1]} "
-            f"families")
+            f"{what} {cfg.name} (family {cfg.family!r}) on a mesh: the "
+            f"mesh steps take the {', '.join(MESH_FAMILIES[:-1])} and "
+            f"{MESH_FAMILIES[-1]} families")
 
 
 # the default group the groups below belong to, and one group per degree

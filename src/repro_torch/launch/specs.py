@@ -14,14 +14,17 @@ Trainer(mesh=, state_shardings=)'s.  prefill_cell and serve_cell return
 the prefill and decode steps on the mesh (serve/serve_step.py
 make_prefill_step / make_serve_step with mesh=), over the cell's cache
 layout: the step takes the rank's shards of the cell's arguments, the
-parameters as DTensors.  Every cell's step on a mesh takes the dense,
-moe, vlm and audio families (the MoE experts over the model axis, the
-router replicated: the JAX rules; the per-row dispatch by default, the
-REPRO_MOE_A2A exchange where it is set, models/moe.py; whisper's four
-strips in the one layout strips_spec reads); the hybrid and ssm
-families' steps raise NotImplementedError when they are called (ROADMAP
-§1 item 3), so their specs stay comparable with the JAX package's.
-launch/dryrun.py runs every cell's step on the meta device.
+parameters as DTensors.  Every cell's step on a mesh takes all six
+families (the MoE experts over the model axis, the router replicated:
+the JAX rules; the per-row dispatch by default, the REPRO_MOE_A2A
+exchange where it is set, models/moe.py; whisper's four strips and
+zamba2's shared block's two in the one layout strips_spec reads; the
+recurrent states' blocks as state_blocks reads them, each leaf from its
+own spec).  A train cell's step of the hybrid or ssm family runs on a
+CPU mesh only: on the card or the meta device it raises
+NotImplementedError naming ROADMAP §2 (train/train_step.py
+check_backward).  launch/dryrun.py runs every cell's step on the meta
+device.
 """
 from __future__ import annotations
 
@@ -177,16 +180,20 @@ def train_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, tcfg: TrainConfig):
 
 
 # the attention strips' leaves by family: the decoders' "k" / "v",
-# whisper's self-attention and cross-attention strips
-_STRIPS = (("k", "v"), ("self_k", "self_v", "cross_k", "cross_v"))
+# whisper's self-attention and cross-attention strips, zamba2's shared
+# block's
+_STRIPS = (("k", "v"), ("self_k", "self_v", "cross_k", "cross_v"),
+           ("shared_k", "shared_v"))
+# the recurrent state leaves (models/mamba2.py, models/rwkv6.py)
+_STATES = ("conv", "ssm", "wkv", "tm_prev", "cm_prev")
 
 
 def strips_spec(cache_sharding):
     """The spec the attention strips of a cache share (sanitized): the
-    "k" leaf's, or whisper's "self_k", with every other strip of the
-    cache checked to carry the same one (the mesh steps read and write
-    them all through one CacheShard).  None for a cache without strips
-    (the recurrent families, whose steps refuse the mesh)."""
+    "k" leaf's, whisper's "self_k" or zamba2's "shared_k", with every
+    other strip of the cache checked to carry the same one (the mesh
+    steps read and write them all through one CacheShard).  None for a
+    cache without strips (rwkv6's)."""
     if not isinstance(cache_sharding, dict):
         return None
     for names in _STRIPS:
@@ -197,6 +204,27 @@ def strips_spec(cache_sharding):
                                  f"differently: {specs}")
             return cache_sharding[names[0]].spec
     return None
+
+
+def state_blocks(cache_sharding) -> Dict[str, Any]:
+    """Each recurrent state leaf of a cache (sanitized shardings) -> (its
+    rows' spec entry: the data axes its batch dim is split over, or None;
+    {dim: the axis splitting that dim} for its other split dims).  Every
+    leaf is read from its own spec: on the zamba2 smoke config on a 1x4
+    mesh, ssm's 2 heads stay whole where conv's 128 channels split 32 a
+    rank; rwkv6's wkv (L, B, H, K, V) takes the strips' spec, as in the
+    JAX package (its name ends in "v": _cache_leaf_spec), so its K or H
+    dim is split.  {} for a cache without states."""
+    if not isinstance(cache_sharding, dict):
+        return {}
+    out = {}
+    for name in _STATES:
+        if name in cache_sharding:
+            spec = tuple(cache_sharding[name].spec)
+            out[name] = (spec[1] if len(spec) > 1 else None,
+                         {d: e for d, e in enumerate(spec)
+                          if d > 1 and e is not None})
+    return out
 
 
 def prefill_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
@@ -217,7 +245,8 @@ def prefill_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
     args = (params_shape, bspecs, cache)
     shardings = sanitize((pshard, bshard, cshard), args, mesh)
     step = make_prefill_step(model, mesh=mesh,
-                             cache_spec=strips_spec(shardings[2]))
+                             cache_spec=strips_spec(shardings[2]),
+                             state=state_blocks(shardings[2]))
     return step, args, shardings
 
 
@@ -259,5 +288,6 @@ def serve_cell(cfg: ModelConfig, shape: ShapeSpec, mesh):
     args = (params_shape, cache, tokens, lens)
     shardings = sanitize((pshard, cshard, tshard, lshard), args, mesh)
     step = make_serve_step(model, seq_parallel=seq_sharded, mesh=mesh,
-                           cache_spec=strips_spec(shardings[1]))
+                           cache_spec=strips_spec(shardings[1]),
+                           state=state_blocks(shardings[1]))
     return step, args, shardings

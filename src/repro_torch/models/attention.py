@@ -13,12 +13,15 @@ prefill and decode take a CacheShard: the rank's strips hold its block of
 the KV heads, of the sequence, or of both (sharding/rules.py cache_spec's
 three layouts), and the rank writes and reads that block only - whisper's
 cross strips as its self-attention strips, written by the prefill and
-only read by the decode.
+only read by the decode.  The same CacheShard carries the recurrent
+families' state blocks (CacheShard.state, state_axis, state_range): the
+dims of the Mamba2 / RWKV6 state leaves that the rank holds a block of,
+and the mesh axis each is split over.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -112,11 +115,43 @@ class CacheShard:
       seq    the axis the strips' sequence is split over (None: whole):
              the rank holds positions [seq.rank S_local, (seq.rank + 1)
              S_local), and the decode is ops.seq_parallel_decode over it.
+      state  the recurrent state leaves' split dims (launch/specs.py
+             state_blocks): {leaf: {dim: ServeMesh}}, dim a dim of the
+             cache leaf (L, B, ...) past the rows, the axis its entries
+             are split over; a dim not named is whole (its spec leaves it
+             replicated, as sanitize does where an axis does not divide
+             the dim).  Each leaf follows its own spec: the JAX package's
+             layout puts conv's channels and ssm's heads on the model
+             axis, and lays wkv (L, B, H, K, V) out as the attention
+             strips (its name ends in "v"): K over the model axis, or H
+             over the axis the strips' sequence is split over.
     The batch rows a rank holds need nothing here: rows are independent,
-    and the step gets this rank's rows of tokens, lens and strips."""
+    and the step gets this rank's rows of tokens, lens, strips and
+    states."""
     model: Any = None
     heads: bool = False
     seq: Any = None
+    state: Dict[str, Dict[int, Any]] = field(default_factory=dict)
+
+
+def state_axis(shard: Optional[CacheShard], leaf: str, dim: int):
+    """The mesh axis (a ServeMesh) that splits dim `dim` of the cache's
+    recurrent state leaf `leaf` (L, B, ...), or None where the rank holds
+    the whole dim."""
+    return None if shard is None else shard.state.get(leaf, {}).get(dim)
+
+
+def state_range(shard: Optional[CacheShard], leaf: str, dim: int,
+                full: int, local: Optional[int] = None) -> Tuple[int, int]:
+    """(start, size) of the block of dim `dim` (`full` long) of state leaf
+    `leaf` that the rank holds (state_axis).  local: the dim's length in
+    the rank's tensor, checked against the block."""
+    ax = state_axis(shard, leaf, dim)
+    n = ax.size if ax is not None else 1
+    if full % n or (local is not None and local * n != full):
+        raise ValueError(f"state leaf {leaf!r} dim {dim}: a block of "
+                         f"{local} does not split {full} over {n} ranks")
+    return (ax.rank * (full // n) if ax is not None else 0), full // n
 
 
 def _kv_block(t: torch.Tensor, shard: Optional[CacheShard]) -> torch.Tensor:

@@ -8,16 +8,29 @@ the JAX init keeps them.  The decode state is (conv: the last ssm_conv - 1
 pre-conv inputs, ssm: the (H, P, N) float32 state).  The full-sequence
 scan goes through ops.mamba2_scan (K6 on the card); prefill uses the plain
 chunked scan, which also returns the final state, as the JAX package does.
+
+On a (data, model) mesh (a mesh step's attention.CacheShard, shard=) the
+layer runs on the rank's rows with every head, replicated over the model
+axis, as the JAX package's "kv_rep" / "btd_rep" constraints lay the scan
+operands out; only the state leaves are split, each where its own spec
+splits it (conv's channels and ssm's heads over the model axis, where it
+divides them).  The prefill keeps the rank's block of conv and ssm; the
+decode steps the conv window of its channel block, all-gathers the conv
+outputs into the whole (B, d_in), steps the heads its ssm block holds
+(ops.mamba2_step) and gathers y's heads back.  Per-channel and per-head
+work is only moved: a value changes only where a product of another
+shape rounds otherwise.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
+from .attention import CacheShard, state_axis, state_range
 from .layers import dense
 
 
@@ -93,16 +106,23 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
     return _gated_out(params, y.reshape(B, S, -1), z)
 
 
-def mamba2_prefill(params, x: torch.Tensor, cfg: ModelConfig):
+def mamba2_prefill(params, x: torch.Tensor, cfg: ModelConfig,
+                   shard: Optional[CacheShard] = None):
     """Full-sequence prefill: (y, state) with the final SSM state and the
     conv window (the last ssm_conv - 1 pre-conv inputs), so decode
-    continues exactly where the prompt ended."""
+    continues exactly where the prompt ended.  shard: the state is the
+    rank's block of each leaf (conv's channels, ssm's heads: the module
+    docstring)."""
     B, S, _ = x.shape
+    d_in, H, _, _ = _dims(cfg)
     z, xh, Bm, Cm, dt, A, xs_raw = _scan_inputs(params, x, cfg)
     y, h_fin = ref.mamba2_scan_chunked_state(xh, dt, A, Bm, Cm)
     out = _gated_out(params, y.reshape(B, S, -1), z)
     conv_win = xs_raw[:, S - (cfg.ssm_conv - 1):, :]
-    return out, {"conv": conv_win, "ssm": h_fin}
+    c0, nc = state_range(shard, "conv", 3, d_in)
+    h0, nh = state_range(shard, "ssm", 2, H)
+    return out, {"conv": conv_win[..., c0:c0 + nc],
+                 "ssm": h_fin[:, h0:h0 + nh]}
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, dtype, device):
@@ -113,18 +133,30 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, dtype, device):
                                device=device)}
 
 
-def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig, state):
+def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig, state,
+                  shard: Optional[CacheShard] = None):
     """x: (B, 1, D); state {"conv", "ssm"}.  Returns (y (B, 1, D), new
-    state)."""
+    state).  shard: the state is the rank's block of each leaf (the
+    module docstring)."""
     B = x.shape[0]
     d_in, H, P, N = _dims(cfg)
     proj = dense(params["in_proj"], x)[:, 0]
     z, xs, Bm, Cm, dt = _split(proj, cfg)
-    win = torch.cat([state["conv"], xs[:, None, :]], 1)     # (B, k, d_in)
-    xc = torch.sum(win.float() * params["conv_w"].float()[None], 1)
-    xc = F.silu(xc).to(x.dtype)
+    c0, nc = state_range(shard, "conv", 3, d_in, state["conv"].shape[-1])
+    h0, nh = state_range(shard, "ssm", 2, H, state["ssm"].shape[1])
+    win = torch.cat([state["conv"], xs[:, None, c0:c0 + nc]], 1)
+    xc = torch.sum(win.float() * params["conv_w"].float()[None, :,
+                                                          c0:c0 + nc], 1)
+    xc = F.silu(xc).to(x.dtype)                             # (B, nc)
+    if nc < d_in:
+        xc = ops._gather_heads(xc[:, None, :, None],
+                               state_axis(shard, "conv", 3))[:, 0, :, 0]
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = torch.exp(params["A_log"])
-    h, y = ops.mamba2_step(state["ssm"], xc.reshape(B, H, P), dt, A, Bm, Cm)
+    heads = slice(h0, h0 + nh)
+    h, y = ops.mamba2_step(state["ssm"], xc.reshape(B, H, P)[:, heads],
+                           dt[:, heads], A[heads], Bm, Cm)
+    if nh < H:
+        y = ops._gather_heads(y[:, None], state_axis(shard, "ssm", 2))[:, 0]
     y = _gated_out(params, y.reshape(B, 1, d_in), z.reshape(B, 1, d_in))
     return y, {"conv": win[:, 1:], "ssm": h}

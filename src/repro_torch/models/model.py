@@ -229,7 +229,7 @@ class Model(nn.Module):
 
     def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0,
                    *, page_size: int = 0, num_pages: int = 0,
-                   kv_heads: int = 0):
+                   kv_heads: int = 0, shardings=None):
         """The dense layout by default: one (L, batch, max_len, Hkv, D)
         strip per K and V.  page_size > 0 selects the paged layout: a
         global (L, num_pages, page_size, Hkv, D) K and V pool shared by all
@@ -242,9 +242,30 @@ class Model(nn.Module):
         per-layer float32 WKV states and token-shift carries (their
         recurrent leaves have the batch on axis 1, as the strips do); the
         audio family self-attention strips of max_len and cross strips of
-        enc_len positions (max_len when 0) per decoder layer."""
+        enc_len positions (max_len when 0) per decoder layer.  shardings
+        (a mesh rank's dense layout: the sanitized cache shardings of
+        launch/specs.py prefill_cell or serve_cell): each leaf zeros at
+        the shape of the rank's block of it, what the cell's step takes
+        (the strips' heads or positions, the recurrent states' rows,
+        heads or channels)."""
+        if shardings is None:
+            return self._new_cache(self.device, batch_size, max_len,
+                                   enc_len, page_size, num_pages, kv_heads)
+        if page_size > 0:
+            raise ValueError("a cell's shardings lay out the dense cache, "
+                             "not the paged one")
+        from ..sharding.shards import local_shape
+        full = self._new_cache(torch.device("meta"), batch_size, max_len,
+                               enc_len, 0, 0, 0)
+        return {n: torch.zeros(local_shape(t.shape, shardings[n].placements,
+                                           shardings[n].mesh),
+                               dtype=t.dtype, device=self.device)
+                for n, t in full.items()}
+
+    def _new_cache(self, dev, batch_size: int, max_len: int, enc_len: int,
+                   page_size: int, num_pages: int, kv_heads: int):
         cfg = self.cfg
-        dev, dt = self.device, pdtype(cfg)
+        dt = pdtype(cfg)
         if cfg.family not in ATTENTION_FAMILIES:
             if page_size > 0:
                 raise ValueError(f"paged KV cache needs an attention "
@@ -350,9 +371,10 @@ class Model(nn.Module):
         the tokens and a "loss_mask" (B, S) weighting each position; a vlm
         batch's image positions carry no loss (their logits are dropped).
         remat=True recomputes each layer in the backward.  The sharded
-        train step's (dense, moe, vlm and audio families): tp_mesh runs
-        each attention on this rank's head shard (attn_forward: whisper's
-        encoder and its decoder's self and cross too); dp_sum says the
+        train step's (every family): tp_mesh runs each attention on this
+        rank's head shard (attn_forward: whisper's encoder and its
+        decoder's self and cross too, zamba2's shared block; the Mamba2
+        and RWKV6 layers run every head); dp_sum says the
         batch is this rank's rows of a global batch split over data-
         parallel ranks, and dp_sum(t) sums t over them in place - ce is
         then this rank's share of the global mean, its nll sum over the
@@ -420,10 +442,11 @@ class Model(nn.Module):
         encoder over batch["audio_embeds"] and fills the cross strips with
         its K/V.  The vlm family's image, batch["vision_embeds"] (B, P,
         d_model), fills positions 0..P-1 and the text follows it, so lens
-        counts both: P + S, or P + true_lens.  shard (a mesh step of the
-        dense, moe, vlm or audio family, serve/serve_step.py): the cache is
-        the rank's block of the strips, the audio family's self and cross
-        strips alike (models/attention.py CacheShard); moe_mesh (a
+        counts both: P + S, or P + true_lens.  shard (a mesh step,
+        serve/serve_step.py): the cache is the rank's block of the strips,
+        the audio family's self and cross strips alike, and of each
+        recurrent state leaf, as its own spec splits it (models/attention.py
+        CacheShard); moe_mesh (a
         moe.MoEMesh): the MoE FFN's mesh, the REPRO_MOE_A2A exchange's.
         Returns (logits
         of each row's last real token (B, 1, V) float32, cache, lens
@@ -545,8 +568,8 @@ class Model(nn.Module):
         whole length, as in the JAX package - on a mesh the whole strip's,
         not the rank's block's).  tp_mesh head-shards the paged decode (as
         in prefill_chunks).  shard: the dense cache is the rank's block of
-        the strips on a mesh (as in prefill; the cross strips are only
-        read).  Returns (logits (B, 1, V) float32, cache)."""
+        the strips and states on a mesh (as in prefill; the cross strips
+        are only read).  Returns (logits (B, 1, V) float32, cache)."""
         cfg = self.cfg
         blocks = params["blocks"]
         x = self._embed(params, tokens, lens)
@@ -563,10 +586,10 @@ class Model(nn.Module):
                                 shard=shard)
         elif cfg.family == "hybrid":
             x = T.hybrid_decode(blocks, x, cfg, cache, lens, impl=impl,
-                                seq_parallel=seq_parallel)
+                                seq_parallel=seq_parallel, shard=shard)
         elif cfg.family == "ssm":
             x = T.rwkv_decode(blocks, x, cfg, cache, lens, impl=impl,
-                              seq_parallel=seq_parallel)
+                              seq_parallel=seq_parallel, shard=shard)
         elif "k_pages" in cache:
             if seq_parallel:
                 raise ValueError("paged decode does not compose with the "

@@ -10,6 +10,20 @@ the bonus u (H, K) kept in float32 as the JAX init keeps them.  The decay
 w is float32 from end to end (the scan sums its logarithm).  The decode
 state is (wkv: the (H, K, K) float32 state, tm_prev / cm_prev: the last
 token's time-mix and channel-mix inputs).
+
+On a (data, model) mesh (a mesh step's attention.CacheShard, shard=) the
+time-mix runs on the rank's rows with every head, replicated over the
+model axis, as the JAX package's constraints lay r, k, v and w out; only
+the wkv state is split.  Its cell spec is the attention strips' (the
+JAX package's, leaf for leaf: the leaf's name ends in "v"), so the rank
+holds a block of its key channels K (the model axis, in the default
+layout), of its heads H (the axis the strips' sequence is split over),
+or of both.  The prefill keeps the rank's block of the final state; the
+decode steps that block (ops.rwkv6_step on its heads and key channels),
+sums y's partials over the axis splitting K (an all_reduce in float32)
+and gathers y's heads over the axis splitting H, before the per-head
+group norm.  tm_prev / cm_prev are
+replicated over the model axis, whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +34,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
+from .attention import CacheShard, state_axis, state_range
 from .layers import dense
 
 
@@ -76,11 +91,13 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, H: int) -> torch.Tensor:
 def rwkv6_time_mix(params, x: torch.Tensor, cfg: ModelConfig,
                    x_prev: Optional[torch.Tensor] = None,
                    wkv_state: Optional[torch.Tensor] = None, impl=None,
-                   return_state: bool = False):
+                   return_state: bool = False,
+                   shard: Optional[CacheShard] = None):
     """x: (B, S, D).  The full sequence when wkv_state is None (the scan:
     ops.rwkv6_scan, or with return_state the plain chunked scan that also
-    returns the final state); otherwise one decode step (S == 1).  Returns
-    (y, (x[:, -1], new state or None))."""
+    returns the final state); otherwise one decode step (S == 1).  shard:
+    the state is the rank's block of wkv's heads (the module docstring).
+    Returns (y, (x[:, -1], new state or None))."""
     B, S, D = x.shape
     H = cfg.n_heads
     K = D // H
@@ -96,16 +113,44 @@ def rwkv6_time_mix(params, x: torch.Tensor, cfg: ModelConfig,
         if return_state:
             y, new_state = ref.rwkv6_scan_chunked_state(r, k, v, w,
                                                         params["u"])
+            h0, nh = state_range(shard, "wkv", 2, H)
+            k0, nk = state_range(shard, "wkv", 3, K)
+            new_state = new_state[:, h0:h0 + nh, k0:k0 + nk]
         else:
             y = ops.rwkv6_scan(r, k, v, w, params["u"], impl=impl)
             new_state = None
     else:
-        new_state, y1 = ops.rwkv6_step(wkv_state, r[:, 0], k[:, 0], v[:, 0],
-                                       w[:, 0], params["u"])
-        y = y1[:, None]
+        new_state, y = _step_block(wkv_state, r[:, 0], k[:, 0], v[:, 0],
+                                   w[:, 0], params["u"], shard)
+        y = y[:, None]
     y = _group_norm(y.reshape(B, S, D), params["ln_x"], H)
     y = (y.float() * g).to(x.dtype)
     return dense(params["out_proj"], y), (x[:, -1], new_state)
+
+
+def _step_block(state: torch.Tensor, r_t, k_t, v_t, w_t, u,
+                shard: Optional[CacheShard]):
+    """One decode step of the rank's block of the wkv state (B, h, k, V),
+    heads [h0, h0 + h) and key channels [k0, k0 + k) of r_t, k_t, w_t (B,
+    H, K), v_t (B, H, V) and u (H, K): (the block's new state, y (B, H,
+    V) of every head).  A block of K gives each rank a partial of y's
+    sum over K: the partials are summed in float32 over the axis
+    splitting K, then the heads gathered over the axis splitting H."""
+    H, K = r_t.shape[1:]
+    h0, nh = state_range(shard, "wkv", 2, H, state.shape[1])
+    k0, nk = state_range(shard, "wkv", 3, K, state.shape[2])
+    hs, ks = slice(h0, h0 + nh), slice(k0, k0 + nk)
+    k_axis = state_axis(shard, "wkv", 3)
+    new_state, y = ops.rwkv6_step(
+        state, r_t[:, hs, ks] if k_axis is None else r_t[:, hs, ks].float(),
+        k_t[:, hs, ks], v_t[:, hs], w_t[:, hs, ks], u[hs, ks])
+    if k_axis is not None:
+        import torch.distributed as dist
+        dist.all_reduce(y, group=k_axis.group)
+        y = y.to(r_t.dtype)
+    if nh < H:
+        y = ops._gather_heads(y[:, None], state_axis(shard, "wkv", 2))[:, 0]
+    return new_state, y
 
 
 def rwkv6_channel_mix(params, x: torch.Tensor, cfg: ModelConfig,

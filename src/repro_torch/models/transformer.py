@@ -263,30 +263,35 @@ def _shared_at(cfg: ModelConfig, idx: int) -> bool:
 
 
 def _hybrid_layer(p, shared, x: torch.Tensor, impl: Optional[str], *,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, tp_mesh=None) -> torch.Tensor:
     x = x + mamba2_forward(p, x, cfg, impl=impl)
     if shared is not None:
-        x = _block(shared, x, cfg, 0, impl)
+        x = _block_aux(shared, x, cfg, 0, impl, True, tp_mesh)[0]
     return x
 
 
-def hybrid_layers(blocks, cfg: ModelConfig) -> List[Callable]:
+def hybrid_layers(blocks, cfg: ModelConfig, tp_mesh=None) -> List[Callable]:
     """One callable per layer, f(x, impl) -> x: Mamba2 layer l, then the
     shared block where it follows layer l.  blocks: {"mamba": stacked (L,
     ...) Mamba2 leaves, "shared": one attention block (n1, attn, n2, mlp),
-    unstacked}."""
+    unstacked}.  tp_mesh: the shared block's attention on this rank's
+    head shard (attn_forward); the Mamba2 layers run every head."""
     shared = blocks["shared"]
     return [partial(_hybrid_layer, p["mamba"],
-                    shared if _shared_at(cfg, idx) else None, cfg=cfg)
+                    shared if _shared_at(cfg, idx) else None, cfg=cfg,
+                    tp_mesh=tp_mesh)
             for idx, p in enumerate(_layers({"mamba": blocks["mamba"]},
                                             cfg.n_layers))]
 
 
 def hybrid_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
-                   impl: Optional[str] = None, remat: bool = False):
-    """The hybrid stack over the whole sequence x (B, S, D).  Returns (x,
-    a float32 zero aux)."""
-    for layer in hybrid_layers(blocks, cfg):
+                   impl: Optional[str] = None, remat: bool = False,
+                   tp_mesh=None):
+    """The hybrid stack over the whole sequence x (B, S, D).  tp_mesh (the
+    sharded train step's model axis): the shared block's attention on
+    this rank's head shard, the Mamba2 layers replicated over the axis
+    (the JAX "kv_rep" layout).  Returns (x, a float32 zero aux)."""
+    for layer in hybrid_layers(blocks, cfg, tp_mesh):
         x = _run(layer, remat, x, impl)
     return x, _zero_aux(x)
 
@@ -307,15 +312,19 @@ def hybrid_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def hybrid_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
-                   impl: Optional[str] = None) -> torch.Tensor:
+                   impl: Optional[str] = None, shard=None) -> torch.Tensor:
     """Full-sequence prefill from position 0: the chunked SSD scans fill
     the per-layer conv / SSM states, the shared block prefills its K / V
-    strips; the cache is updated in place."""
+    strips; the cache is updated in place.  shard (a mesh step's
+    attention.CacheShard): the cache holds the rank's block of the
+    strips and of each state leaf, the shared block's attention runs on
+    the model rank's head shard (K4) and the Mamba2 layers on every head
+    (mamba2_prefill)."""
     k = cfg.shared_attn_every
     shared = blocks["shared"]
     for idx in range(cfg.n_layers):
         p = {name: v[idx] for name, v in blocks["mamba"].items()}
-        y, st = mamba2_prefill(p, x, cfg)
+        y, st = mamba2_prefill(p, x, cfg, shard=shard)
         x = x + y
         cache["conv"][idx].copy_(st["conv"])
         cache["ssm"][idx].copy_(st["ssm"])
@@ -323,23 +332,29 @@ def hybrid_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
             h = attn_prefill(shared["attn"],
                              apply_norm(shared["n1"], x, cfg), cfg,
                              cache["shared_k"][idx // k],
-                             cache["shared_v"][idx // k], impl=impl)
+                             cache["shared_v"][idx // k], impl=impl,
+                             shard=shard)
             x = _ffn_tail(shared, x + h, cfg)
     return x
 
 
 def hybrid_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                   lens: torch.Tensor, *, impl: Optional[str] = None,
-                  seq_parallel: bool = False) -> torch.Tensor:
+                  seq_parallel: bool = False, shard=None) -> torch.Tensor:
     """One token per lane: each Mamba2 layer steps its conv window and SSM
     state, the shared block decodes against its strips at lens (written
-    in place; seq_parallel as in stack_decode)."""
+    in place; seq_parallel as in stack_decode).  shard: as in
+    hybrid_prefill - the Mamba2 step on the rank's state blocks
+    (mamba2_decode), the shared block through attn_decode's mesh path
+    (K3 on the rank's KV heads, or ops.seq_parallel_decode where the
+    strips' sequence is split)."""
     k = cfg.shared_attn_every
     shared = blocks["shared"]
     for idx in range(cfg.n_layers):
         p = {name: v[idx] for name, v in blocks["mamba"].items()}
         y, st = mamba2_decode(p, x, cfg, {"conv": cache["conv"][idx],
-                                          "ssm": cache["ssm"][idx]})
+                                          "ssm": cache["ssm"][idx]},
+                              shard=shard)
         x = x + y
         cache["conv"][idx].copy_(st["conv"])
         cache["ssm"][idx].copy_(st["ssm"])
@@ -348,7 +363,7 @@ def hybrid_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                             apply_norm(shared["n1"], x, cfg), cfg,
                             cache["shared_k"][idx // k],
                             cache["shared_v"][idx // k], lens, impl=impl,
-                            seq_parallel=seq_parallel)
+                            seq_parallel=seq_parallel, shard=shard)
             x = _ffn_tail(shared, x + h, cfg)
     return x
 
@@ -374,9 +389,12 @@ def rwkv_layers(blocks, cfg: ModelConfig) -> List[Callable]:
 
 
 def rwkv_forward(blocks, x: torch.Tensor, cfg: ModelConfig, *,
-                 impl: Optional[str] = None, remat: bool = False):
-    """The RWKV6 stack over the whole sequence x (B, S, D).  Returns (x, a
-    float32 zero aux)."""
+                 impl: Optional[str] = None, remat: bool = False,
+                 tp_mesh=None):
+    """The RWKV6 stack over the whole sequence x (B, S, D).  tp_mesh (the
+    sharded train step's model axis) is taken and unused: the WKV scan
+    runs every head, replicated over the axis, as in the JAX package.
+    Returns (x, a float32 zero aux)."""
     for layer in rwkv_layers(blocks, cfg):
         x = _run(layer, remat, x, impl)
     return x, _zero_aux(x)
@@ -389,15 +407,17 @@ def rwkv_init_cache(cfg: ModelConfig, batch: int, dtype, device):
 
 
 def rwkv_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
-                 impl: Optional[str] = None) -> torch.Tensor:
+                 impl: Optional[str] = None, shard=None) -> torch.Tensor:
     """Full-sequence prefill: the state-returning chunked WKV scan fills
     each layer's wkv state, the last normed inputs its token-shift
-    carries; the cache is updated in place."""
+    carries; the cache is updated in place.  shard (a mesh step's
+    attention.CacheShard): wkv holds the rank's block of its heads
+    (rwkv6_time_mix), the shift carries the whole width."""
     for l in range(cfg.n_layers):
         p = _layer(blocks, l)
         h, (tm_last, wkv) = rwkv6_time_mix(
             p["mix"], apply_norm(p["n1"], x, cfg), cfg, impl=impl,
-            return_state=True)
+            return_state=True, shard=shard)
         x = x + h
         h, cm_last = rwkv6_channel_mix(p["mix"], apply_norm(p["n2"], x, cfg),
                                        cfg)
@@ -410,16 +430,17 @@ def rwkv_prefill(blocks, x: torch.Tensor, cfg: ModelConfig, cache, *,
 
 def rwkv_decode(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                 lens: torch.Tensor, *, impl: Optional[str] = None,
-                seq_parallel: bool = False) -> torch.Tensor:
+                seq_parallel: bool = False, shard=None) -> torch.Tensor:
     """One token per lane through every layer's recurrent state (lens and
     seq_parallel are unused, as in the JAX package: the state carries the
-    position and has no sequence axis)."""
+    position and has no sequence axis).  shard: as in rwkv_prefill, the
+    step on the rank's heads of wkv, y gathered over the model axis."""
     for l in range(cfg.n_layers):
         p = _layer(blocks, l)
         h, (tm_last, wkv) = rwkv6_time_mix(
             p["mix"], apply_norm(p["n1"], x, cfg), cfg,
             x_prev=cache["tm_prev"][l], wkv_state=cache["wkv"][l],
-            impl=impl)
+            impl=impl, shard=shard)
         x = x + h
         h, cm_last = rwkv6_channel_mix(p["mix"], apply_norm(p["n2"], x, cfg),
                                        cfg, x_prev=cache["cm_prev"][l])

@@ -16,14 +16,20 @@ the layout of the cell's cache spec (sharding/rules.py cache_spec: KV
 heads over the model axis; the sequence over the data axis; the sequence
 over the model axis).  The attention runs on the rank's heads and
 sequence block (models/attention.py CacheShard); the logits are the
-rank's rows'.  The dense, moe, vlm and audio families: an MoE layer runs
-the per-row dispatch on the rank's rows, and with REPRO_MOE_A2A set and S
-a multiple of the model axis the prefill takes the expert-parallel
-exchange (models/moe.py; decode's S = 1 never does); whisper's self and
-cross strips share one layout (the spec of self_k), the encoder runs on
-the model rank's head shard, and the decode reads the cross strips
-without writing them.  Another family (hybrid, ssm) raises
-NotImplementedError when its step is called.
+rank's rows'.  Every family: an MoE layer runs the per-row dispatch on
+the rank's rows, and with REPRO_MOE_A2A set and S a multiple of the
+model axis the prefill takes the expert-parallel exchange
+(models/moe.py; decode's S = 1 never does); whisper's self and cross
+strips share one layout (the spec of self_k), the encoder runs on the
+model rank's head shard, and the decode reads the cross strips without
+writing them; zamba2's Mamba2 layers and rwkv6's time-mix run every head
+on the rank's rows, replicated over the model axis as the JAX package
+lays their scans out, each state leaf holding the rank's block of its
+heads or channels where its own spec splits it (CacheShard.state; the
+decode gathers the conv outputs and the per-head outputs, and sums
+rwkv6's partials over a split of its key channels), and zamba2's shared
+block attends on the head shard through its strips (shared_k /
+shared_v, in the strips' layout).
 
 Each step is one eager call into the model; the chunk-batch and decode
 steps add device-side sampling and masked updates of the engine's (B, 1)
@@ -66,27 +72,50 @@ def sample_token(logits: torch.Tensor, *, temperature: float = 0.0,
                            top_p=top_p)[:, None]
 
 
-def cache_shard(mesh, spec) -> CacheShard:
-    """The CacheShard of a dense (L, B, S, Hkv, D) cache laid out by
-    `spec` (a cache_spec, sanitized: the spec of "k", or whisper's
-    "self_k", which its self_v and cross strips share) on `mesh`: the
-    model axis for the
-    head-sharded attention, whether the strips hold its KV-head block, and
-    the axis their sequence is split over."""
+def cache_shard(mesh, spec, state=None) -> CacheShard:
+    """The CacheShard of a dense cache on `mesh`: its (L, B, S, Hkv, D)
+    strips laid out by `spec` (a cache_spec, sanitized: the spec of "k",
+    or whisper's "self_k", or zamba2's "shared_k", which the other
+    strips share; None for a cache without strips) - the model axis for
+    the head-sharded attention, whether the strips hold its KV-head
+    block, and the axis their sequence is split over - and its recurrent
+    state leaves laid out as `state` (launch/specs.py state_blocks: leaf
+    -> (rows entry, {dim: axis})), each split dim's axis in
+    CacheShard.state.  The strips and every state leaf must split the
+    batch rows alike: the step gets one block of rows."""
     from ..launch.mesh import axis_mesh
+    model_axis = axis_mesh(mesh, "model")
+    state = state or {}
+    rows = {leaf: r for leaf, (r, _) in state.items()}
+    blocks = {}
+    for leaf, (_, dims) in state.items():
+        for d, entry in dims.items():
+            if isinstance(entry, tuple):
+                raise ValueError(f"state leaf {leaf!r}: dim {d} split "
+                                 f"over several axes has no mesh step")
+            if axis_mesh(mesh, entry) is not None:
+                blocks.setdefault(leaf, {})[d] = axis_mesh(mesh, entry)
+    if spec is None:
+        if len(set(rows.values())) > 1:
+            raise ValueError(f"the state leaves split their rows "
+                             f"differently: {rows}")
+        return CacheShard(model=model_axis, state=blocks)
     spec = tuple(spec) + (None,) * (5 - len(spec))
     seq_entry, head_entry = spec[2], spec[3]
     for entry in (seq_entry, head_entry):
         if isinstance(entry, tuple):
             raise ValueError(f"cache spec {spec}: a sequence or head dim "
                              f"split over several axes has no mesh step")
-    model_axis = axis_mesh(mesh, "model")
     if head_entry not in (None, "model"):
         raise ValueError(f"cache spec {spec}: KV heads split over "
                          f"{head_entry!r}, not the model axis")
+    if any(r != spec[1] for r in rows.values()):
+        raise ValueError(f"cache spec {spec}: the state leaves split their "
+                         f"rows otherwise: {rows}")
     return CacheShard(model=model_axis,
                       heads=head_entry is not None and model_axis is not None,
-                      seq=axis_mesh(mesh, seq_entry) if seq_entry else None)
+                      seq=axis_mesh(mesh, seq_entry) if seq_entry else None,
+                      state=blocks)
 
 
 def _full_params(params):
@@ -110,7 +139,7 @@ def _full_params(params):
 
 
 def make_serve_step(model, *, seq_parallel: bool = False, mesh=None,
-                    cache_spec=None):
+                    cache_spec=None, state=None):
     """serve_step(params, cache, tokens (B, 1), lens (B,)) -> (logits (B,
     1, V), cache): one new token per lane against the cache
     (Model.decode_step; seq_parallel=True decodes the attention through
@@ -121,7 +150,11 @@ def make_serve_step(model, *, seq_parallel: bool = False, mesh=None,
     sequence-sharded one runs ops.seq_parallel_decode over its axis (no
     window, as the JAX package's naive decode), on the rank's heads where
     the strips hold a head block.  seq_parallel must say whether the
-    spec shards the sequence."""
+    spec shards the sequence.  state (launch/specs.py state_blocks): the
+    recurrent families' state leaves, each the rank's block where its
+    spec splits it (cache_shard); a cache with states and no strips
+    (rwkv6's) takes no cache_spec and ignores seq_parallel, as its
+    unsharded decode does."""
     if mesh is None:
         def serve_step(params, cache, tokens, lens):
             return model.decode_step(params, tokens, lens, cache,
@@ -130,10 +163,10 @@ def make_serve_step(model, *, seq_parallel: bool = False, mesh=None,
         return serve_step
     from ..sharding.rules import axis_names
     from ..sharding.rules import cache_spec as default_spec
-    spec = cache_spec if cache_spec is not None else default_spec(
+    spec = cache_spec if cache_spec is not None or state else default_spec(
         axis_names(mesh), seq_sharded=seq_parallel)
-    shard = cache_shard(mesh, spec)
-    if (shard.seq is not None) != bool(seq_parallel):
+    shard = cache_shard(mesh, spec, state)
+    if spec is not None and (shard.seq is not None) != bool(seq_parallel):
         raise ValueError(f"seq_parallel={seq_parallel} and cache spec "
                          f"{tuple(spec)}: the sequence-parallel decode runs "
                          f"exactly where the spec shards the sequence")
@@ -147,7 +180,7 @@ def make_serve_step(model, *, seq_parallel: bool = False, mesh=None,
     return mesh_serve_step
 
 
-def make_prefill_step(model, *, mesh=None, cache_spec=None):
+def make_prefill_step(model, *, mesh=None, cache_spec=None, state=None):
     """prefill_step(params, batch, cache) -> (last_logits, cache, lens):
     monolithic prefill into the dense cache (Model.prefill), the whole
     batch passed through - the audio family's audio_embeds and the vlm
@@ -157,7 +190,9 @@ def make_prefill_step(model, *, mesh=None, cache_spec=None):
     layout): K4 on the model rank's head shard, the rank's KV heads and
     positions of each prompt written into its block of the strips; an
     MoE layer's exchange (REPRO_MOE_A2A) gathers the rows over the axes
-    the cache spec splits the batch over."""
+    the cache spec splits the batch over; the recurrent state leaves
+    laid out as `state` (make_serve_step), the rank writing its block of
+    each."""
     if mesh is None:
         def prefill_step(params, batch, cache):
             return model.prefill(params, batch, cache)
@@ -166,9 +201,9 @@ def make_prefill_step(model, *, mesh=None, cache_spec=None):
     from ..models.moe import MoEMesh
     from ..sharding.rules import axis_names, entry_axes
     from ..sharding.rules import cache_spec as default_spec
-    spec = cache_spec if cache_spec is not None \
+    spec = cache_spec if cache_spec is not None or state \
         else default_spec(axis_names(mesh), seq_sharded=False)
-    shard = cache_shard(mesh, spec)
+    shard = cache_shard(mesh, spec, state)
     moe_mesh = MoEMesh(mesh, entry_axes(tuple(spec)[1])) \
         if model.cfg.moe_experts else None
 

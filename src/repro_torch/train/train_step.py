@@ -17,11 +17,13 @@ does, with explicit collectives over the mesh's groups
       full-size tensors (all_gather_into_tensor over each sharded mesh
       dim: ZeRO-3 with one gather of the whole tree a step);
   (b) runs Model.loss and its backward on the rank's rows of the batch
-      (the dense, moe, vlm and audio families: launch/mesh.py
-      check_mesh_family), each attention - whisper's encoder and cross-
-      attention too - on the rank's head shard of the model axis
-      (ops.head_sharded_attention: K4 / K5), the loss the rank's share of
-      the global mean (dp_sum: the position count summed over the
+      (every family: launch/mesh.py check_mesh_family; the hybrid and
+      ssm families on a CPU mesh only, check_backward), each attention -
+      whisper's encoder and cross-attention and zamba2's shared block
+      too - on the rank's head shard of the model axis
+      (ops.head_sharded_attention: K4 / K5; the Mamba2 and RWKV6 scans
+      replicated over it, as in the JAX package), the loss the rank's
+      share of the global mean (dp_sum: the position count summed over the
       data-parallel ranks before dividing; an MoE layer's aux loss the
       rank's share too, models/moe.py).  An MoE layer runs the per-row
       dispatch on the rank's rows, or with REPRO_MOE_A2A the expert-
@@ -46,7 +48,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from ..configs.base import TrainConfig
+from ..configs.base import ModelConfig, TrainConfig
+from ..kernels._checks import BACKWARD_HEAD_DIMS
 from ..models import moe
 from ..models.model import Model
 from ..optim import (AdamWState, adamw_init, adamw_update,
@@ -56,6 +59,36 @@ from ..sharding.rules import axis_names, dp_axes
 from ..sharding.shards import (all_reduce_sum, as_dtensor, gather_full,
                                local_shape, local_slice, shard)
 from ..tree import leaves, leaves_with_paths, map_tree
+
+
+def check_backward(cfg: ModelConfig, device) -> None:
+    """The backward kernels training needs on the card, refused before a
+    model is built or a kernel launched where they do not exist.  On
+    CUDA the attention gradient is K5 (kernels/flash_backward.py,
+    csrc/flash_backward.cu), with no fallback, and K5 takes the head
+    dims BACKWARD_HEAD_DIMS (64, 128 and gemma3-4b's 256): another head
+    dim raises (zamba2's 80; ROADMAP §2 item 1).  The scans K6 (Mamba2)
+    and K7 (RWKV6) have no backward (ROADMAP §2 item 2): the hybrid and
+    ssm families raise on CUDA and on the meta device (the dry run's
+    train cells), whatever the mesh; they train on the CPU, through the
+    plain chunked scans."""
+    kind = torch.device(device).type
+    if kind not in ("cuda", "meta"):
+        return
+    missing = []
+    if kind == "cuda" and cfg.family != "ssm" \
+            and cfg.head_dim not in BACKWARD_HEAD_DIMS:
+        missing.append(f"K5 flash_attention_bwd (csrc/flash_backward.cu) "
+                       f"at head dim {cfg.head_dim}; K5 takes "
+                       f"{BACKWARD_HEAD_DIMS} (ROADMAP §2 item 1)")
+    scan = {"hybrid": "K6 mamba2_scan (csrc/mamba2_scan.cu)",
+            "ssm": "K7 rwkv6_scan (csrc/rwkv6_scan.cu)"}.get(cfg.family)
+    if scan:
+        missing.append(f"a backward of {scan}, which has none (ROADMAP "
+                       f"§2 item 2)")
+    if missing:
+        raise NotImplementedError(
+            f"training {cfg.name} on {kind} needs " + "; and ".join(missing))
 
 
 class TrainState(NamedTuple):
@@ -176,6 +209,7 @@ def _make_mesh_step(model: Model, tcfg: TrainConfig, mesh):
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         check_mesh_family(model.cfg, "training")
+        check_backward(model.cfg, model.device)
         full, out = grads_of(state, batch)
         grads = map_tree(lambda f: f.grad, full)
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
@@ -212,13 +246,15 @@ def _make_mesh_step(model: Model, tcfg: TrainConfig, mesh):
 
 def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
     """The train step; on `mesh` the sharded step over DTensor state (the
-    module docstring)."""
+    module docstring).  Either step, called, first refuses what
+    check_backward refuses on the model's device."""
     if mesh is not None:
         return _make_mesh_step(model, tcfg, mesh)
     remat = tcfg.remat != "none"
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        check_backward(model.cfg, model.device)
         params = state.params
         for p in leaves(params):
             p.grad = None

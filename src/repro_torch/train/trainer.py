@@ -20,12 +20,16 @@ placements (init_sharded_train_state), each step is the sharded step of
 train/train_step.py over this rank's rows of rank 0's global batch
 (DataPipeline(mesh=)), and checkpoints hold the full tensors, written by
 rank 0 and restored onto whatever mesh the restoring Trainer has.  The
-mesh path takes the dense, moe, vlm and audio families (an MoE layer by
-the per-row dispatch on the rank's rows, or with REPRO_MOE_A2A the
-expert-parallel exchange, its aux loss a share of the global batch's:
-train/train_step.py; the vlm family's image rows and whisper's encoder
-and cross-attention on the rank's head shard); the hybrid and ssm
-families' sharded forwards are ROADMAP §1 item 3.
+mesh path takes every family (an MoE layer by the per-row dispatch on
+the rank's rows, or with REPRO_MOE_A2A the expert-parallel exchange, its
+aux loss a share of the global batch's: train/train_step.py; the vlm
+family's image rows and whisper's encoder and cross-attention on the
+rank's head shard; zamba2's shared block on the head shard, its Mamba2
+layers and rwkv6's time-mix replicated over the model axis).  The hybrid
+and ssm families train on the CPU only, with a mesh or without: on the
+card, or the meta device, the Trainer refuses them before anything is
+built (check_backward: K6 and K7 have no backward, nor K5 zamba2's head
+dim 80; ROADMAP §2 items 1-2).
 """
 from __future__ import annotations
 
@@ -37,26 +41,11 @@ import torch
 
 from ..configs.base import ModelConfig, TrainConfig
 from ..data.pipeline import DataPipeline
-from ..kernels._checks import BACKWARD_HEAD_DIMS
 from ..launch.mesh import check_mesh_family
 from ..models import build_model
 from .checkpoint import restore_latest, save_checkpoint
-from .train_step import (init_sharded_train_state, init_train_state,
-                         make_train_step)
-
-
-def check_backward(cfg: ModelConfig, device) -> None:
-    """On the card the attention gradient is K5 (kernels/flash_backward.py,
-    csrc/flash_backward.cu), with no fallback, and K5 takes the head dims
-    BACKWARD_HEAD_DIMS (64, 128 and gemma3-4b's 256): refuse any other
-    before a model is built or a kernel launched (zamba2's 80; ROADMAP
-    §2)."""
-    if torch.device(device).type == "cuda" and cfg.family != "ssm" \
-            and cfg.head_dim not in BACKWARD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"training {cfg.name} on CUDA needs K5 flash_attention_bwd "
-            f"(csrc/flash_backward.cu) at head dim {cfg.head_dim}; K5 takes "
-            f"{BACKWARD_HEAD_DIMS} (ROADMAP §2)")
+from .train_step import (check_backward, init_sharded_train_state,
+                         init_train_state, make_train_step)
 
 
 def check_mesh(cfg: ModelConfig, device, mesh, state_shardings) -> None:
@@ -79,8 +68,8 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, device="cuda",
                  fail_at_step: Optional[int] = None, mesh=None,
                  state_shardings=None):
-        check_mesh(cfg, device, mesh, state_shardings)
         check_backward(cfg, device)
+        check_mesh(cfg, device, mesh, state_shardings)
         self.cfg = cfg
         self.tcfg = tcfg
         self.model = build_model(cfg, device)

@@ -5,9 +5,16 @@ the dry run initialises a fake-backend process group.
 - the CLI at --mesh both for granite-3-2b decode_32k (the (16, 16) and
   (2, 16, 16) production meshes in fake worlds of 256 and 512 ranks): a
   record a mesh with JAX's keys, the memory a device shrinking with the
-  devices; and a cell of another family (zamba2-2.7b long_500k) written
-  to its .error.json with the NotImplementedError naming ROADMAP §1
-  item 3;
+  devices; and the CLI's --all at --mesh both over the cells of
+  zamba2-2.7b (cut to 6 of its 54 layers: one application of its shared
+  block) and of rwkv6-1.6b (1 of 24), one config a process (_CUT_CLI):
+  their 16 cells 12 costed - prefill_32k, decode_32k and long_500k,
+  zamba2's K4 / K3 calls one an application of the shared block,
+  rwkv6's none - and the 4 train_4k cells refused, each
+  written to its .error.json with the NotImplementedError naming
+  ROADMAP §2 and the scan kernel that has no backward (the full depth's
+  prefill cells trace for minutes on the meta device: the chunked
+  scans' Python loop over 1024 or 256 chunks a layer);
 - memory.argument_size_bytes a device equals the JAX package's
   compiled.memory_analysis().argument_size_in_bytes for the train,
   prefill and decode cells of the granite-3-2b smoke config (head dim
@@ -29,7 +36,14 @@ the dry run initialises a fake-backend process group.
   rank 0 attends with 4 of each group's 7 heads (kernels/ops.py
   _head_blocks' uneven split), its K4 / K5 FLOPs 4 / 14 of the (1, 1)
   cell's.  And _head_blocks itself: llava's 56 / 8 over 16 and the
-  splits that still raise.
+  splits that still raise;
+- the hybrid and ssm families' prefill and decode cells (the zamba2-2.7b
+  smoke config at its published head dim 80, which K4 / K3's meta paths
+  take, and rwkv6-1.6b's, float32, 4 x 32): on a (1, 1) mesh their FLOPs
+  beside the JAX hlo_cost.analyze of the same cell
+  (test_recurrent_flops_sit_beside_the_jax_analysis); zamba2's K4 / K3
+  calls exactly on (1, 1) and (2, 2) - one a shared-block application,
+  on the rank's head shard - and rwkv6's none.
 """
 import json
 import os
@@ -45,6 +59,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUB_S = 240
 SMOKE = {"train": (32, 8), "prefill": (32, 4), "decode": (32, 8)}
 REPLACE = {"head_dim": 64}
+# the recurrent families' CLI runs: arch -> the layers each config is cut
+# to (zamba2's 6: one application of its shared block)
+RECURRENT_LAYERS = {"zamba2-2.7b": 6, "rwkv6-1.6b": 1}
+# the CLI's --all over one config's cells, cut in depth: at full depth
+# the prefill_32k cells trace for minutes (the chunked scans' Python loop
+# over 256 / 1024 chunks a layer)
+_CUT_CLI = r"""
+import json, sys
+from repro_torch.launch import dryrun
+spec = json.loads(sys.argv[1])
+cells = [c for c in dryrun.all_cells() if c[0] == spec["arch"]]
+config = dryrun.get_config
+dryrun.all_cells = lambda: iter(cells)
+dryrun.get_config = lambda a: config(a).replace(n_layers=spec["layers"])
+sys.exit(dryrun.main(["--all", "--mesh", "both", "--out", spec["out"]]))
+"""
+RECURRENT_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 _PORT = r"""
 import json, sys
@@ -112,11 +143,13 @@ def runs(tmp_path_factory):
                  "--shape", "decode_32k", "--mesh", "both"),
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True),
-        "refused": subprocess.Popen(
-            _cli(os.path.join(d, "refused"), "--arch", "zamba2-2.7b",
-                 "--shape", "long_500k", "--mesh", "single"),
+        **{arch: subprocess.Popen(
+            [sys.executable, "-c", _CUT_CLI, json.dumps(
+                {"arch": arch, "layers": layers,
+                 "out": os.path.join(d, arch)})],
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True),
+            stderr=subprocess.STDOUT, text=True)
+           for arch, layers in RECURRENT_LAYERS.items()},
         "port": subprocess.Popen(
             [sys.executable, "-c", _PORT, json.dumps(
                 dict(spec, out=os.path.join(d, "port.json")))],
@@ -138,7 +171,7 @@ def runs(tmp_path_factory):
             for q in procs.values():
                 q.kill()
             pytest.fail(f"{name} did not finish in {SUB_S} s")
-    for name in ("cli", "port", "jax"):
+    for name in ("cli", "port", "jax") + tuple(RECURRENT_LAYERS):
         assert procs[name].returncode == 0, f"{name}:\n{logs[name][-4000:]}"
     out = {"d": d, "logs": logs, "rc": {k: p.returncode
                                         for k, p in procs.items()}}
@@ -172,14 +205,52 @@ def test_the_cli_costs_a_dense_cell_at_both_meshes(runs):
 
 
 def test_another_familys_cell_writes_its_error(runs):
-    assert runs["rc"]["refused"] == 0, runs["logs"]["refused"]
-    path = os.path.join(runs["d"], "refused",
-                        "zamba2-2.7b__long_500k__single.error.json")
-    with open(path) as f:
-        err = json.load(f)
-    assert err["error"].startswith("NotImplementedError")
-    assert "ROADMAP §1 item 3" in err["error"]
-    assert "0 costed, 1 refused" in runs["logs"]["refused"]
+    """zamba2-2.7b's train_4k cell, whose step on the meta device is
+    refused (K6 has no backward, nor K5 its head dim 80), written to its
+    .error.json; its long_500k cell costed."""
+    d = os.path.join(runs["d"], "zamba2-2.7b")
+    for mesh in ("single", "multi"):
+        with open(os.path.join(
+                d, f"zamba2-2.7b__train_4k__{mesh}.error.json")) as f:
+            err = json.load(f)
+        assert err["error"].startswith("NotImplementedError")
+        assert "ROADMAP §2 item 2" in err["error"] \
+            and "K6 mamba2_scan" in err["error"], err["error"]
+        with open(os.path.join(
+                d, f"zamba2-2.7b__long_500k__{mesh}.json")) as f:
+            rec = json.load(f)
+        assert rec["cost"]["flops"] > 0
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT_LAYERS))
+def test_the_cli_costs_the_recurrent_serving_cells(runs, arch):
+    """Of each recurrent config's 8 cells (4 shapes x 2 meshes) the 6
+    prefill and decode cells are costed and the 2 train cells refused by
+    name: 12 costed and 4 refused in all.  zamba2's shared block runs K4
+    once a prefill (its one application) and K3 once a decode step where
+    the strips keep the whole sequence (decode_32k's 128 lanes), none
+    with the sequence split (long_500k's one lane: the sequence-parallel
+    decode); rwkv6 runs no kernel."""
+    d = os.path.join(runs["d"], arch)
+    assert "6 costed, 2 refused" in runs["logs"][arch], runs["logs"][arch]
+    scan = "K6 mamba2_scan" if arch.startswith("zamba2") else "K7 rwkv6_scan"
+    for mesh in ("single", "multi"):
+        with open(os.path.join(d, f"{arch}__train_4k__{mesh}.error.json")) \
+                as f:
+            err = json.load(f)["error"]
+        assert err.startswith("NotImplementedError") and scan in err \
+            and "ROADMAP §2 item 2" in err, err
+        for shape in RECURRENT_SHAPES[1:]:
+            with open(os.path.join(d, f"{arch}__{shape}__{mesh}.json")) \
+                    as f:
+                rec = json.load(f)
+            assert rec["memory"]["argument_size_bytes"] > 0
+            assert rec["cost"]["flops"] > 0
+            want = {}
+            if arch.startswith("zamba2"):
+                want = {"prefill_32k": {"K4": 1}, "decode_32k": {"K3": 1},
+                        "long_500k": {}}[shape]
+            assert _calls(rec) == want, (shape, mesh, _calls(rec))
 
 
 @pytest.mark.parametrize("kind", sorted(SMOKE))
@@ -425,3 +496,161 @@ def test_head_blocks_refuse_what_does_not_split(hq, hkv, n):
     heads."""
     with pytest.raises(ValueError, match="do not split"):
         ops._head_blocks(hq, hkv, n)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and ssm families' serving cells
+# ---------------------------------------------------------------------------
+
+REC_ARCHS = {"zamba2-2.7b": {"dtype": "float32", "head_dim": 80},
+             "rwkv6-1.6b": {"dtype": "float32"}}
+REC_KINDS = ("prefill", "decode")
+REC_SHAPE = (4, 32)                          # (B, S)
+
+_REC_PORT = r"""
+import json, sys
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh
+spec = json.loads(sys.argv[1])
+B, S = spec["shape"]
+out = {}
+for mesh in ((1, 1), (2, 2)):
+    dryrun.fake_world(mesh[0] * mesh[1])
+    m = make_debug_mesh(*mesh, device_type="cpu")
+    for arch, rep in spec["archs"].items():
+        cfg = get_smoke_config(arch).replace(**rep)
+        for kind in spec["kinds"]:
+            out[f"{arch}.{kind}.{mesh[0]}x{mesh[1]}"] = dryrun.run_cell(
+                arch, kind, False, cfg=cfg,
+                shape=ShapeSpec(kind, S, B, kind), mesh=m)
+json.dump(out, open(spec["out"], "w"))
+"""
+
+_REC_JAX = r"""
+import json, sys
+import jax
+from repro.compat import make_mesh, use_mesh
+from repro.configs import get_smoke_config
+from repro.configs.base import ShapeSpec
+from repro.launch.hlo_cost import analyze
+from repro.launch.specs import prefill_cell, serve_cell
+spec = json.loads(sys.argv[1])
+B, S = spec["shape"]
+mesh = make_mesh((1, 1), ("data", "model"))
+out = {}
+with use_mesh(mesh):
+    for arch, rep in spec["archs"].items():
+        cfg = get_smoke_config(arch).replace(**rep)
+        for kind in spec["kinds"]:
+            sh = ShapeSpec(kind, S, B, kind)
+            cell = prefill_cell(cfg, sh, mesh) if kind == "prefill" \
+                else serve_cell(cfg, sh, mesh)
+            step, args, shardings = cell
+            hlo = jax.jit(step, in_shardings=shardings).lower(
+                *args).compile().as_text()
+            out[f"{arch}.{kind}"] = analyze(hlo)["flops"]
+json.dump(out, open(spec["out"], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def rec(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("dryrun_rec"))
+    env = dict(os.environ, PYTHONPATH=f"{ROOT}/src")
+    spec = {"archs": REC_ARCHS, "kinds": list(REC_KINDS),
+            "shape": list(REC_SHAPE)}
+    procs = {side: subprocess.Popen(
+        [sys.executable, "-c", script, json.dumps(
+            dict(spec, out=os.path.join(d, f"{side}.json")))],
+        env=dict(env, JAX_PLATFORMS="cpu") if side == "jax" else env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for side, script in (("port", _REC_PORT), ("jax", _REC_JAX))}
+    t0 = time.monotonic()
+    for name, p in procs.items():
+        try:
+            log = p.communicate(timeout=max(t0 + SUB_S - time.monotonic(),
+                                            1))[0]
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            pytest.fail(f"{name} did not finish in {SUB_S} s")
+        assert p.returncode == 0, f"{name}:\n{log[-4000:]}"
+    out = {}
+    for side in procs:
+        with open(os.path.join(d, f"{side}.json")) as f:
+            out[side] = json.load(f)
+    return out
+
+
+def _rec_cfg(arch):
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config(arch).replace(**REC_ARCHS[arch])
+
+
+def _shared_block_dots(cfg, kind):
+    """zamba2's shared block in one application, as the JAX reference
+    counts it on the CPU: (its dots outside the attention - the q, k, v
+    and o projections and the MLP's matrices, over the cell's rows -,
+    the reference attention's two dots, the scores and the weighted
+    values, each 2 B Hq Sq Skv_padded D: keys in blocks of 512, a
+    decode's strips in blocks of 1024)."""
+    B, S = REC_SHAPE
+    rows = B * S if kind == "prefill" else B
+    d, D = cfg.d_model, cfg.head_dim
+    mats = 3 if cfg.act == "silu" else 2
+    rest = rows * (2 * d * D * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                   + mats * 2 * d * cfg.d_ff)
+    sq, skv = (S, 512) if kind == "prefill" else (1, 1024)
+    return rest, 2 * 2 * B * cfg.n_heads * sq * skv * D
+
+
+@pytest.mark.parametrize("arch", sorted(REC_ARCHS))
+@pytest.mark.parametrize("kind", REC_KINDS)
+def test_recurrent_flops_sit_beside_the_jax_analysis(rec, arch, kind):
+    """rwkv6: the port's FLOPs equal the JAX count exactly (the same
+    chunked WKV scan's einsums, no kernel).  zamba2: the JAX count is the
+    port's dots outside its kernels with its shared block's dots moved -
+    the JAX stack applies the block under lax.cond in each of its
+    n_layers scanned layers, and hlo_cost.analyze charges a conditional
+    the mean of its two branches, so it counts n_layers / 2 applications
+    (3 at the smoke config) where the port runs n_layers /
+    shared_attn_every (2) - plus the JAX reference attention's dots in
+    those n_layers / 2 applications (_shared_block_dots); the port's K4 /
+    K3 count the pairs and positions attended, less than the
+    reference's padded blocks."""
+    cfg = _rec_cfg(arch)
+    r = rec["port"][f"{arch}.{kind}.1x1"]
+    kernels = sum(k["flops"] for k in r["kernels"].values())
+    outside = r["cost"]["flops"] - kernels
+    want = rec["jax"][f"{arch}.{kind}"]
+    if cfg.family == "ssm":
+        assert kernels == 0 and r["cost"]["flops"] == want, \
+            (r["cost"]["flops"], want)
+        return
+    rest, attention = _shared_block_dots(cfg, kind)
+    counted = cfg.n_layers / 2
+    apps = cfg.n_layers // cfg.shared_attn_every
+    assert want == outside + (counted - apps) * rest + counted * attention, \
+        (want, outside, rest, attention)
+    assert 0 < kernels < apps * attention
+
+
+@pytest.mark.parametrize("arch", sorted(REC_ARCHS))
+@pytest.mark.parametrize("kind", REC_KINDS)
+def test_recurrent_kernels_run_on_the_head_shard(rec, arch, kind):
+    """zamba2: K4 once a shared-block application in a prefill, K3 once a
+    decode step, exactly, on (1, 1) and on (2, 2), where a rank's share
+    of each call's FLOPs is a quarter of the whole cell's (half the rows
+    over data, half the heads over model); rwkv6: no kernel."""
+    cfg = _rec_cfg(arch)
+    one = rec["port"][f"{arch}.{kind}.1x1"]
+    four = rec["port"][f"{arch}.{kind}.2x2"]
+    want = {}
+    if cfg.family == "hybrid":
+        want = {"K4" if kind == "prefill" else "K3":
+                cfg.n_layers // cfg.shared_attn_every}
+    assert _calls(one) == _calls(four) == want
+    for k in want:
+        assert 4 * four["kernels"][k]["flops"] == one["kernels"][k]["flops"]

@@ -193,8 +193,8 @@ def run(tmp_path_factory):
         dict(name="batch", kind="batch", arch="granite-3-2b",
              dtype="float32", mesh=[2, 2], tcfg=TC, step=5),
         dict(name="refuse", kind="refuse", arch="granite-3-2b",
-             other_arch="zamba2-2.7b", dtype="float32", mesh=[2, 2],
-             tcfg=TC, bad_mesh=[2, 1])]
+             other=[["zamba2-2.7b", "cuda"], ["rwkv6-1.6b", "meta"]],
+             dtype="float32", mesh=[2, 2], tcfg=TC, bad_mesh=[2, 1])]
     jobs2 = [train_job(n, d2, *spec, all_grads=True)
              for n, spec in MODEL_ONLY.items()]
     for d, jobs in ((d4, jobs4), (d2, jobs2)):
@@ -329,9 +329,20 @@ def test_elastic_round_trip_is_bit_equal(run):
 
 
 def test_the_mesh_path_refuses(run):
+    """The mesh Trainer of the hybrid and ssm families on the card or the
+    meta device (they train on a CPU mesh: tests/test_torch_recurrent_
+    mesh.py), before anything is built, naming what is missing (ROADMAP
+    §2); and a mesh whose size is not the world's."""
     for js, _ in run.ranks4:
         out = js["refuse"]
-        assert "ROADMAP §1 item 3" in out["family"]
+        assert sorted(out["family"]) == ["rwkv6-1.6b.meta",
+                                         "zamba2-2.7b.cuda"]
+        zamba, rwkv = out["family"]["zamba2-2.7b.cuda"], \
+            out["family"]["rwkv6-1.6b.meta"]
+        assert "ROADMAP §2 item 1" in zamba and "K5" in zamba \
+            and "ROADMAP §2 item 2" in zamba and "K6" in zamba, zamba
+        assert "ROADMAP §2 item 2" in rwkv and "K7" in rwkv \
+            and "on meta" in rwkv, rwkv
         assert "a world of 2 ranks, the process group has 4" in out["mesh"]
 
 

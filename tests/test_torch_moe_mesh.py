@@ -387,8 +387,10 @@ def run(tmp_path_factory):
                       "inputs": path, "count": True,
                       "env": {"REPRO_MOE_A2A": "1"} if a2a else {}})
     jobs4.append({"name": "refuse", "kind": "refuse", "arch": "olmoe-1b-7b",
-                  "other_arch": "zamba2-2.7b", "dtype": "float32",
-                  "mesh": [2, 2], "tcfg": TC, "bad_mesh": [2, 1]})
+                  "other": [["zamba2-2.7b", "meta"],
+                            ["rwkv6-1.6b", "cuda"]],
+                  "dtype": "float32", "mesh": [2, 2], "tcfg": TC,
+                  "bad_mesh": [2, 1]})
 
     # the exchange jobs wait for the JAX subprocess's inputs
     log = side.pop("a2a").communicate(timeout=max(
@@ -638,10 +640,17 @@ def test_cells_reach_every_layout(run):
 # ---------------------------------------------------------------------------
 
 def test_the_mesh_trainer_takes_moe_and_refuses_hybrid(run):
+    """Beside the MoE mesh Trainer (the jobs above), the hybrid and ssm
+    families' mesh Trainer on the meta device or the card is refused
+    before anything is built, naming the scan kernel with no backward
+    (ROADMAP §2 item 2)."""
     for js, _ in run.ranks4:
-        out = js["refuse"]
-        assert "ROADMAP §1 item 3" in out["family"]
-        assert "family 'hybrid'" in out["family"]
+        out = js["refuse"]["family"]
+        assert sorted(out) == ["rwkv6-1.6b.cuda", "zamba2-2.7b.meta"]
+        for key, scan in (("zamba2-2.7b.meta", "K6 mamba2_scan"),
+                          ("rwkv6-1.6b.cuda", "K7 rwkv6_scan")):
+            assert out[key] is not None and scan in out[key] \
+                and "ROADMAP §2 item 2" in out[key], out[key]
 
 
 def test_dry_run_train_cell_flops_sit_beside_the_jax_analysis(run):

@@ -165,6 +165,32 @@ def test_train_step_matches_jax(arch):
                                    err_msg=k)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("device", ["cuda", "meta"])
+def test_trainer_refuses_the_scans_off_the_cpu(arch, device):
+    """K6 and K7 have no backward (ROADMAP §2 item 2): the Trainer - and on
+    CUDA the launcher - refuses zamba2 and rwkv6 on the card or the meta
+    device by name, before a model is built or a kernel launched (on a
+    machine without a GPU, building would raise first otherwise); the
+    plain step on the CPU trains them (test_train_step_matches_jax)."""
+    from repro_torch.kernels import mamba2_scan, rwkv6_scan
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.trainer import Trainer
+    counts = (mamba2_scan.launches, rwkv6_scan.launches)
+    scan = "K6 mamba2_scan" if arch.startswith("zamba2") \
+        else "K7 rwkv6_scan"
+    tcfg = TrainConfig(global_batch=1, seq_len=16, total_steps=1)
+    for cfg in (get_smoke_config(arch), get_smoke_config(arch).replace(
+            head_dim=64)):
+        with pytest.raises(NotImplementedError,
+                           match=f"{scan}.*ROADMAP §2 item 2"):
+            Trainer(cfg, tcfg, device=device)
+    if device == "cuda":
+        with pytest.raises(NotImplementedError, match=scan):
+            train_launcher.main(["--arch", arch, "--smoke", "--steps", "1"])
+    assert (mamba2_scan.launches, rwkv6_scan.launches) == counts
+
+
 # ===========================================================================
 # the engine
 # ===========================================================================

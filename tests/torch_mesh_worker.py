@@ -1,8 +1,9 @@
 """One rank of a gloo world for tests/test_torch_mesh_train.py,
 tests/test_torch_sharding.py, tests/test_torch_serve_cells.py,
-tests/test_torch_moe_mesh.py and tests/test_torch_vlm_audio_mesh.py: the
-port's sharded training and serving cells (ROADMAP M14) and the MoE, vlm
-and audio families on the mesh, one process per rank.
+tests/test_torch_moe_mesh.py, tests/test_torch_vlm_audio_mesh.py and
+tests/test_torch_recurrent_mesh.py: the port's sharded training and
+serving cells (ROADMAP M14) and the MoE, vlm, audio, hybrid and ssm
+families on the mesh, one process per rank.
 
     python tests/torch_mesh_worker.py RANK WORLD STORE JOBS OUT_DIR
 
@@ -33,8 +34,10 @@ Jobs:
            before train_step.model_partials sums them over the model axis
   restore  a Trainer on this job's mesh restores the checkpoint of
            another directory and saves it again in its own
-  refuse   what the mesh path refuses: a non-dense family, a mesh whose
-           size is not the world's
+  refuse   what the mesh path refuses: the Trainer of each "other" [arch,
+           device] on the job's (CPU) mesh - the hybrid and ssm families
+           on "cuda" or "meta", refused before anything is built - and a
+           mesh whose size is not the world's
   heads    ops.head_sharded_attention on the rank's head shard of the
            saved q, k and v, K4 forward and K5 backward on the card (or
            their plain versions with "device": "cpu"): o and the whole
@@ -49,8 +52,16 @@ Jobs:
            the first call's collectives by launch/cost.py); the batch
            takes every key of the cell's batch specs (whisper's frames,
            llava's image) and the cache every "cache.<leaf>" saved
-  refuse_cells  each cell's step of a family the mesh steps do not
-           take, called: the NotImplementedError
+  family_cells  each "archs" cell on the job's mesh at a 4 x 32 shape,
+           seeded weights: the train cell's step called (its model lies on
+           the meta device, where the hybrid and ssm families' training
+           is refused: the NotImplementedError), the prefill cell's step
+           on a prompt into Model.init_cache(shardings=), the decode
+           cell's on a cache of its own, lanes at 5: each one's logits'
+           shape and whether they are finite
+  cell (the recurrent families, tests/test_torch_recurrent_mesh.py)
+           takes their state leaves as any "cache.<leaf>", each in its
+           own sanitized spec
   a2a      models/moe_a2a.py make_sharded_moe on the job's mesh over the
            rank's rows and sequence block of the saved x, with the router
            and its E / tp experts: at each capacity factor, y, aux and the
@@ -114,14 +125,14 @@ def _batch_job(job, arrays):
     return {"hash": hash(("batch", job["step"]))}
 
 
-def _trainer(job, mesh):
+def _trainer(job, mesh, device="cpu"):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.specs import train_cell
     from repro_torch.train.trainer import Trainer
     cfg, tcfg = _cfgs(job)
     shape = ShapeSpec("train", tcfg.seq_len, tcfg.global_batch, "train")
     shardings = train_cell(cfg, shape, mesh, tcfg)[2][0]
-    return Trainer(cfg, tcfg, device="cpu", mesh=mesh,
+    return Trainer(cfg, tcfg, device=device, mesh=mesh,
                    state_shardings=shardings)
 
 
@@ -179,12 +190,13 @@ def _restore_job(job, arrays):
 
 def _refuse_job(job, arrays):
     from repro_torch.launch.mesh import make_debug_mesh
-    out = {}
-    try:
-        _trainer(dict(job, arch=job["other_arch"]), _mesh(job))
-        out["family"] = None
-    except NotImplementedError as e:
-        out["family"] = str(e)
+    out = {"family": {}}
+    for arch, device in job["other"]:
+        try:
+            _trainer(dict(job, arch=arch), _mesh(job), device)
+            out["family"][f"{arch}.{device}"] = None
+        except NotImplementedError as e:
+            out["family"][f"{arch}.{device}"] = str(e)
     try:
         make_debug_mesh(*job["bad_mesh"], device_type="cpu")
         out["mesh"] = None
@@ -288,28 +300,46 @@ def _cell_job(job, arrays):
     return out
 
 
-def _refuse_cells_job(job, arrays):
+def _family_cells_job(job, arrays):
     from repro_torch.configs import TrainConfig, get_smoke_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.specs import prefill_cell, serve_cell, train_cell
+    from repro_torch.models import build_model
+    from repro_torch.sharding.shards import local_slice
     mesh = _mesh(job)
+    B, S = 4, 32
+    rng = np.random.default_rng(5)
+    local = lambda a, sh: local_slice(torch.from_numpy(a), sh.placements,
+                                      mesh).contiguous()
+    finite = lambda t: {"shape": list(t.shape),
+                        "finite": bool(torch.isfinite(t).all())}
     out = {}
     for arch in job["archs"]:
-        cfg = get_smoke_config(arch)
-        cells = {
-            "train": (train_cell(cfg, ShapeSpec("t", 32, 4, "train"), mesh,
-                                 TrainConfig(global_batch=4, seq_len=32)),
-                      2),
-            "prefill": (prefill_cell(cfg, ShapeSpec("p", 32, 4, "prefill"),
-                                     mesh), 3),
-            "decode": (serve_cell(cfg, ShapeSpec("d", 32, 4, "decode"),
-                                  mesh), 4)}
-        for kind, ((step, _, _), n_args) in cells.items():
-            try:
-                step(*([None] * n_args))
-                out[f"{arch}.{kind}"] = None
-            except NotImplementedError as e:
-                out[f"{arch}.{kind}"] = str(e)
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        step = train_cell(cfg, ShapeSpec("t", S, B, "train"), mesh,
+                          TrainConfig(global_batch=B, seq_len=S))[0]
+        try:
+            step(None, None)
+            out[f"{arch}.train"] = None
+        except NotImplementedError as e:
+            out[f"{arch}.train"] = str(e)
+        model = build_model(cfg, "cpu")
+        params = model.init(0)
+        step, _, sh = prefill_cell(cfg, ShapeSpec("p", S, B, "prefill"),
+                                   mesh)
+        tokens = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+        with torch.no_grad():
+            batch = {"tokens": local(tokens, sh[1]["tokens"])}
+            logits = step(params, batch,
+                          model.init_cache(B, S, shardings=sh[2]))[0]
+            out[f"{arch}.prefill"] = finite(logits)
+            step, _, sh = serve_cell(cfg, ShapeSpec("d", S, B, "decode"),
+                                     mesh)
+            tokens = rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32)
+            logits = step(params, model.init_cache(B, S, shardings=sh[1]),
+                          local(tokens, sh[2]),
+                          local(np.full((B,), 5, np.int32), sh[3]))[0]
+            out[f"{arch}.decode"] = finite(logits)
     return out
 
 
@@ -345,9 +375,10 @@ def _a2a_job(job, arrays):
             "seq": [seq.start, seq.stop]}
 
 
-JOBS = {"a2a": _a2a_job, "cell": _cell_job, "refuse_cells": _refuse_cells_job,
-        "slices": _slices_job, "batch": _batch_job, "train": _train_job,
-        "restore": _restore_job, "refuse": _refuse_job, "heads": _heads_job}
+JOBS = {"a2a": _a2a_job, "cell": _cell_job,
+        "family_cells": _family_cells_job, "slices": _slices_job,
+        "batch": _batch_job, "train": _train_job, "restore": _restore_job,
+        "refuse": _refuse_job, "heads": _heads_job}
 
 
 def run(rank: int, world: int, store: str, job_file: str, out_dir: str):
