@@ -31,10 +31,22 @@ Phases (each raises on failure, so the run exits non-zero):
                         and K7 (their full-width shapes among them).  Then
                         K4 in bf16 at every instantiated tile at each of
                         K4_SHAPES (PERF.md §6's K4 shapes) against its
-                        plain version and timed: one line a shape with
-                        the tile core/hopper_mapping.py's chooser picks,
-                        the (64, 64) tile and the fastest.
-  3. the slices         serving: granite-3-2b at full width (40 layers,
+                        plain version (the bf16 bar of the terms and 2^-6
+                        of the largest |o|, lse 1e-5) and timed: one line
+                        a shape with the tile core/hopper_mapping.py's
+                        chooser picks and every tile.  Then K4 at the
+                        paper's attention workloads (phase_paper): the
+                        port's 3D-Flow simulator's OPT-6.7B (32 heads of
+                        128) and Qwen-7B (28 / 4 heads of 128) built from
+                        the registered configs, one layer at batch 1, bf16,
+                        non-causal, at 1024, 4096, 16384 and 65536
+                        positions, at the chooser's tile, against the plain
+                        version (every row up to 4096, 512 seeded random
+                        rows past it), timed beside its bound and one
+                        scaled_dot_product_attention call, with every
+                        instantiated tile timed at 16384; the simulator's
+                        op count and launch/cost.py's FLOPs must agree.
+  3. the slices        serving: granite-3-2b at full width (40 layers,
                         bf16, seeded weights) serves 8 requests, 32 new
                         tokens each, with check_invariants() after every
                         tick, through three engines: paged + chunked +
@@ -931,70 +943,215 @@ def phase_kernel_parity():
     torch.cuda.synchronize()
 
 
-# K4's shapes in PERF.md §6's tables (B, S, Hq, Hkv, D, causal, window):
-# the training steps of granite-3-2b (32 / 8 heads of 64) and olmo-1b (16
-# of 128), granite-8b's forward, gemma3-4b's prompt and training step
-# (head dim 256, a 1024 window), the whisper encoder (full mask), llava's
-# image prefill (56 / 8 heads of 128) and the M14 rank's head shard
-K4_SHAPES = {"granite-3-2b training": (4, 2048, 32, 8, 64, True, 0),
-             "olmo-1b training": (4, 2048, 16, 16, 128, True, 0),
-             "granite-8b": (1, 2048, 32, 8, 128, True, 0),
-             "gemma3-4b": (1, 1904, 8, 4, 256, True, 1024),
-             "gemma3-4b training": (4, 2048, 8, 4, 256, True, 1024),
-             "whisper encoder": (16, 1500, 8, 8, 64, False, 0),
-             "llava image prefill": (4, 832, 56, 8, 128, True, 0),
-             "M14 shard": (2, 2048, 16, 4, 64, True, 0)}
+@dataclasses.dataclass(frozen=True)
+class K4Shape:
+    """One K4 call of phase_k4_tiles: (B, S, Hq, Hkv, D) under its mask.
+    sweep: every tile of K4_TILES[D] is held and timed, else the chooser's
+    only; library: one scaled_dot_product_attention call is timed beside
+    it; runs: time_ms's (n, warm)."""
+    B: int
+    S: int
+    Hq: int
+    Hkv: int
+    D: int
+    causal: bool = True
+    window: int = 0
+    sweep: bool = True
+    library: bool = False
+    runs: tuple = (25, 3)
 
 
-def phase_k4_tiles():
-    """K4 in bf16 at every tile its source instantiates
-    (core/hopper_mapping.py K4_TILES), at each K4_SHAPES shape: held
-    against the plain version (the bf16 bar of the terms, lse 1e-5) and
-    timed (time_ms); one line a shape with the chooser's pick, (64, 64)
-    and the fastest tile.  Returns {shape: {...}} for the K4 row."""
+# K4's shapes in PERF.md §6's tables: the training steps of granite-3-2b
+# (32 / 8 heads of 64) and olmo-1b (16 of 128), granite-8b's forward,
+# gemma3-4b's prompt and training step (head dim 256, a 1024 window), the
+# whisper encoder (full mask), llava's image prefill (56 / 8 heads of 128)
+# and the M14 rank's head shard
+K4_SHAPES = {"granite-3-2b training": K4Shape(4, 2048, 32, 8, 64),
+             "olmo-1b training": K4Shape(4, 2048, 16, 16, 128),
+             "granite-8b": K4Shape(1, 2048, 32, 8, 128),
+             "gemma3-4b": K4Shape(1, 1904, 8, 4, 256, window=1024),
+             "gemma3-4b training": K4Shape(4, 2048, 8, 4, 256, window=1024),
+             "whisper encoder": K4Shape(16, 1500, 8, 8, 64, causal=False),
+             "llava image prefill": K4Shape(4, 832, 56, 8, 128),
+             "M14 shard": K4Shape(2, 2048, 16, 4, 64)}
+K4_FULL_ROWS = 4096             # every query row compared up to here
+K4_ROWS = 512                   # past it, this many seeded random rows
+
+
+def phase_k4_tiles(shapes: dict, seed: int = 7) -> dict:
+    """K4 in bf16 at each of `shapes` ({name: K4Shape}) at every tile its
+    source instantiates (core/hopper_mapping.py K4_TILES) or at the
+    chooser's only: held against the plain version and timed (time_ms)
+    beside its bound (launch/cost.py k4_work over the card's peaks) and,
+    where asked, one scaled_dot_product_attention call (_sdpa, on a fused
+    backend).  Inputs from a generator seeded `seed` at each shape.  One
+    line a shape; returns {name: row}.
+
+    o is held to two bars.  compare's bf16 bar of the terms, 2^-7 (|o| +
+    sum_j p_j |v_j|), stays near 6e-3 however long the row, while o
+    averages away without a mask (rms ~ sqrt(e / S) for unit normal
+    inputs): at 65536 positions that bar is as large as o itself.  So o
+    is also held to 2^-6 of the reference's largest |o|, two bf16 steps
+    of it: the kernel and its plain version part by one rounding step of
+    the output, and a P.V fault that moves o by a tenth of its rms passes
+    neither.  lse is held to 1e-5."""
     from repro_torch.core.hopper_mapping import K4_TILES
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
     out = {}
-    for name, (B, S, Hq, Hkv, D, causal, window) in K4_SHAPES.items():
-        g = torch.Generator(device="cuda").manual_seed(7)
+    for name, s in shapes.items():
+        B, S, Hq, Hkv, D = s.B, s.S, s.Hq, s.Hkv, s.D
+        g = torch.Generator(device="cuda").manual_seed(seed)
         rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda"
                                          ).to(torch.bfloat16)
         q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-        kw = dict(causal=causal, window=window)
-        o_r, lse_r = flash_attention.reference(q, k, v, **kw)
-        terms = flash_attention.reference(q, k, v.abs(), **kw)[0]
+        kw = dict(causal=s.causal, window=s.window)
         pick = flash_attention.tile(D, S, torch.bfloat16)
-        nbytes, flops = cost.k4_work(q.shape, k.shape, 2, causal, window)
-        row = {"shape": [B, S, Hq, Hkv, D], "causal": causal,
-               "window": window, "chooser": list(pick),
-               "bound_ms": max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S)
-               * 1e3, "tiles": {}}
-        for bq, bkv in K4_TILES[D]:
-            call = lambda: flash_attention.flash_attention_fwd(
+        tiles = K4_TILES[D] if s.sweep else (pick,)
+        for bq, _ in tiles:
+            # K4's grid z: one block a block_q flattened rows (S x G)
+            if -(-S * (Hq // Hkv) // bq) > 65535:
+                raise AssertionError(f"K4 at {name}: the grid at block_q "
+                                     f"{bq} passes 65535")
+        if S > K4_FULL_ROWS:
+            # the plain version cannot hold every row's scores here; rows
+            # without a mask are independent, so it runs on K4_ROWS seeded
+            # random query rows over every key - the same function on those
+            # rows - and is held to the kernel's output on the same rows
+            # (random, so they fall in every warp of K4's row tiles)
+            if s.causal or s.window:
+                raise AssertionError(f"K4 at {name}: rows under a mask "
+                                     f"cannot be compared apart")
+            idx = torch.randperm(S, generator=torch.Generator().manual_seed(
+                seed))[:K4_ROWS].sort().values.cuda()
+        else:
+            idx = slice(None)
+        qs = q[:, idx]
+        o_r, lse_r = flash_attention.reference(qs, k, v, **kw)
+        terms = flash_attention.reference(qs, k, v.abs(), **kw)[0]
+        n_rows = qs.shape[1]
+        del qs
+        o_bar = 2.0 ** -6 * float(o_r.float().abs().max())
+        rms_o = float(o_r.float().square().mean().sqrt())
+        nbytes, flops = cost.k4_work(q.shape, k.shape, 2, s.causal,
+                                     s.window)
+        n, warm = s.runs
+        t = {}
+        for bq, bkv in tiles:
+            call = lambda bq=bq, bkv=bkv: flash_attention.flash_attention_fwd(
                 q, k, v, block_q=bq, block_kv=bkv, **kw)
             o, lse = call()
-            err = compare(o, o_r, torch.bfloat16, terms)
-            compare(lse, lse_r, torch.float32)
-            row["tiles"][f"{bq}x{bkv}"] = {"ms": time_ms(call, flush),
-                                           "max_abs_err": err}
+            err = compare(o[:, idx], o_r, torch.bfloat16, terms)
+            if err > o_bar:
+                raise AssertionError(f"K4 at {name}, tile {bq}x{bkv}: max "
+                                     f"abs err {err:.3e} past 2^-6 max|o| "
+                                     f"{o_bar:.3e}")
+            lse_err = compare(lse[:, idx], lse_r, torch.float32)
+            del o, lse
+            t[f"{bq}x{bkv}"] = {"ms": time_ms(call, flush, n=n, warm=warm),
+                                "max_abs_err": err, "lse_max_abs_err": lse_err}
         del o_r, lse_r, terms
-        t = row["tiles"]
-        fast = min(t, key=lambda x: t[x]["ms"])
+        lib_ms = None
+        if s.library:
+            # a fused backend only: at 65536 positions the math backend's
+            # scores would not fit the card
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                lib_ms = time_ms(_sdpa(q, k, v, is_causal=s.causal), flush,
+                                 n=n, warm=warm)
+        del q, k, v
+        torch.cuda.empty_cache()
         chosen = f"{pick[0]}x{pick[1]}"
-        row["fastest"] = fast
-        row["chooser_over_fastest"] = t[chosen]["ms"] / t[fast]["ms"]
-        log(f"# K4 tiles at {name} {tuple(row['shape'])}"
-            + ("" if causal else " full")
-            + (f" window {window}" if window else "")
-            + f": chooser {chosen} {t[chosen]['ms']:.4f} ms, 64x64 "
-            f"{t['64x64']['ms']:.4f} ms, fastest {fast} {t[fast]['ms']:.4f} "
-            f"ms (chooser / fastest {row['chooser_over_fastest']:.3f}; bound "
-            f"{row['bound_ms']:.4f} ms); errors "
-            + ", ".join(f"{k} {v['max_abs_err']:.1e}" for k, v in t.items()))
+        fast = min(t, key=lambda x: t[x]["ms"])
+        ms = t[chosen]["ms"]
+        row = {"shape": [B, S, Hq, Hkv, D], "causal": s.causal,
+               "window": s.window, "chooser": list(pick), "ms": ms,
+               "tflop_s": flops / ms * 1e-9,
+               "bound_ms": max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S)
+               * 1e3,
+               "bound_by": "bytes" if nbytes / PEAK_BYTES_S
+               > flops / PEAK_FLOP_S else "operations",
+               "library_ms": lib_ms, "max_abs_err": t[chosen]["max_abs_err"],
+               "o_bar": o_bar, "rms_o": rms_o,
+               "lse_max_abs_err": t[chosen]["lse_max_abs_err"],
+               "rows_compared": n_rows, "runs": n, "bytes": nbytes,
+               "flops": flops, "tiles": t, "fastest": fast,
+               "chooser_over_fastest": ms / t[fast]["ms"]}
+        log(f"# K4 at {name} {tuple(row['shape'])}"
+            + ("" if s.causal else " full")
+            + (f" window {s.window}" if s.window else "")
+            + f": chooser {chosen} {ms:.4f} ms ({row['tflop_s']:.1f} "
+            f"TFLOP/s, median of {n}), bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']}"
+            + ("" if lib_ms is None else f", sdpa {lib_ms:.4f} ms")
+            + f"; max abs err {row['max_abs_err']:.1e} (2^-6 max|o| "
+            f"{o_bar:.1e}, rms|o| {rms_o:.1e}; lse "
+            f"{row['lse_max_abs_err']:.1e}) over {n_rows} rows"
+            + ("" if len(t) == 1 else
+               "; tiles " + ", ".join(f"{x} {y['ms']:.4f} ms err "
+                                      f"{y['max_abs_err']:.1e}"
+                                      for x, y in t.items())
+               + f" - fastest {fast}, chooser / fastest "
+               f"{row['chooser_over_fastest']:.3f}"))
         out[name] = row
     del flush
     torch.cuda.synchronize()
+    return out
+
+
+# the paper's attention workloads (repro_torch/core/workloads.py
+# PAPER_MODELS / PAPER_SEQS) from the registered configs: one K4 call of
+# one layer at batch 1, bf16, non-causal as the paper evaluates them
+PAPER_ARCHS = ("opt-6.7b", "qwen-7b")
+PAPER_TILE_SEQ = 16384          # every instantiated tile timed here
+# timed runs (after warm-ups): one K4 call at 65536 positions is ~7e13
+# FLOPs, so the long shapes take fewer
+PAPER_RUNS = {1024: (25, 3), 4096: (25, 3), 16384: (5, 1), 65536: (3, 1)}
+PAPER_SEED = 11
+
+
+def phase_paper():
+    """K4 at the paper's attention workloads: for each of PAPER_ARCHS and
+    PAPER_SEQS, the port's simulator's workload from the registered
+    config (from_model_config(get_config(arch), S), which must equal the
+    paper's own, opt_6_7b(S).attn / qwen_7b(S).attn), whose K4 call's
+    FLOPs (launch/cost.py k4_work) must equal the simulator's 2 (qk_macs
+    + pv_macs) / n_layers; then phase_k4_tiles at those shapes, non-causal,
+    at the chooser's tile (every tile at PAPER_TILE_SEQ) beside one
+    scaled_dot_product_attention call, and the simulator's 3D-Flow time on
+    lines of its own.  Returns one row a shape."""
+    from repro_torch.core import (PAPER_MODELS, PAPER_SEQS,
+                                  from_model_config, simulate_attention)
+    shapes, wls = {}, {}
+    for arch in PAPER_ARCHS:
+        cfg = get_config(arch)
+        for S in PAPER_SEQS:
+            wl = from_model_config(cfg, S)
+            if wl != PAPER_MODELS[arch](S).attn:
+                raise AssertionError(f"{arch}'s config gives {wl}, not the "
+                                     f"paper's {PAPER_MODELS[arch](S).attn}")
+            B, Hq, Hkv, D = wl.batch, wl.n_heads, wl.n_kv_heads, wl.head_dim
+            flops = cost.k4_work((B, S, Hq, D), (B, S, Hkv, D), 2, False,
+                                 0)[1]
+            if flops != 2 * (wl.qk_macs + wl.pv_macs) / wl.n_layers:
+                raise AssertionError(f"{arch} at {S}: k4_work counts {flops} "
+                                     f"FLOPs, the simulator "
+                                     f"{2 * (wl.qk_macs + wl.pv_macs)} over "
+                                     f"{wl.n_layers} layers")
+            name = f"paper {arch} {S}"
+            shapes[name] = K4Shape(B, S, Hq, Hkv, D, causal=False,
+                                   sweep=S == PAPER_TILE_SEQ, library=True,
+                                   runs=PAPER_RUNS[S])
+            wls[name] = (arch, wl)
+    rows = phase_k4_tiles(shapes, seed=PAPER_SEED)
+    out = []
+    for name, (arch, wl) in wls.items():
+        sim = simulate_attention("3D-Flow", wl)
+        log(f"# paper 3D-Flow model, 16 nm, 1 GHz (not this card): "
+            f"{arch} at {wl.seq}, all {wl.n_layers} layers, {sim.time_s!r} s")
+        out.append(dict(rows[name], arch=arch, seq=wl.seq))
     return out
 
 
@@ -5664,8 +5821,10 @@ def main() -> int:
                            f"{time.perf_counter() - t0:.1f} s")
     phase_device_and_build()
     phase_kernel_parity()
-    k4_tiles = phase_k4_tiles()
+    k4_tiles = phase_k4_tiles(K4_SHAPES)
     at("build, kernel parity and K4's tiles")
+    k4_paper = phase_paper()
+    at("K4 at the paper's workloads")
     runs, captured, mp = phase_slice()
     m6_runs, m6_captured = phase_m6(*mp)
     runs.update(m6_runs)
@@ -5755,6 +5914,7 @@ def main() -> int:
     print(json.dumps({"e2e_whisper": e2e_whisper}), flush=True)
     print(json.dumps({"e2e_moe": e2e_moe}), flush=True)
     print(json.dumps({"e2e_vlm": e2e_vlm}), flush=True)
+    print(json.dumps({"k4_paper": k4_paper}), flush=True)
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

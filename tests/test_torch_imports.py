@@ -57,7 +57,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                     "repro_torch.launch.dryrun",
                                     "repro_torch.core.schedule",
                                     "repro_torch.core.hopper_mapping",
-                                    "repro_torch.serve.serve_step"])
+                                    "repro_torch.serve.serve_step",
+                                    "repro_torch.core.arch",
+                                    "repro_torch.core.workloads",
+                                    "repro_torch.core.dataflows",
+                                    "repro_torch.core.simulator",
+                                    "repro_torch.core.thermal"])
 def test_module_alone_imports_no_jax(module):
     """The modules that keep copies of the JAX package's framework-free
     code (the energy model, the tracer, the fleet router, whisper's
@@ -66,9 +71,10 @@ def test_module_alone_imports_no_jax(module):
     (tests/torch_tp_worker.py, the module each spawned rank runs), the
     sharding rules, the launchers and cell specs, the mesh tests'
     worker (tests/torch_mesh_worker.py), the cost counter and the dry run,
-    the copy of the paper's schedule and the Hopper block chooser, and the
-    mesh serving steps import, each on its own, no jax and nothing of the
-    JAX package."""
+    the copy of the paper's schedule and the Hopper block chooser, the
+    mesh serving steps, and the copies of the paper's 3D-Flow simulator
+    (arch, workloads, dataflows, simulator, thermal) import, each on its
+    own, no jax and nothing of the JAX package."""
     res = _run(f"import sys, {module}\n"
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib', 'repro.')) "
