@@ -134,7 +134,7 @@ Phases (each raises on failure, so the run exits non-zero):
                         REC_NOISE_MARGIN x the model's own bf16 noise, and
                         each layer against impl="ref" on the same input
                         within REC_LAYER_RTOL; then 6 requests (prompts
-                        of 24 to 200 tokens, 16 new tokens each, 4 slots:
+                        of 6 to 50 tokens, 16 new tokens each, 4 slots:
                         two requests reuse a freed slot) served on the
                         dense recurrent-state cache with stepwise
                         admission: counts set to 0 before, read after
@@ -147,7 +147,23 @@ Phases (each raises on failure, so the run exits non-zero):
                         token the argmax of a teacher-forced kernel
                         forward at its position or within REC_F32_BARS of
                         it (near ties printed); a corrupted recurrent
-                        state moves the logits by O(1).
+                        state moves the logits by O(1).  Between the two,
+                        the bf16 model trains (recurrent_training): each
+                        layer's backward against impl="ref" on the same
+                        input and upstream gradient, in bf16 and on the
+                        float32 copy (layer_grad_parity); step 1 from
+                        the same state (rec_train_check): the loss
+                        against impl="ref", the gradient norm with the
+                        scan's forward plain and in float32 too, the
+                        scan's bf16 outputs within one bf16 step of
+                        float64, the bf16 gradient norm within the
+                        spread of equally precise scan forwards; then 3
+                        steps of one
+                        numpy-seeded 4 x 2048 batch, remat full, counts
+                        set to 0 before and read after (K6 2 x 18, K6_bwd
+                        18, K4 2 x 3 and K5 3 at head dim 80 a zamba2
+                        step; K7 2 x 8 and K7_bwd 8 an rwkv6 step), losses
+                        finite and flat or falling.
                         the dense family: opt-6.7b, qwen-7b and gemma3-4b
                         at full width with 8, 7 and 12 of their layers
                         (DF_SERVE_LAYERS) serve the chunked traffic
@@ -215,15 +231,16 @@ Phases (each raises on failure, so the run exits non-zero):
                         printed beside torch.cuda.memory_allocated().
                         Then the MoE family in the same ranks:
                         olmoe-1b-7b at full width with 2 of its 16 layers
-                        trains 2 steps of 2 x 2048 numpy-seeded tokens
-                        twice through the mesh Trainer - the per-row
-                        dispatch at the published capacity factor 1.25,
-                        and the REPRO_MOE_A2A exchange at the smallest of
+                        trains 2 x 2048 numpy-seeded tokens a step twice
+                        through the mesh Trainer - the per-row
+                        dispatch at the published capacity factor 1.25, 2
+                        steps, and the REPRO_MOE_A2A exchange, 1 step, at
+                        the smallest of
                         2.0, 3.0, 4.0 at which neither path drops a pair
                         of these batches (the drops of both paths printed
                         by factor) - each within M14_BARS of the single-
                         device Trainer at its factor, every rank's losses
-                        rank 0's, K4 8 and K5 4 a rank a run and nothing
+                        rank 0's, K4 4 and K5 2 a rank a step and nothing
                         else, the exchange's all_to_all calls counted
                         (sharding/shards.py COMM) and none on the per-row
                         path; then a prefill cell of 2 x 2048 and 16
@@ -232,11 +249,13 @@ Phases (each raises on failure, so the run exits non-zero):
                         against one device, as granite's.  Then the vlm
                         and audio families in the same ranks (M14_VA),
                         each first serving its seeded weights through
-                        the cells, then training 2 steps: llava-next-34b
-                        at full width with 1 of its 60 layers (2 x (576
-                        + 1472) positions; K4 4 / K5 2 a rank, serving K4
-                        1 / K3 16) and whisper-base whole (4 x 1500; K4
-                        60 / K5 36, serving K4 18 a prefill, K3 192 on 4
+                        the cells, then training 1 step (a second was
+                        cut for the script's time):
+                        llava-next-34b at full width with 1 of its 60
+                        layers (2 x (576 + 1472) positions; K4 2 / K5 1 a
+                        rank, serving K4 1 / K3 16) and whisper-base
+                        whole (4 x 1500; K4 30 / K5 18, serving K4 18 a
+                        prefill, K3 192 on 4
                         lanes in the default layout, none on 1 lane with
                         the sequence over data), against one device on
                         the same weights, run before the ranks start.
@@ -336,35 +355,40 @@ Phases (each raises on failure, so the run exits non-zero):
                         the dense family trains.
   4. times              per kernel, at the largest call its run gave it
                         (K1/K2 the chunked run, K3/K4 the dense run, K5 the
-                        training run, K6/K7 the recurrent forwards; K3/K4
-                        also at zamba2's head dim 80, K4 also at the
+                        training run, K6/K7 the recurrent forwards, K6_bwd
+                        / K7_bwd the recurrent training - their plain
+                        versions float64 autograd through the chunked
+                        scans; K3/K4/K5 also at
+                        zamba2's head dim 80, K4 also at the
                         training step's shape, K1 also at the speculative
                         run's largest verify launch, K3 / K4 / K5 also at
                         whisper-base's, K1-K4 at olmoe-1b-7b's and
                         qwen3-moe's, K1-K5 at llava-next-34b's): kernel,
                         plain version and
                         library times (CUDA events, L2 flushed, median of
-                        25) beside the bound the card's data sheet allows
+                        25; the plain version's of 5) beside
+                        the bound the card's data sheet allows
                         and the achieved rate (tflops: the FLOPs the call's
                         data needs over the kernel's time); then the
                         end-to-end numbers of the counted runs.
-  5. trace              the chunked, the dense, the paged-monolithic, the
-                        speculative, the prefix, the prefix_monolithic and
-                        the preempt traffic once more, 2 training steps,
-                        and one zamba2
-                        forward, under torch.profiler (device activity
+  5. trace              the chunked traffic once more (not the dense,
+                        paged-monolithic, speculative, prefix and preempt
+                        runs: a cut of the script's time), 2
+                        training steps, one zamba2
+                        forward and one training step of each recurrent
+                        model, under torch.profiler (device activity
                         only): device time by kernel name and by port
-                        kernel (K1-K7, each one's share of the busy time),
-                        and the device's busy share of that same run's
-                        wall time.
+                        kernel (K1-K7, K6_bwd, K7_bwd, each one's share of
+                        the busy time), and the device's busy share of
+                        that same run's wall time.
 
-Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K7), one
-{"trace": ...}, one {"trace_dense": ...}, one {"trace_paged_monolithic":
-...}, one {"trace_train": ...}, one {"trace_recurrent": ...} and one
-{"trace_<run>": ...} line for each of speculative, prefix,
-prefix_monolithic and preempt, one {"e2e": ...} line (the chunked run),
+Output: the nvidia-smi line, one {"kernels": [...]} line (K1-K7, K6_bwd,
+K7_bwd), one {"trace": ...}, one {"trace_train": ...}, one
+{"trace_recurrent": ...} and one {"trace_recurrent_train": ...} line, one
+{"e2e": ...} line (the chunked run),
 one {"e2e_dense": ...}, one {"e2e_paged_monolithic": ...}, one
-{"e2e_train": ...}, one {"e2e_recurrent": ...} and one {"e2e_<run>": ...}
+{"e2e_train": ...}, one {"e2e_recurrent": ...}, one
+{"e2e_recurrent_train": ...} and one {"e2e_<run>": ...}
 line for each of those four runs (its reference run inside), one
 {"e2e_m14": ...} line, one
 {"e2e_dense_family": ...}, one {"e2e_telemetry": ...} and one
@@ -521,7 +545,9 @@ COUNTERS = {"K1": (paged_prefill, "launches"),
             "K4": (flash_attention, "launches"),
             "K5": (flash_backward, "launches"),
             "K6": (mamba2_scan, "launches"),
-            "K7": (rwkv6_scan, "launches")}
+            "K7": (rwkv6_scan, "launches"),
+            "K6_bwd": (mamba2_scan, "bwd_launches"),
+            "K7_bwd": (rwkv6_scan, "bwd_launches")}
 # the training phase: granite-3-2b at full width, 4 x 2048 tokens a step,
 # every layer recomputed in the backward (remat "full"); lr warms up over 2
 # steps so the counted steps update the weights
@@ -536,16 +562,17 @@ TRAIN_BARS = {"loss": 5e-3, "grad_norm": 2e-3}
 # the recurrent run: zamba2-2.7b and rwkv6-1.6b at full width, bf16; each
 # model's forward over a 2 x 2048 batch, then 6 requests served on the
 # dense recurrent-state cache with stepwise admission (4 slots: the last
-# two requests reuse freed slots); the prompts are half the 678 tokens of
-# PRs 14-27, to keep the script near 900 s beside M14's serving cells
-# (the stepwise admission is one decode step a prompt token, four runs);
+# two requests reuse freed slots); the prompts are a quarter of the 678
+# tokens the recurrent runs began with, to keep the script near 900 s
+# beside M14's serving cells and the recurrent training (the stepwise
+# admission is one decode step a prompt token, four runs);
 # since PR 29, beside the MoE family's runs, a third of each model's
 # layers (REC_LAYERS: zamba2's 18 of 54 keep 3 applications of its shared
 # block, one every 6 layers; rwkv6's 8 of 24)
 REC_ARCHS = ("zamba2-2.7b", "rwkv6-1.6b")
 REC_LAYERS = {"zamba2-2.7b": 18, "rwkv6-1.6b": 8}
 REC_BATCH = (2, 2048)
-REC_PROMPTS = (12, 28, 48, 65, 85, 100)
+REC_PROMPTS = (6, 14, 24, 33, 43, 50)
 REC_NEW = 16
 REC_SCFG = dict(max_batch=4, max_seq=512, max_new_tokens=REC_NEW,
                 paged=False, chunked=False)
@@ -570,6 +597,24 @@ REC_F32_BARS = {"zamba2-2.7b": 0.4, "rwkv6-1.6b": 0.01}
 # a kernel's last-bit difference flips some of those roundings; float32
 # 1e-4 (a layer's own float32 rounding is ~1e-6 of it)
 REC_LAYER_RTOL = {"bfloat16": 2.0 ** -5, "float32": 1e-4}
+# the recurrent models' training, on the bf16 models the phase has
+# already built and seeded: REC_TRAIN_STEPS steps of one numpy-seeded 4 x
+# 2048 batch, remat full, lr 0 at step 0 (one warm-up step: the first
+# update comes after the second step), so the loss is flat over the first
+# two steps and falls after; step 1's loss and gradient norm through the
+# kernels against impl="ref" from the same state within REC_TRAIN_BARS,
+# relative (rec_train_check: in bf16 the loss, and the gradient norm with
+# the scan's forward plain; the scan's bf16 outputs within one bf16 step
+# of float64; the gradient norm through the kernels within the spread of
+# equally precise forwards)
+REC_TRAIN = dict(TRAIN, warmup_steps=1)
+REC_TRAIN_STEPS = 3
+REC_TRAIN_BARS = {"loss": 2e-2, "grad_norm": 2e-2}
+REC_TRAIN_FLOPS_FORMULA = (
+    "(6 * params * tokens + 12 * batch * heads * head_dim * seq * (seq + "
+    "1) / 2 per shared-block application + 3 * the scans' chunked-form "
+    "FLOPs (launch/cost.py k6_work / k7_work) per layer) / (median step s "
+    "* 989e12)")
 
 
 def log(msg: str):
@@ -1956,13 +2001,11 @@ def m10_rank(rank: int, world: int, checksum: list):
         if param_checksum(params) != checksum:
             raise AssertionError(f"rank {rank}: its seeded weights differ "
                                  f"from the parent's")
-        # the traced run first: it is also the counted runs' warm-up
-        with GatherMeter() as gm:
-            tr = device_trace(lambda: run_traffic(
-                model, params, "chunked", count_syncs=False,
-                scfg=dict(RUNS["chunked"], tp_degree=M10_TP)))
-        tr["gathers"], tr["gather_wall_s"] = gm.calls, gm.wall_s
-        res = {"rank": rank, "trace": tr}
+        # a warm-up run first (without it the first counted run's ticks
+        # make an implicit sync), untraced for the script's time
+        run_traffic(model, params, "chunked", count_syncs=False,
+                    scfg=dict(RUNS["chunked"], tp_degree=M10_TP))
+        res = {"rank": rank}
         for run in M10_RUNS:
             res[run] = m10_serve(model, params, run, rank)
         (M10_DIR / f"rank{rank}.json").write_text(json.dumps(res))
@@ -2064,16 +2107,6 @@ def phase_m10(model, params, runs):
         if res[1][run]["finished"] != res[0][run]["finished"]:
             raise AssertionError(f"M10 {run}: the ranks' tokens differ")
         out[run] = [rr[run] for rr in res]
-    for r, rr in enumerate(res):
-        tr = rr["trace"]
-        log(f"# M10 trace (chunked) rank {r}: device busy "
-            f"{tr['device_busy_s']:.3f} s of {tr['profiled_wall_s']:.3f} s, "
-            f"{tr['gathers']} gathers {tr['gather_wall_s']:.3f} s of host "
-            f"wall, memcpy {tr['memcpy_ms']:.1f} ms of device time; port "
-            f"kernels "
-            + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in
-                        tr["port_kernels"].items()))
-    out["trace"] = [rr["trace"] for rr in res]
     log(f"# M10: {M10_TP} ranks served in {wall:.1f} s (spawn, build, "
         f"seeding and every run)")
     # rank 0's calls, bf16, for the timing phase: K1 and K2 at the shard's
@@ -2209,8 +2242,7 @@ def phase_train():
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     L, N = cfg.n_layers, TRAIN_STEPS
-    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 2 * L * N, "K5": L * N,
-            "K6": 0, "K7": 0}
+    want = dict({k: 0 for k in COUNTERS}, K4=2 * L * N, K5=L * N)
     log(f"# training: {N} counted steps, kernel launches {launches} (want "
         f"{want}: K4 forward + remat recompute, K5 once per layer)")
     if launches != want:
@@ -2277,6 +2309,16 @@ M14_TRAIN = dict(TRAIN, checkpoint_every=0, log_every=1)
 # and 4 of the 8 KV heads, of 64
 M14_SHARD = (2, 2048, 16, 4, 64)
 M14_STEPS = 2
+# the vlm and audio runs in the same ranks take one step each (a second
+# was cut for the script's time: their serving runs come before their
+# training, on the seeded weights, so no other run reads the step's
+# weights; granite's and the MoE runs keep M14_STEPS and with them the
+# mesh optimizer's update)
+M14_VA_STEPS = 1
+# steps of the MoE runs: the per-row run's weights serve the MoE cells
+# after it, so it keeps M14_STEPS; the exchange's takes one (a second was
+# cut for the script's time)
+M14_MOE_STEPS = {"rows": M14_STEPS, "a2a": 1}
 # the sharded step against the single-device step in bf16: the JAX
 # package's bars for the same comparison (tests/test_distributed.py:95-97),
 # |loss difference| and |grad norm difference| / grad norm
@@ -2325,7 +2367,7 @@ M14_MOE_SERVE = {"moe_decode": (2048 + M14_DECODE_STEPS, 2, 2048)}
 # the vlm and audio families on the same mesh (ROADMAP §1 item 3), after
 # the MoE runs in the same ranks, each first serving on its seeded weights
 # (the prefill cell, then M14_DECODE_STEPS steps of the serve cell), then
-# training M14_STEPS steps through the mesh Trainer, against one device
+# training M14_VA_STEPS steps through the mesh Trainer, against one device
 # on the same seeded weights and batches (run before the ranks start).
 # llava-next-34b at full width, cut to 1 of its 60 layers: 1.47 B
 # parameters, 0.92 B of them the untied 64000 x 7168 embed and lm_head;
@@ -2357,8 +2399,8 @@ M14_VA = {
 M14_VA_GO = "moe_reference_done"
 M14_VA_WAIT_S = 300
 # the hybrid and ssm families on the same mesh, after the vlm / audio
-# runs in the same ranks: serving only (their training on the card waits
-# for a backward of K6 / K7 and K5 at head dim 80, ROADMAP §2), each
+# runs in the same ranks: serving only (their mesh training on the card is
+# held by this script's time: ROADMAP §1 item 3), each
 # seeded on the card in bf16 (Model.init(M14_REC_SEED)) at full width and
 # cut in depth - zamba2-2.7b to 12 of its 54 layers, two applications of
 # its shared block, so its strips' A axis holds 2; rwkv6-1.6b to 6 of
@@ -2367,21 +2409,24 @@ M14_VA_WAIT_S = 300
 # shared block through K4 on 16 of its 32 heads, head dim 80), then
 # M14_DECODE_STEPS teacher-forced decode steps: 4 lanes in the default
 # layout (K3 on the rank's 16 KV heads), 1 lane with the sequence over
-# the data axis (ops.seq_parallel_decode, no kernel).  Both runs in bf16
-# (the deployment dtype: walls, peak, launches) and in float32 on the
-# same weights (fp32_copy), each against one device on the same weights
-# (run before the ranks start).  The float32 runs carry the agreement
-# check (m14_serve_check's bars, 0 argmax flips, each state leaf within
-# M14_REC_STATE_BAR of its largest |entry|): in bf16 these seeded models
-# amplify any rounding - one device with K3 against one device with the
-# plain decode parts by as much as the mesh does - so the bf16 runs'
-# distance from one device is printed beside the model's own bf16 noise
-# (one device bf16 against float32), not held to a bar.
+# the data axis (ops.seq_parallel_decode, no kernel).  Both runs in
+# float32, on the bf16 seeded weights (fp32_copy), each against one device
+# on the same weights (run before the ranks start): m14_serve_check's
+# bars, 0 argmax flips, each state leaf within M14_REC_STATE_BAR of its
+# largest |entry|.  The default layout's run also in bf16, the deployment
+# dtype (walls, peak, launches): finite logits and exact launch counts,
+# its distance from one device printed beside the model's own bf16 noise
+# (one device bf16 against float32) and held to no bar - in bf16 these
+# seeded models amplify any rounding (one device with K3 against one
+# device with the plain decode parts by as much as the mesh does); the
+# bf16 run over data was cut for the script's time.
 # name -> (arch, layers); runs: name -> (S, B, P)
 M14_REC = {"zamba2": ("zamba2-2.7b", 12), "rwkv6": ("rwkv6-1.6b", 6)}
 M14_REC_RUNS = {"decode": (2048 + M14_DECODE_STEPS, 4, 2048),
                 "decode_seq_data": (2048 + M14_DECODE_STEPS, 1, 2048)}
-M14_REC_DTYPES = ("bfloat16", "float32")
+# dtype -> its runs
+M14_REC_DTYPES = {"float32": M14_REC_RUNS,
+                  "bfloat16": {"decode": M14_REC_RUNS["decode"]}}
 M14_REC_SEED = 5
 # float32 state leaves against one device, of each leaf's largest
 # |entry|: 1.5e-3 at zamba2's shared strips, 2e-5 at its SSM states
@@ -2418,8 +2463,8 @@ def m14_moe_setup():
 def m14_va_setup(name: str):
     """A vlm / audio run's config (M14_VA), its TrainConfig (checkpoints
     under M14_DIR/<name>), the numpy-seeded global batches of the
-    M14_STEPS steps (tokens, and llava's image or whisper's frames, N(0,
-    0.02^2) in float32: the pipeline hands them to the model in bf16) and
+    M14_VA_STEPS steps (tokens, and llava's image or whisper's frames,
+    N(0, 0.02^2) in float32: the pipeline hands them to the model in bf16) and
     its serving runs."""
     arch, layers, train, serve = M14_VA[name]
     cfg = get_config(arch)
@@ -2431,7 +2476,7 @@ def m14_va_setup(name: str):
     emb = lambda n: (rng.standard_normal((B, n, cfg.d_model))
                      * 0.02).astype(np.float32)
     batches = {}
-    for s in range(M14_STEPS):
+    for s in range(M14_VA_STEPS):
         if cfg.family == "vlm":
             b = {"vision_embeds": emb(cfg.frontend_tokens)}
             s_text = S - cfg.frontend_tokens
@@ -2452,7 +2497,8 @@ def m14_va_launches(cfg) -> dict:
     L, E = cfg.n_layers, cfg.encoder_layers
     dec = 2 * L if cfg.family == "audio" else L
     want = {k: 0 for k in COUNTERS}
-    want.update(K4=(E + 2 * dec) * M14_STEPS, K5=(E + dec) * M14_STEPS)
+    want.update(K4=(E + 2 * dec) * M14_VA_STEPS,
+                K5=(E + dec) * M14_VA_STEPS)
     return want
 
 
@@ -2460,7 +2506,7 @@ def m14_va_reference() -> dict:
     """The vlm / audio runs on one device, before the ranks start (llava's
     ~20 GB would not fit beside them): the single-device Trainer from the
     seeded weights serves the runs' prefill and decode steps on them
-    (m14_serve_reference), then takes M14_STEPS steps through its own
+    (m14_serve_reference), then takes M14_VA_STEPS steps through its own
     step on the same batches.  {name: {"steps": [(loss, grad norm)],
     "serve": the serving reference, "peak_gb", "wall_s"}}."""
     out = {}
@@ -2473,7 +2519,7 @@ def m14_va_reference() -> dict:
         ref_serve = m14_serve_reference(tr.model, tr.state.params, cfg,
                                         serve)
         steps = []
-        for s in range(M14_STEPS):
+        for s in range(M14_VA_STEPS):
             tr.state, m = tr.train_step(tr.state,
                                         tr.pipeline.device_batch(s))
             steps.append((float(m["loss"]), float(m["grad_norm"])))
@@ -2491,7 +2537,8 @@ def m14_va_rank(rank: int, mesh) -> dict:
     the ranks are done (M14_VA_GO): the mesh Trainer on train_cell's
     shardings serves the runs through the cells' steps on its seeded
     parameter shards (m14_serve, records under "serve", files
-    M14_DIR/<name>_serve<rank>.pt), then takes M14_STEPS steps of its own
+    M14_DIR/<name>_serve<rank>.pt), then takes M14_VA_STEPS steps of its
+    own
     step on rank 0's batches, its collectives (COMM), walls and kernel
     launches counted; the peak over the whole run."""
     from repro_torch.configs.base import ShapeSpec
@@ -2518,7 +2565,8 @@ def m14_va_rank(rank: int, mesh) -> dict:
         serving = m14_serve(cfg, tr.state.params, mesh, rank, serve,
                             f"{name}_serve")
         _free()
-        out[name] = dict(m14_steps(tr), serve=serving, build_s=build_s,
+        out[name] = dict(m14_steps(tr, M14_VA_STEPS), serve=serving,
+                         build_s=build_s,
                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         del tr
         _free()
@@ -2572,7 +2620,7 @@ def m14_va_check(res, ref: dict) -> dict:
             r["serve"], [{"rank": rr["rank"], tag: rr["va"][name]["serve"]}
                          for rr in res], tag, cfg)
         log(f"# M14 {cfg.name}: the single-device reference (serving and "
-            f"{M14_STEPS} steps) took {r['wall_s']:.1f} s, peak "
+            f"{M14_VA_STEPS} steps) took {r['wall_s']:.1f} s, peak "
             f"{r['peak_gb']:.2f} GB")
         out[name] = {"config": cfg.name, "layers": cfg.n_layers,
                      "single_device": {k: v for k, v in r.items()
@@ -2602,14 +2650,15 @@ def m14_rec_models(name: str):
 
 def m14_rec_reference() -> dict:
     """The recurrent families' serving runs on one device, before the
-    ranks start, in both dtypes (m14_serve_reference).  {name: {dtype:
-    the reference}, "peak_gb", "wall_s"}."""
+    ranks start, each dtype's (M14_REC_DTYPES; m14_serve_reference).
+    {name: {dtype: the reference}, "peak_gb", "wall_s"}."""
     out = {}
     for name in M14_REC:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         models = m14_rec_models(name)
-        out[name] = {dt: m14_serve_reference(m, p, m.cfg, M14_REC_RUNS)
+        out[name] = {dt: m14_serve_reference(m, p, m.cfg,
+                                             M14_REC_DTYPES[dt])
                      for dt, (m, p) in models.items()}
         torch.cuda.synchronize()
         out[name].update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -2623,7 +2672,8 @@ def m14_rec_rank(rank: int, mesh) -> dict:
     """A rank's recurrent runs (M14_REC): the models seeded as the
     reference's, their parameters handed to the cells' steps as this
     rank's DTensor shards (the prefill cell's shardings; the full tensors
-    freed), then m14_serve in each dtype (records under the dtype, files
+    freed), then m14_serve in each dtype, its runs (M14_REC_DTYPES;
+    records under the dtype, files
     M14_DIR/<name>_<dtype>_serve<rank>.pt); the build wall and the peak
     over both."""
     from repro_torch.configs.base import ShapeSpec
@@ -2644,7 +2694,7 @@ def m14_rec_rank(rank: int, mesh) -> dict:
         out[name] = {"build_s": time.perf_counter() - t0}
         for dt in M14_REC_DTYPES:
             out[name][dt] = m14_serve(m14_rec_setup(name, dt), params.pop(dt),
-                                      mesh, rank, M14_REC_RUNS,
+                                      mesh, rank, M14_REC_DTYPES[dt],
                                       f"{name}_{dt}_serve")
             _free()
         out[name]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2652,8 +2702,8 @@ def m14_rec_rank(rank: int, mesh) -> dict:
 
 
 def m14_rec_bf16(ref16: dict, ref32: dict, res, name: str) -> dict:
-    """The bf16 runs of every rank: finite logits, kernel launches
-    m14_serve_launches' exactly; their distance from one device in bf16
+    """The bf16 run of every rank: finite logits, kernel launches
+    m14_serve_launches' exactly; its distance from one device in bf16
     (logits, argmax flips) printed beside the model's own bf16 noise, one
     device bf16 against float32 on the same weights."""
     cfg, tag = m14_rec_setup(name), f"{name}_bfloat16_serve"
@@ -2696,7 +2746,7 @@ def m14_rec_check(res, ref: dict) -> dict:
     """The recurrent runs of every rank against one device: the float32
     runs through m14_serve_check (logits within its bars, no argmax flip
     allowed, every state leaf and strip within M14_REC_STATE_BAR of its
-    largest |entry|), the bf16 runs through m14_rec_bf16; in both, the
+    largest |entry|), the bf16 run through m14_rec_bf16; in both, the
     kernel launches - zamba2 K4 once a shared-block application a
     prefill and K3 once an application a decode step in the default
     layout, none over data; rwkv6 none."""
@@ -2849,7 +2899,7 @@ def m14_moe_reference(factor: float) -> dict:
                      tc(f"{run}_single"))
         tr.pipeline.host_batch = lambda s: batches[s]
         steps, drops = [], []
-        for s in range(M14_STEPS):
+        for s in range(M14_MOE_STEPS[run]):
             b = tr.pipeline.device_batch(s)
             d = m14_moe_drops(tr.model, tr.state.params, [b], (f_ref, f),
                               M14_MESH[1])
@@ -2862,14 +2912,14 @@ def m14_moe_reference(factor: float) -> dict:
     return out
 
 
-def m14_steps(tr) -> dict:
-    """M14_STEPS steps of a mesh Trainer's own step on its pipeline's
+def m14_steps(tr, steps: int) -> dict:
+    """`steps` steps of a mesh Trainer's own step on its pipeline's
     batches, after the launch counts are reset: each step's metrics,
     collectives (COMM) and wall, and the kernel launches of them all."""
     from repro_torch.sharding import shards
     reset_counts()
     metrics, comm, walls = [], [], []
-    for s in range(M14_STEPS):
+    for s in range(steps):
         t0 = time.perf_counter()
         b = tr.pipeline.device_batch(s)
         shards.reset_comm()
@@ -2910,7 +2960,7 @@ def m14_moe_rank(rank: int, mesh, factor: float) -> dict:
             build_s = time.perf_counter() - t0
             tr.pipeline.host_batch = lambda s: batches[s]
             torch.cuda.reset_peak_memory_stats()
-            steps = m14_steps(tr)
+            steps = m14_steps(tr, M14_MOE_STEPS[run])
         finally:
             os.environ.pop("REPRO_MOE_A2A", None)
         out[run] = dict(steps, factor=f, build_s=build_s,
@@ -3318,10 +3368,10 @@ def m14_moe_check(res, ref: dict, factor: float, drops0: dict) -> dict:
     step and nothing else, all_to_all calls in the exchange run's
     collectives and none in the per-row run's."""
     L = M14_MOE_LAYERS
-    want = {k: 0 for k in COUNTERS}
-    want.update(K4=2 * L * M14_STEPS, K5=L * M14_STEPS)
     out = {"layers": L, "drops_at_seed": drops0, "runs": {}}
     for run, f, a2a, f_ref in m14_moe_runs(factor):
+        want = dict({k: 0 for k in COUNTERS}, K4=2 * L * M14_MOE_STEPS[run],
+                    K5=L * M14_MOE_STEPS[run])
         r = ref[run]
         got0 = [(m["loss"], m["grad_norm"]) for m in
                 res[0]["moe"][run]["metrics"]]
@@ -3469,8 +3519,8 @@ def phase_m14():
     res = [json.loads((M14_DIR / f"rank{r}.json").read_text())
            for r in range(M14_WORLD)]
     L = cfg.n_layers
-    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 2 * L * M14_STEPS,
-            "K5": L * M14_STEPS, "K6": 0, "K7": 0}
+    want = dict({k: 0 for k in COUNTERS}, K4=2 * L * M14_STEPS,
+                K5=L * M14_STEPS)
     losses0 = [(m["loss"], m["grad_norm"]) for m in res[0]["metrics"]]
     for rr in res:
         got = [(m["loss"], m["grad_norm"]) for m in rr["metrics"]]
@@ -3696,9 +3746,61 @@ def layer_parity(model, params, arch) -> float:
     return worst
 
 
+def layer_grad_parity(model, params, arch) -> float:
+    """Each layer's backward through the kernels against the same layer
+    through impl="ref", both on the ref path's input to that layer and one
+    seeded upstream gradient (so no difference carries from one layer
+    into the next, as layer_parity): the gradients of the layer's input
+    and of its parameters (the layer's slices of the stacked leaves, and
+    the shared block where it follows the layer), each within
+    REC_LAYER_RTOL of its largest |entry|.  The parameters must require
+    grad.  Returns the largest |difference| over the layers, relative to
+    that largest |entry|."""
+    cfg = model.cfg
+    rtol = REC_LAYER_RTOL[cfg.dtype]
+    layers = T.hybrid_layers(params["blocks"], cfg) \
+        if cfg.family == "hybrid" else T.rwkv_layers(params["blocks"], cfg)
+    gen = torch.Generator(device=model.device).manual_seed(9)
+    worst = 0.0
+    with torch.no_grad():
+        x = embed(params["tok"], _rec_batch(model)["tokens"], cfg)
+    for i, layer in enumerate(layers):
+        x = x.detach().requires_grad_(True)
+        wrt = [x] + [t for a in layer.args if a is not None
+                     for t in leaves(a)]
+        out, gy = {}, None
+        for impl in ("ref", None):
+            y = layer(x, impl)
+            if gy is None:
+                gy = torch.randn(y.shape, generator=gen, device=y.device,
+                                 dtype=torch.float32).to(y.dtype)
+            out[impl] = (y.detach(), torch.autograd.grad(
+                y, wrt, gy, allow_unused=True))
+        for j, (a, b) in enumerate(zip(out[None][1], out["ref"][1])):
+            if a is None or b is None:
+                if (a is None) != (b is None):
+                    raise AssertionError(f"{arch} layer {i} gradient {j}: "
+                                         f"one path has none")
+                continue
+            scale = float(b.float().abs().max())
+            d = float((a.float() - b.float()).abs().max())
+            if not bool(torch.isfinite(a).all()) or d > rtol * scale:
+                raise AssertionError(
+                    f"{arch} {cfg.dtype} layer {i} gradient {j}: kernels "
+                    f"and ref part by {d:.3e} on the same input and upstream "
+                    f"gradient (bar {rtol * scale:.3e})")
+            worst = max(worst, d / scale if scale else 0.0)
+        x = out["ref"][0]
+        del out
+    log(f"# {arch} {cfg.dtype} layer by layer, backward on the ref path's "
+        f"inputs: every gradient of every layer within {rtol:.3g} of its "
+        f"largest |entry| (worst {worst:.3e} of it)")
+    return worst
+
+
 def fp32_copy(model, params):
     """The model in float32 with the bf16 model's weights (exact)."""
-    m32 = build_model(model.cfg.replace(dtype="float32"))
+    m32 = build_model(model.cfg.replace(dtype="float32"), device=model.device)
     p32 = m32.params
     with torch.no_grad():
         for (path, a), (path32, b) in zip(leaves_with_paths(params),
@@ -3835,6 +3937,323 @@ def _scan_weight(t, *rest, **_):
     return t.numel()
 
 
+def rec_train_flops(cfg, n_params, B, S):
+    """Model FLOPs of a recurrent model's training step: 6 x params x
+    tokens, the shared block's attention (12 x batch x heads x head_dim
+    x the causal pairs, per application) and 3 x the scans' chunked-form
+    FLOPs a layer (forward once, backward twice)."""
+    flops = 6 * n_params * B * S
+    if cfg.family == "hybrid":
+        flops += 12 * n_shared_applications(cfg) * B * cfg.n_heads \
+            * cfg.head_dim * cost.attention_pairs(S, S, True, 0)
+        d_in = cfg.ssm_expand * cfg.d_model
+        H = cfg.ssm_heads or d_in // 64
+        scan = cost.k6_work((B, S, H, d_in // H), cfg.ssm_state, 2,
+                            mamba2_scan.CHUNK)[1]
+    else:
+        H = cfg.n_heads
+        K = cfg.d_model // H
+        scan = cost.k7_work((B, S, H, K), K, 2)[1]
+    return flops + 3 * cfg.n_layers * scan, REC_TRAIN_FLOPS_FORMULA
+
+
+def scan_module(cfg):
+    """(the scan's kernel module, its forward wrapper's name) of a hybrid
+    or ssm config: kernels/mamba2_scan.py or rwkv6_scan.py."""
+    return (mamba2_scan, "mamba2_scan") if cfg.family == "hybrid" \
+        else (rwkv6_scan, "rwkv6_scan")
+
+
+@contextlib.contextmanager
+def scan_swapped(cfg, fwd=None, bwd=None):
+    """The scan's wrappers (scan_module) swapped, as Capture swaps a
+    wrapper: the forward's for fwd and the backward's for bwd where
+    given.  Under it a step through the kernels (impl=None) runs every
+    other kernel as it would."""
+    mod, name = scan_module(cfg)
+    new = {k: f for k, f in ((name, fwd), (name + "_bwd", bwd))
+           if f is not None}
+    old = {k: getattr(mod, k) for k in new}
+    for k, f in new.items():
+        setattr(mod, k, f)
+    try:
+        yield
+    finally:
+        for k, f in old.items():
+            setattr(mod, k, f)
+
+
+def equal_scan_forwards(cfg) -> dict:
+    """Forwards of the scan as precise as its plain chunked one in bf16
+    (float32 sums, the output rounded once), each summing in another
+    order: the float64 output rounded once (x16), the step-by-step
+    recurrence (naive16, the JAX package's naive form) and the
+    chunk-parallel form (cp16, K6 / K7's arithmetic in float32).
+    {name: forward}."""
+    hybrid = cfg.family == "hybrid"
+    chunked = ref.mamba2_scan_chunked if hybrid else ref.rwkv6_scan_chunked
+
+    def x16(*a):
+        return chunked(*(t.double() for t in a)).to(a[0].dtype)
+
+    return {"x16": x16,
+            "naive16": ref.mamba2_scan if hybrid else ref.rwkv6_scan,
+            "cp16": ref.mamba2_scan_chunk_parallel if hybrid
+            else ref.rwkv6_scan_chunk_parallel}
+
+
+@contextlib.contextmanager
+def scan_calls(cfg, calls: list):
+    """ops' scan (mamba2_scan or rwkv6_scan) wrapped: each call's operands
+    and output, detached, appended to calls."""
+    name = scan_module(cfg)[1]
+    orig = getattr(ops, name)
+
+    def recorded(*a, **kw):
+        y = orig(*a, **kw)
+        calls.append(([t.detach() for t in a], y.detach()))
+        return y
+
+    setattr(ops, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(ops, name, orig)
+
+
+def bf16_steps_off(y: torch.Tensor, y64: torch.Tensor) -> torch.Tensor:
+    """|y - y64 rounded once to bf16| over one bf16 step at that value
+    plus 2^-16 of the largest |y64| (the error of float32 sums, or of
+    K6 / K7's two-part bf16 operands, at the call's scale: an element
+    that cancels to near 0 lies many steps of its own from the rounded
+    value in any float32 arithmetic)."""
+    yx = y64.to(torch.bfloat16).float()
+    _, e = torch.frexp(yx)
+    step = torch.where(yx == 0, 0.0, torch.ldexp(torch.ones_like(yx), e - 8))
+    return (y.float() - yx).abs() / (step + 2.0 ** -16 * float(
+        y64.abs().max()))
+
+
+def rec_scan_forward_check(cfg, calls) -> dict:
+    """K6 / K7's bf16 outputs in a step through the kernels, layer by layer
+    on the step's own activations (scan_calls): every element within one
+    bf16 step (bf16_steps_off) of the float64 output of the same operands
+    rounded once.  Returns the most steps off and the largest share of
+    elements off the rounded float64 value over the layers."""
+    chunked = ref.mamba2_scan_chunked if cfg.family == "hybrid" \
+        else ref.rwkv6_scan_chunked
+    worst, share = 0.0, 0.0
+    for i, (a, y) in enumerate(calls):
+        y64 = chunked(*(t.double() for t in a))
+        n = float(bf16_steps_off(y, y64).max())
+        if n > 1:
+            raise AssertionError(f"{cfg.name} layer {i}: the scan's bf16 "
+                                 f"output lies {n:.3f} bf16 steps from the "
+                                 f"float64 output rounded once (bar 1)")
+        worst = max(worst, n)
+        share = max(share, float((y != y64.to(y.dtype)).double().mean()))
+    return {"layers": len(calls), "max_bf16_steps_off": worst,
+            "max_share_off": share}
+
+
+def rec_train_check(model, params, m32, p32, batch):
+    """Step 1 (the loss and backward, before the optimizer) from the same
+    seeded state on the same batch, each way's (loss, gradient norm):
+    bf16 through the kernels ("kernels"), through the kernels with the
+    scan's forward plain ("kernels_bwd": the backward kernels on the
+    plain forward's activations), through impl="ref" ("ref"), and
+    through the kernels with the scan's forward swapped for each of
+    equal_scan_forwards' and its backward plain; the float32 copy
+    through the kernels and impl="ref".  Held:
+    - the bf16 loss, kernels vs ref, and the loss and gradient norm of
+      kernels_bwd vs ref and of the float32 kernels vs the float32 ref,
+      each within REC_TRAIN_BARS, relative;
+    - K6 / K7's bf16 outputs in the kernels' step (rec_scan_forward_check:
+      each element within one bf16 step of the float64 output);
+    - the bf16 gradient norm through the kernels within the spread of the
+      equally precise forwards' (ref's and equal_scan_forwards'), lo to
+      hi: inside [lo - w, hi + w], w the larger of hi - lo and
+      REC_TRAIN_BARS' of ref's.  The bf16 gradient norm of these seeded
+      models is no function of the scan's output to bf16 precision: the
+      backward amplifies one-step roundings (rwkv6 keeps ~all of the
+      first layer's |dy|^2 at t = 0), so the forwards that sum in another
+      order land up to 3.1x (rwkv6) and 1.2x (zamba2) from ref's
+      (tools/scan_grad_probe.py, PERF.md §6), and 2e-2 holds for no
+      forward but ref's own bits.
+    Returns {name: (loss, grad norm)}, and the forward check's numbers
+    under "scan_forward"."""
+    cfg = model.cfg
+    mod = scan_module(cfg)[0]
+    null = contextlib.nullcontext
+    equal = equal_scan_forwards(cfg)
+    ways = {"kernels": (model, params, None, null),
+            "kernels_bwd": (model, params, None,
+                            lambda: scan_swapped(cfg, fwd=mod.reference)),
+            "ref": (model, params, "ref", null),
+            **{name: (model, params, None,
+                      lambda fn=fn: scan_swapped(cfg, fwd=fn,
+                                                 bwd=mod.reference_bwd))
+               for name, fn in equal.items()},
+            "kernels_f32": (m32, p32, None, null),
+            "ref_f32": (m32, p32, "ref", null)}
+    out, calls = {}, []
+    for name, (m, p, impl, ctx) in ways.items():
+        for q in leaves(p):
+            q.grad = None
+        with ctx():
+            with scan_calls(cfg, calls) if name == "kernels" else null():
+                loss, _ = m.loss(p, batch, impl=impl, remat=True)
+            loss.backward()
+        out[name] = (float(loss.detach()),
+                     float(global_norm(map_tree(lambda q: q.grad, p))))
+        for q in leaves(p):
+            q.grad = None
+        del loss
+    fwd = rec_scan_forward_check(cfg, calls)
+    del calls
+    rel = lambda a, b: abs(a - b) / abs(b)
+    checks = {"loss": (rel(out["kernels"][0], out["ref"][0]),
+                       REC_TRAIN_BARS["loss"]),
+              "loss_bwd": (rel(out["kernels_bwd"][0], out["ref"][0]),
+                           REC_TRAIN_BARS["loss"]),
+              "grad_norm_bwd": (rel(out["kernels_bwd"][1], out["ref"][1]),
+                                REC_TRAIN_BARS["grad_norm"]),
+              "loss_f32": (rel(out["kernels_f32"][0], out["ref_f32"][0]),
+                           REC_TRAIN_BARS["loss"]),
+              "grad_norm_f32": (rel(out["kernels_f32"][1],
+                                    out["ref_f32"][1]),
+                                REC_TRAIN_BARS["grad_norm"])}
+    spread = [out["ref"][1]] + [out[name][1] for name in equal]
+    lo, hi = min(spread), max(spread)
+    w = max(hi - lo, REC_TRAIN_BARS["grad_norm"] * out["ref"][1])
+    band = (lo - w, hi + w)
+    log(f"# {cfg.name} step 1 from the same state, (loss, grad norm): "
+        f"{ {k: (round(a, 6), round(b, 6)) for k, (a, b) in out.items()} }; "
+        f"kernels vs ref, relative: "
+        + ", ".join(f"{k} {e:.3e} (bar {b})" for k, (e, b) in checks.items())
+        + f"; the scan's bf16 outputs in the kernels' step, {fwd['layers']} "
+        f"calls: at most {fwd['max_bf16_steps_off']:.3f} bf16 step from the "
+        f"float64 output (bar 1), up to {fwd['max_share_off']:.4f} of the "
+        f"elements off it; bf16 grad norm through the kernels "
+        f"{out['kernels'][1]:.4f}, the equally precise forwards' "
+        f"{lo:.4f} .. {hi:.4f}, band {band[0]:.4f} .. {band[1]:.4f} "
+        f"(float32 ref {out['ref_f32'][1]:.4f})")
+    for key, (err, bar) in checks.items():
+        if not np.isfinite(err) or err > bar:
+            raise AssertionError(f"{cfg.name} step 1 {key}: kernels "
+                                 f"and ref part by {err:.3e} (bar {bar})")
+    if not band[0] <= out["kernels"][1] <= band[1]:
+        raise AssertionError(f"{cfg.name} step 1 bf16 grad norm through "
+                             f"the kernels {out['kernels'][1]:.4f} outside "
+                             f"{band[0]:.4f} .. {band[1]:.4f}")
+    return dict(out, scan_forward=fwd)
+
+
+def recurrent_training(model, params, arch, m32, p32):
+    """The bf16 model of phase_recurrent, its seeded weights made
+    trainable in place (nothing new initialised), trains REC_TRAIN_STEPS
+    steps of one numpy-seeded 4 x 2048 batch (remat full) through
+    make_train_step: first step 1's loss and gradient norm through the
+    kernels against impl="ref" from the same state (REC_TRAIN_BARS,
+    relative), then the counted steps - counts set to 0 before, read
+    after: each scan twice a layer a step (forward and recompute), its
+    backward kernel once, zamba2's shared block K4 twice and K5 (at head
+    dim 80) once an application, nothing else - with finite losses, flat
+    or falling (initial_loss printed beside: the seeded recurrent models'
+    logits are wider than the dense models'); one more step under the
+    profiler.  The largest backward calls are kept for the timing phase
+    (K6_bwd / K7_bwd, and K5_d80).  Returns (run, captured, e2e,
+    trace)."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.train_step import TrainState, trainable
+    cfg = model.cfg
+    tcfg = TrainConfig(**REC_TRAIN)
+    B, S, L, N = tcfg.global_batch, tcfg.seq_len, cfg.n_layers, \
+        REC_TRAIN_STEPS
+    state = TrainState(trainable(params), adamw_init(params), {})
+    trainable(p32)
+    n_params = sum(p.numel() for p in leaves(params))
+    grad_layers = {dt: layer_grad_parity(m, p, arch)
+                   for dt, (m, p) in (("bfloat16", (model, params)),
+                                      ("float32", (m32, p32)))}
+    batch = numpy_batch(cfg, B, S, model.device)
+    check = rec_train_check(model, params, m32, p32, batch)
+    for p in leaves(p32):
+        p.requires_grad_(False)
+    step = make_train_step(model, tcfg)
+    hybrid = cfg.family == "hybrid"
+    scan_mod, scan_fn = (mamba2_scan, "mamba2_scan_bwd") if hybrid \
+        else (rwkv6_scan, "rwkv6_scan_bwd")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, outs = [], []
+    with Capture(scan_mod, scan_fn, _scan_weight) as cs, \
+            Capture(flash_backward, "flash_attention_bwd", _k5_weight) as c5:
+        for _ in range(N):
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            outs.append(m)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in COUNTERS}
+    if hybrid:
+        apps = n_shared_applications(cfg)
+        want.update(K6=2 * L * N, K6_bwd=L * N, K4=2 * apps * N,
+                    K5=apps * N)
+    else:
+        want.update(K7=2 * L * N, K7_bwd=L * N)
+    losses = [float(m["loss"]) for m in outs]
+    gnorms = [float(m["grad_norm"]) for m in outs]
+    lr = [float(m["lr"]) for m in outs]
+    start = initial_loss(cfg)
+    log(f"# {arch} training ({L} layers, {n_params / 1e9:.3f} B params, "
+        f"{B} x {S}, remat {tcfg.remat}): {N} steps, kernel launches "
+        f"{launches} (want {want}), losses {[round(x, 5) for x in losses]} "
+        f"at lr {lr}, initial_loss {start:.4f}, step ms "
+        f"{[round(t * 1e3, 1) for t in times]}, peak memory "
+        f"{peak / 1e9:.2f} GB (1e9 bytes)")
+    if launches != want:
+        raise AssertionError(f"{arch} training launches {launches} != "
+                             f"{want}")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"{arch} training: losses {losses} or gradient "
+                             f"norms {gnorms} not finite")
+    # the same batch each step: flat while lr is 0, falling after
+    if any(b > a + 1e-3 * abs(a) for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{arch} training: losses {losses} rise")
+    trace = device_trace(lambda: step(state, batch))
+    trace.update(run=f"{arch} train", steps=1)
+    med = float(np.median(times))
+    flops, formula = rec_train_flops(cfg, n_params, B, S)
+    e2e = {"config": cfg.name, "layers": L, "params": n_params,
+           "global_batch": B, "seq_len": S, "remat": tcfg.remat, "steps": N,
+           "step_ms": [t * 1e3 for t in times],
+           "step_ms_median": med * 1e3, "tokens_per_s": B * S / med,
+           "peak_mem_gb": peak / 1e9, "model_flops_per_step": flops,
+           "mfu": flops / (med * PEAK_FLOP_S), "mfu_formula": formula,
+           "losses": losses, "grad_norms": gnorms, "lr": lr,
+           "kernel_launches": launches,
+           "step1_loss_grad_norm": check,
+           "layer_grad_max_rel_err": grad_layers}
+    log(f"# {arch} training: median step {med * 1e3:.1f} ms, "
+        f"{B * S / med:.0f} tokens/s, mfu {e2e['mfu']:.4f}; trace: device "
+        f"busy {trace['device_busy_s']:.3f} s of "
+        f"{trace['profiled_wall_s']:.3f} s")
+    captured = {"K6_bwd" if hybrid else "K7_bwd": cs.best}
+    if hybrid:
+        captured["K5_d80"] = c5.best
+    del state, step
+    for p in leaves(params):
+        p.grad = None
+        p.requires_grad_(False)
+    return {"launches": launches, "per_step": {k: v / N for k, v in
+                                               launches.items()}}, \
+        captured, e2e, trace
+
+
 def phase_recurrent():
     """zamba2-2.7b and rwkv6-1.6b at full width, REC_LAYERS of their
     layers.  bf16, the deployment
@@ -3845,10 +4264,17 @@ def phase_recurrent():
     impl="ref", each layer on the same input, and the same traffic with
     the teacher-forced token check.  K6 / K7 (and zamba2's
     K4 / K3 at head dim 80) are captured at their largest call for the
-    timing phase; one zamba2 forward is traced."""
+    timing phase; one zamba2 forward is traced.  Between the bf16 and the
+    float32 checks, the bf16 model trains (recurrent_training; the
+    float32 copy is taken first, from the seeded weights): its run, the
+    backward kernels' captured calls, its e2e numbers and trace come back
+    beside the forward's."""
     run = {"launches": {k: 0 for k in COUNTERS},
            "per_forward": {k: 0 for k in COUNTERS}}
+    train_run = {"launches": {k: 0 for k in COUNTERS},
+                 "per_step": {k: 0 for k in COUNTERS}}
     e2e, captured, trace = {}, {}, None
+    train, e2e_train, traces_train = {}, {}, {}
     for arch in REC_ARCHS:
         cfg = get_config(arch).replace(n_layers=REC_LAYERS[arch])
         t0 = time.perf_counter()
@@ -3881,7 +4307,16 @@ def phase_recurrent():
                 f"{trace['profiled_wall_s']:.3f} s")
         else:
             captured["K7"] = c7.best
+        # the float32 copy takes the seeded weights before training moves
+        # them
         m32, p32 = fp32_copy(model, params)
+        train[arch], t_captured, e2e_train[arch], t_trace = \
+            recurrent_training(model, params, arch, m32, p32)
+        captured.update(t_captured)
+        traces_train[arch] = t_trace
+        for k in COUNTERS:
+            train_run["launches"][k] += train[arch]["launches"][k]
+            train_run["per_step"][k] += train[arch]["per_step"][k]
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3909,7 +4344,7 @@ def phase_recurrent():
         del m32, p32
         gc.collect()
         torch.cuda.empty_cache()
-    return run, captured, e2e, trace
+    return run, captured, e2e, trace, train_run, e2e_train, traces_train
 
 
 def _zamba2_decode_args(model):
@@ -5628,6 +6063,72 @@ def k7_work(a):
     return cost.k7_work(r.shape, a["v"].shape[-1], r.element_size())
 
 
+def k6_bwd_call(a, impl=None):
+    fn = mamba2_scan.reference_bwd if impl == "ref" \
+        else mamba2_scan.mamba2_scan_bwd
+    return fn(a["x"], a["dt"], a["A"], a["Bm"], a["Cm"], a["dy"])
+
+
+def k7_bwd_call(a, impl=None):
+    fn = rwkv6_scan.reference_bwd if impl == "ref" \
+        else rwkv6_scan.rwkv6_scan_bwd
+    return fn(a["r"], a["k"], a["v"], a["w"], a["u"], a["dy"])
+
+
+def scan_bwd_terms(key, a):
+    """The magnitude of the terms each gradient sums: the plain backward
+    of the inputs' and dy's absolute values (dt, A and w are positive).
+    ddt's two terms, x^T g B and A a <h_{t-1}, g>, come out T1 and -T2
+    there; T1 = sum_p |x_p| dx_p / dt, so its magnitude is 2 T1 - ddt."""
+    ab = {n: (t.abs() if n not in ("dt", "A", "w") else t)
+          for n, t in a.items()}
+    if key == "K7_bwd":
+        return list(k7_bwd_call(ab, "ref"))
+    t = list(k6_bwd_call(ab, "ref"))
+    dt = a["dt"].double()
+    t1 = (ab["x"].double() * t[0].double()).sum(-1) \
+        / torch.where(dt > 0, dt, 1.0)
+    t[1] = (2 * t1 - t[1].double()).float()
+    return t
+
+
+def scan_bwd_compare(key, a) -> float:
+    """K6_bwd / K7_bwd against their plain version (torch.autograd.grad
+    through the chunked scan, in float64), gradient by gradient: within
+    1e-5 of the gradient's largest element or of its largest term
+    (scan_bwd_terms), as the float32 bar of the scans' forward; a
+    bfloat16 gradient also within one rounding step of the terms'
+    magnitude, 2^-7 (|g| + terms), as K5's bar.  Returns the largest
+    |difference| over the five gradients."""
+    call = k6_bwd_call if key == "K6_bwd" else k7_bwd_call
+    got, want = call(a), call(a, "ref")
+    worst = 0.0
+    for i, (g, w, t) in enumerate(zip(got, want, scan_bwd_terms(key, a))):
+        bf16 = g.dtype == torch.bfloat16
+        g, w, t = g.float(), w.float(), t.float().abs()
+        bar = F32_TOL * max(float(w.abs().max()), float(t.max()))
+        limit = bar + (BF16_RTOL * (w.abs() + t) if bf16 else 0.0)
+        err = (g - w).abs()
+        if not bool(torch.isfinite(g).all()) or not bool(
+                (err <= limit).all()):
+            raise AssertionError(
+                f"{key} gradient {i} disagrees with its plain version: max "
+                f"abs err {float(err.max()):.3e}, max |grad| "
+                f"{float(w.abs().max()):.3e}, max term {float(t.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def k6_bwd_work(a):
+    x = a["x"]
+    return cost.k6_bwd_work(x.shape, a["Bm"].shape[-1], x.element_size())
+
+
+def k7_bwd_work(a):
+    r = a["r"]
+    return cost.k7_bwd_work(r.shape, a["v"].shape[-1], r.element_size())
+
+
 # key -> (name, call, work, library, source, TPU kernel, run that feeds
 # its row, argument names of the wrapper)
 KERNELS = {
@@ -5660,8 +6161,21 @@ KERNELS = {
            "src/repro_torch/csrc/rwkv6_scan.cu",
            "src/repro/kernels/rwkv6_scan.py:83", "recurrent",
            ("r", "k", "v", "w", "u")),
+    # the scans' backward kernels replace no TPU kernel: the JAX package
+    # differentiates its plain chunked scans (kernels/ops.py)
+    "K6_bwd": ("K6_bwd mamba2_scan_bwd", k6_bwd_call, k6_bwd_work, None,
+               "src/repro_torch/csrc/mamba2_scan_bwd.cu",
+               "none: the JAX package differentiates its plain chunked "
+               "scan, src/repro/kernels/ops.py:445", "recurrent_train",
+               ("x", "dt", "A", "Bm", "Cm", "dy")),
+    "K7_bwd": ("K7_bwd rwkv6_scan_bwd", k7_bwd_call, k7_bwd_work, None,
+               "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+               "none: the JAX package differentiates its plain chunked "
+               "scan, src/repro/kernels/ops.py:456", "recurrent_train",
+               ("r", "k", "v", "w", "u", "dy")),
 }
-PER = {"train": "per_step", "recurrent": "per_forward"}
+PER = {"train": "per_step", "recurrent": "per_forward",
+       "recurrent_train": "per_step"}
 
 
 def _timed(key, args_kw, flush):
@@ -5680,6 +6194,8 @@ def _timed(key, args_kw, flush):
     elif key in ("K6", "K7"):
         err = scan_compare(call, a, dtype)
         err32 = scan_compare(call, f32, torch.float32)
+    elif key in ("K6_bwd", "K7_bwd"):
+        err, err32 = scan_bwd_compare(key, a), scan_bwd_compare(key, f32)
     elif key == "K1":
         err, err32 = k1_compare(call(a), a, dtype), \
             k1_compare(call(f32), f32, torch.float32)
@@ -5689,9 +6205,12 @@ def _timed(key, args_kw, flush):
     nbytes, flops = work(a)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
     ms = time_ms(lambda: call(a), flush)
+    # the plain versions (a reference, no yardstick of speed) run 5 times
+    # after one warm-up, the kernels and the library 25 (a cut of the
+    # script's time)
     return {"max_abs_err": err, "max_abs_err_f32": err32, "ms": ms,
             "tflops": flops / ms / 1e9,
-            "plain_ms": time_ms(lambda: call(a, "ref"), flush),
+            "plain_ms": time_ms(lambda: call(a, "ref"), flush, n=5, warm=1),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib(a), flush) if lib else None,
@@ -5709,12 +6228,14 @@ def phase_times(runs, captured):
         row = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                "launches": runs[run]["launches"][key],
                f"launches_{per}": runs[run][per][key],
-               "launches_by_run": {r: v["launches"][key]
+               "launches_by_run": {r: v["launches"].get(key, 0)
                                    for r, v in runs.items()},
                "timed_from_run": run}
         row.update(_timed(key, captured[key], flush))
         row["library"] = (
-            "none: no single PyTorch call computes this scan" if lib is None
+            "none: no single PyTorch call computes this scan" + (
+                "'s gradient" if key.endswith("_bwd") else "")
+            if lib is None
             else "scaled_dot_product_attention"
             + (" on K/V pre-gathered into contiguous strips (gather not "
                "timed)" if key in ("K1", "K2")
@@ -5751,7 +6272,8 @@ def phase_times(runs, captured):
 PORT_KERNEL_NAMES = {"K1": ("paged_prefill",), "K2": ("paged_decode",),
                      "K3": ("dense_decode",), "K4": ("flash_attention",),
                      "K5": ("flash_bwd", "dq_bf16", "dkv_bf16"),
-                     "K6": ("mamba2_scan",), "K7": ("rwkv6_scan",)}
+                     "K6": ("mamba2_scan",), "K7": ("rwkv6_scan",),
+                     "K6_bwd": ("mamba2_bwd",), "K7_bwd": ("rwkv6_bwd",)}
 
 
 def device_trace(fn) -> dict:
@@ -5826,16 +6348,14 @@ def main() -> int:
     k4_paper = phase_paper()
     at("K4 at the paper's workloads")
     runs, captured, mp = phase_slice()
+    at("the slice's three engines and entry points")
     m6_runs, m6_captured = phase_m6(*mp)
     runs.update(m6_runs)
     captured.update(m6_captured)
+    at("speculation, prefix cache and preemption")
     runs.update(phase_m6d_m7(*mp, runs["chunked"]))
+    at("telemetry, deadlines and the fleet")
     trace = phase_trace(*mp, "chunked", runs["chunked"]["e2e"]["wall_s"])
-    trace_dense = phase_trace(*mp, "dense", runs["dense"]["e2e"]["wall_s"])
-    trace_pm = phase_trace(*mp, "paged_monolithic",
-                           runs["paged_monolithic"]["e2e"]["wall_s"])
-    m6_traces = {run: phase_trace(*mp, run, runs[run]["e2e"]["wall_s"])
-                 for run in M6_RUNS}
     at("granite-3-2b serving")
     e2e_m10, m10_captured, m10_launches = phase_m10(*mp, runs)
     captured.update(m10_captured)
@@ -5855,7 +6375,9 @@ def main() -> int:
     runs.update(m14_launches)
     at("M14")
     _free()
-    runs["recurrent"], rec_captured, e2e_rec, trace_rec = phase_recurrent()
+    runs["recurrent"], rec_captured, e2e_rec, trace_rec, \
+        runs["recurrent_train"], e2e_rec_train, traces_rec_train = \
+        phase_recurrent()
     captured.update(rec_captured)
     _free()
     at("recurrent")
@@ -5881,12 +6403,10 @@ def main() -> int:
     at("times")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)
-    print(json.dumps({"trace_dense": trace_dense}), flush=True)
-    print(json.dumps({"trace_paged_monolithic": trace_pm}), flush=True)
     print(json.dumps({"trace_train": trace_train}), flush=True)
     print(json.dumps({"trace_recurrent": trace_rec}), flush=True)
-    for run, tr in m6_traces.items():
-        print(json.dumps({f"trace_{run}": tr}), flush=True)
+    print(json.dumps({"trace_recurrent_train": traces_rec_train}),
+          flush=True)
     print(json.dumps({"trace_dense_family": trace_df}), flush=True)
     print(json.dumps({"trace_moe": trace_moe}), flush=True)
     print(json.dumps({"trace_vlm": trace_vlm}), flush=True)
@@ -5896,6 +6416,7 @@ def main() -> int:
                       runs["paged_monolithic"]["e2e"]}), flush=True)
     print(json.dumps({"e2e_train": e2e_train}), flush=True)
     print(json.dumps({"e2e_recurrent": e2e_rec}), flush=True)
+    print(json.dumps({"e2e_recurrent_train": e2e_rec_train}), flush=True)
     for run, ref in M6_RUNS.items():
         print(json.dumps({f"e2e_{run}": dict(runs[run]["e2e"], reference=dict(
             runs[ref]["e2e"], name=ref))}), flush=True)

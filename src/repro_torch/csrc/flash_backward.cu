@@ -64,6 +64,13 @@
 //    bounds them: mma.sync issues per warp, synchronously, and every warp
 //    reads its B fragments from shared memory for only 16 rows of A (wgmma
 //    over a 64-row warpgroup would read each once), and the 7/5 recompute.
+//    Head dim 80 (zamba2's shared block) takes the head dim 64 shapes:
+//    a row of 80 bf16 is ten 16-byte cp.async chunks (every loader walks
+//    rows x D / 8 chunks, whatever the count), the k-dimension five
+//    16-wide steps and n ten 8-wide tiles, paired for ldmatrix.x4 as at
+//    64 (ND / 2 = 5 pairs); a padded row of 88 elements (44 words) keeps
+//    ldmatrix free of bank conflicts (csrc/mma_bf16.cuh); one block an
+//    SM is promised to ptxas (MIN_BLOCKS), as at 128.
 //    Head dim 256 (gemma3-4b) breaks a limit of the card in each kernel,
 //    and each takes another shape there: the dq kernel a KV tile of 32
 //    positions (dq_cols: shared memory, and registers beside dq's 128
@@ -942,7 +949,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
 // cudaError_t (0 = both launched).  Element type: is_bf16 = 1 for
 // bfloat16 (the tensor-core kernels; every bf16 pointer 16-byte aligned,
 // else cudaErrorMisalignedAddress), 0 for float32 (the CUDA-core kernels);
-// lse and delta are always float32; head dim 64, 128 or 256.  Anything else
+// lse and delta are always float32; head dim 64, 80 (zamba2's shared
+// attention block), 128 or 256.  Anything else
 // returns cudaErrorInvalidValue without launching (the Python wrapper
 // checks first).
 extern "C" int flash_backward_launch(const void* q, const void* k,
@@ -960,6 +968,9 @@ extern "C" int flash_backward_launch(const void* q, const void* k,
     if (D == 64)
       return launch_bf16<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq,
                              Skv, Hkv, G, causal, window, scale, softcap, s);
+    if (D == 80)
+      return launch_bf16<80>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq,
+                             Skv, Hkv, G, causal, window, scale, softcap, s);
     if (D == 128)
       return launch_bf16<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
                               Sq, Skv, Hkv, G, causal, window, scale,
@@ -971,6 +982,10 @@ extern "C" int flash_backward_launch(const void* q, const void* k,
   } else {
     if (D == 64)
       return launch<float, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
+                               Sq, Skv, Hkv, G, causal, window, scale,
+                               softcap, s);
+    if (D == 80)
+      return launch<float, 80>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
                                Sq, Skv, Hkv, G, causal, window, scale,
                                softcap, s);
     if (D == 128)

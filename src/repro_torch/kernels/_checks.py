@@ -6,14 +6,12 @@ from __future__ import annotations
 
 import torch
 
-# head dims of the dense-cache kernels K3 and K4 (80: zamba2's shared
-# attention block; 256: gemma3-4b); the paged kernels K1 and K2 take
-# PAGED_HEAD_DIMS (no path runs them at 80), the backward K5
-# BACKWARD_HEAD_DIMS (256: gemma3-4b's training; zamba2's 80 waits for it
-# and for a Mamba2 backward: ROADMAP §2)
+# head dims of the dense-cache kernels K3 and K4 and of the backward K5
+# (80: zamba2's shared attention block; 256: gemma3-4b); the paged
+# kernels K1 and K2 take PAGED_HEAD_DIMS (no path runs them at 80)
 HEAD_DIMS = (64, 80, 128, 256)
 PAGED_HEAD_DIMS = (64, 128, 256)
-BACKWARD_HEAD_DIMS = (64, 128, 256)
+BACKWARD_HEAD_DIMS = (64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -69,8 +67,10 @@ def check_scan_operands(name: str, acts, f32s, shapes):
     """The operands of a scan kernel (K6, K7): `acts` {arg: tensor} in one
     float32/bfloat16 dtype, `f32s` {arg: tensor} float32 (decays and step
     sizes are never rounded to bfloat16), all contiguous on one CUDA
-    device, each of the shape `shapes` names.  The kernels have no
-    backward, so a call autograd would have to differentiate raises."""
+    device, each of the shape `shapes` names.  A direct call that autograd
+    would have to differentiate raises: the kernels return no graph, and
+    their gradient is the backward kernels' (ops._Scan calls both
+    under no_grad)."""
     first = next(iter(acts.values()))
     dev = first.device
     if dev.type not in ("cuda", "meta"):
@@ -83,9 +83,9 @@ def check_scan_operands(name: str, acts, f32s, shapes):
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in everything.values()):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward (nor has the TPU "
-            f"kernel it replaces), and its result would carry no gradient; "
-            f"run the plain version (impl='ref') to differentiate")
+            f"{name}: a direct kernel call returns no autograd graph; "
+            f"differentiate through kernels/ops.py (its autograd Function "
+            f"runs the backward kernel)")
     for arg, t in everything.items():
         want = first.dtype if arg in acts else torch.float32
         if t.device != dev or t.dtype != want:
@@ -96,3 +96,15 @@ def check_scan_operands(name: str, acts, f32s, shapes):
                              f"{tuple(shapes[arg])}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def check_scan_grad(name: str, dy, y_shape, act_dtype, device):
+    """The incoming gradient of a scan's backward kernel: y's shape, the
+    activations' dtype, contiguous, on the operands' device."""
+    if tuple(dy.shape) != tuple(y_shape) or dy.dtype != act_dtype \
+            or dy.device != device:
+        raise ValueError(f"{name}: dy must be {act_dtype} {tuple(y_shape)} "
+                         f"on {device}, got {dy.dtype} {tuple(dy.shape)} on "
+                         f"{dy.device}")
+    if not dy.is_contiguous():
+        raise ValueError(f"{name}: dy must be contiguous")

@@ -7,6 +7,10 @@ flash_decode.py, kernels/mamba2_scan.py, kernels/rwkv6_scan.py) and a CPU
 tensor takes the plain PyTorch version; there is no fallback from one to
 the other.  impl="ref" forces the plain version on any device - the tests
 and chip_smoke.py's parity phases use it to hold the kernels against it.
+Where autograd needs a gradient, attention goes through _FlashAttention
+(K4 forward, K5 backward) and the scans through _Scan (K6 / K7
+forward, their backward kernels), so no CUDA autograd path reaches
+kernels/ref.py.
 The scans also take impl="naive", the step-by-step recurrence, as the
 JAX package's ops do.  The single-step decode updates of the recurrent
 states (mamba2_step, rwkv6_step) and the sequence-parallel decode
@@ -482,19 +486,46 @@ def _check_scan_impl(impl):
         raise ValueError(f"impl must be one of {SCAN_IMPLS}, got {impl!r}")
 
 
+class _Scan(torch.autograd.Function):
+    """A scan with its backward kernel: the forward (K6 / K7, or their
+    plain versions) keeps only the operands - (x, dt, A, Bm, Cm) or (r,
+    k, v, w, u) - and the backward (kernels/mamba2_scan.py
+    mamba2_scan_bwd / rwkv6_scan.py rwkv6_scan_bwd, or their plain
+    versions) recomputes the states from them.  The JAX package
+    differentiates its plain chunked scans (src/repro/kernels/ops.py off
+    the TPU); the gradients are the same function's: the decays' and step
+    sizes' (dt, A, w, u) in float32, the others in the activations'
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *operands):
+        ctx.save_for_backward(*operands)
+        ctx.bwd = bwd
+        return fwd(*operands)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors      # once: remat's unpack allows one
+        with torch.no_grad():
+            grads = ctx.bwd(*saved, dy.to(saved[0].dtype).contiguous())
+        return (None, None, *grads)
+
+
 def mamba2_scan(x, dt, A, Bm, Cm, *,
                 impl: Optional[str] = None) -> torch.Tensor:
     """Mamba2 SSD scan.  x: (B, S, H, P); dt: (B, S, H) float32; A: (H,)
     float32; Bm / Cm: (B, S, N).  Returns y (B, S, H, P) in x's dtype.
-    impl=None launches K6 on a CUDA tensor (which raises where autograd
-    would need its gradient) and runs the chunked plain version, which
-    autograd differentiates, on a CPU tensor."""
+    impl=None launches K6 on a CUDA tensor and runs the chunked plain
+    version on a CPU tensor, through _Scan, whose backward is the backward
+    kernel (on a CPU tensor its plain version).  impl="ref": the plain
+    versions on any device; "naive": the step-by-step recurrence,
+    differentiated by autograd."""
     _check_scan_impl(impl)
     if impl == "naive":
         return ref.mamba2_scan(x, dt, A, Bm, Cm)
-    if impl == "ref":
-        return ref.mamba2_scan_chunked(x, dt, A, Bm, Cm)
-    return m2.mamba2_scan(x, dt, A, Bm, Cm)
+    fns = (ref.mamba2_scan_chunked, ref.mamba2_scan_bwd) \
+        if impl == "ref" else (m2.mamba2_scan, m2.mamba2_scan_bwd)
+    return _Scan.apply(*fns, x, dt, A, Bm, Cm)
 
 
 mamba2_step = ref.mamba2_step
@@ -504,15 +535,17 @@ def rwkv6_scan(r, k, v, w, u, *,
                impl: Optional[str] = None) -> torch.Tensor:
     """RWKV6 WKV scan.  r, k: (B, S, H, K); v: (B, S, H, V); w: (B, S, H,
     K) float32 decay; u: (H, K) float32.  Returns y (B, S, H, V) in r's
-    dtype.  impl=None launches K7 on a CUDA tensor (which raises where
-    autograd would need its gradient) and runs the chunked plain version,
-    which autograd differentiates, on a CPU tensor."""
+    dtype.  impl=None launches K7 on a CUDA tensor and runs the chunked
+    plain version on a CPU tensor, through _Scan, whose backward is the
+    backward kernel (on a CPU tensor its plain version).  impl="ref": the
+    plain versions on any device; "naive": the step-by-step recurrence,
+    differentiated by autograd."""
     _check_scan_impl(impl)
     if impl == "naive":
         return ref.rwkv6_scan(r, k, v, w, u)
-    if impl == "ref":
-        return ref.rwkv6_scan_chunked(r, k, v, w, u)
-    return r6.rwkv6_scan(r, k, v, w, u)
+    fns = (ref.rwkv6_scan_chunked, ref.rwkv6_scan_bwd) \
+        if impl == "ref" else (r6.rwkv6_scan, r6.rwkv6_scan_bwd)
+    return _Scan.apply(*fns, r, k, v, w, u)
 
 
 rwkv6_step = ref.rwkv6_step

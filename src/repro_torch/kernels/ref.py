@@ -459,6 +459,43 @@ def mamba2_scan_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128):
     return _mamba2_chunked(x, dt, A, Bm, Cm, chunk=chunk)[0]
 
 
+
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The chunked scans' working dtype: float32 for float32 and bfloat16
+    inputs, float64 for float64 ones (the plain backwards)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _grad_through(fn, inputs, dy):
+    """torch.autograd.grad of fn(*inputs) against dy, in float64, on
+    detached float64 copies of the inputs (the caller's graph untouched):
+    the gradients rounded to the inputs' dtypes once.  float64 because
+    the chunked forms' float32 gradient of the decay parameters loses
+    digits: each csum_t - csum_s difference of cumulative log decays, and
+    its gradient, is the difference of two sums that grow over the chunk,
+    so Mamba2's dA lands 1e-5 (dt A ~0.3) to 4e-4 (dt A ~6) of its
+    largest element from the float64 one, where the step-by-step
+    recurrence - the backward kernels' form - stays within 1e-6
+    (tests/test_torch_scan_backward.py)."""
+    with torch.enable_grad():
+        ins = [t.detach().double().requires_grad_(True) for t in inputs]
+        y = fn(*ins)
+        grads = torch.autograd.grad(y, ins, dy.to(y.dtype))
+    return tuple(g.to(t.dtype) for g, t in zip(grads, inputs))
+
+
+def mamba2_scan_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 128):
+    """The plain backward of the Mamba2 scan, the plain version of the
+    backward kernel csrc/mamba2_scan_bwd.cu: torch.autograd.grad through
+    mamba2_scan_chunked (the function the JAX package differentiates,
+    with the exponents masked before the exp), in float64
+    (_grad_through).  dy: (B, S, H, P).
+    Returns (dx, ddt, dA, dBm, dCm), each in its input's dtype (dt and A
+    float32)."""
+    return _grad_through(
+        lambda *a: mamba2_scan_chunked(*a, chunk=chunk), (x, dt, A, Bm, Cm),
+        dy)
+
 def _mamba2_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """Chunked matrix-form SSD, the JAX package's _mamba2_chunked: within a
     chunk of T steps y = (C B^T * L) (dt x) with L[t, s] = exp(csum_t -
@@ -476,16 +513,17 @@ def _mamba2_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128):
         dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
         Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
         Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
-    Af = A.float()
+    acc = _acc(x)
+    Af = A.to(acc)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    h = torch.zeros((Bsz, H, P, N), dtype=acc, device=x.device)
     ys = []
     for c0 in range(0, S + pad, chunk):
-        xf = x[:, c0:c0 + chunk].float()
-        dtf = dt[:, c0:c0 + chunk].float()
-        bf = Bm[:, c0:c0 + chunk].float()
-        cf = Cm[:, c0:c0 + chunk].float()
+        xf = x[:, c0:c0 + chunk].to(acc)
+        dtf = dt[:, c0:c0 + chunk].to(acc)
+        bf = Bm[:, c0:c0 + chunk].to(acc)
+        cf = Cm[:, c0:c0 + chunk].to(acc)
         log_a = -dtf * Af[None, None]                        # (B, T, H)
         csum = torch.cumsum(log_a, 1)
         diff = csum[:, :, None] - csum[:, None, :]           # (B, T, T, H)
@@ -611,6 +649,17 @@ def rwkv6_scan_chunked(r, k, v, w, u, *, chunk: int = 32):
     return _rwkv6_chunked(r, k, v, w, u, chunk=chunk)[0]
 
 
+
+def rwkv6_scan_bwd(r, k, v, w, u, dy, *, chunk: int = 32):
+    """The plain backward of the RWKV6 scan, the plain version of the
+    backward kernel csrc/rwkv6_scan_bwd.cu: torch.autograd.grad through
+    rwkv6_scan_chunked (the function the JAX package differentiates), in
+    float64 (_grad_through).
+    dy: (B, S, H, V).  Returns (dr, dk, dv, dw, du), each in its input's
+    dtype (w and u float32)."""
+    return _grad_through(
+        lambda *a: rwkv6_scan_chunked(*a, chunk=chunk), (r, k, v, w, u), dy)
+
 def _rwkv6_chunked(r, k, v, w, u, *, chunk: int = 32):
     """Chunked matrix-form WKV6, the JAX package's _rwkv6_chunked: with cw
     the inclusive cumulative log decay of a chunk, y_t = sum_{s<t} (r_t
@@ -628,13 +677,14 @@ def _rwkv6_chunked(r, k, v, w, u, *, chunk: int = 32):
         k = torch.nn.functional.pad(k, zp)
         v = torch.nn.functional.pad(v, zp)
         w = torch.nn.functional.pad(w, zp, value=1.0)
-    uf = u.float()
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+    acc = _acc(r)
+    uf = u.to(acc)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=acc,
                                 device=r.device), -1)
-    st = torch.zeros((Bsz, H, K, V), dtype=torch.float32, device=r.device)
+    st = torch.zeros((Bsz, H, K, V), dtype=acc, device=r.device)
     ys = []
     for c0 in range(0, S + pad, chunk):
-        rt, kt, vt, wt = (t[:, c0:c0 + chunk].float() for t in (r, k, v, w))
+        rt, kt, vt, wt = (t[:, c0:c0 + chunk].to(acc) for t in (r, k, v, w))
         logw = torch.log(torch.clamp_min(wt, 1e-30))
         cw = torch.cumsum(logw, 1)
         cw_prev = cw - logw

@@ -18,7 +18,8 @@ StepCost is a TorchDispatchMode.  Over one call of a step it counts:
     all_to_all, broadcast): calls and payload bytes (a gather's gathered
     output, a reduction's tensor), read off the c10d ops the dispatcher
     sees - every torch.distributed collective the step makes;
-  * kernels by name (K1-K7): calls, FLOPs and bytes;
+  * kernels by name (K1-K7, and K6_bwd / K7_bwd, the scans'
+    backward kernels): calls, FLOPs and bytes;
   * the peak of live result bytes: each result counts from the op that
     makes it until its tensor object is freed (a view that outlives its
     base is not counted past it, so this is a lower bound of the peak).
@@ -32,9 +33,9 @@ The hand-written kernels are bound through ctypes (kernels/build.py), so
 the dispatcher never sees them: each kernel wrapper, given tensors on the
 meta device, returns empty meta outputs of the right shape and dtype and
 reports its kernel's formula here (record_kernel).  The formulas (k1_work
-.. k7_work) are also what chip_smoke.py's bound_ms column divides by the
-card's rates, so the dry run and the bound count the same work whatever
-implements the kernel.  Where the work depends on the data (the lengths
+.. k7_work, k6_bwd_work, k7_bwd_work) are also what chip_smoke.py's
+bound_ms column divides by the card's rates, so the dry run and the bound
+count the same work whatever implements the kernel.  Where the work depends on the data (the lengths
 of K1-K3), the caller passes what the data needs; the meta path, which
 has no data, passes the whole cache or block table, as XLA's cost of a
 masked computation counts it whole.
@@ -174,6 +175,31 @@ def k7_work(r_shape, V: int, itemsize: int, chunk: int = 32
         flops += t * (t - 1) * (K + V) + 3 * t * K + 4 * t * K * V
     return nbytes, flops * B * H
 
+
+
+def k6_bwd_work(x_shape, N: int, itemsize: int) -> Tuple[int, int]:
+    """K6's backward (csrc/mamba2_scan_bwd.cu): x, dt, A, B, C and dy read
+    once, dx, ddt, dA, dB and dC written once; the recurrence's work per
+    state element and step - the state recomputed twice (the saved states'
+    pass and once more inside each stretch between them), the adjoint g =
+    C dy + a g', the terms of dx, dB and dC, and <h_{t-1}, g> for ddt and
+    dA - 2 FLOPs each: 14 P N FLOPs per (sequence, step, head)."""
+    B, S, H, P = x_shape
+    nbytes = 3 * _numel(x_shape) * itemsize + 4 * B * S * N * itemsize \
+        + 2 * (B * S * H + H) * 4
+    return nbytes, 14 * B * S * H * P * N
+
+
+def k7_bwd_work(r_shape, V: int, itemsize: int) -> Tuple[int, int]:
+    """K7's backward (csrc/rwkv6_scan_bwd.cu): r, k, v, w, u and dy read
+    once, dr, dk, dv, dw and du written once; the recurrence's work per
+    state element and step - the state recomputed twice, the terms of dr
+    (S dy), dk (G v), dv (G k and the bonus), dw (S . G) and the adjoint
+    G' = w G + r dy - 16 K V FLOPs per (sequence, step, head)."""
+    B, S, H, K = r_shape
+    nbytes = (4 * _numel(r_shape) + 3 * B * S * H * V) * itemsize \
+        + 2 * (B * S * H * K + H * K) * 4
+    return nbytes, 16 * B * S * H * K * V
 
 # ---------------------------------------------------------------------------
 # the counting mode

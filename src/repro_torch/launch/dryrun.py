@@ -34,15 +34,15 @@ same thing:
     all_to_all, gathers and all_reduce, are counted there too), the rest
     being the head-sharded attention's and the sequence-parallel
     decode's gathers;
-  kernels: K1-K7 by name, {"calls", "flops", "bytes"};
+  kernels: K1-K7, and K6_bwd / K7_bwd (the scans' backward kernels), by
+    name, {"calls", "flops", "bytes"};
   trace_s: the wall time of the traced call.
-The mesh steps take every family.  The hybrid and ssm families' train
-cells raise NotImplementedError (their step on the meta device: K6 / K7
-have no backward, ROADMAP §2 - train/train_step.py check_backward),
-written to <tag>.error.json as the JAX dry run writes its failures; their
-prefill and decode cells are costed: the Mamba2 / RWKV6 layers on every
-head of the rank's rows, zamba2's shared block's K4 / K3 on the head
-shard.  The MoE cells run the per-row dispatch, as the JAX dry run runs
+The mesh steps take every family.  A cell whose step raises is written
+to <tag>.error.json, as the JAX dry run writes its failures.  The hybrid
+and ssm families' cells are costed like the rest: the Mamba2 / RWKV6
+layers on every head of the rank's rows (a train cell's scans K6 / K7
+and their backward kernels K6_bwd / K7_bwd), zamba2's shared block's K4
+/ K5 / K3 on the head shard.  The MoE cells run the per-row dispatch, as the JAX dry run runs
 without REPRO_MOE_A2A; with it set, their steps take the exchange and
 count its all_to_all.
 

@@ -66,10 +66,8 @@ def check_mesh_family(cfg, what: str) -> None:
     attention on the rank's head shard (its cross strips in the cache's
     layout), zamba2's Mamba2 layers and rwkv6's time-mix replicated over
     the model axis with only their state leaves split (zamba2's shared
-    block on the head shard).  A family outside MESH_FAMILIES raises
-    NotImplementedError.  (Training the hybrid and ssm families on the
-    card is refused apart, by train/train_step.py check_backward: ROADMAP
-    §2.)"""
+    block on the head shard; their scans' backward kernels on every
+    rank).  A family outside MESH_FAMILIES raises NotImplementedError."""
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{what} {cfg.name} (family {cfg.family!r}) on a mesh: the "

@@ -20,11 +20,8 @@ the JAX rules; the per-row dispatch by default, the REPRO_MOE_A2A
 exchange where it is set, models/moe.py; whisper's four strips and
 zamba2's shared block's two in the one layout strips_spec reads; the
 recurrent states' blocks as state_blocks reads them, each leaf from its
-own spec).  A train cell's step of the hybrid or ssm family runs on a
-CPU mesh only: on the card or the meta device it raises
-NotImplementedError naming ROADMAP §2 (train/train_step.py
-check_backward).  launch/dryrun.py runs every cell's step on the meta
-device.
+own spec; their train cells' steps through the scans' backward
+kernels).  launch/dryrun.py runs every cell's step on the meta device.
 """
 from __future__ import annotations
 

@@ -93,9 +93,8 @@ def main(argv=None):
                            remat="full", checkpoint_dir=args.ckpt_dir,
                            grad_compression="int8" if args.compress_grads
                            else "")
-    # what has no backward on the card (a head dim K5 does not take; the
-    # hybrid and ssm families' scans) is refused before a world or a mesh
-    # is built
+    # a head dim K5 does not take has no backward on the card: refused
+    # before a world or a mesh is built
     check_backward(cfg, args.device)
     mesh = None
     if args.debug_mesh or not (args.smoke or args.single_device):

@@ -6,7 +6,8 @@ Parameters (one layer, JAX layout): in_proj (d, 2 d_in + 2 N + H) emitting
 (d_in,) in the config's dtype, and A_log, dt_bias (H,) kept in float32 as
 the JAX init keeps them.  The decode state is (conv: the last ssm_conv - 1
 pre-conv inputs, ssm: the (H, P, N) float32 state).  The full-sequence
-scan goes through ops.mamba2_scan (K6 on the card); prefill uses the plain
+scan goes through ops.mamba2_scan (K6 on the card, and in training its
+backward kernel, csrc/mamba2_scan_bwd.cu); prefill uses the plain
 chunked scan, which also returns the final state, as the JAX package does.
 
 On a (data, model) mesh (a mesh step's attention.CacheShard, shard=) the

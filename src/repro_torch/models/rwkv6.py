@@ -9,7 +9,9 @@ cm_k (d, d_ff) and cm_v (d_ff, d) in the config's dtype; w_base (d,) and
 the bonus u (H, K) kept in float32 as the JAX init keeps them.  The decay
 w is float32 from end to end (the scan sums its logarithm).  The decode
 state is (wkv: the (H, K, K) float32 state, tm_prev / cm_prev: the last
-token's time-mix and channel-mix inputs).
+token's time-mix and channel-mix inputs).  The full-sequence scan goes
+through ops.rwkv6_scan (K7 on the card, and in training its backward
+kernel, csrc/rwkv6_scan_bwd.cu).
 
 On a (data, model) mesh (a mesh step's attention.CacheShard, shard=) the
 time-mix runs on the rank's rows with every head, replicated over the

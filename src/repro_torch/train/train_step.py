@@ -17,12 +17,12 @@ does, with explicit collectives over the mesh's groups
       full-size tensors (all_gather_into_tensor over each sharded mesh
       dim: ZeRO-3 with one gather of the whole tree a step);
   (b) runs Model.loss and its backward on the rank's rows of the batch
-      (every family: launch/mesh.py check_mesh_family; the hybrid and
-      ssm families on a CPU mesh only, check_backward), each attention -
+      (every family: launch/mesh.py check_mesh_family), each attention -
       whisper's encoder and cross-attention and zamba2's shared block
       too - on the rank's head shard of the model axis
       (ops.head_sharded_attention: K4 / K5; the Mamba2 and RWKV6 scans
-      replicated over it, as in the JAX package), the loss the rank's
+      and their backward kernels replicated over it, as in the JAX
+      package), the loss the rank's
       share of the global mean (dp_sum: the position count summed over the
       data-parallel ranks before dividing; an MoE layer's aux loss the
       rank's share too, models/moe.py).  An MoE layer runs the per-row
@@ -66,29 +66,19 @@ def check_backward(cfg: ModelConfig, device) -> None:
     model is built or a kernel launched where they do not exist.  On
     CUDA the attention gradient is K5 (kernels/flash_backward.py,
     csrc/flash_backward.cu), with no fallback, and K5 takes the head
-    dims BACKWARD_HEAD_DIMS (64, 128 and gemma3-4b's 256): another head
-    dim raises (zamba2's 80; ROADMAP §2 item 1).  The scans K6 (Mamba2)
-    and K7 (RWKV6) have no backward (ROADMAP §2 item 2): the hybrid and
-    ssm families raise on CUDA and on the meta device (the dry run's
-    train cells), whatever the mesh; they train on the CPU, through the
-    plain chunked scans."""
-    kind = torch.device(device).type
-    if kind not in ("cuda", "meta"):
+    dims BACKWARD_HEAD_DIMS (64, zamba2's 80, 128 and gemma3-4b's 256):
+    another head dim raises.  The scans' gradients are their backward
+    kernels (csrc/mamba2_scan_bwd.cu, csrc/rwkv6_scan_bwd.cu, through
+    kernels/ops.py _Scan), so the hybrid and ssm
+    families train on CUDA and cost on the meta device like the rest;
+    the ssm family has no attention, so no head dim to check."""
+    if torch.device(device).type != "cuda" or cfg.family == "ssm":
         return
-    missing = []
-    if kind == "cuda" and cfg.family != "ssm" \
-            and cfg.head_dim not in BACKWARD_HEAD_DIMS:
-        missing.append(f"K5 flash_attention_bwd (csrc/flash_backward.cu) "
-                       f"at head dim {cfg.head_dim}; K5 takes "
-                       f"{BACKWARD_HEAD_DIMS} (ROADMAP §2 item 1)")
-    scan = {"hybrid": "K6 mamba2_scan (csrc/mamba2_scan.cu)",
-            "ssm": "K7 rwkv6_scan (csrc/rwkv6_scan.cu)"}.get(cfg.family)
-    if scan:
-        missing.append(f"a backward of {scan}, which has none (ROADMAP "
-                       f"§2 item 2)")
-    if missing:
+    if cfg.head_dim not in BACKWARD_HEAD_DIMS:
         raise NotImplementedError(
-            f"training {cfg.name} on {kind} needs " + "; and ".join(missing))
+            f"training {cfg.name} on cuda needs K5 flash_attention_bwd "
+            f"(csrc/flash_backward.cu) at head dim {cfg.head_dim}; K5 "
+            f"takes {BACKWARD_HEAD_DIMS}")
 
 
 class TrainState(NamedTuple):

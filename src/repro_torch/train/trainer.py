@@ -25,11 +25,9 @@ the rank's rows, or with REPRO_MOE_A2A the expert-parallel exchange, its
 aux loss a share of the global batch's: train/train_step.py; the vlm
 family's image rows and whisper's encoder and cross-attention on the
 rank's head shard; zamba2's shared block on the head shard, its Mamba2
-layers and rwkv6's time-mix replicated over the model axis).  The hybrid
-and ssm families train on the CPU only, with a mesh or without: on the
-card, or the meta device, the Trainer refuses them before anything is
-built (check_backward: K6 and K7 have no backward, nor K5 zamba2's head
-dim 80; ROADMAP §2 items 1-2).
+layers and rwkv6's time-mix replicated over the model axis).  On the
+card the Trainer first refuses a head dim K5 does not take, before
+anything is built (check_backward).
 """
 from __future__ import annotations
 

@@ -174,6 +174,12 @@ BOUNDS = [
                           0), 0.3041, "operations"),
     (lambda: cost.k5_work((2, 2048, 16, 64), (2, 2048, 4, 64), 2, True, 0),
      0.0434, "operations"),
+    # K5 at zamba2's shared block (head dim 80), the scans' backward
+    # kernels at zamba2's and rwkv6's training calls
+    (lambda: cost.k5_work((4, 2048, 32, 80), (4, 2048, 32, 80), 2, True,
+                          0), 0.2172, "operations"),
+    (lambda: cost.k6_bwd_work((4, 2048, 80, 64), 64, 2), 0.0779, "bytes"),
+    (lambda: cost.k7_bwd_work((4, 2048, 32, 64), 64, 2), 0.1102, "bytes"),
 ]
 
 

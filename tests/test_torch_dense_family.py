@@ -12,7 +12,7 @@ three train steps of opt-6.7b's smoke config (LayerNorm, gelu and the
 position term under autograd), the sinusoidal positions themselves, the
 plain K1-K4 at gemma3-4b's head dim 256 against the JAX Pallas kernels in
 interpret mode, the Trainer's refusal, on CUDA, of a head dim K5 does not
-take (80), and gemma3-4b's smoke config at head dim 256: its loss and
+take (96; zamba2's 80 passes), and gemma3-4b's smoke config at head dim 256: its loss and
 gradients (float32 and bfloat16) and one train step.
 
 Bars: logits and written pools 1e-5 absolute (ROADMAP §3: XLA and ATen
@@ -304,20 +304,28 @@ def test_plain_dense_kernels_at_head_dim_256_match_jax():
 
 
 def test_trainer_refuses_head_dim_80_on_cuda():
-    """On CUDA the attention gradient is K5, which takes head dims 64, 128
-    and 256: zamba2 (80) and a dense config at head dim 80 are refused by
-    the Trainer and the launcher, naming K5, before a model is built or
-    any kernel launched (on a machine without a GPU, building would raise
-    first otherwise); gemma3-4b's 256 passes the check."""
+    """On CUDA the attention gradient is K5, which takes head dims 64,
+    80, 128 and 256: zamba2 (80) and a dense config at head dim 80 pass
+    check_backward, so the Trainer and the launcher get past it and fail
+    only at the device on a machine without a GPU, with no kernel
+    launched; a head dim outside the set (96) is still refused by the
+    Trainer, naming K5, before a model is built; gemma3-4b's 256
+    passes."""
     counts = (flash_attention.launches, flash_backward.launches)
     tcfg = TrainConfig(global_batch=1, seq_len=16, total_steps=1)
     for cfg in (get_config("zamba2-2.7b"),
                 get_smoke_config("gemma3-4b").replace(head_dim=80)):
-        with pytest.raises(NotImplementedError, match="K5"):
+        check_backward(cfg, "cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(cfg, tcfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="K5 flash_attention_bwd"):
-        train_launcher.main(["--arch", "zamba2-2.7b", "--steps", "1",
-                             "--global-batch", "1", "--seq", "16"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_launcher.main(["--arch", "zamba2-2.7b", "--single-device",
+                             "--steps", "1", "--global-batch", "1", "--seq",
+                             "16"])
+    with pytest.raises(NotImplementedError,
+                       match="K5 flash_attention_bwd.*head dim 96"):
+        Trainer(get_smoke_config("gemma3-4b").replace(head_dim=96), tcfg,
+                device="cuda")
     assert (flash_attention.launches, flash_backward.launches) == counts
     for cfg in (get_config("gemma3-4b"),
                 get_smoke_config("gemma3-4b").replace(head_dim=256)):

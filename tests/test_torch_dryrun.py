@@ -8,11 +8,11 @@ the dry run initialises a fake-backend process group.
   devices; and the CLI's --all at --mesh both over the cells of
   zamba2-2.7b (cut to 6 of its 54 layers: one application of its shared
   block) and of rwkv6-1.6b (1 of 24), one config a process (_CUT_CLI):
-  their 16 cells 12 costed - prefill_32k, decode_32k and long_500k,
-  zamba2's K4 / K3 calls one an application of the shared block,
-  rwkv6's none - and the 4 train_4k cells refused, each
-  written to its .error.json with the NotImplementedError naming
-  ROADMAP §2 and the scan kernel that has no backward (the full depth's
+  their 16 cells all costed - train_4k, prefill_32k, decode_32k and
+  long_500k, zamba2's K4 / K5 / K3 calls one an application of the
+  shared block, the train cells' scans K6 / K7 twice a layer (the
+  forward and remat's recompute) and their backward kernels K6_bwd /
+  K7_bwd once, rwkv6's serving cells no kernel (the full depth's
   prefill cells trace for minutes on the meta device: the chunked
   scans' Python loop over 1024 or 256 chunks a layer);
 - memory.argument_size_bytes a device equals the JAX package's
@@ -205,17 +205,19 @@ def test_the_cli_costs_a_dense_cell_at_both_meshes(runs):
 
 
 def test_another_familys_cell_writes_its_error(runs):
-    """zamba2-2.7b's train_4k cell, whose step on the meta device is
-    refused (K6 has no backward, nor K5 its head dim 80), written to its
-    .error.json; its long_500k cell costed."""
+    """zamba2-2.7b's train_4k cell, once refused on the meta device (K6
+    had no backward, nor K5 its head dim 80), writes a record now and no
+    .error.json: its step runs K5 at head dim 80 and the Mamba2 scan's
+    backward kernel K6_bwd; its long_500k cell is costed too."""
     d = os.path.join(runs["d"], "zamba2-2.7b")
     for mesh in ("single", "multi"):
+        assert not os.path.exists(os.path.join(
+            d, f"zamba2-2.7b__train_4k__{mesh}.error.json"))
         with open(os.path.join(
-                d, f"zamba2-2.7b__train_4k__{mesh}.error.json")) as f:
-            err = json.load(f)
-        assert err["error"].startswith("NotImplementedError")
-        assert "ROADMAP §2 item 2" in err["error"] \
-            and "K6 mamba2_scan" in err["error"], err["error"]
+                d, f"zamba2-2.7b__train_4k__{mesh}.json")) as f:
+            rec = json.load(f)
+        assert rec["kernels"]["K5"]["flops"] > 0
+        assert rec["kernels"]["K6_bwd"]["flops"] > 0
         with open(os.path.join(
                 d, f"zamba2-2.7b__long_500k__{mesh}.json")) as f:
             rec = json.load(f)
@@ -224,23 +226,27 @@ def test_another_familys_cell_writes_its_error(runs):
 
 @pytest.mark.parametrize("arch", sorted(RECURRENT_LAYERS))
 def test_the_cli_costs_the_recurrent_serving_cells(runs, arch):
-    """Of each recurrent config's 8 cells (4 shapes x 2 meshes) the 6
-    prefill and decode cells are costed and the 2 train cells refused by
-    name: 12 costed and 4 refused in all.  zamba2's shared block runs K4
-    once a prefill (its one application) and K3 once a decode step where
-    the strips keep the whole sequence (decode_32k's 128 lanes), none
-    with the sequence split (long_500k's one lane: the sequence-parallel
-    decode); rwkv6 runs no kernel."""
+    """Each recurrent config's 8 cells (4 shapes x 2 meshes) are costed,
+    none refused: 16 costed in all.  zamba2's shared block runs K4 once a
+    prefill (its one application) and K3 once a decode step where the
+    strips keep the whole sequence (decode_32k's 128 lanes), none with
+    the sequence split (long_500k's one lane: the sequence-parallel
+    decode); rwkv6's serving cells run no kernel.  A train_4k cell (remat
+    full) runs each scan twice a layer - the forward and the recompute -
+    and its backward kernel once (zamba2's 6 layers: K6 12, K6_bwd 6; K4
+    2, K5 1 at its one application; rwkv6's 1: K7 2, K7_bwd 1), and its
+    record carries the backward kernels' work: launch/cost.py k6_bwd_work
+    / k7_bwd_work at the rank's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost
     d = os.path.join(runs["d"], arch)
-    assert "6 costed, 2 refused" in runs["logs"][arch], runs["logs"][arch]
-    scan = "K6 mamba2_scan" if arch.startswith("zamba2") else "K7 rwkv6_scan"
-    for mesh in ("single", "multi"):
-        with open(os.path.join(d, f"{arch}__train_4k__{mesh}.error.json")) \
-                as f:
-            err = json.load(f)["error"]
-        assert err.startswith("NotImplementedError") and scan in err \
-            and "ROADMAP §2 item 2" in err, err
-        for shape in RECURRENT_SHAPES[1:]:
+    assert "8 costed, 0 refused" in runs["logs"][arch], runs["logs"][arch]
+    L = RECURRENT_LAYERS[arch]
+    cfg = get_config(arch)
+    for mesh, rows in (("single", 256 // 16), ("multi", 256 // 32)):
+        assert not os.path.exists(
+            os.path.join(d, f"{arch}__train_4k__{mesh}.error.json"))
+        for shape in RECURRENT_SHAPES:
             with open(os.path.join(d, f"{arch}__{shape}__{mesh}.json")) \
                     as f:
                 rec = json.load(f)
@@ -248,9 +254,28 @@ def test_the_cli_costs_the_recurrent_serving_cells(runs, arch):
             assert rec["cost"]["flops"] > 0
             want = {}
             if arch.startswith("zamba2"):
-                want = {"prefill_32k": {"K4": 1}, "decode_32k": {"K3": 1},
+                want = {"train_4k": {"K4": 2, "K5": 1, "K6": 2 * L,
+                                     "K6_bwd": L},
+                        "prefill_32k": {"K4": 1}, "decode_32k": {"K3": 1},
                         "long_500k": {}}[shape]
+            elif shape == "train_4k":
+                want = {"K7": 2 * L, "K7_bwd": L}
             assert _calls(rec) == want, (shape, mesh, _calls(rec))
+        with open(os.path.join(d, f"{arch}__train_4k__{mesh}.json")) as f:
+            kernels = json.load(f)["kernels"]
+        H = cfg.n_heads if arch.startswith("rwkv6") else None
+        if arch.startswith("zamba2"):
+            d_in = cfg.ssm_expand * cfg.d_model
+            H = cfg.ssm_heads or d_in // 64
+            work = cost.k6_bwd_work((rows, 4096, H, d_in // H),
+                                    cfg.ssm_state, 2)
+            key = "K6_bwd"
+        else:
+            K = cfg.d_model // H
+            work = cost.k7_bwd_work((rows, 4096, H, K), K, 2)
+            key = "K7_bwd"
+        assert kernels[key] == {"calls": L, "bytes": L * work[0],
+                                "flops": L * work[1]}, (mesh, kernels[key])
 
 
 @pytest.mark.parametrize("kind", sorted(SMOKE))

@@ -62,7 +62,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                     "repro_torch.core.workloads",
                                     "repro_torch.core.dataflows",
                                     "repro_torch.core.simulator",
-                                    "repro_torch.core.thermal"])
+                                    "repro_torch.core.thermal",
+                                    "repro_torch.kernels.mamba2_scan",
+                                    "repro_torch.kernels.rwkv6_scan",
+                                    "repro_torch.train.train_step"])
 def test_module_alone_imports_no_jax(module):
     """The modules that keep copies of the JAX package's framework-free
     code (the energy model, the tracer, the fleet router, whisper's
@@ -72,9 +75,11 @@ def test_module_alone_imports_no_jax(module):
     sharding rules, the launchers and cell specs, the mesh tests'
     worker (tests/torch_mesh_worker.py), the cost counter and the dry run,
     the copy of the paper's schedule and the Hopper block chooser, the
-    mesh serving steps, and the copies of the paper's 3D-Flow simulator
-    (arch, workloads, dataflows, simulator, thermal) import, each on its
-    own, no jax and nothing of the JAX package."""
+    mesh serving steps, the copies of the paper's 3D-Flow simulator
+    (arch, workloads, dataflows, simulator, thermal), and the scans'
+    wrappers with their backward kernels' and the train step that runs
+    them on the card import, each on its own, no jax and nothing of the
+    JAX package."""
     res = _run(f"import sys, {module}\n"
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib', 'repro.')) "

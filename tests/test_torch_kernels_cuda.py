@@ -6,8 +6,8 @@ lanes, sliding window, softcap; causal and full attention over a length
 that is no tile multiple, fewer queries than keys; dense decode lengths 0,
 1 and the whole strip, one length for every lane; the FA-2 backward K5
 over causal, full, window and softcap attention at S = 200 and 256, and
-through autograd) at the kernels' head dims 64 and 128 (K3 and K4 also
-80, zamba2's shared attention block; K1-K5 also 256, gemma3-4b's, and
+through autograd) at the kernels' head dims 64 and 128 (K3, K4 and K5
+also 80, zamba2's shared attention block; K1-K5 also 256, gemma3-4b's, and
 K1 and K2 GQA groups of 7, qwen-7b's 28 / 4 heads; K1-K4 also groups of
 16 at head dim 128, qwen3-moe-235b-a22b's 64 / 4 heads; K4 and K5 also
 llava-next-34b's 56 / 8 heads of 128, groups of 7, K4 also causal over a
@@ -43,7 +43,16 @@ a large dt * A, the decay w = 1 and w at the model's clamp over whole
 chunks, w = 1e-3 far below it, u = 0, every state and key size the
 kernels take, ragged state rows and columns, K7 over 16 chunks with a
 ragged tail and 100 value columns, the full-width shapes of zamba2 and
-rwkv6, and the refusal of a call autograd would have to differentiate);
+rwkv6, and the refusal of a direct call autograd would have to
+differentiate); the scans' backward kernels K6_bwd and K7_bwd against
+their plain versions (float64 autograd through the chunked scans) over
+sequences past and short of their 16-step stretches, ragged state rows,
+dt near 0 and a large dt * A, the decay w = 1, at the model's clamp and
+far below it (held against the naive scan's gradient), u = 0, every
+state, key and value size they take and the full-width training shapes
+of zamba2 and rwkv6, their bits from call to call, autograd through
+ops.mamba2_scan / ops.rwkv6_scan (one forward and one backward launch),
+and their refusals;
 and K3, K4 and K5 at whisper-base's shapes (8 heads of 64: K4's full mask
 over 4 x 1500 and 1500 x 1500, K3 over a 1500-position strip, K5's full
 mask over 64 x 1500), in float32 and bfloat16; K4 at every tile its
@@ -79,7 +88,13 @@ overflows, K7 is held against the naive step-by-step scan): in float32 they
 agree within 1e-5 of the largest term - `terms` is the plain scan of the
 inputs' absolute values, the magnitude of the summed terms - and in
 bfloat16 within one rounding step of the output, 2**-7 x |y|, plus that
-float32 bar.
+float32 bar.  The scans' backward kernels: each gradient within 1e-5 of
+its largest element or of its largest term (the plain backward of the
+absolute values; ddt's two terms, of opposite signs there, added as
+magnitudes), and a bfloat16 gradient also within 2**-7 x (|want| +
+terms) - in float32 the kernel's ddt was seen past 1e-5 of its largest
+element only at dt * A ~10-20 a step (1.9e-5 of it on an H100), where
+ddt's terms cancel.
 """
 import json
 import os
@@ -574,7 +589,7 @@ def bwd_close(got, want, terms, dtype, names=("dq", "dk", "dv")):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(BWD_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_flash_backward_kernel_matches_plain(dev, D, G, variant, dtype, S,
                                              hkv=HKV):
     dt = DTYPES[dtype]
@@ -644,11 +659,13 @@ def test_flash_backward_refuses_what_it_does_not_take(dev):
             q, k, k, o, lse, q.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="lse"):
         flash_backward.flash_attention_bwd(q, k, k, o, lse[:, :4], q)
-    with pytest.raises(ValueError, match="head dim"):
-        t = q[..., :32].contiguous()
-        flash_backward.flash_attention_bwd(t, k[..., :32].contiguous(),
-                                           k[..., :32].contiguous(), t, lse,
-                                           t)
+    for d in (32, 96):     # K5 takes 64, 80, 128 and 256
+        with pytest.raises(ValueError, match="head dim"):
+            t = torch.nn.functional.pad(q, (0, d - 64)) if d > 64 \
+                else q[..., :d].contiguous()
+            kt = torch.nn.functional.pad(k, (0, d - 64)) if d > 64 \
+                else k[..., :d].contiguous()
+            flash_backward.flash_attention_bwd(t, kt, kt, t, lse, t)
 
 
 # ---------------------------------------------------------------------------
@@ -666,7 +683,8 @@ EDGE_VARIANTS = {"causal": (True, 0, 0.0), "full": (False, 0, 0.0),
 # (D, G): every group size at head dim 64, then the other head dims
 FWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (80, 2), (128, 2),
                (256, 2)]
-BWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 2), (256, 2)]
+BWD_EDGE_DG = [(64, 1), (64, 2), (64, 4), (64, 8), (80, 1), (128, 2),
+               (256, 2)]
 
 
 # K4 at every tile the source instantiates (core/hopper_mapping.py
@@ -820,7 +838,7 @@ def single_key_close(got, want, terms, q, k, o, do, dtype):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", ["causal", "full"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_flash_backward_is_bit_deterministic(dev, D, variant, dtype):
     """Three K5 calls on the same inputs give the same bits in dq, dk and
     dv: no atomics, one summation order (remat and resume rely on it)."""
@@ -1257,17 +1275,190 @@ def test_scan_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="key size"):
         rwkv6_scan.rwkv6_scan(**rwkv_args(dev, torch.float32, 1, 8, 2, 128,
                                           128, "random", False))
-    # no backward: a call autograd would differentiate raises, with or
-    # without ops in between, instead of returning a detached result
+    # a direct kernel call autograd would differentiate raises instead of
+    # returning a detached result; through ops it takes the autograd
+    # Function (K6 forward, its backward kernel on the way back)
     x = m["x"].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.mamba2_scan(**dict(m, x=x))
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        mamba2_scan.mamba2_scan(**dict(m, x=x))
     u = r["u"].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.rwkv6_scan(**dict(r, u=u))
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        rwkv6_scan.rwkv6_scan(**dict(r, u=u))
     with torch.no_grad():
         ops.mamba2_scan(**dict(m, x=x))
-    assert (mamba2_scan.launches, rwkv6_scan.launches) == (n6 + 1, n7)
+    assert ops.mamba2_scan(**dict(m, x=x)).grad_fn is not None
+    assert ops.rwkv6_scan(**dict(r, u=u)).grad_fn is not None
+    assert (mamba2_scan.launches, rwkv6_scan.launches) == (n6 + 2, n7 + 1)
+
+
+# the scans' backward kernels: (B, S, H, P, N, dt scale) and (B, S, H, K,
+# V, w, u zero) per case, as MAMBA_CASES / RWKV_CASES; S past and short of
+# the kernels' 16-step stretches, P short of a 16-row block; the full
+# widths at one sequence (the training calls' four come to chip_smoke.py's
+# timing phase)
+MAMBA_BWD_CASES = {"short": (1, 5, 3, 64, 64, 1.0),
+                   "ragged": (2, 300, 5, 40, 64, 1.0),
+                   "dt_near_0": (2, 100, 3, 64, 64, 1e-6),
+                   "large_dt_a": (2, 100, 3, 64, 64, 10.0),
+                   "state16": (2, 70, 2, 64, 16, 1.0),
+                   "state32": (1, 33, 3, 24, 32, 1.0),
+                   "state128": (1, 40, 3, 64, 128, 1.0),
+                   "odd_p": (1, 50, 3, 21, 32, 1.0),
+                   "full_zamba2": (1, 2048, 80, 64, 64, 1.0)}
+RWKV_BWD_CASES = {"short": (1, 5, 3, 64, 64, "random", False),
+                  "ragged": (2, 100, 5, 64, 64, "random", False),
+                  "w_one": (2, 70, 3, 64, 64, "one", False),
+                  "w_clamp": (2, 96, 3, 64, 64, "clamp", False),
+                  "u_zero": (2, 33, 3, 64, 64, "random", True),
+                  "key16": (2, 50, 2, 16, 16, "random", False),
+                  "key32": (1, 45, 3, 32, 32, "random", False),
+                  "below_clamp": (1, 100, 2, 64, 64, "below", False),
+                  "full_rwkv6": (1, 2048, 32, 64, 64, "random", False)}
+
+
+def scan_bwd_close(got, want, terms, names):
+    """A scan's backward kernel against its plain version (float64 inside,
+    kernels/ref.py _grad_through), gradient by gradient: within 1e-5 of
+    the gradient's largest element or of its largest term, whichever is
+    larger (the kernel sums in float32; as scan_close), plus for a
+    bfloat16 gradient one rounding step of the terms' magnitude, 2**-7 x
+    (|want| + terms) - both round each gradient to bfloat16 once.  terms:
+    the magnitude of the terms each gradient sums (mamba_bwd_terms,
+    rwkv_bwd_terms)."""
+    for name, g, w, t in zip(names, got, want, terms):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        bf16 = g.dtype == torch.bfloat16
+        g, w, t = g.float().cpu(), w.float().cpu(), t.float().cpu().abs()
+        assert bool(torch.isfinite(g).all()), f"{name}: not finite"
+        bar = 1e-5 * max(float(w.abs().max()), float(t.max()))
+        if bf16:
+            bar = 2.0 ** -7 * (w.abs() + t) + bar
+        err = (g - w).abs()
+        bad = err > bar
+        assert not bool(bad.any()), (
+            f"{name}: {int(bad.sum())} elements past the bar, max abs err "
+            f"{float(err.max()):.3e} (max |{name}| {float(w.abs().max()):.3e})")
+
+
+def mamba_bwd_terms(a, dy):
+    """The plain backward of the inputs' and dy's absolute values (A and
+    dt are positive): each gradient's terms, all of one sign - but ddt's
+    two, x^T g B and A a <h_{t-1}, g>, which the absolute values make
+    T1 >= 0 and -T2 <= 0.  T1 = sum_p |x_p| dx_p / dt, so ddt's
+    magnitude is T1 + T2 = 2 T1 - ddt."""
+    x = a["x"].abs()
+    t = list(mamba2_scan.reference_bwd(x, a["dt"], a["A"], a["Bm"].abs(),
+                                       a["Cm"].abs(), dy.abs()))
+    dt = a["dt"].double()
+    t1 = (x.double() * t[0].double()).sum(-1) / torch.where(dt > 0, dt, 1.0)
+    t[1] = (2 * t1 - t[1].double()).float()
+    return t
+
+
+def rwkv_bwd_terms(a, dy, plain):
+    """The plain backward (plain) of the inputs' and dy's absolute values
+    (w is positive): each gradient's terms, all of one sign."""
+    return plain(a["r"].abs(), a["k"].abs(), a["v"].abs(), a["w"],
+                 a["u"].abs(), dy.abs())
+
+
+def _dy(like, seed):
+    rng = np.random.default_rng(seed)
+    return _randn(rng, like.device, like.dtype, *like.shape)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(MAMBA_BWD_CASES))
+def test_mamba2_scan_backward_kernel_matches_plain(dev, case, dtype):
+    dt = DTYPES[dtype]
+    a = mamba_args(dev, dt, *MAMBA_BWD_CASES[case])
+    dy = _dy(a["x"], 31)
+    n0 = mamba2_scan.bwd_launches
+    got = mamba2_scan.mamba2_scan_bwd(**a, dy=dy)
+    want = mamba2_scan.reference_bwd(**a, dy=dy)
+    torch.cuda.synchronize()
+    assert mamba2_scan.bwd_launches == n0 + 1
+    scan_bwd_close(got, want, mamba_bwd_terms(a, dy),
+                   ("dx", "ddt", "dA", "dBm", "dCm"))
+    again = mamba2_scan.mamba2_scan_bwd(**a, dy=dy)
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "not the same bits"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(RWKV_BWD_CASES))
+def test_rwkv6_scan_backward_kernel_matches_plain(dev, case, dtype):
+    dt = DTYPES[dtype]
+    a = rwkv_args(dev, dt, *RWKV_BWD_CASES[case])
+    dy = _dy(a["v"], 32)
+    # below the clamp the chunked plain version's e^{-cw} overflows: the
+    # gradient of the naive step-by-step scan
+    below = RWKV_BWD_CASES[case][5] == "below"
+
+    def plain(r, k, v, w, u, dy):
+        if below:
+            from repro_torch.kernels import ref
+            return ref._grad_through(ref.rwkv6_scan, (r, k, v, w, u), dy)
+        return rwkv6_scan.reference_bwd(r, k, v, w, u, dy)
+    n0 = rwkv6_scan.bwd_launches
+    got = rwkv6_scan.rwkv6_scan_bwd(**a, dy=dy)
+    want = plain(**a, dy=dy)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.bwd_launches == n0 + 1
+    scan_bwd_close(got, want, rwkv_bwd_terms(a, dy, plain),
+                   ("dr", "dk", "dv", "dw", "du"))
+    again = rwkv6_scan.rwkv6_scan_bwd(**a, dy=dy)
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "not the same bits"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_autograd_runs_the_scans_and_their_backward_kernels(dev, dtype):
+    """A gradient through ops.mamba2_scan / ops.rwkv6_scan on CUDA tensors
+    launches the forward kernel once and the backward kernel once, and
+    equals the plain backward."""
+    dt = DTYPES[dtype]
+    for kind, args, mod, names in (
+            ("mamba2", mamba_args(dev, dt, 2, 100, 3, 64, 64, 1.0),
+             mamba2_scan, ("x", "dt", "A", "Bm", "Cm")),
+            ("rwkv6", rwkv_args(dev, dt, 2, 100, 3, 64, 64, "random",
+                                False), rwkv6_scan,
+             ("r", "k", "v", "w", "u"))):
+        a = {n: args[n].clone().requires_grad_(True) for n in names}
+        n0, n1 = mod.launches, mod.bwd_launches
+        y = getattr(ops, f"{kind}_scan")(**a)
+        dy = _dy(y, 33)
+        got = torch.autograd.grad(y, [a[n] for n in names], dy)
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.bwd_launches) == (n0 + 1, n1 + 1), kind
+        want = mod.reference_bwd(**{n: args[n] for n in names}, dy=dy)
+        terms = mamba_bwd_terms(args, dy) if kind == "mamba2" \
+            else rwkv_bwd_terms(args, dy, mod.reference_bwd)
+        scan_bwd_close(got, want, terms, names)
+
+
+def test_scan_backward_kernels_refuse_what_they_do_not_take(dev):
+    m = mamba_args(dev, torch.bfloat16, 1, 8, 2, 64, 64, 1.0)
+    r = rwkv_args(dev, torch.bfloat16, 1, 8, 2, 64, 64, "random", False)
+    dym, dyr = _dy(m["x"], 34), _dy(r["v"], 35)
+    n6, n7 = mamba2_scan.bwd_launches, rwkv6_scan.bwd_launches
+    with pytest.raises(ValueError, match="dy must be"):
+        mamba2_scan.mamba2_scan_bwd(**m, dy=dym.float())
+    with pytest.raises(ValueError, match="dy must be"):
+        rwkv6_scan.rwkv6_scan_bwd(**r, dy=dyr[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba2_scan.mamba2_scan_bwd(**m, dy=dym.transpose(1, 2).contiguous()
+                                    .transpose(1, 2))
+    with pytest.raises(ValueError, match="dt must be torch.float32"):
+        mamba2_scan.mamba2_scan_bwd(**dict(m, dt=m["dt"].to(torch.bfloat16)),
+                                    dy=dym)
+    with pytest.raises(ValueError, match="state size"):
+        a = mamba_args(dev, torch.float32, 1, 8, 2, 64, 48, 1.0)
+        mamba2_scan.mamba2_scan_bwd(**a, dy=_dy(a["x"], 36))
+    with pytest.raises(ValueError, match="value size"):
+        a = rwkv_args(dev, torch.float32, 1, 8, 2, 64, 100, "random", False)
+        rwkv6_scan.rwkv6_scan_bwd(**a, dy=_dy(a["v"], 37))
+    assert (mamba2_scan.bwd_launches, rwkv6_scan.bwd_launches) == (n6, n7)
 
 
 # whisper-base (8 heads of 64, G 1): the encoder's full attention over its

@@ -47,7 +47,8 @@ from repro.models import build_model as jax_build_model
 from repro.serve import ServeEngine as JaxServeEngine
 from repro.train import init_train_state as j_init_train_state
 from repro.train import make_train_step as j_make_train_step
-from repro_torch.configs import ServeConfig, TrainConfig, get_smoke_config
+from repro_torch.configs import (ServeConfig, TrainConfig, get_config,
+                                 get_smoke_config)
 from repro_torch.models import build_model
 from repro_torch.models.convert import (params_from_numpy,
                                         train_state_from_numpy)
@@ -168,27 +169,58 @@ def test_train_step_matches_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("device", ["cuda", "meta"])
 def test_trainer_refuses_the_scans_off_the_cpu(arch, device):
-    """K6 and K7 have no backward (ROADMAP §2 item 2): the Trainer - and on
-    CUDA the launcher - refuses zamba2 and rwkv6 on the card or the meta
-    device by name, before a model is built or a kernel launched (on a
-    machine without a GPU, building would raise first otherwise); the
-    plain step on the CPU trains them (test_train_step_matches_jax)."""
+    """Nothing refuses zamba2 or rwkv6 off the CPU any more: the scans'
+    gradients are their backward kernels (csrc/mamba2_scan_bwd.cu,
+    csrc/rwkv6_scan_bwd.cu) and K5 takes zamba2's head dim 80, so
+    check_backward passes both families on the card and the meta device.
+    On a machine without a GPU the Trainer and the launcher get past it
+    and fail only at the device (building the model), with no kernel
+    launch counted; on the meta device the train step runs (remat full)
+    and costs each scan twice a layer (forward and recompute) and its
+    backward kernel once, through ops._Scan."""
     from repro_torch.kernels import mamba2_scan, rwkv6_scan
+    from repro_torch.launch import cost
     from repro_torch.launch import train as train_launcher
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.train_step import (TrainState, check_backward,
+                                              trainable)
     from repro_torch.train.trainer import Trainer
-    counts = (mamba2_scan.launches, rwkv6_scan.launches)
-    scan = "K6 mamba2_scan" if arch.startswith("zamba2") \
-        else "K7 rwkv6_scan"
+    counts = (mamba2_scan.launches, mamba2_scan.bwd_launches,
+              rwkv6_scan.launches, rwkv6_scan.bwd_launches)
     tcfg = TrainConfig(global_batch=1, seq_len=16, total_steps=1)
-    for cfg in (get_smoke_config(arch), get_smoke_config(arch).replace(
-            head_dim=64)):
-        with pytest.raises(NotImplementedError,
-                           match=f"{scan}.*ROADMAP §2 item 2"):
-            Trainer(cfg, tcfg, device=device)
+    cfgs = (get_smoke_config(arch).replace(head_dim=80), get_config(arch))
+    for cfg in cfgs:
+        check_backward(cfg, device)
     if device == "cuda":
-        with pytest.raises(NotImplementedError, match=scan):
+        for cfg in cfgs:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                Trainer(cfg, tcfg, device=device)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             train_launcher.main(["--arch", arch, "--smoke", "--steps", "1"])
-    assert (mamba2_scan.launches, rwkv6_scan.launches) == counts
+        # the smoke config's own head dim, 16, is K5's to refuse in
+        # zamba2's shared block; rwkv6 has no attention
+        if arch.startswith("zamba2"):
+            with pytest.raises(NotImplementedError, match="K5.*head dim 16"):
+                Trainer(get_smoke_config(arch), tcfg, device=device)
+        else:
+            check_backward(get_smoke_config(arch), device)
+    else:
+        cfg = cfgs[0]
+        model = build_model(cfg, device="meta")
+        params = trainable(model.params)
+        state = TrainState(params, adamw_init(params), {})
+        batch = {"tokens": torch.empty((2, 40), dtype=torch.int32,
+                                       device="meta")}
+        step = make_train_step(model, TrainConfig(
+            global_batch=2, seq_len=40, total_steps=1, remat="full"))
+        with cost.StepCost() as c:
+            step(state, batch)
+        calls = {k: v["calls"] for k, v in c.summary()["kernels"].items()}
+        scan = "K6" if arch.startswith("zamba2") else "K7"
+        L = cfg.n_layers
+        assert calls[scan] == 2 * L and calls[f"{scan}_bwd"] == L, calls
+    assert (mamba2_scan.launches, mamba2_scan.bwd_launches,
+            rwkv6_scan.launches, rwkv6_scan.bwd_launches) == counts
 
 
 # ===========================================================================

@@ -36,8 +36,9 @@ Jobs:
            another directory and saves it again in its own
   refuse   what the mesh path refuses: the Trainer of each "other" [arch,
            device] on the job's (CPU) mesh - the hybrid and ssm families
-           on "cuda" or "meta", refused before anything is built - and a
-           mesh whose size is not the world's
+           on "cuda" or "meta", past check_backward now, stopped before
+           anything is built by the mesh's device (or K5's head dims), the
+           error by type - and a mesh whose size is not the world's
   heads    ops.head_sharded_attention on the rank's head shard of the
            saved q, k and v, K4 forward and K5 backward on the card (or
            their plain versions with "device": "cpu"): o and the whole
@@ -53,9 +54,10 @@ Jobs:
            takes every key of the cell's batch specs (whisper's frames,
            llava's image) and the cache every "cache.<leaf>" saved
   family_cells  each "archs" cell on the job's mesh at a 4 x 32 shape,
-           seeded weights: the train cell's step called (its model lies on
-           the meta device, where the hybrid and ssm families' training
-           is refused: the NotImplementedError), the prefill cell's step
+           seeded weights: the train cell's step called without a state
+           or a batch (its model lies on the meta device, where nothing
+           refuses the hybrid and ssm families' training any more: the
+           error of the missing arguments, by type), the prefill cell's step
            on a prompt into Model.init_cache(shardings=), the decode
            cell's on a cache of its own, lanes at 5: each one's logits'
            shape and whether they are finite
@@ -195,8 +197,8 @@ def _refuse_job(job, arrays):
         try:
             _trainer(dict(job, arch=arch), _mesh(job), device)
             out["family"][f"{arch}.{device}"] = None
-        except NotImplementedError as e:
-            out["family"][f"{arch}.{device}"] = str(e)
+        except (NotImplementedError, ValueError) as e:
+            out["family"][f"{arch}.{device}"] = f"{type(e).__name__}: {e}"
     try:
         make_debug_mesh(*job["bad_mesh"], device_type="cpu")
         out["mesh"] = None
@@ -321,8 +323,8 @@ def _family_cells_job(job, arrays):
         try:
             step(None, None)
             out[f"{arch}.train"] = None
-        except NotImplementedError as e:
-            out[f"{arch}.train"] = str(e)
+        except (NotImplementedError, AttributeError, TypeError) as e:
+            out[f"{arch}.train"] = f"{type(e).__name__}: {e}"
         model = build_model(cfg, "cpu")
         params = model.init(0)
         step, _, sh = prefill_cell(cfg, ShapeSpec("p", S, B, "prefill"),
