@@ -419,6 +419,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# torch compiles its jiterator kernels (exp2, which the plain K1-K5 call,
+# among them) with NVRTC at first use and by default keeps each in a file
+# under $HOME that other processes load.  A process that finds that file
+# empty fails the op with "CUDA driver error: invalid argument"; one that
+# finds it cut short hangs (tools/jiterator_cache_probe.py).  This
+# script's processes - the edge-case tests, the M10 / M14 ranks, the CLIs
+# - start the same ops together, so each compiles its own and none reads
+# or writes such a file; the children inherit the setting.
+os.environ["USE_PYTORCH_KERNEL_CACHE"] = "0"
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402

@@ -27,9 +27,11 @@
 //     on the tensor cores, and H_c = exp(csum_last) H_{c-1} + dH_c with H
 //     in fp32 registers - 16 steps of a (64, 64) state at zamba2's shape in
 //     place of 2048 steps.  Each chunk's carry-in H_{c-1} goes to scratch
-//     as two bf16 parts.  (Computing the contributions in parallel and the
-//     recurrence in a launch of its own sends every dH through memory and
-//     back, which costs more than this serial walk: PERF.md.)
+//     as two bf16 parts.  The scan lives in csrc/mamba2_chunk.cuh, shared
+//     with the backward (csrc/mamba2_scan_bwd.cu), which also runs it in
+//     reverse for the adjoint.  (Computing the contributions in parallel
+//     and the recurrence in a launch of its own sends every dH through
+//     memory and back, which costs more than this serial walk: PERF.md.)
 //  2. output, grid (chunk, head, sequence), every chunk in parallel: y = W
 //     x + exp(csum_t) C_t H_{c-1}, W[t, s] = (C_t . B_s) exp(csum_t -
 //     csum_s) dt_s for s <= t (masked before the exp), rounded to bf16
@@ -67,12 +69,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mamba2_chunk.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace mma_bf16;
+using namespace mamba2_chunk;
 
 // ---------------------------------------------------------------------------
 // float32: the recurrence on the CUDA cores
@@ -179,209 +183,25 @@ int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
 // bfloat16: the chunk-parallel form on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int T = 128;          // chunk: time steps
-constexpr int PB = 64;          // head columns p per block of work
 constexpr int NT = 128;         // threads of the output kernel: 4 warps
-constexpr int NT_STATE = 256;   // of the state kernel: 8 warps
-constexpr int LDX = PB + PAD;   // padded shared-memory rows of x
-constexpr int CG = 16;          // chunks whose weights the state kernel
-                                // computes at once
 
 // Scratch (bf16): each chunk's carry-in state H_{c-1} as two parts at
 // [B][H][nc][2][P][N] (hi, then lo); chunk 0's slot (a zero state) is
 // neither written nor read.
 
-// One warp: the inclusive cumulative sum of -dt * a over a chunk's T steps
-// (dt_s, 0 past the sequence), lane l's steps 4l .. 4l + 3 into cs (in
-// order, then a shuffle scan of the lanes' totals: a fixed order, so both
-// kernels get the same bits).  Returns the sum over the chunk, csum_last.
-__device__ __forceinline__ float warp_csum(const float* dt_s, float a,
-                                           int lane, float (&cs)[T / 32]) {
-  float run = 0.f;
-#pragma unroll
-  for (int i = 0; i < T / 32; ++i) {
-    run += -dt_s[lane * (T / 32) + i] * a;
-    cs[i] = run;
-  }
-  float tot = run;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, tot, o);
-    if (lane >= o) tot += u;
-  }
-  float before = __shfl_up_sync(0xffffffffu, tot, 1);
-  if (lane == 0) before = 0.f;
-#pragma unroll
-  for (int i = 0; i < T / 32; ++i) cs[i] += before;
-  return __shfl_sync(0xffffffffu, cs[T / 32 - 1], 31);
-}
-
-// Launch 1, the state scan: grid (ceil(P / PB), H, B), 8 warps.  The block
-// walks the chunks of its (sequence, head) in order, keeping its rows of
-// the running fp32 state H in registers: warp w owns the 16 rows p of
-// m-tile w % 4 and every other 16-column pair of N from w / 4.  So that a
-// chunk's step is one barrier and a chain of products, the weights come
-// first: for CG chunks at a time, warp k computes chunk k's csum, w_s =
-// exp(csum_last - csum_s) dt_s and exp(csum_last) into shared memory.
-// Then per chunk, the next chunk's x and B in flight (cp.async, two
-// buffers): each warp stores its part of H (the chunk's carry-in) as two
-// bf16 parts - staged in its own shared-memory rows so that the stores are
-// whole 32-byte sectors - computes dH = (x w)^T B with A = (x w)^T built
-// in registers as two parts (hi and lo products in separate accumulators,
-// two short chains in place of one long one) and B through
-// ldmatrix.trans, and updates H = exp(csum_last) H + dH.
+// Launch 1, the state scan: grid (ceil(P / PB), H, B), 8 warps, the
+// forward direction of csrc/mamba2_chunk.cuh state_scan (the block walks
+// its (sequence, head)'s chunks in order with its rows of the fp32 state
+// in registers, computes each chunk's dH = (x w)^T B on the tensor cores
+// and stores each chunk's carry-in as two bf16 parts).
 template <int N>
 __global__ void __launch_bounds__(NT_STATE) mamba2_scan_state_kernel(
     const bf16* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const bf16* __restrict__ Bm,
     bf16* __restrict__ hparts, int S, int H, int P, int vec) {
-  constexpr int LDB = N + PAD;
-  constexpr int NW = NT_STATE / 32;
-  constexpr int NPAIR = N / 16;          // 16-column pairs of n-tiles
-  constexpr int MYP = (NPAIR + 1) / 2;   // most pairs a warp owns
-  constexpr int LDH = 16 * MYP + PAD;    // a warp's staging rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* x_s = reinterpret_cast<bf16*>(smem_raw);            // 2 x T x LDX
-  bf16* b_s = x_s + 2 * T * LDX;                            // 2 x T x LDB
-  bf16* hs_s = b_s + 2 * T * LDB;        // per warp: 2 x 16 x LDH
-  float* w_s = reinterpret_cast<float*>(hs_s + NW * 2 * 16 * LDH);
-  float* e_s = w_s + CG * T;             // CG decays
-
-  const int pb = blockIdx.x * PB, h = blockIdx.y, b = blockIdx.z;
-  const int nc = (S + T - 1) / T, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int m0 = 16 * (warp & 3), grp = warp >> 2;
-  const int pw = min(PB, P - pb);        // live rows of this block
-  const bool mine = m0 < pw && grp < NPAIR;
-  const float a = A[h];
-  const size_t PN = (size_t)P * N;
-  bf16* my_s = hs_s + warp * 2 * 16 * LDH;
-
-  auto load = [&](int c) {
-    const int buf = c & 1, t0 = c * T, tn = min(T, S - t0);
-    const size_t bt0 = (size_t)b * S + t0;
-    load_tile<PB, NT_STATE>(x_s + buf * T * LDX, LDX,
-                            x + bt0 * H * P + (size_t)h * P + pb,
-                            (long long)H * P, T, tn, pw, vec, tid);
-    load_tile<N, NT_STATE>(b_s + buf * T * LDB, LDB, Bm + bt0 * N, N, T, tn,
-                           N, vec, tid);
-  };
-
-  float st[MYP][2][4];                   // this warp's part of H
-#pragma unroll
-  for (int i = 0; i < MYP; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      st[i][j][0] = st[i][j][1] = st[i][j][2] = st[i][j][3] = 0.f;
-  load(0);
-  cp_async_commit();
-  for (int c = 0; c < nc; ++c) {
-    const int buf = c & 1, tn = min(T, S - c * T), cw = c % CG;
-    if (cw == 0) {       // the weights of chunks c .. c + CG - 1
-      __syncthreads();   // every warp is done with the previous group's
-      for (int k = warp; k < CG && c + k < nc; k += NW) {
-        const int t0 = (c + k) * T, kn = min(T, S - t0);
-        float* wk = w_s + k * T;
-#pragma unroll
-        for (int i = 0; i < T / 32; ++i) {
-          const int t = lane * (T / 32) + i;
-          wk[t] = t < kn ? dt[((size_t)b * S + t0 + t) * H + h] : 0.f;
-        }
-        __syncwarp();
-        float cs[T / 32];
-        const float last = warp_csum(wk, a, lane, cs);
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < T / 32; ++i) {
-          const int t = lane * (T / 32) + i;
-          wk[t] = expf(last - cs[i]) * wk[t];
-        }
-        if (lane == 0) e_s[k] = expf(last);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();     // chunk c (and its weights) landed; every warp is
-                         // done with chunk c - 1's buffer
-    if (c + 1 < nc) load(c + 1);
-    cp_async_commit();
-    if (!mine) continue;
-    if (c > 0) {         // the chunk's carry-in H, as two bf16 parts
-#pragma unroll
-      for (int i = 0; i < MYP; ++i) {
-        if (grp + 2 * i >= NPAIR) continue;
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int o = (g + 8 * hr) * LDH + 16 * i + 8 * j + 2 * tq;
-            split2(st[i][j][2 * hr], st[i][j][2 * hr + 1],
-                   *reinterpret_cast<uint32_t*>(my_s + o),
-                   *reinterpret_cast<uint32_t*>(my_s + 16 * LDH + o));
-          }
-      }
-      __syncwarp();
-      // 16-byte stores: 2 parts x 16 rows x 2 per pair
-      bf16* dst = hparts + (((size_t)b * H + h) * nc + c) * 2 * PN +
-                  (size_t)(pb + m0) * N;
-      for (int k = lane; k < 2 * 16 * 2 * MYP; k += 32) {
-        const int part = k / (32 * MYP), r = (k / (2 * MYP)) % 16;
-        const int i = (k % (2 * MYP)) / 2, half = k & 1;
-        const int np = grp + 2 * i;
-        if (np < NPAIR && pb + m0 + r < P)
-          *reinterpret_cast<uint4*>(dst + part * PN + (size_t)r * N +
-                                    16 * np + 8 * half) =
-              *reinterpret_cast<const uint4*>(my_s + part * 16 * LDH +
-                                              r * LDH + 16 * i + 8 * half);
-      }
-    }
-    float dh[MYP][2][4], dl[MYP][2][4];  // hi and lo parts' products
-#pragma unroll
-    for (int i = 0; i < MYP; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) dh[i][j][k] = dl[i][j][k] = 0.f;
-    const bf16* xs = x_s + buf * T * LDX;
-    const bf16* bs = b_s + buf * T * LDB;
-    const float* ws = w_s + cw * T;
-#pragma unroll
-    for (int ks = 0; ks < T / 16; ++ks) {
-      if (16 * ks >= tn) break;
-      const int s0 = 16 * ks;
-      // A[p][s] = x[s][p] w[s]: a0 (g, 2tq..+1), a1 (g + 8, 2tq..+1),
-      // a2 (g, 2tq + 8..+9), a3 (g + 8, 2tq + 8..+9)
-      uint32_t ahi[4], alo[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int pr = m0 + g + 8 * (i & 1);
-        const int sc = s0 + 2 * tq + 8 * (i >> 1);
-        split2(__bfloat162float(xs[sc * LDX + pr]) * ws[sc],
-               __bfloat162float(xs[(sc + 1) * LDX + pr]) * ws[sc + 1],
-               ahi[i], alo[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < MYP; ++i) {
-        const int np = grp + 2 * i;
-        if (np >= NPAIR) continue;
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, bs + bt_offset(lane, LDB, s0, 16 * np));
-        mma(dh[i][0], ahi, bf[0], bf[1]);
-        mma(dh[i][1], ahi, bf[2], bf[3]);
-        mma(dl[i][0], alo, bf[0], bf[1]);
-        mma(dl[i][1], alo, bf[2], bf[3]);
-      }
-    }
-    const float e = e_s[cw];
-#pragma unroll
-    for (int i = 0; i < MYP; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          st[i][j][k] = fmaf(e, st[i][j][k], dh[i][j][k] + dl[i][j][k]);
-  }
-  cp_async_wait_all();
+  state_scan<N, false>(x, dt, A, Bm, hparts, S, H, P, vec, blockIdx.x * PB,
+                       blockIdx.y, blockIdx.z, smem_raw);
 }
 
 // One k-step (the 16 positions s from s0) of launch 2's intra-chunk
@@ -605,11 +425,7 @@ int launch_bf16(const void* x, const void* dt, const void* A, const void* Bm,
   if (H > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
   if (!aligned16({scratch})) return (int)cudaErrorMisalignedAddress;
   const int vec = P % 8 == 0 && aligned16({x, Bm, Cm, y});
-  const size_t smem1 =
-      sizeof(bf16) * (2 * T * (LDX + LDB) + NT_STATE / 32 * 2 * 16 *
-                                                (16 * ((N / 16 + 1) / 2) +
-                                                 PAD)) +
-      sizeof(float) * (CG * T + CG);
+  const size_t smem1 = state_smem<N>();
   const size_t smem2 = sizeof(bf16) * (2 * T * LDB + T * LDX + 2 * PB * LDB) +
                        sizeof(float) * 2 * T;
   auto k1 = mamba2_scan_state_kernel<N>;

@@ -62,8 +62,8 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "mamba2_scan": ("mamba2_scan_launch", (_P,) * 7 + (_I,) * 6 + (_P,)),
     # r, k, v, w, u, y, scratch, B, S, H, K, V, is_bf16, stream
     "rwkv6_scan": ("rwkv6_scan_launch", (_P,) * 7 + (_I,) * 6 + (_P,)),
-    # x, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm, dCm, ckpt, part_bc, part_t,
-    # B, S, H, P, N, is_bf16, stream
+    # x, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm, dCm, three scratch tensors
+    # (mamba2_scan.bwd_scratch), B, S, H, P, N, is_bf16, stream
     "mamba2_scan_bwd": ("mamba2_scan_bwd_launch",
                         (_P,) * 14 + (_I,) * 6 + (_P,)),
     # r, k, v, w, u, dy, dr, dk, dv, dw, du, ckpt, part_v, part_u, B, S,

@@ -17,9 +17,13 @@ below.
 
 mamba2_scan_bwd is the scan's backward, hand-written for Hopper too
 (csrc/mamba2_scan_bwd.cu; the TPU kernel has no backward - the JAX
-package differentiates the plain chunked scan - so it replaces none),
-beside its plain version (`reference_bwd`: torch.autograd.grad through
-the chunked scan); `bwd_launches` counts its launches.
+package differentiates the plain chunked scan - so it replaces none): in
+bfloat16 the chunked backward on the tensor cores, serial over the
+chunks only (the plain form of its arithmetic is kernels/ref.py
+mamba2_scan_bwd_chunk_parallel), in float32 the recurrence on the CUDA
+cores.  Beside it stands its plain version (`reference_bwd`:
+torch.autograd.grad through the chunked scan); `bwd_launches` counts its
+launches.
 A tensor on the meta device launches nothing: the wrapper checks it as
 it would a CUDA tensor, returns empty meta outputs and reports its
 kernel's work to launch/cost.py (the dry run, launch/dryrun.py).
@@ -42,9 +46,13 @@ reference_bwd = ref.mamba2_scan_bwd
 
 # state sizes N the kernel is instantiated for
 STATE_SIZES = (16, 32, 64, 128)
-# time steps of a chunk of the bf16 kernel's chunk-parallel form
+# time steps of a chunk of the bf16 kernels' chunk-parallel forms (the
+# forward's and the backward's)
 CHUNK = 128
-# the backward kernel: state rows (of P) a block owns, and time steps
+# the bf16 backward: heads whose dB / dC one block sums before its group's
+# partials go to scratch (csrc/mamba2_scan_bwd.cu HEADS)
+BWD_HEADS = 10
+# the float32 backward: state rows (of P) a block owns, and time steps
 # between its saved states (csrc/mamba2_scan_bwd.cu ROWS, TS)
 BWD_ROWS = 16
 BWD_STEPS = 16
@@ -109,23 +117,37 @@ def mamba2_scan_bwd(x, dt, A, Bm, Cm, dy):
         nbytes, flops = cost.k6_bwd_work(x.shape, N, x.element_size())
         cost.record_kernel("K6_bwd", nbytes, flops, 3 * Bsz * S * H)
         return dx, ddt, dA, dB, dC
-    # fp32 scratch: each block's state at every BWD_STEPS-th step, then
-    # the per-(head, row block) partial sums of dBm and dCm and of ddt's
-    # two terms, summed in fixed order by the kernel's last launches
-    npb = -(-P // BWD_ROWS)
-    nck = -(-S // BWD_STEPS)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    ckpt = torch.empty(Bsz * H * npb * nck * BWD_ROWS * N, **f32)
-    part_bc = torch.empty(2 * Bsz * S * H * npb * N, **f32)
-    part_t = torch.empty(2 * Bsz * S * H * npb, **f32)
+    s1, s2, s3 = bwd_scratch(Bsz, S, H, P, N, x.dtype, x.device)
     err = build.kernel("mamba2_scan_bwd")(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), ckpt.data_ptr(),
-        part_bc.data_ptr(), part_t.data_ptr(), Bsz, S, H, P, N,
+        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), s1.data_ptr(),
+        s2.data_ptr(), s3.data_ptr(), Bsz, S, H, P, N,
         int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check("mamba2_scan_bwd", err)
     global bwd_launches
     bwd_launches += 1
     return dx, ddt, dA, dB, dC
+
+
+def bwd_scratch(Bsz, S, H, P, N, dtype, device):
+    """The backward kernel's three scratch tensors, from torch.empty.
+    bfloat16: each chunk's carry-in state and adjoint carry as two bf16
+    parts, the head groups' fp32 partials of dBm and dCm, and dA's fp32
+    partials per (sequence, chunk, head) - 201 MB at zamba2's training
+    shape (4, 2048, 80, 64, N 64).  float32: each block's state at every
+    BWD_STEPS-th step, then the per-(head, row block) partial sums of dBm
+    and dCm and of ddt's two terms.  The kernel sums every set of
+    partials in a fixed order."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if dtype == torch.bfloat16:
+        nc, groups = -(-S // CHUNK), -(-H // BWD_HEADS)
+        return (torch.empty(2 * Bsz * H * nc * 2 * P * N,
+                            dtype=torch.bfloat16, device=device),
+                torch.empty(2 * groups * Bsz * S * N, **f32),
+                torch.empty(Bsz * nc * H, **f32))
+    npb, nck = -(-P // BWD_ROWS), -(-S // BWD_STEPS)
+    return (torch.empty(Bsz * H * npb * nck * BWD_ROWS * N, **f32),
+            torch.empty(2 * Bsz * S * H * npb * N, **f32),
+            torch.empty(2 * Bsz * S * H * npb, **f32))

@@ -475,8 +475,11 @@ def _grad_through(fn, inputs, dy):
     its gradient, is the difference of two sums that grow over the chunk,
     so Mamba2's dA lands 1e-5 (dt A ~0.3) to 4e-4 (dt A ~6) of its
     largest element from the float64 one, where the step-by-step
-    recurrence - the backward kernels' form - stays within 1e-6
-    (tests/test_torch_scan_backward.py)."""
+    recurrence - the float32 backward kernels' form - stays within 1e-6
+    (tests/test_torch_scan_backward.py), and the bf16 K6_bwd's chunked
+    form, which never subtracts two such sums, within 2e-6
+    (mamba2_scan_bwd_chunk_parallel, tests/
+    test_torch_mamba2_bwd_parts.py)."""
     with torch.enable_grad():
         ins = [t.detach().double().requires_grad_(True) for t in inputs]
         y = fn(*ins)
@@ -603,6 +606,143 @@ def mamba2_scan_chunk_parallel(x, dt, A, Bm, Cm, *, chunk: int = 128,
     y = torch.einsum("bctsh,bcshp->bcthp", W, xf) + torch.exp(csum)[
         ..., None] * torch.einsum("bctn,bchpn->bcthp", cf, op(h_in))
     return y.to(x.dtype).reshape(Bsz, nc * chunk, H, P)[:, :S]
+
+
+def _csum_pairs(log_a):
+    """The inclusive cumulative sum over dim 2 as two parts of log_a's
+    dtype, hi + lo: hi the running sum, lo the running sum of hi's
+    rounding errors (each exact by TwoSum), the compensated sum
+    csrc/mamba2_scan_bwd.cu takes within a chunk."""
+    hi = torch.zeros_like(log_a[:, :, 0])
+    lo = torch.zeros_like(hi)
+    his, los = [], []
+    for t in range(log_a.shape[2]):
+        a = log_a[:, :, t]
+        s = hi + a
+        bp = s - hi
+        lo = lo + ((hi - (s - bp)) + (a - bp))
+        hi = s
+        his.append(hi)
+        los.append(lo)
+    return torch.stack(his, 2), torch.stack(los, 2)
+
+
+def mamba2_scan_bwd_chunk_parallel(x, dt, A, Bm, Cm, dy, *,
+                                   chunk: int = 128, operand=None):
+    """The chunked backward of the Mamba2 scan whose arithmetic K6_bwd's
+    bf16 kernel runs (csrc/mamba2_scan_bwd.cu), in float32 (float64 for
+    float64 inputs).  With csum the inclusive cumulative sum of -dt * A
+    within each chunk, e_c = exp(csum_last), the adjoint g_t = dL/dh_t:
+
+      1. carry-in states H_{c-1}, serial over the chunks (K6's state pass);
+      2. adjoint carries G_c = dL/dh at chunk c's end from the later chunks
+         only, serial over the chunks in reverse: G_{c-1} = e_c G_c +
+         sum_t exp(csum_t) dy_t outer C_t, from G_last = 0;
+      3. every chunk at once: gB_t = sum_n g_t B_t = sum_{t' >= t}
+         (C_t' . B_t) exp(csum_t' - csum_t) dy_t' + exp(csum_last -
+         csum_t) G_c B_t, so dx_t = dt_t gB_t and ddt's first term is x_t .
+         gB_t; with Q[t', s] = (dy_t' . x_s) exp(csum_t' - csum_s) dt_s
+         (s <= t', masked before the exp), dC_t' = sum_heads Q B +
+         exp(csum_t') dy_t' H_{c-1} and dB_s = sum_heads Q^T C + exp(
+         csum_last - csum_s) dt_s x_s G_c;
+      4. the decay term X_t = a_t <h_{t-1}, g_t>, for ddt's second term -A
+         X_t and dA = -sum dt_t X_t, as sums of products that never
+         subtract two sums growing over the chunk: the pairs s < t <= t'
+         of M[t', s] = Q[t', s] (C_t' . B_s) (a suffix over t', then a sum
+         over s < t), plus the carry terms sum_{s < t} u_s + sum_{t' >= t}
+         v_t' + exp(csum_last) <H_{c-1}, G_c>, u_s = B_s . (dB_s's carry
+         term), v_t' = C_t' . (dC_t''s carry term).
+
+    The carries' passes take csum as K6's state pass does, one float32
+    cumulative sum.  Steps 3 and 4 take it as two float32 parts, hi + lo
+    (a compensated sum, _csum_pairs), and each exponent as (hi_t - hi_s) +
+    (lo_t - lo_s): at dt A ~6 a step csum reaches ~-800 within a chunk,
+    where one float32's rounding puts exp(csum_t - csum_s) ~1e-4 off, and
+    ddt and dA 2e-5 of their largest element off the float64 gradient.
+
+    S is zero-padded to a chunk multiple (dt = 0: a no-op step).  operand
+    (identity by default) is applied to each float32 operand of a product
+    - x w and dy exp(csum) in the carries' passes, the two T x T weights
+    (C . B) exp(.) and Q, and H, G - before it: tests pass the kernel's
+    bf16 parts to emulate its tensor-core arithmetic.  Returns (dx, ddt,
+    dA, dBm, dCm) as mamba2_scan_bwd: dx, dBm, dCm in x's dtype, ddt and
+    dA in dt's."""
+    op = operand if operand is not None else (lambda t: t)
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                 for t in (x, dy))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                  for t in (Bm, Cm))
+    nc, T = (S + pad) // chunk, chunk
+    acc = _acc(x)
+    xf = x.to(acc).reshape(Bsz, nc, T, H, P)
+    dyf = dy.to(acc).reshape(Bsz, nc, T, H, P)
+    dtf = dt.to(acc).reshape(Bsz, nc, T, H)
+    bf = Bm.to(acc).reshape(Bsz, nc, T, N)
+    cf = Cm.to(acc).reshape(Bsz, nc, T, N)
+    log_a = -dtf * A.to(acc)
+    csum = torch.cumsum(log_a, 2)                           # (B, nc, T, H)
+    last = csum[:, :, -1]                                   # (B, nc, H)
+    # 1. / 2. the carries, serial over the chunks
+    w = torch.exp(last[:, :, None] - csum) * dtf
+    dH = torch.einsum("bcthp,bctn->bchpn", op(xf * w[..., None]), bf)
+    dG = torch.einsum("bcthp,bctn->bchpn",
+                      op(dyf * torch.exp(csum)[..., None]), cf)
+    h_in, g_out = [None] * nc, [None] * nc
+    h = torch.zeros((Bsz, H, P, N), dtype=acc, device=x.device)
+    g = torch.zeros_like(h)
+    for c in range(nc):
+        h_in[c] = h
+        h = torch.exp(last[:, c])[..., None, None] * h + dH[:, c]
+    for c in reversed(range(nc)):
+        g_out[c] = g
+        g = torch.exp(last[:, c])[..., None, None] * g + dG[:, c]
+    Hn = op(torch.stack(h_in, 1)) if nc else dH
+    Gn = op(torch.stack(g_out, 1)) if nc else dG
+    # 3. every chunk at once, csum as two parts; [t', s] pairs, s <= t'
+    hi, lo = _csum_pairs(log_a)
+    e_cs = torch.exp(hi + lo)                               # exp(cs_t)
+    e_last = e_cs[:, :, -1]
+    e_end = torch.exp((hi[:, :, -1:] - hi) + (lo[:, :, -1:] - lo))
+    w = e_end * dtf
+    tri = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device)
+                     )[None, None, :, :, None]
+    diff = (hi[:, :, :, None] - hi[:, :, None]) \
+        + (lo[:, :, :, None] - lo[:, :, None])              # (B, nc, t', s, H)
+    L = torch.exp(torch.where(tri, diff, float("-inf")))
+    CB = torch.einsum("bcun,bcsn->bcus", cf, bf)            # C_t' . B_s
+    gB = torch.einsum("bcush,bcuhp->bcshp", op(CB[..., None] * L), dyf) \
+        + e_end[..., None] * torch.einsum("bcsn,bchpn->bcshp", bf, Gn)
+    Q = torch.einsum("bcuhp,bcshp->bcush", dyf, xf) * L * dtf[:, :, None]
+    Qo = op(Q)
+    carry_c = e_cs[..., None] * torch.einsum(
+        "bcuhp,bchpn->bcuhn", dyf, Hn)
+    carry_b = w[..., None] * torch.einsum("bcshp,bchpn->bcshn", xf, Gn)
+    dC = torch.einsum("bcush,bcsn->bcun", Qo, bf) + carry_c.sum(3)
+    dB = torch.einsum("bcush,bcun->bcsn", Qo, cf) + carry_b.sum(3)
+    # 4. the decay term: suffix over t' of M[t', s], summed over s < t
+    M = Q * CB[..., None]
+    suf = torch.flip(torch.cumsum(torch.flip(M, (2,)), 2), (2,))
+    below = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                  device=x.device), -1)[None, None, :, :, None]
+    X = torch.where(below, suf, 0.0).sum(3)                 # (B, nc, T, H)
+    u = (carry_b * bf[:, :, :, None]).sum(-1)
+    v = (carry_c * cf[:, :, :, None]).sum(-1)
+    u_before = torch.cumsum(u, 2)
+    X = X + torch.cat([torch.zeros_like(u[:, :, :1]), u_before[:, :, :-1]],
+                      2)
+    X = X + torch.flip(torch.cumsum(torch.flip(v, (2,)), 2), (2,))
+    X = X + (e_last * (Hn * Gn).sum((-2, -1)))[:, :, None]
+    ddt = (xf * gB).sum(-1) - A.to(acc) * X
+    dA = -(dtf * X).sum((0, 1, 2))
+    unchunk = lambda t: t.reshape(Bsz, nc * T, *t.shape[3:])[:, :S]
+    return (unchunk(dtf[..., None] * gB).to(x.dtype),
+            unchunk(ddt).to(dt.dtype), dA.to(A.dtype),
+            unchunk(dB).to(Bm.dtype), unchunk(dC).to(Cm.dtype))
 
 
 # ===========================================================================

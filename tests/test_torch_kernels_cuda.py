@@ -1294,8 +1294,10 @@ def test_scan_kernels_refuse_what_they_do_not_take(dev):
 # the scans' backward kernels: (B, S, H, P, N, dt scale) and (B, S, H, K,
 # V, w, u zero) per case, as MAMBA_CASES / RWKV_CASES; S past and short of
 # the kernels' 16-step stretches, P short of a 16-row block; the full
-# widths at one sequence (the training calls' four come to chip_smoke.py's
-# timing phase)
+# widths at one sequence.  Across the bf16 K6_bwd's 128-step chunks: S of
+# exactly two, ~1000 steps at large_dt_a's scale, P of two 64-column
+# blocks, more than 10 heads (two head groups) at state 128, and zamba2's
+# training shape
 MAMBA_BWD_CASES = {"short": (1, 5, 3, 64, 64, 1.0),
                    "ragged": (2, 300, 5, 40, 64, 1.0),
                    "dt_near_0": (2, 100, 3, 64, 64, 1e-6),
@@ -1304,7 +1306,12 @@ MAMBA_BWD_CASES = {"short": (1, 5, 3, 64, 64, 1.0),
                    "state32": (1, 33, 3, 24, 32, 1.0),
                    "state128": (1, 40, 3, 64, 128, 1.0),
                    "odd_p": (1, 50, 3, 21, 32, 1.0),
-                   "full_zamba2": (1, 2048, 80, 64, 64, 1.0)}
+                   "full_zamba2": (1, 2048, 80, 64, 64, 1.0),
+                   "two_chunks": (2, 256, 4, 64, 64, 1.0),
+                   "long_large_dt_a": (1, 1000, 3, 64, 64, 10.0),
+                   "wide_p": (1, 300, 3, 96, 32, 1.0),
+                   "groups_state128": (1, 260, 13, 64, 128, 1.0),
+                   "train_zamba2": (4, 2048, 80, 64, 64, 1.0)}
 RWKV_BWD_CASES = {"short": (1, 5, 3, 64, 64, "random", False),
                   "ragged": (2, 100, 5, 64, 64, "random", False),
                   "w_one": (2, 70, 3, 64, 64, "one", False),
