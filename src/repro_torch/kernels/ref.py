@@ -900,16 +900,8 @@ def rwkv6_scan_chunk_parallel(r, k, v, w, u, *, chunk: int = 64,
     # the weight of s = t - 1, exactly 1, by ~3e-5)
     cwp = torch.nn.functional.pad(cw[:, :, :-1], (0, 0, 0, 0, 1, 0))
     last = cw[:, :, -1]                                     # (B, nc, H, K)
-    # 1. chunk-local state contributions
-    k_out = op("k_out", kf * torch.exp(last[:, :, None] - cw))
-    dS = torch.einsum("bcthk,bcthv->bchkv", k_out, vf)
-    # 2. the state pass, serial over chunks
-    st = torch.zeros((Bsz, H, K, V), dtype=torch.float32, device=r.device)
-    s_in = []
-    for c in range(nc):
-        s_in.append(st)
-        st = torch.exp(last[:, c])[..., None] * st + dS[:, c]
-    s_in = torch.stack(s_in, 1)                             # (B, nc, H, K, V)
+    # 1. / 2. chunk-local state contributions, then the state pass
+    s_in = _rwkv6_carries(kf, vf, cw, op)                   # (B, nc, H, K, V)
     # 3. the intra-chunk weights, sub-chunk by sub-chunk
     sh = (Bsz, nc, ns, sub, H, K)
     rs, ks, cws, cwps = (t.reshape(sh) for t in (rf, kf, cw, cwp))
@@ -936,3 +928,127 @@ def rwkv6_scan_chunk_parallel(r, k, v, w, u, *, chunk: int = 64,
         + torch.einsum("bcthk,bchkv->bcthv", op("r_dec", rf * torch.exp(cwp)),
                        op("state", s_in))
     return y.to(r.dtype).reshape(Bsz, nc * chunk, H, V)[:, :S]
+
+
+def _rwkv6_carries(kf, vf, cw, op):
+    """Passes 1 and 2 of rwkv6_scan_chunk_parallel: each chunk's carry-in
+    state (B, nc, H, K, V), from kf (B, nc, T, H, K), vf (B, nc, T, H, V)
+    and cw, the chunks' inclusive cumulative log decays."""
+    Bsz, nc, _, H, K = kf.shape
+    last = cw[:, :, -1]
+    k_out = op("k_out", kf * torch.exp(last[:, :, None] - cw))
+    dS = torch.einsum("bcthk,bcthv->bchkv", k_out, vf)
+    st = torch.zeros((Bsz, H, K, vf.shape[-1]), dtype=torch.float32,
+                     device=kf.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(st)
+        st = torch.exp(last[:, c])[..., None] * st + dS[:, c]
+    return torch.stack(s_in, 1)
+
+
+def rwkv6_scan_bwd_chunk_parallel(r, k, v, w, u, dy, *, chunk: int = 64,
+                                  operand=None):
+    """The chunked backward of the RWKV6 scan whose arithmetic K7_bwd's
+    bf16 kernel runs (csrc/rwkv6_scan_bwd.cu), in float32.  With cw the
+    inclusive cumulative log decay within each chunk of `chunk` steps per
+    key channel, S_{t-1} the state before step t and G_t = dL/dS_t:
+
+      1. carries, serial over the chunks: S_in = S_{c-1}, each chunk's
+         carry-in (rwkv6_scan_chunk_parallel's passes 1 and 2), and, in
+         reverse, G_out, the adjoint at each chunk's last step from the
+         later chunks: the same passes on the time-reversed sequence with
+         r in place of k and dy in place of v, since G_{t-1} = diag(w_t)
+         G_t + r_t^T dy_t is the forward recurrence read backward;
+      2. dv_t = G_t^T k_t + (k_t u . r_t) dy_t: the reversed sequence's
+         forward output (rwkv6_scan_chunk_parallel on it, with k and r
+         swapped, dy as v and the carries of step 1);
+      3. every chunk at once, per key channel, P[m][t'] = v_m . dy_t',
+         X = dy S_in^T, Y = v G_out^T and H_t'(m) = (S_{m-1} dy_t')[c]
+         from H(0) = X, H(m + 1) = w_m H(m) + k_m P[m][.]:
+           dr_m = H_m(m) + u k_m (v_m . dy_m),
+           dk_m = sum_{t' > m} E_t'(m) r_t' P[m][t'] + e_m Y_m
+                  + r_m u (v_m . dy_m),
+           dw_m = S_{m-1}[c] . G_m[c] = sum_{t' > m} E_t'(m) r_t' H_t'(m)
+                  + e_m (S_{m-1} . G_out)[c],
+         with E_t'(m) = prod_{q=m+1}^{t'-1} w_q and e_m = prod_{q>m} w_q:
+         each term a product of w over a span that leaves w_m out, so
+         nothing is divided by w and nothing cancels (GLA's d log w, the
+         reverse cumulative sum of r dr - k dk over w, subtracts two sums
+         that grow over the chunk: tests/test_torch_rwkv6_bwd_parts.py);
+         du = sum r_m k_m (v_m . dy_m).
+
+    The kernel forms E and e as running products of w; here they are
+    cumulative products too, and S_{m-1} . G_out runs beside H from S_in .
+    G_out.  S is padded to a chunk multiple with w = 1 (a no-op step).
+    operand(name, t) (identity by default) is applied to each float32
+    operand of a tensor-core product before it: "k_out" and "r_in" (the
+    carries' contributions, k_s e^{cw_last - cw_s} and r_t e^{cw_{t-1}}),
+    "state" and "adjoint" (S_in and G_out, in X, Y, S_in . G_out and dv's
+    carry-in), and dv's other four as rwkv6_scan_chunk_parallel names them
+    with "dv_" before ("dv_r_sub", "dv_k_sub", "dv_weights", "dv_r_dec");
+    tests pass the kernel's bf16 parts to emulate its arithmetic.  Returns
+    (dr, dk, dv, dw, du) as rwkv6_scan_bwd: dr, dk, dv in r's dtype, dw
+    and du float32."""
+    op = operand if operand is not None else (lambda name, t: t)
+    Bsz, S, H, K = r.shape
+    V = v.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        zp = (0, 0, 0, 0, 0, pad)
+        r, k, v, dy = (torch.nn.functional.pad(t, zp) for t in (r, k, v, dy))
+        w = torch.nn.functional.pad(w, zp, value=1.0)
+    nc, T = (S + pad) // chunk, chunk
+    rf, kf, wf = (t.float().reshape(Bsz, nc, T, H, K) for t in (r, k, w))
+    vf, dyf = (t.float().reshape(Bsz, nc, T, H, V) for t in (v, dy))
+    uf = u.float()
+    logw = torch.log(torch.clamp_min(wf, 1e-30))
+    cw = torch.cumsum(logw, 2)
+    # 1. the carries; the adjoint's from the reversed chunks' cumulative
+    # log decays
+    s_in = op("state", _rwkv6_carries(kf, vf, cw, op))
+    rev = lambda t: t.flip(1).flip(2)       # chunks and steps reversed
+    cw_r = torch.cumsum(rev(logw), 2)
+    g_out = _rwkv6_carries(
+        rev(rf), rev(dyf), cw_r,
+        lambda name, t: op("r_in" if name == "k_out" else name, t)).flip(1)
+    g_out = op("adjoint", g_out)
+    # 2. dv: the reversed sequence's forward output, its carries g_out's
+    names = {"k_out": "r_in", "state": "adjoint"}
+    flat = lambda t: t.reshape(Bsz, nc * T, *t.shape[3:]).flip(1)
+    dv = rwkv6_scan_chunk_parallel(
+        flat(kf).to(r.dtype), flat(rf).to(r.dtype), flat(dyf).to(r.dtype),
+        flat(wf), u, chunk=chunk,
+        operand=lambda name, t: op(names.get(name, "dv_" + name), t))
+    dv = dv.flip(1)[:, :S]
+    # 3. dr, dk, dw per channel; P[m][t'] = v_m . dy_t'
+    P = torch.einsum("bcmhv,bcthv->bcmth", vf, dyf)         # (B, nc, T, T, H)
+    X = torch.einsum("bcthv,bchkv->bcthk", dyf, s_in)
+    Y = torch.einsum("bcshv,bchkv->bcshk", vf, g_out)
+    hg = (s_in * g_out).sum(-1)                             # S_{-1} . G_out
+    vdy = torch.diagonal(P, dim1=2, dim2=3).permute(0, 1, 3, 2)[..., None]
+    ones = torch.ones_like(wf[:, :, :1])
+    # e_m = prod_{q > m} w_q
+    e = torch.cat([torch.flip(torch.cumprod(torch.flip(wf[:, :, 1:], (2,)),
+                                            2), (2,)), ones], 2)
+    Hc = X
+    dr, dk, dw = [], [], []
+    for m in range(T):
+        # E_t'(m) for t' > m: 1, w_{m+1}, w_{m+1} w_{m+2}, ...
+        E = torch.cumprod(torch.cat([ones, wf[:, :, m + 1:T - 1]], 2),
+                          2)[:, :, :T - 1 - m]
+        Pm = P[:, :, m, m + 1:, :, None]                    # (B, nc, t', H, 1)
+        rt = rf[:, :, m + 1:]
+        dr.append(Hc[:, :, m])
+        dk.append((E * rt * Pm).sum(2) + e[:, :, m] * Y[:, :, m])
+        dw.append((E * rt * Hc[:, :, m + 1:]).sum(2) + e[:, :, m] * hg)
+        Hc = wf[:, :, m:m + 1] * Hc + kf[:, :, m:m + 1] * P[:, :, m, :, :,
+                                                              None]
+        hg = wf[:, :, m] * hg + kf[:, :, m] * Y[:, :, m]
+    dr = torch.stack(dr, 2) + uf * kf * vdy
+    dk = torch.stack(dk, 2) + rf * uf * vdy
+    dw = torch.stack(dw, 2)
+    du = (rf * kf * vdy).sum((0, 1, 2))
+    unchunk = lambda t: t.reshape(Bsz, nc * T, *t.shape[3:])[:, :S]
+    return (unchunk(dr).to(r.dtype), unchunk(dk).to(r.dtype), dv,
+            unchunk(dw), du)

@@ -18,7 +18,16 @@ rwkv6_scan_bwd is the scan's backward, hand-written for Hopper too
 (csrc/rwkv6_scan_bwd.cu; the TPU kernel has no backward - the JAX
 package differentiates the plain chunked scan - so it replaces none),
 beside its plain version (`reference_bwd`: torch.autograd.grad through
-the chunked scan); `bwd_launches` counts its launches.
+the chunked scan); `bwd_launches` counts its launches.  In bfloat16 it is
+the chunked backward in K7's 64-step chunks (the plain form of its
+arithmetic is kernels/ref.py rwkv6_scan_bwd_chunk_parallel): K7's state
+scan forward and, for the adjoint, in reverse over the chunks; dv as K7's
+output launch on the reversed sequence; dr, dk and dw from every chunk at
+once, the pair sums on the CUDA cores; in float32 the recurrence on the
+CUDA cores, walking every step.  Its scratch is bwd_scratch's.  Bytes
+bound it (launch/cost.py k7_bwd_work); on the card it runs ~8.6x from
+that bound at rwkv6's training shape, held by the launch of the pair sums
+(one block an SM, its loads with no work in flight), PERF.md.
 A tensor on the meta device launches nothing: the wrapper checks it as
 it would a CUDA tensor, returns empty meta outputs and reports its
 kernel's work to launch/cost.py (the dry run, launch/dryrun.py).
@@ -43,9 +52,9 @@ reference_bwd = ref.rwkv6_scan_bwd
 KEY_SIZES = (16, 32, 64)
 # time steps of a chunk of the bf16 kernel's chunk-parallel form
 CHUNK = 64
-# the backward kernel: value sizes V it is instantiated for, key channels
-# (state rows) a block owns, and time steps between its saved states
-# (csrc/rwkv6_scan_bwd.cu ROWS, TS)
+# the backward kernel: value sizes V it is instantiated for, and, for its
+# float32 recurrence, key channels (state rows) a block owns and time steps
+# between its saved states (csrc/rwkv6_scan_bwd.cu ROWS, TS)
 BWD_VALUE_SIZES = (16, 32, 64)
 BWD_ROWS = 16
 BWD_STEPS = 16
@@ -113,15 +122,7 @@ def rwkv6_scan_bwd(r, k, v, w, u, dy):
         nbytes, flops = cost.k7_bwd_work(r.shape, V, r.element_size())
         cost.record_kernel("K7_bwd", nbytes, flops)
         return dr, dk, dv, dw, du
-    # fp32 scratch: each block's state slice at every BWD_STEPS-th step,
-    # then the per-(key block) partial sums of dv and the per-sequence
-    # ones of du, summed in fixed order by the kernel's last launches
-    kb = K // BWD_ROWS
-    nck = -(-S // BWD_STEPS)
-    f32 = dict(dtype=torch.float32, device=r.device)
-    ckpt = torch.empty(Bsz * H * nck * K * V, **f32)
-    part_v = torch.empty(Bsz * S * H * kb * V, **f32)
-    part_u = torch.empty(Bsz * H * K, **f32)
+    ckpt, part_v, part_u = bwd_scratch(Bsz, S, H, K, V, r.dtype, r.device)
     err = build.kernel("rwkv6_scan_bwd")(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), dy.data_ptr(), dr.data_ptr(), dk.data_ptr(),
@@ -133,3 +134,24 @@ def rwkv6_scan_bwd(r, k, v, w, u, dy):
     global bwd_launches
     bwd_launches += 1
     return dr, dk, dv, dw, du
+
+
+def bwd_scratch(Bsz, S, H, K, V, dtype, device):
+    """The backward kernel's three scratch tensors (ckpt, part_v, part_u),
+    from torch.empty.  bfloat16: each chunk's carry-in state S_in and
+    adjoint carry G_out as two bf16 parts, no dv partials, and du's fp32
+    partials per (sequence, chunk) - 135 MB at rwkv6's training shape (4,
+    2048, 32, 64, V 64).  float32: each block's state at every BWD_STEPS-th
+    step, the per-(key block) partial sums of dv and the per-sequence ones
+    of du (537 MB there).  The kernel sums every set of partials in a
+    fixed order."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if dtype == torch.bfloat16:
+        nc = -(-S // CHUNK)
+        return (torch.empty(2 * Bsz * H * nc * 2 * K * V,
+                            dtype=torch.bfloat16, device=device),
+                torch.empty(0, **f32), torch.empty(Bsz * nc * H * K, **f32))
+    nck = -(-S // BWD_STEPS)
+    return (torch.empty(Bsz * H * nck * K * V, **f32),
+            torch.empty(Bsz * S * H * (K // BWD_ROWS) * V, **f32),
+            torch.empty(Bsz * H * K, **f32))

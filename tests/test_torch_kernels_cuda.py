@@ -50,7 +50,10 @@ sequences past and short of their 16-step stretches, ragged state rows,
 dt near 0 and a large dt * A, the decay w = 1, at the model's clamp and
 far below it (held against the naive scan's gradient), u = 0, every
 state, key and value size they take and the full-width training shapes
-of zamba2 and rwkv6, their bits from call to call, autograd through
+of zamba2 and rwkv6, S of exactly two, one step past one and 1000
+clamped steps of the bf16 K7_bwd's 64-step chunks, the S_in carries of
+the bf16 K7_bwd bit for bit against K7's own state scan, their bits from
+call to call, autograd through
 ops.mamba2_scan / ops.rwkv6_scan (one forward and one backward launch),
 and their refusals;
 and K3, K4 and K5 at whisper-base's shapes (8 heads of 64: K4's full mask
@@ -107,7 +110,8 @@ import pytest
 import torch
 
 from repro_torch.core import hopper_mapping
-from repro_torch.kernels import flash_attention, flash_backward, flash_decode
+from repro_torch.kernels import build, flash_attention, flash_backward
+from repro_torch.kernels import flash_decode
 from repro_torch.kernels import mamba2_scan, ops, rwkv6_scan
 from repro_torch.kernels import paged_prefill
 
@@ -1297,6 +1301,8 @@ def test_scan_kernels_refuse_what_they_do_not_take(dev):
 # widths at one sequence.  Across the bf16 K6_bwd's 128-step chunks: S of
 # exactly two, ~1000 steps at large_dt_a's scale, P of two 64-column
 # blocks, more than 10 heads (two head groups) at state 128, and zamba2's
+# training shape.  Across the bf16 K7_bwd's 64-step chunks: S of exactly
+# two, one step past one, 1000 steps at the model's clamp, and rwkv6's
 # training shape
 MAMBA_BWD_CASES = {"short": (1, 5, 3, 64, 64, 1.0),
                    "ragged": (2, 300, 5, 40, 64, 1.0),
@@ -1320,7 +1326,11 @@ RWKV_BWD_CASES = {"short": (1, 5, 3, 64, 64, "random", False),
                   "key16": (2, 50, 2, 16, 16, "random", False),
                   "key32": (1, 45, 3, 32, 32, "random", False),
                   "below_clamp": (1, 100, 2, 64, 64, "below", False),
-                  "full_rwkv6": (1, 2048, 32, 64, 64, "random", False)}
+                  "full_rwkv6": (1, 2048, 32, 64, 64, "random", False),
+                  "two_chunks": (2, 128, 3, 64, 64, "random", False),
+                  "one_past_a_chunk": (2, 65, 3, 64, 64, "random", False),
+                  "long_clamp": (1, 1000, 2, 64, 64, "clamp", False),
+                  "train_rwkv6": (4, 2048, 32, 64, 64, "random", False)}
 
 
 def scan_bwd_close(got, want, terms, names):
@@ -1417,6 +1427,45 @@ def test_rwkv6_scan_backward_kernel_matches_plain(dev, case, dtype):
     again = rwkv6_scan.rwkv6_scan_bwd(**a, dy=dy)
     assert all(torch.equal(x, y) for x, y in zip(got, again)), \
         "not the same bits"
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 3, 64, 64), (1, 2048, 32, 64, 64),
+                                   (2, 100, 2, 32, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rwkv6_backward_carries_are_the_forward_state_scans(dev, shape):
+    """The bf16 K7_bwd's carries launch runs K7's state scan forward (each
+    chunk's S_in, csrc/rwkv6_chunk.cuh state_scan) beside its reverse:
+    the S_in parts it leaves are the bits K7's forward leaves in its own
+    scratch, chunk by chunk."""
+    a = rwkv_args(dev, torch.bfloat16, *shape, "random", False)
+    Bsz, S, H, K = a["r"].shape
+    V = a["v"].shape[-1]
+    nc = -(-S // rwkv6_scan.CHUNK)
+    dy = _dy(a["v"], 38)
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd = torch.zeros(Bsz * H * nc * 2 * K * V, dtype=torch.bfloat16,
+                      device=dev)
+    y = torch.empty_like(a["v"])
+    ops_in = [a[n].data_ptr() for n in ("r", "k", "v", "w", "u")]
+    build.check("rwkv6_scan", build.kernel("rwkv6_scan")(
+        *ops_in, y.data_ptr(), fwd.data_ptr(), Bsz, S, H, K, V, 1, stream))
+    carries, part_v, part_u = rwkv6_scan.bwd_scratch(Bsz, S, H, K, V,
+                                                     torch.bfloat16, dev)
+    carries.zero_()
+    grads = [torch.empty_like(a[n]) for n in ("r", "k", "v", "w", "u")]
+    build.check("rwkv6_scan_bwd", build.kernel("rwkv6_scan_bwd")(
+        *ops_in, dy.data_ptr(), *(g.data_ptr() for g in grads),
+        carries.data_ptr(), part_v.data_ptr(), part_u.data_ptr(), Bsz, S, H,
+        K, V, 1, stream))
+    torch.cuda.synchronize()
+    shape5 = (Bsz, H, nc, 2 * K * V)
+    got = carries[:fwd.numel()].view(shape5)[:, :, 1:]
+    want = fwd.view(shape5)[:, :, 1:]
+    assert torch.equal(got, want), "the carries differ from K7's"
+    # and the adjoint's carries are there, past the last chunk's zero
+    g_out = carries[fwd.numel():].view(shape5)[:, :, :-1]
+    assert bool(torch.isfinite(g_out.float()).all())
+    assert float(g_out.float().abs().max()) > 0
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time two versions of the kernels K1 (paged_prefill.cu), K2
 (paged_decode.cu), K3 (dense_decode.cu), K4 (flash_attention.cu), K5
-(flash_backward.cu), K6 (mamba2_scan.cu), K7 (rwkv6_scan.cu) and K6_bwd
-(mamba2_scan_bwd.cu) against each other on one NVIDIA GPU.
+(flash_backward.cu), K6 (mamba2_scan.cu), K7 (rwkv6_scan.cu), K6_bwd
+(mamba2_scan_bwd.cu) and K7_bwd (rwkv6_scan_bwd.cu) against each other on
+one NVIDIA GPU.
 
-    python3 tools/attention_ab.py --old DIR [--kernels K1,...,K7,K6_bwd]
-        [--serve] [--train]
+    python3 tools/attention_ab.py --old DIR
+        [--kernels K1,...,K7,K6_bwd,K7_bwd] [--serve] [--train]
 
 DIR holds the other version's kernel sources (the .cu files, with any
 header they include), for example src/repro_torch/csrc of an earlier commit
@@ -40,15 +41,17 @@ in float32):
       exp(-exp(N(0, 1) clipped to [-8, 0.75])) and u, in bf16 and float32
   K6_bwd  zamba2's training backward: x, dy (4, 2048, 80, 64), B / C
       state 64, dt and A as K6's, in bf16
+  K7_bwd  rwkv6's training backward: r, k, v, dy (4, 2048, 32, 64), w
+      and u as K7's, in bf16
 
 K2's and K3's C entry points took no scratch and no split before their
 split-KV form, K6's and K7's no scratch before their chunk-parallel
 forms; the signature each version takes is read from its source.  K6_bwd's
-entry point kept its arguments when its bf16 path became the chunked
-form, but not the scratch they point to: each version gets the layout its
-source takes (mamba2_scan.bwd_scratch of bf16 for a source that includes
-mamba2_chunk.cuh, of float32 - the recurrence's - for one that does
-not).  For each shape
+and K7_bwd's entry points kept their arguments when their bf16 paths
+became the chunked form, but not the scratch they point to: each version
+gets the layout its source takes (mamba2_scan / rwkv6_scan.bwd_scratch of
+bf16 for a source that includes mamba2_chunk.cuh / rwkv6_chunk.cuh, of
+float32 - the recurrence's - for one that does not).  For each shape
 it prints the old and the new kernel's times, taken in turns (old, new,
 new, old: CUDA events, L2 flushed before each run, median of 25 a turn),
 one scaled_dot_product_attention call (its backward alone for K5; for K1
@@ -68,10 +71,10 @@ new build of the kernels asked for in turns (serve_ab): chip_smoke.py's
 chunked and paged-monolithic traffic on full-width granite-3-2b (K1,
 K2), its dense traffic (K3), and the bf16 forward over chip_smoke.py's
 2 x 2048 batch of full-width zamba2-2.7b (K6) and rwkv6-1.6b (K7).  With
---train (K6_bwd) it runs zamba2-2.7b's training step as chip_smoke.py's
-recurrent training does (18 of 54 layers, bf16, 4 x 2048, remat full)
-with the scan's backward routed to the old and the new build in turns
-(train_ab).  The last line is {"ab": [...], "serve": [...], "train":
+--train it runs zamba2-2.7b's (K6_bwd) and rwkv6-1.6b's (K7_bwd) training
+step as chip_smoke.py's recurrent training does (18 of 54 / 8 of 24
+layers, bf16, 4 x 2048, remat full) with the scan's backward routed to
+the old and the new build in turns (train_ab).  The last line is {"ab": [...], "serve": [...], "train":
 [...], "device": ...}.  Needs a GPU and nvcc; exits non-zero without
 them.
 """
@@ -105,7 +108,7 @@ PEAK_FLOP_S = 989e12            # and dense bf16 tensor-core rate
 SOURCES = {"K1": "paged_prefill", "K2": "paged_decode", "K3": "dense_decode",
            "K4": "flash_attention", "K5": "flash_backward",
            "K6": "mamba2_scan", "K7": "rwkv6_scan",
-           "K6_bwd": "mamba2_scan_bwd"}
+           "K6_bwd": "mamba2_scan_bwd", "K7_bwd": "rwkv6_scan_bwd"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures before the scratch pointer (K4: before its tile
 # arguments): (argtypes, the indices of the current call's arguments the
@@ -170,6 +173,8 @@ K6_BWD_SHAPE = ("zamba2 training backward scan (4, 2048, 80 heads of 64, "
 # (label, B, S, H, K, V) of the K7 calls
 K7_SHAPE = ("rwkv6 forward scan (2, 2048, 32 heads, K = V = 64)", 2, 2048,
             32, 64, 64)
+K7_BWD_SHAPE = ("rwkv6 training backward scan (4, 2048, 32 heads, K = V = "
+                "64)", 4, 2048, 32, 64, 64)
 
 
 def build_both(old_dir: Path, names):
@@ -468,18 +473,27 @@ def k6_case(fns, g):
     return call, None, nbytes, flops, lambda ver: [outs[ver]]
 
 
-def chunked_bwd(src: Path) -> bool:
-    """Whether a K6_bwd source's bf16 path is the chunked form (it includes
-    the chunked state scan's header)."""
-    return "mamba2_chunk.cuh" in (src / "mamba2_scan_bwd.cu").read_text()
+# each scan backward: (its module, its source, the chunked form's header)
+SCAN_BWD = {"K6_bwd": (mamba2_scan, "mamba2_scan_bwd", "mamba2_chunk.cuh"),
+            "K7_bwd": (rwkv6_scan, "rwkv6_scan_bwd", "rwkv6_chunk.cuh")}
+_BWD_SCRATCH = {k: mod.bwd_scratch for k, (mod, *_) in SCAN_BWD.items()}
 
 
-def bwd_scratch_for(chunked: bool, _scratch=mamba2_scan.bwd_scratch):
-    """mamba2_scan.bwd_scratch as a K6_bwd source of that form takes it in
-    bf16: the recurrence (PR 33's bf16 path) took the float32 layout."""
-    def scratch(Bsz, S, H, P, N, dtype, device):
-        return _scratch(Bsz, S, H, P, N,
-                        dtype if chunked else torch.float32, device)
+def chunked_bwd(src: Path, kernel: str = "K6_bwd") -> bool:
+    """Whether a scan backward's source has its bf16 path in the chunked
+    form (it includes the chunked state scan's header)."""
+    _, name, header = SCAN_BWD[kernel]
+    return header in (src / f"{name}.cu").read_text()
+
+
+def bwd_scratch_for(chunked: bool, kernel: str = "K6_bwd"):
+    """The module's bwd_scratch as a source of that form takes it in bf16:
+    the recurrence (the earlier bf16 path) took the float32 layout."""
+    base = _BWD_SCRATCH[kernel]
+
+    def scratch(*shape_dtype_device):
+        *shape, dtype, device = shape_dtype_device
+        return base(*shape, dtype if chunked else torch.float32, device)
     return scratch
 
 
@@ -542,6 +556,33 @@ def k7_case(fns, g, dtype=torch.bfloat16):
 
     nbytes, flops = chip_smoke.k7_work(a)
     return call, None, nbytes, flops, lambda ver: [outs[ver]]
+
+
+def k7_bwd_case(fns, g, srcs):
+    *_, B, S, H, K, V = K7_BWD_SHAPE
+    a = k7_args(g, torch.bfloat16, B, S, H, K, V)
+    a["dy"] = rnd(g, B, S, H, V)
+    r = a["r"]
+    outs = {ver: [torch.empty_like(a[n]) for n in ("r", "k", "v", "w", "u")]
+            for ver in fns}
+    scratch = {ver: bwd_scratch_for(chunked_bwd(srcs[ver], "K7_bwd"),
+                                    "K7_bwd")(B, S, H, K, V, r.dtype,
+                                              r.device) for ver in fns}
+    stream = torch.cuda.current_stream().cuda_stream
+    for ver in fns:
+        print(f"# K7_bwd {ver}: scratch "
+              f"{sum(t.numel() * t.element_size() for t in scratch[ver])}"
+              f" bytes", flush=True)
+
+    def call(ver):
+        err = fns[ver]["rwkv6_scan_bwd"](
+            *(a[n].data_ptr() for n in ("r", "k", "v", "w", "u", "dy")),
+            *(t.data_ptr() for t in outs[ver]),
+            *(t.data_ptr() for t in scratch[ver]), B, S, H, K, V, 1, stream)
+        build.check("rwkv6_scan_bwd", err)
+
+    nbytes, flops = chip_smoke.k7_bwd_work(a)
+    return call, None, nbytes, flops, lambda ver: outs[ver]
 
 
 def measure(label, kernel, case, fns, flush, g):
@@ -714,23 +755,29 @@ def forward_ab(fns, kernel):
     return rows
 
 
-def train_ab(fns, srcs):
-    """zamba2-2.7b's bf16 training step as chip_smoke.py's
-    recurrent_training runs it (REC_LAYERS of its layers, seeded weights,
-    one numpy-seeded 4 x 2048 batch, remat full, make_train_step), with
-    the scan's backward wrapper routed to the old and the new K6_bwd build
-    in turns (old, new, new, old; each with the scratch layout its source
-    takes): per turn the wall of 3 steps (each ending in a synchronise;
-    median), the peak device memory over them, and the device's busy time
-    and the port kernels' device time of a fourth, profiled step.  One
-    warm-up step per version first: the first step's learning rate is 0,
-    so both warm-up steps take their gradients at the seeded weights and
-    their printed gradient norms compare the two versions from one state.
-    The turns' steps move the weights, so their losses are printed, not
-    compared."""
+# the architecture whose bf16 training step each scan backward's old /
+# new turns drive
+TRAINS = {"K6_bwd": "zamba2-2.7b", "K7_bwd": "rwkv6-1.6b"}
+
+
+def train_ab(fns, srcs, kernel):
+    """The bf16 training step of the kernel's architecture (zamba2-2.7b for
+    K6_bwd, rwkv6-1.6b for K7_bwd) as chip_smoke.py's recurrent_training
+    runs it (REC_LAYERS of its layers, seeded weights, one numpy-seeded 4
+    x 2048 batch, remat full, make_train_step), with the scan's backward
+    wrapper routed to the old and the new build in turns (old, new, new,
+    old; each with the scratch layout its source takes): per turn the wall
+    of 3 steps (each ending in a synchronise; median), the peak device
+    memory over them, and the device's busy time and the port kernels'
+    device time of a fourth, profiled step.  One warm-up step per version
+    first: the first step's learning rate is 0, so both warm-up steps take
+    their gradients at the seeded weights and their printed losses and
+    gradient norms compare the two versions from one state.  The turns'
+    steps move the weights, so their losses are printed, not compared."""
     from repro_torch.optim import adamw_init
     from repro_torch.train.train_step import TrainState, trainable
-    arch = "zamba2-2.7b"
+    arch = TRAINS[kernel]
+    mod, name, _ = SCAN_BWD[kernel]
     cfg = chip_smoke.get_config(arch).replace(
         n_layers=chip_smoke.REC_LAYERS[arch])
     model = chip_smoke.build_model(cfg)
@@ -740,11 +787,11 @@ def train_ab(fns, srcs):
     state = TrainState(trainable(params), adamw_init(params), {})
     batch = chip_smoke.numpy_batch(cfg, B, S, model.device)
     step = chip_smoke.make_train_step(model, tcfg)
-    orig = mamba2_scan.bwd_scratch
 
     def route(ver):
-        _route(fns, ["mamba2_scan_bwd"], ver)
-        mamba2_scan.bwd_scratch = bwd_scratch_for(chunked_bwd(srcs[ver]))
+        _route(fns, [name], ver)
+        mod.bwd_scratch = bwd_scratch_for(chunked_bwd(srcs[ver], kernel),
+                                          kernel)
 
     rows = []
     try:
@@ -779,7 +826,7 @@ def train_ab(fns, srcs):
             print(json.dumps(row), flush=True)
             rows.append(row)
     finally:
-        mamba2_scan.bwd_scratch = orig
+        mod.bwd_scratch = _BWD_SCRATCH[kernel]
         build._loaded.clear()
     del model, params, state, step
     torch.cuda.empty_cache()
@@ -792,7 +839,7 @@ def main() -> int:
                     help="directory with the other version's sources")
     ap.add_argument("--kernels", default="K1,K2,K4,K5",
                     help="comma-separated kernels to time (K1, K2, K3, K4, "
-                         "K5, K6, K7, K6_bwd)")
+                         "K5, K6, K7, K6_bwd, K7_bwd)")
     ap.add_argument("--serve", action="store_true",
                     help="also run, with the old and the new kernels in "
                          "turns, chip_smoke.py's chunked and "
@@ -800,8 +847,9 @@ def main() -> int:
                          "traffic (K3) and the zamba2 (K6) and rwkv6 (K7) "
                          "bf16 forwards")
     ap.add_argument("--train", action="store_true",
-                    help="also run zamba2's training step with the old and "
-                         "the new K6_bwd in turns (needs K6_bwd)")
+                    help="also run zamba2's (K6_bwd) and rwkv6's (K7_bwd) "
+                         "training step with the old and the new scan "
+                         "backward in turns (needs K6_bwd or K7_bwd)")
     ap.add_argument("--k2-splits", default="",
                     help="comma-separated other splits (multiples of 64) at "
                          "which to time the new K2 against the old one, "
@@ -813,8 +861,8 @@ def main() -> int:
         ap.error(f"--kernels takes {sorted(SOURCES)}")
     if args.serve and not {"K1", "K2", "K3", "K6", "K7"} & set(kernels):
         ap.error("--serve needs K1, K2, K3, K6 or K7 among --kernels")
-    if args.train and "K6_bwd" not in kernels:
-        ap.error("--train needs K6_bwd among --kernels")
+    if args.train and not set(TRAINS) & set(kernels):
+        ap.error("--train needs K6_bwd or K7_bwd among --kernels")
     if not torch.cuda.is_available():
         print("attention_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -854,9 +902,12 @@ def main() -> int:
         label = (f"{K7_SHAPE[0]}, float32",) + K7_SHAPE[1:]
         rows.append(measure(label, "K7", lambda f, gg: k7_case(
             f, gg, torch.float32), fns, flush, g))
+    srcs = {"old": args.old.resolve(), "new": build.CSRC}
     if "K6_bwd" in kernels:
-        srcs = {"old": args.old.resolve(), "new": build.CSRC}
         rows.append(measure(K6_BWD_SHAPE, "K6_bwd", lambda f, gg: k6_bwd_case(
+            f, gg, srcs), fns, flush, g))
+    if "K7_bwd" in kernels:
+        rows.append(measure(K7_BWD_SHAPE, "K7_bwd", lambda f, gg: k7_bwd_case(
             f, gg, srcs), fns, flush, g))
     if "K5" in kernels:
         rows.append(measure(K5_SHAPE, "K5", lambda f, gg: k5_case(
@@ -868,7 +919,8 @@ def main() -> int:
     for kernel in FORWARDS:
         if args.serve and kernel in kernels:
             serve += forward_ab(fns, kernel)
-    train = train_ab(fns, srcs) if args.train else []
+    train = [row for kernel in TRAINS if args.train and kernel in kernels
+             for row in train_ab(fns, srcs, kernel)]
     print(card, flush=True)
     print(json.dumps({"ab": rows, "serve": serve, "train": train,
                       "device": torch.cuda.get_device_name(0)}), flush=True)

@@ -233,12 +233,9 @@ def guard_check(arch, mod, fwd_name, call):
             K, V, 1, stream))
         y_w = r6.rwkv6_scan(*a)
         outs = {"y": (yb, v.shape, y_w)}
-        kb, nck = K // r6.BWD_ROWS, -(-S // r6.BWD_STEPS)
         gb = [_guarded(t.numel(), t.dtype, dev) for t in a]
-        f32 = torch.float32
-        scr = [_guarded(Bsz * H * nck * K * V, f32, dev),
-               _guarded(Bsz * S * H * kb * V, f32, dev),
-               _guarded(Bsz * H * K, f32, dev)]
+        scr = [_guarded(t.numel(), t.dtype, dev) for t in r6.bwd_scratch(
+            Bsz, S, H, K, V, torch.bfloat16, dev)]
         build.check("rwkv6_scan_bwd", build.kernel("rwkv6_scan_bwd")(
             *(t.data_ptr() for t in a), dy.data_ptr(),
             *(_payload(b, t.shape).data_ptr() for b, t in zip(gb, a)),
@@ -261,12 +258,9 @@ def guard_check(arch, mod, fwd_name, call):
             P, N, 1, stream))
         y_w = m2.mamba2_scan(*a)
         outs = {"y": (yb, x.shape, y_w)}
-        npb, nck = -(-P // m2.BWD_ROWS), -(-S // m2.BWD_STEPS)
         gb = [_guarded(t.numel(), t.dtype, dev) for t in a]
-        f32 = torch.float32
-        scr = [_guarded(Bsz * H * npb * nck * m2.BWD_ROWS * N, f32, dev),
-               _guarded(2 * Bsz * S * H * npb * N, f32, dev),
-               _guarded(2 * Bsz * S * H * npb, f32, dev)]
+        scr = [_guarded(t.numel(), t.dtype, dev) for t in m2.bwd_scratch(
+            Bsz, S, H, P, N, torch.bfloat16, dev)]
         # the kernel's output order: dx, ddt, dA, dBm, dCm
         build.check("mamba2_scan_bwd", build.kernel("mamba2_scan_bwd")(
             *(t.data_ptr() for t in a), dy.data_ptr(),
